@@ -21,7 +21,7 @@
 // Bound: streams W twice, 2 x 108 B a row = 294 MB per product at
 // Dubrovnik-356 (n = 1,360,384); the camera pass's loads are gathered by
 // cam_perm. ~54 FMA a row.
-#include "chain.cuh"
+#include "wtv_point.cuh"
 
 namespace {
 
@@ -32,28 +32,7 @@ __global__ void ba_matvec_point_kernel(
     float sign, int npnts, long long n, float* __restrict__ t) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= npnts) return;
-  float s[3] = {0.f, 0.f, 0.f};
-  const int end = pnt_starts[p + 1];
-  for (int row = pnt_starts[p]; row < end; ++row) {
-    const float* vc = v + 9 * cam_idx[row];
-#pragma unroll
-    for (int b = 0; b < 3; ++b) {
-      float acc = 0.f;
-#pragma unroll
-      for (int a = 0; a < 9; ++a) acc += W[(3 * a + b) * n + row] * vc[a];
-      s[b] += acc;
-    }
-  }
-  if (gp != nullptr) {
-    s[0] += gp[3 * p];
-    s[1] += gp[3 * p + 1];
-    s[2] += gp[3 * p + 2];
-  }
-  const float* h = hpp_inv + 9 * (size_t)p;
-#pragma unroll
-  for (int a = 0; a < 3; ++a)
-    t[3 * p + a] =
-        sign * (h[3 * a] * s[0] + h[3 * a + 1] * s[1] + h[3 * a + 2] * s[2]);
+  ba_wtv_point(p, W, v, cam_idx, pnt_starts, hpp_inv, gp, sign, n, t);
 }
 
 __global__ void __launch_bounds__(BA_BLOCK) ba_matvec_camera_kernel(

@@ -1,0 +1,96 @@
+// Kernel K5: segment sums of the 9x3 W blocks against a gathered vector,
+// in both directions.
+//
+// Replaces the TPU kernel `bundleadjustment_jl_tpu/ops/pallas_schur.py`
+// `_seg_reduce_kernel` (dispatched by `_seg_block_reduce`) as reached by
+//
+//   wtv_point_reduce: out_p = sign * Hpp_inv_p (sum_{k in p} W_k' v[cam_k]
+//                     + add_p), the fold and add optional   -> (npnts, 3)
+//   wt_cam_reduce:    out_c = sum_{cam_k = c} W_k t[pnt_k]    -> (ncams, 9)
+//                     over the camera-sorted W
+//
+// The camera-sorted route's two-pass Schur matvec is the point direction
+// with the fold, then the camera direction; back-substitution is the
+// point direction with add = g_p and sign = -1; the reduced right-hand
+// side and the |J d|^2 cross term are the camera direction.
+//
+// Design. Point direction: one thread per point over its contiguous
+// point-sorted rows, v[cam_k] an indexed load (ba_wtv_point, shared with
+// K3's point pass). Camera direction: one block per camera strides over
+// its camera-sorted columns of W (coalesced), t[pnt_k] an indexed load
+// through pnt_idx[cam_perm[j]], then a fixed-order block sum: no atomics,
+// deterministic, a camera without rows gives exact zeros. The TPU kernel's
+// camera table, its pre-gathered (16, n) operand and the (8, n) handoff
+// layout have no counterpart.
+//
+// Bound: each direction streams W once, 108 B a row (147 MB at
+// Dubrovnik-356, n = 1,360,384), plus 4-8 B of indices; ~54 FMA a row.
+// The point direction's stride-(rows per point) loads are uncoalesced.
+#include "wtv_point.cuh"
+
+namespace {
+
+__global__ void ba_wtv_point_kernel(
+    const float* __restrict__ W, const float* __restrict__ v,
+    const int* __restrict__ cam_idx, const int* __restrict__ pnt_starts,
+    const float* __restrict__ hpp_inv, const float* __restrict__ add,
+    float sign, int npnts, long long n, float* __restrict__ out) {
+  const int p = blockIdx.x * blockDim.x + threadIdx.x;
+  if (p >= npnts) return;
+  ba_wtv_point(p, W, v, cam_idx, pnt_starts, hpp_inv, add, sign, n, out);
+}
+
+__global__ void __launch_bounds__(BA_BLOCK) ba_wt_cam_kernel(
+    const float* __restrict__ W_cam, const float* __restrict__ t,
+    const int* __restrict__ pnt_idx, const int* __restrict__ cam_perm,
+    const int* __restrict__ cam_starts, long long n,
+    float* __restrict__ out) {
+  const int c = blockIdx.x;
+  float acc[9];
+#pragma unroll
+  for (int a = 0; a < 9; ++a) acc[a] = 0.f;
+  const int end = cam_starts[c + 1];
+  for (int j = cam_starts[c] + threadIdx.x; j < end; j += BA_BLOCK) {
+    const int p = pnt_idx[cam_perm[j]];
+    const float tp[3] = {t[3 * p], t[3 * p + 1], t[3 * p + 2]};
+#pragma unroll
+    for (int a = 0; a < 9; ++a)
+      acc[a] += W_cam[(3 * a) * n + j] * tp[0] +
+                W_cam[(3 * a + 1) * n + j] * tp[1] +
+                W_cam[(3 * a + 2) * n + j] * tp[2];
+  }
+  ba_block_sum<9>(acc, out + 9 * (size_t)c);
+}
+
+}  // namespace
+
+// W (27, n) point-sorted; v (ncams, 9); hpp_inv (npnts, 9) or null;
+// add (npnts, 3) or null; out (npnts, 3).
+extern "C" int ba_wtv_point_reduce(const float* W, const float* v,
+                                   const int* cam_idx, const int* pnt_starts,
+                                   const float* hpp_inv, const float* add,
+                                   float sign, int npnts, long long n,
+                                   float* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (npnts > 0) {
+    ba_wtv_point_kernel<<<(npnts + BA_BLOCK - 1) / BA_BLOCK, BA_BLOCK, 0,
+                          s>>>(W, v, cam_idx, pnt_starts, hpp_inv, add, sign,
+                               npnts, n, out);
+    BA_RETURN_IF_LAUNCH_FAILED();
+  }
+  return 0;
+}
+
+// W_cam (27, n) camera-sorted; t (npnts, 3); out (ncams, 9).
+extern "C" int ba_wt_cam_reduce(const float* W_cam, const float* t,
+                                const int* pnt_idx, const int* cam_perm,
+                                const int* cam_starts, int ncams,
+                                long long n, float* out, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ncams > 0) {
+    ba_wt_cam_kernel<<<ncams, BA_BLOCK, 0, s>>>(W_cam, t, pnt_idx, cam_perm,
+                                                cam_starts, n, out);
+    BA_RETURN_IF_LAUNCH_FAILED();
+  }
+  return 0;
+}

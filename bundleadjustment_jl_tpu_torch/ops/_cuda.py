@@ -1,15 +1,17 @@
 """Build, load and launch the package's CUDA kernels.
 
 The sources are ``bundleadjustment_jl_tpu_torch/csrc/*.cu`` (plain C entry
-points, no PyTorch headers). At first use they are compiled with ``nvcc``
-for Hopper (``sm_90a``) into ``_build/<source hash>/libba_kernels.so`` and
-loaded with ctypes; a changed source gets a new hash and a fresh build.
-There is no fallback: without ``nvcc``, or when the compiler fails, the
-loader raises with the compiler's output.
+points, no PyTorch headers). At first use each is compiled with ``nvcc``
+for Hopper (``sm_90a``), all at once in parallel, and the objects are
+linked into ``_build/<source hash>/libba_kernels.so``, loaded with ctypes;
+a changed source gets a new hash and a fresh build. There is no fallback:
+without ``nvcc``, or when the compiler fails, the loader raises with the
+compiler's output.
 
-Each kernel wrapper (``ops/fused_assemble.py``, ``ops/fused_schur.py``)
-counts its launches in :data:`LAUNCHES` — one per wrapper call that
-launches the kernel — so a run can show which kernels it went through.
+Each kernel wrapper (``ops/fused_assemble.py``, ``ops/fused_schur.py``,
+``ops/linearize.py``, ``ops/seg_reduce.py``) counts its launches in
+:data:`LAUNCHES` — one per wrapper call that launches the kernel — so a
+run can show which kernels it went through.
 """
 
 from __future__ import annotations
@@ -31,9 +33,14 @@ LIB_NAME = "libba_kernels.so"
 NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 # Not --use_fast_math: the chain's sqrtf / sincosf / divides stay IEEE.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-LAUNCHES = {"assemble": 0, "cam_reduce": 0, "matvec": 0, "objective": 0}
+# Route A (fused camera scatter): K1 assemble, K2 cam_reduce, K3 matvec;
+# route C (camera-sorted): K7 linearize, K6 seg_prod_* (one key per
+# product), K5 seg_block_* (one key per direction); both: K4 objective.
+LAUNCHES = {"assemble": 0, "cam_reduce": 0, "matvec": 0, "objective": 0,
+            "linearize": 0, "seg_prod_pnt12": 0, "seg_prod_cam90": 0,
+            "seg_prod_wcw81": 0, "seg_block_point": 0, "seg_block_camera": 0}
 
 
 def reset_launches() -> None:
@@ -60,11 +67,24 @@ def find_nvcc() -> str | None:
     return str(NVCC_DEFAULT) if NVCC_DEFAULT.exists() else None
 
 
+def _run_all(cmds: list[list[str]]) -> list[tuple[list[str], int, str]]:
+    """Run the commands concurrently; (command, exit code, output) each."""
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True))
+             for cmd in cmds]
+    results = []
+    for cmd, proc in procs:
+        out, _ = proc.communicate()
+        results.append((cmd, proc.returncode, out))
+    return results
+
+
 def build() -> Path:
     """Compile ``csrc/*.cu`` into the shared library (once per source
-    hash) and return its path. The compiler's output, including
-    ``-Xptxas -v``'s register and spill report, is kept in ``build.log``
-    beside it."""
+    hash) and return its path: one ``nvcc -c`` per source, all started
+    together, then one link. The compiler's output, including ``-Xptxas
+    -v``'s register and spill report, is kept in ``build.log`` beside
+    it."""
     out_dir = BUILD_DIR / source_hash()
     out = out_dir / LIB_NAME
     if out.exists():
@@ -75,16 +95,23 @@ def build() -> Path:
             "nvcc not found (PATH or /usr/local/cuda/bin): the CUDA kernels "
             "of bundleadjustment_jl_tpu_torch cannot be built")
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(p) for p in sorted(CSRC.glob("*.cu")))]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (out_dir / "build.log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n"
-            f"{' '.join(cmd)}\n{proc.stdout}{proc.stderr}")
+    tag = f"{os.getpid()}.tmp"
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [out_dir / f"{src.stem}.{tag}.o" for src in srcs]
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    results = _run_all([[nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                        for obj, src in zip(objs, srcs)])
+    if all(rc == 0 for _, rc, _ in results):
+        results += _run_all([[nvcc, *NVCC_FLAGS[:2], "-shared", "-o",
+                              str(tmp), *map(str, objs)]])
+    log = "".join(" ".join(cmd) + "\n" + text for cmd, _, text in results)
+    (out_dir / "build.log").write_text(log)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    for cmd, rc, _ in results:
+        if rc != 0:
+            raise RuntimeError(
+                f"nvcc failed with exit code {rc}:\n{' '.join(cmd)}\n{log}")
     os.replace(tmp, out)
     return out
 
@@ -96,6 +123,12 @@ _SIGNATURES = {
     "ba_cam_reduce_wcw_rhs": [_P] * 6 + [_I, _I64, _P, _P],
     "ba_matvec": [_P] * 9 + [_F, _I, _I, _I64, _P, _P, _P],
     "ba_objective": [_P] * 6 + [_I, _I, _I, _I64, _P, _P, _P],
+    "ba_linearize_rows": [_P] * 6 + [_I64, _P, _P, _P],
+    "ba_jtj_pnt_reduce": [_P, _P, _I, _I64, _P, _P],
+    "ba_jtj_cam_reduce": [_P, _P, _I, _I64, _P, _P],
+    "ba_wcw_cam_reduce": [_P] * 5 + [_I, _I64, _P, _P],
+    "ba_wtv_point_reduce": [_P] * 6 + [_F, _I, _I64, _P, _P],
+    "ba_wt_cam_reduce": [_P] * 5 + [_I, _I64, _P, _P],
 }
 
 

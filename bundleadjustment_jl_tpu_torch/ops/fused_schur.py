@@ -15,11 +15,8 @@ import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.ops import _cuda
-
-
-def _rows(W_t: torch.Tensor) -> torch.Tensor:
-    """(27, n) structure-of-arrays -> (n, 9, 3) blocks."""
-    return W_t.reshape(9, 3, -1).permute(2, 0, 1)
+from bundleadjustment_jl_tpu_torch.ops.seg_reduce import (
+    _wtv_point_plain, w_rows)
 
 
 def cam_reduce_wcw_rhs(W_t: torch.Tensor, problem: BAProblem,
@@ -47,7 +44,7 @@ def cam_reduce_wcw_rhs(W_t: torch.Tensor, problem: BAProblem,
 
 def _cam_reduce_wcw_rhs_plain(W_t, problem, hpp_inv_f, t):
     pi = problem.pnt_idx.long()
-    W = _rows(W_t)
+    W = w_rows(W_t)
     C = hpp_inv_f.reshape(-1, 3, 3)[pi]
     wcw = torch.einsum("nab,nbc,ndc->nad", W, C, W).reshape(-1, 81)
     wt = torch.einsum("nab,nb->na", W, t[pi])
@@ -93,14 +90,9 @@ def matvec_cam_scatter(W_t: torch.Tensor, v: torch.Tensor,
 
 
 def _matvec_plain(W_t, v, problem, hpp_inv_f, gp_f, sign):
-    ci = problem.cam_idx.long()
-    pi = problem.pnt_idx.long()
-    W = _rows(W_t)
-    s = torch.zeros((problem.npnts, 3), dtype=W_t.dtype, device=W_t.device)
-    s.index_add_(0, pi, torch.einsum("nab,na->nb", W, v[ci]))
-    if gp_f is not None:
-        s = s + gp_f.reshape(-1, 3)
-    t = sign * torch.einsum("pab,pb->pa", hpp_inv_f.reshape(-1, 3, 3), s)
+    t = _wtv_point_plain(W_t, v, problem, hpp_inv_f, gp_f, sign)
     out = torch.zeros((problem.ncams, 9), dtype=W_t.dtype, device=W_t.device)
-    out.index_add_(0, ci, torch.einsum("nab,nb->na", W, t[pi]))
+    out.index_add_(0, problem.cam_idx.long(),
+                   torch.einsum("nab,nb->na", w_rows(W_t),
+                                t[problem.pnt_idx.long()]))
     return out, t

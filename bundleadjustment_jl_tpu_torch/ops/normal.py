@@ -1,5 +1,5 @@
 """Block form of the damped Gauss-Newton system (PyTorch port of the
-parts of `bundleadjustment_jl_tpu/ops/normal.py` the fused solve uses).
+parts of `bundleadjustment_jl_tpu/ops/normal.py` the kernel routes use).
 
     H = [[Hcc, Hcp], [Hcp', Hpp]],  Hcc: 9x9 camera blocks,
     Hpp: 3x3 point blocks, Hcp: one 9x3 block W_k per observation.
@@ -15,6 +15,9 @@ import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.ops.fused_assemble import assemble_scatter
+from bundleadjustment_jl_tpu_torch.ops.linearize import R0, linearize_w_kminor
+from bundleadjustment_jl_tpu_torch.ops.seg_reduce import (
+    jtj_cam_reduce, jtj_pnt_reduce)
 
 
 class GNBlocks(NamedTuple):
@@ -25,6 +28,9 @@ class GNBlocks(NamedTuple):
     Hpp_f: torch.Tensor   # (npnts*9,)   point diagonal blocks
     obj: torch.Tensor     # ()           0.5 ||r||^2
     W_t: torch.Tensor     # (27, nobs_pad) per-observation W blocks
+    # (27, nobs_pad) W_t[:, cam_perm] on the camera-sorted route; None on
+    # the fused route, whose kernels read W_t through cam_perm.
+    W_cam_t: torch.Tensor | None = None
 
     @property
     def g_c(self):
@@ -39,16 +45,32 @@ class GNBlocks(NamedTuple):
         return self.Hcc_f.reshape(-1, 9, 9)
 
 
-def assemble_blocks(problem: BAProblem, cams=None, points=None) -> GNBlocks:
-    """Linearize at (cams, points) with the fused assembly (K1)."""
+def assemble_blocks(problem: BAProblem, cams=None, points=None,
+                    cam_scatter: bool = True) -> GNBlocks:
+    """Linearize at (cams, points) and assemble the blocks.
+
+    ``cam_scatter=True``: the fused route, one K1 launch. ``False``: the
+    camera-sorted route (`_assemble_kminor`'s branch with camera scatter
+    off): K7 linearizes into ``JR_t`` and ``W_t``, K6 sums ``[Hpp | g_p]``
+    over the point-sorted rows and ``[Hcc | g_c]`` over the camera-sorted
+    copy of ``JR_t``, and the blocks carry ``W_cam_t``."""
     cams = problem.cams if cams is None else cams
     points = problem.points if points is None else points
-    W_t, hp12, hc90, obj = assemble_scatter(problem, cams, points)
+    if cam_scatter:
+        W_t, hp12, hc90, obj = assemble_scatter(problem, cams, points)
+        W_cam_t = None
+    else:
+        JR_t, W_t = linearize_w_kminor(problem, cams, points)
+        obj = 0.5 * torch.sum(JR_t[R0:R0 + 2] ** 2)
+        perm = problem.cam_perm.long()
+        hc90 = jtj_cam_reduce(JR_t[:, perm], problem)
+        W_cam_t = W_t[:, perm]
+        hp12 = jtj_pnt_reduce(JR_t, problem)
     return GNBlocks(g_c_f=hc90[:, 81:90].reshape(-1),
                     g_p_f=hp12[:, 9:12].reshape(-1),
                     Hcc_f=hc90[:, :81].reshape(-1),
                     Hpp_f=hp12[:, :9].reshape(-1),
-                    obj=obj, W_t=W_t)
+                    obj=obj, W_t=W_t, W_cam_t=W_cam_t)
 
 
 def gradient_norm(blocks: GNBlocks) -> torch.Tensor:

@@ -1,0 +1,199 @@
+"""Segment reductions of the camera-sorted route (K6, K5) — the
+counterpart of `bundleadjustment_jl_tpu/ops/pallas_schur.py`'s
+`seg_prod_reduce` and `_seg_block_reduce`.
+
+Same device rule as `ops/fused_assemble.py`: CUDA float32 tensors launch
+the hand-written kernels (``csrc/seg_prod_reduce.cu``,
+``csrc/seg_block_reduce.cu``), CPU tensors take the plain PyTorch version
+beside each wrapper (same signature), CUDA float64 raises.
+
+Point segments run over the point-sorted rows (``pnt_starts``); camera
+segments over the camera-sorted copies ``JR_cam_t = JR_t[:, cam_perm]`` /
+``W_cam_t = W_t[:, cam_perm]`` (``cam_starts``), whose column ``j`` is the
+row ``cam_perm[j]``. ``JR_t`` is the (26, n) layout of `ops/linearize.py`,
+``W_t`` the (27, n) one of `ops/fused_schur.py`; per-point operands are
+flat (npnts*9,) / (npnts*3,) or (npnts, 3).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
+from bundleadjustment_jl_tpu_torch.ops import _cuda
+from bundleadjustment_jl_tpu_torch.ops.linearize import JP0, R0
+
+
+def w_rows(W_t: torch.Tensor) -> torch.Tensor:
+    """(27, n) structure-of-arrays -> (n, 9, 3) blocks."""
+    return W_t.reshape(9, 3, -1).permute(2, 0, 1)
+
+
+def _cam_sorted_ids(problem: BAProblem):
+    """(camera id, point id) of each camera-sorted column."""
+    perm = problem.cam_perm.long()
+    return problem.cam_idx.long()[perm], problem.pnt_idx.long()[perm]
+
+
+def _out(x: torch.Tensor, shape) -> torch.Tensor:
+    return torch.empty(shape, dtype=torch.float32, device=x.device)
+
+
+# ---------------------------------------------------------------- K6
+def jtj_pnt_reduce(JR_t: torch.Tensor, problem: BAProblem) -> torch.Tensor:
+    """Per-point ``[Hpp (9) | g_p (3)]`` = sums of ``[Jp'Jp | Jp'r]`` over
+    the point-sorted rows -> (npnts, 12)."""
+    if not JR_t.is_cuda:
+        return _jtj_pnt_plain(JR_t, problem)
+    n, npt = problem.nobs_pad, problem.npnts
+    _cuda.require(JR_t, "JR_t", torch.float32, (26, n))
+    _cuda.require_problem(problem)
+    out = _out(JR_t, (npt, 12))
+    rc = _cuda.lib().ba_jtj_pnt_reduce(
+        _cuda.ptr(JR_t), _cuda.ptr(problem.pnt_starts), npt, n,
+        _cuda.ptr(out), _cuda.stream())
+    _cuda.check(rc, "ba_jtj_pnt_reduce")
+    _cuda.LAUNCHES["seg_prod_pnt12"] += 1
+    return out
+
+
+def _jtj_pnt_plain(JR_t, problem):
+    Jp = JR_t[JP0:JP0 + 6].T.reshape(-1, 2, 3)
+    r = JR_t[R0:R0 + 2].T
+    rows = torch.cat([torch.einsum("nib,nie->nbe", Jp, Jp).reshape(-1, 9),
+                      torch.einsum("nib,ni->nb", Jp, r)], dim=1)
+    out = torch.zeros((problem.npnts, 12), dtype=JR_t.dtype,
+                      device=JR_t.device)
+    return out.index_add_(0, problem.pnt_idx.long(), rows)
+
+
+def jtj_cam_reduce(JR_cam_t: torch.Tensor,
+                   problem: BAProblem) -> torch.Tensor:
+    """Per-camera ``[Hcc (81) | g_c (9)]`` = sums of ``[Jc'Jc | Jc'r]``
+    over the camera-sorted rows -> (ncams, 90)."""
+    if not JR_cam_t.is_cuda:
+        return _jtj_cam_plain(JR_cam_t, problem)
+    n, nc = problem.nobs_pad, problem.ncams
+    _cuda.require(JR_cam_t, "JR_cam_t", torch.float32, (26, n))
+    _cuda.require_problem(problem)
+    out = _out(JR_cam_t, (nc, 90))
+    rc = _cuda.lib().ba_jtj_cam_reduce(
+        _cuda.ptr(JR_cam_t), _cuda.ptr(problem.cam_starts), nc, n,
+        _cuda.ptr(out), _cuda.stream())
+    _cuda.check(rc, "ba_jtj_cam_reduce")
+    _cuda.LAUNCHES["seg_prod_cam90"] += 1
+    return out
+
+
+def _jtj_cam_plain(JR_cam_t, problem):
+    Jc = JR_cam_t[:18].T.reshape(-1, 2, 9)
+    r = JR_cam_t[R0:R0 + 2].T
+    rows = torch.cat([torch.einsum("nia,nid->nad", Jc, Jc).reshape(-1, 81),
+                      torch.einsum("nia,ni->na", Jc, r)], dim=1)
+    out = torch.zeros((problem.ncams, 90), dtype=JR_cam_t.dtype,
+                      device=JR_cam_t.device)
+    return out.index_add_(0, _cam_sorted_ids(problem)[0], rows)
+
+
+def wcw_cam_reduce(W_cam_t: torch.Tensor, problem: BAProblem,
+                   hpp_inv_f: torch.Tensor) -> torch.Tensor:
+    """Per-camera ``sum_k W_k C_k W_k'`` over the camera-sorted rows, with
+    ``C_k = Hpp_inv[pnt_k]`` (npnts*9,) -> (ncams, 81): what the Schur
+    diagonal blocks subtract from ``Hcc_l``."""
+    if not W_cam_t.is_cuda:
+        return _wcw_cam_plain(W_cam_t, problem, hpp_inv_f)
+    n, nc, npt = problem.nobs_pad, problem.ncams, problem.npnts
+    _cuda.require(W_cam_t, "W_cam_t", torch.float32, (27, n))
+    _cuda.require(hpp_inv_f, "hpp_inv_f", torch.float32, (npt * 9,))
+    _cuda.require_problem(problem)
+    out = _out(W_cam_t, (nc, 81))
+    p = problem
+    rc = _cuda.lib().ba_wcw_cam_reduce(
+        _cuda.ptr(W_cam_t), _cuda.ptr(p.pnt_idx), _cuda.ptr(p.cam_perm),
+        _cuda.ptr(p.cam_starts), _cuda.ptr(hpp_inv_f), nc, n, _cuda.ptr(out),
+        _cuda.stream())
+    _cuda.check(rc, "ba_wcw_cam_reduce")
+    _cuda.LAUNCHES["seg_prod_wcw81"] += 1
+    return out
+
+
+def _wcw_cam_plain(W_cam_t, problem, hpp_inv_f):
+    ci, pi = _cam_sorted_ids(problem)
+    W = w_rows(W_cam_t)
+    C = hpp_inv_f.reshape(-1, 3, 3)[pi]
+    wcw = torch.einsum("nab,nbc,ndc->nad", W, C, W).reshape(-1, 81)
+    out = torch.zeros((problem.ncams, 81), dtype=W_cam_t.dtype,
+                      device=W_cam_t.device)
+    return out.index_add_(0, ci, wcw)
+
+
+# ---------------------------------------------------------------- K5
+def wtv_point_reduce(W_t: torch.Tensor, v: torch.Tensor, problem: BAProblem,
+                     hpp_inv_f: torch.Tensor | None = None,
+                     add_f: torch.Tensor | None = None,
+                     sign: float = 1.0) -> torch.Tensor:
+    """Per point ``sign * Hpp_inv (sum_k W_k' v[cam_k] + add)`` -> (npnts,
+    3), over the point-sorted rows; ``v`` (ncams, 9). Without
+    ``hpp_inv_f`` (npnts*9,) there is no fold, without ``add_f``
+    (npnts*3,) no add."""
+    if not W_t.is_cuda:
+        return _wtv_point_plain(W_t, v, problem, hpp_inv_f, add_f, sign)
+    n, nc, npt = problem.nobs_pad, problem.ncams, problem.npnts
+    _cuda.require(W_t, "W_t", torch.float32, (27, n))
+    _cuda.require(v, "v", torch.float32, (nc, 9))
+    if hpp_inv_f is not None:
+        _cuda.require(hpp_inv_f, "hpp_inv_f", torch.float32, (npt * 9,))
+    if add_f is not None:
+        _cuda.require(add_f, "add_f", torch.float32, (npt * 3,))
+    _cuda.require_problem(problem)
+    out = _out(W_t, (npt, 3))
+    p = problem
+    rc = _cuda.lib().ba_wtv_point_reduce(
+        _cuda.ptr(W_t), _cuda.ptr(v), _cuda.ptr(p.cam_idx),
+        _cuda.ptr(p.pnt_starts), _cuda.ptr(hpp_inv_f), _cuda.ptr(add_f),
+        float(sign), npt, n, _cuda.ptr(out), _cuda.stream())
+    _cuda.check(rc, "ba_wtv_point_reduce")
+    _cuda.LAUNCHES["seg_block_point"] += 1
+    return out
+
+
+def _wtv_point_plain(W_t, v, problem, hpp_inv_f=None, add_f=None,
+                     sign=1.0):
+    s = torch.zeros((problem.npnts, 3), dtype=W_t.dtype, device=W_t.device)
+    s.index_add_(0, problem.pnt_idx.long(),
+                 torch.einsum("nab,na->nb", w_rows(W_t),
+                              v[problem.cam_idx.long()]))
+    if add_f is not None:
+        s = s + add_f.reshape(-1, 3)
+    if hpp_inv_f is not None:
+        s = torch.einsum("pab,pb->pa", hpp_inv_f.reshape(-1, 3, 3), s)
+    return sign * s
+
+
+def wt_cam_reduce(W_cam_t: torch.Tensor, t: torch.Tensor,
+                  problem: BAProblem) -> torch.Tensor:
+    """Per camera ``sum_k W_k t[pnt_k]`` over the camera-sorted rows ->
+    (ncams, 9); ``t`` (npnts, 3)."""
+    if not W_cam_t.is_cuda:
+        return _wt_cam_plain(W_cam_t, t, problem)
+    n, nc, npt = problem.nobs_pad, problem.ncams, problem.npnts
+    _cuda.require(W_cam_t, "W_cam_t", torch.float32, (27, n))
+    _cuda.require(t, "t", torch.float32, (npt, 3))
+    _cuda.require_problem(problem)
+    out = _out(W_cam_t, (nc, 9))
+    p = problem
+    rc = _cuda.lib().ba_wt_cam_reduce(
+        _cuda.ptr(W_cam_t), _cuda.ptr(t), _cuda.ptr(p.pnt_idx),
+        _cuda.ptr(p.cam_perm), _cuda.ptr(p.cam_starts), nc, n,
+        _cuda.ptr(out), _cuda.stream())
+    _cuda.check(rc, "ba_wt_cam_reduce")
+    _cuda.LAUNCHES["seg_block_camera"] += 1
+    return out
+
+
+def _wt_cam_plain(W_cam_t, t, problem):
+    ci, pi = _cam_sorted_ids(problem)
+    out = torch.zeros((problem.ncams, 9), dtype=W_cam_t.dtype,
+                      device=W_cam_t.device)
+    return out.index_add_(0, ci, torch.einsum("nab,nb->na", w_rows(W_cam_t),
+                                              t[pi]))

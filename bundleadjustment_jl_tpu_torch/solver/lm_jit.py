@@ -1,5 +1,5 @@
-"""Levenberg-Marquardt over the fused Schur-PCG route (PyTorch port of
-`bundleadjustment_jl_tpu/solver/lm_jit.py:levenberg_marquardt_jit`).
+"""Levenberg-Marquardt over Schur-PCG on the kernel routes (PyTorch port
+of `bundleadjustment_jl_tpu/solver/lm_jit.py:levenberg_marquardt_jit`).
 
 Same algorithm, options and decisions as the JAX driver: the reference's
 lambda schedule (or Nielsen's), gain-ratio acceptance with optional
@@ -32,6 +32,21 @@ from bundleadjustment_jl_tpu_torch.ops.pcg import (
     block_jacobi_apply, block_jacobi_inverse, forcing_rtol, pcg)
 from bundleadjustment_jl_tpu_torch.ops.schur import (
     back_substitute_quad, reduce_and_diag, schur_matvec)
+
+# The kernel route, read once per call of `levenberg_marquardt_jit` (one
+# solve never mixes routes); the meaning of the JAX package's
+# `pallas_schur.CAM_SCATTER` and the CLI's `--cam-scatter`:
+#   True  - fused camera-scatter route: K1 assembly, K2, K3 (point-sorted
+#           rows; camera sums through cam_perm);
+#   False - camera-sorted route: K7 linearization, K6 segment products
+#           and K5 segment block sums over camera-sorted copies of JR and
+#           W (what `python -m bundleadjustment_jl_tpu --pallas` runs).
+# The trial objectives run on K4 on both routes. The JAX default is off
+# (env BA_CAM_SCATTER): there the camera scatter is one-hot MXU work that
+# grows with the camera count. The port's kernels have no camera gate, and
+# the fused route is the configuration bench.py measures, so the port's
+# default is on.
+CAM_SCATTER = True
 
 # Status codes (the JAX package's mapping of the reference statuses)
 RUNNING = 0
@@ -126,6 +141,7 @@ def levenberg_marquardt_jit(
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
+    cam_scatter = CAM_SCATTER
     ft = np_dtype(cams.dtype).type
     eps = np.finfo(ft).eps
     cbrt, sqrt_eps = eps ** (1.0 / 3.0), np.sqrt(eps)
@@ -142,7 +158,7 @@ def levenberg_marquardt_jit(
     nielsen = lam_strategy == "nielsen"
 
     # Initial linearization; one host read.
-    blocks = assemble_blocks(problem, cams, points)
+    blocks = assemble_blocks(problem, cams, points, cam_scatter)
     init = [blocks.obj, gradient_norm(blocks)]
     if lam0_mode == "diag":
         init.append(torch.maximum(
@@ -240,7 +256,7 @@ def levenberg_marquardt_jit(
         if accept:
             cams = cams + float(s_sel) * dc
             points = points + float(s_sel) * dp
-            blocks = assemble_blocks(problem, cams, points)
+            blocks = assemble_blocks(problem, cams, points, cam_scatter)
             new = torch.stack([blocks.obj, gradient_norm(blocks)]).cpu()
             obj_n, gnorm_n = (ft(v) for v in new.numpy())
             naccepts += 1

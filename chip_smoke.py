@@ -4,17 +4,21 @@ CUDA card.
     python3 chip_smoke.py
 
 1. Prints the torch / CUDA versions and the card (``nvidia-smi``), builds
-   the four CUDA kernels from ``bundleadjustment_jl_tpu_torch/csrc`` and
-   prints the build time and the compiler's register report.
+   the seven CUDA kernels from ``bundleadjustment_jl_tpu_torch/csrc`` (one
+   ``nvcc`` per source, in parallel) and prints the build time and the
+   compiler's register report.
 2. Checks each kernel against its plain PyTorch version on the card, at
    the shapes of synthetic LadyBug-49 and Dubrovnik-356 (as ``bench.py``
-   builds them), and times both in turns (plain, kernel, kernel, plain).
+   builds them), and times both in turns (plain, kernel, kernel, plain):
+   K1-K4 of the fused camera-scatter route, then K7, K6 and K5 of the
+   camera-sorted route.
 3. Solves both problems with ``levenberg_marquardt_jit`` and
-   ``bench.py``'s options: a warm-up, five timed solves on the kernel
-   route (launch counts reset before each and checked against its
-   iterations, accepts and CG steps after it), and a solve on the plain
-   route. Checks that both routes agree and that the rmse lands on the
-   data-fixed anchors.
+   ``bench.py``'s options on each kernel route (``lm_jit.CAM_SCATTER``
+   True, then False): a warm-up, five timed solves (launch counts reset
+   before each and checked against its iterations, accepts and CG steps
+   after it), and a solve on the plain route. Checks that the kernel and
+   plain routes agree, that the two kernel routes agree, and that the
+   rmse lands on the data-fixed anchors.
 4. Prints the kernel table as one JSON line, the card line, and last
    ``{"ok": true, "device": {...}}``.
 
@@ -50,17 +54,40 @@ SOLVE_OPTS = dict(max_iters=100, pcg_max_iters=100, lam0_mode="diag",
 # summation order differs (blocks, FMA contraction), nothing else.
 TOL = {"W": (1e-5, 1e-6), "hp12": (1e-4, 1e-3), "hc90": (1e-4, 1e-3),
        "obj": (1e-5, 0.0), "cam_reduce": (1e-4, 1e-4),
-       "matvec": (1e-4, 1e-4), "objective": (1e-5, 0.0)}
+       "matvec": (1e-4, 1e-4), "objective": (1e-5, 0.0),
+       "linearize": (1e-5, 1e-6), "seg_prod_pnt12": (1e-4, 1e-3),
+       "seg_prod_cam90": (1e-4, 1e-3), "seg_prod_wcw81": (1e-4, 1e-4),
+       "seg_block_point": (1e-4, 1e-4), "seg_block_camera": (1e-4, 1e-4)}
+# name: (source, TPU kernel it replaces, its launch counters, the
+# comparisons whose largest error the table reports)
 KERNELS = {
     "assemble": ("csrc/assemble.cu",
-                 "bundleadjustment_jl_tpu/ops/pallas_assemble.py:284"),
+                 "bundleadjustment_jl_tpu/ops/pallas_assemble.py:284",
+                 ["assemble"], ["W"]),
     "cam_reduce": ("csrc/cam_reduce.cu",
-                   "bundleadjustment_jl_tpu/ops/pallas_schur.py:1109"),
+                   "bundleadjustment_jl_tpu/ops/pallas_schur.py:1109",
+                   ["cam_reduce"], ["cam_reduce"]),
     "matvec": ("csrc/matvec.cu",
-               "bundleadjustment_jl_tpu/ops/pallas_schur.py:1550"),
+               "bundleadjustment_jl_tpu/ops/pallas_schur.py:1550",
+               ["matvec"], ["matvec"]),
     "objective": ("csrc/objective.cu",
-                  "bundleadjustment_jl_tpu/ops/pallas_assemble.py:484"),
+                  "bundleadjustment_jl_tpu/ops/pallas_assemble.py:484",
+                  ["objective"], ["objective"]),
+    "linearize": ("csrc/linearize.cu",
+                  "bundleadjustment_jl_tpu/ops/pallas_linearize.py:314",
+                  ["linearize"], ["linearize"]),
+    "seg_prod_reduce": ("csrc/seg_prod_reduce.cu",
+                        "bundleadjustment_jl_tpu/ops/pallas_schur.py:969",
+                        ["seg_prod_pnt12", "seg_prod_cam90",
+                         "seg_prod_wcw81"],
+                        ["seg_prod_pnt12", "seg_prod_cam90",
+                         "seg_prod_wcw81"]),
+    "seg_block_reduce": ("csrc/seg_block_reduce.cu",
+                         "bundleadjustment_jl_tpu/ops/pallas_schur.py:647",
+                         ["seg_block_point", "seg_block_camera"],
+                         ["seg_block_point", "seg_block_camera"]),
 }
+ROUTES = {True: "fused", False: "sorted"}   # lm_jit.CAM_SCATTER -> name
 
 
 def card_line() -> str:
@@ -181,17 +208,74 @@ def check_kernels(name, problem, errs, timings):
         lambda: fa.objective_scatter(problem, cams_all[:1], pts_all[:1]),
         lambda: fa._objective_plain(problem, cams_all[:1], pts_all[:1]),
         reps)
-    for k, per in timings.items():
-        kms, pms = per[name]
+    for k in ("assemble", "cam_reduce", "matvec", "objective"):
+        kms, pms = timings[k][name]
         print(f"  time {k:10s} kernel {kms:.4f} ms  plain {pms:.4f} ms")
+
+
+def check_sorted_kernels(name, problem, errs, timings):
+    """Phase 2 for one problem, camera-sorted route: K7, K6 (its three
+    products) and K5 (both directions) against their plain versions, at
+    the shapes the route's solve gives them."""
+    import torch
+    from bundleadjustment_jl_tpu_torch.ops import linearize as lz
+    from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
+    from bundleadjustment_jl_tpu_torch.ops.normal import inv3x3_damped_flat
+
+    cams, points = problem.cams, problem.points
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    reps = 20 if problem.nobs_pad < 1 << 18 else 5
+
+    def check(key, kernel, plain):
+        got = kernel()
+        torch.cuda.synchronize()
+        ref = plain()
+        for g, r in (zip(got, ref) if isinstance(got, tuple)
+                     else [(got, ref)]):
+            compare(key, g, r, errs)
+        timings.setdefault(key, {})[name] = time_pair(kernel, plain, reps)
+        return got
+
+    JR_t, W_t = check("linearize",
+                      lambda: lz.linearize_w_kminor(problem, cams, points),
+                      lambda: lz._linearize_plain(problem, cams, points))
+    perm = problem.cam_perm.long()
+    JR_cam_t, W_cam_t = JR_t[:, perm], W_t[:, perm]
+    hp12 = check("seg_prod_pnt12", lambda: sr.jtj_pnt_reduce(JR_t, problem),
+                 lambda: sr._jtj_pnt_plain(JR_t, problem))
+    hc90 = check("seg_prod_cam90",
+                 lambda: sr.jtj_cam_reduce(JR_cam_t, problem),
+                 lambda: sr._jtj_cam_plain(JR_cam_t, problem))
+    # Damped point blocks as the solver forms them (lambda_0, "diag").
+    lam = 1e-3 * float(torch.maximum(hc90[:, :81:10].max(),
+                                     hp12[:, :9:4].max()))
+    hpp_inv = inv3x3_damped_flat(hp12[:, :9].reshape(-1), lam)
+    check("seg_prod_wcw81",
+          lambda: sr.wcw_cam_reduce(W_cam_t, problem, hpp_inv),
+          lambda: sr._wcw_cam_plain(W_cam_t, problem, hpp_inv))
+    v = torch.randn((problem.ncams, 9), generator=gen, device="cuda")
+    g_p = hp12[:, 9:12].reshape(-1).contiguous()
+    for kw in ({}, dict(hpp_inv_f=hpp_inv, add_f=g_p, sign=-1.0),
+               dict(hpp_inv_f=hpp_inv)):      # the matvec's form, timed
+        t = check("seg_block_point",
+                  lambda: sr.wtv_point_reduce(W_t, v, problem, **kw),
+                  lambda: sr._wtv_point_plain(W_t, v, problem, **kw))
+    check("seg_block_camera", lambda: sr.wt_cam_reduce(W_cam_t, t, problem),
+          lambda: sr._wt_cam_plain(W_cam_t, t, problem))
+    for k in ("linearize", "seg_prod_pnt12", "seg_prod_cam90",
+              "seg_prod_wcw81", "seg_block_point", "seg_block_camera"):
+        kms, pms = timings[k][name]
+        print(f"  time {k:16s} kernel {kms:.4f} ms  plain {pms:.4f} ms")
 
 
 @contextlib.contextmanager
 def plain_route():
-    """Point the solver's four kernel call sites at the plain versions,
-    so a solve on CUDA tensors runs the plain PyTorch route."""
+    """Point the solver's kernel call sites, on both routes, at the plain
+    versions, so a solve on CUDA tensors runs the plain PyTorch route."""
     from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
     from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
+    from bundleadjustment_jl_tpu_torch.ops import linearize as lz
+    from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
     from bundleadjustment_jl_tpu_torch.ops import normal, schur
     from bundleadjustment_jl_tpu_torch.solver import lm_jit
 
@@ -203,7 +287,13 @@ def plain_route():
     sites = [(normal, "assemble_scatter", fa._assemble_plain),
              (schur, "cam_reduce_wcw_rhs", fs._cam_reduce_wcw_rhs_plain),
              (schur, "matvec_cam_scatter", matvec_plain),
-             (lm_jit, "objective_scatter", fa._objective_plain)]
+             (lm_jit, "objective_scatter", fa._objective_plain),
+             (normal, "linearize_w_kminor", lz._linearize_plain),
+             (normal, "jtj_pnt_reduce", sr._jtj_pnt_plain),
+             (normal, "jtj_cam_reduce", sr._jtj_cam_plain),
+             (schur, "wcw_cam_reduce", sr._wcw_cam_plain),
+             (schur, "wtv_point_reduce", sr._wtv_point_plain),
+             (schur, "wt_cam_reduce", sr._wt_cam_plain)]
     saved = [getattr(mod, attr) for mod, attr, _ in sites]
     try:
         for mod, attr, fn in sites:
@@ -225,31 +315,45 @@ def solve(problem):
     return time.perf_counter() - t0, res
 
 
-def check_launches(name, res, counts):
-    """Each kernel launched as often as the solve's own record implies:
-    K1 at init and per accept, K2 and K4 once per iteration, K3 once per
-    CG step plus the initial residual and the back-substitution."""
-    it = res.iterations
-    expect = {"assemble": 1 + res.naccepts, "cam_reduce": it,
-              "matvec": int(res.hist_cg[:it].sum()) + 2 * it,
-              "objective": it}
+def check_launches(name, res, counts, cam_scatter):
+    """Each kernel launched as often as the solve's own record implies,
+    and none of the other route's. Fused route: K1 at init and per
+    accept, K2 and K4 once per iteration, K3 once per CG step plus the
+    initial residual and the back-substitution. Camera-sorted route: K7
+    and K6's two assembly products at init and per accept, K6's W C W'
+    and K4 once per iteration, K5's point direction once per CG step plus
+    the initial residual and the back-substitution, its camera direction
+    once more per iteration (the reduced right-hand side and the |J d|^2
+    cross term, less the back-substitution)."""
+    it, acc = res.iterations, res.naccepts
+    cg = int(res.hist_cg[:it].sum())
+    expect = dict.fromkeys(counts, 0)
+    expect["objective"] = it
+    if cam_scatter:
+        expect.update(assemble=1 + acc, cam_reduce=it, matvec=cg + 2 * it)
+    else:
+        expect.update(linearize=1 + acc, seg_prod_pnt12=1 + acc,
+                      seg_prod_cam90=1 + acc, seg_prod_wcw81=it,
+                      seg_block_point=cg + 2 * it,
+                      seg_block_camera=cg + 3 * it)
     if counts != expect:
         raise AssertionError(f"{name}: launches {counts} != {expect}")
 
 
-def check_solves(name, spec, launches_total):
-    """Phase 3 for one problem."""
+def agree(res, ref) -> bool:
+    """Same status, iterations within one, objective to rel 1e-4."""
+    return (res.status_name() == ref.status_name()
+            and abs(res.iterations - ref.iterations) <= 1
+            and abs(res.objective - ref.objective) <= 1e-4 * ref.objective)
+
+
+def check_route(name, spec, make, cam_scatter, launches_total):
+    """Phase 3 for one problem on one kernel route; returns its solve."""
     import torch
-    from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
     from bundleadjustment_jl_tpu_torch.ops import _cuda
+    from bundleadjustment_jl_tpu_torch.solver import lm_jit
 
-    def make(seed):
-        return synthetic_bal(
-            ncams=spec["ncams"], npnts=spec["npnts"],
-            obs_per_pnt=spec["obs_per_pnt"], noise_px=1.0, perturb=2e-2,
-            seed=seed, dtype=torch.float32, pad_obs_to=512,
-            device="cuda")[0]
-
+    lm_jit.CAM_SCATTER = cam_scatter
     solve(make(1))                                    # warm-up
     problem = make(0)
     times = []
@@ -258,7 +362,7 @@ def check_solves(name, spec, launches_total):
         secs, res = solve(problem)
         counts = dict(_cuda.LAUNCHES)
         times.append(secs)
-        check_launches(name, res, counts)
+        check_launches(name, res, counts, cam_scatter)
         for k, v in counts.items():
             launches_total[k] += v
     secs = sorted(times)[len(times) // 2]
@@ -270,17 +374,21 @@ def check_solves(name, spec, launches_total):
     it, cg = res.iterations, int(res.hist_cg[:res.iterations].sum())
     nequ = 2 * problem.nobs
     rmse = (2.0 * res.objective / nequ) ** 0.5
+    suffix = "" if cam_scatter else "_sorted"
     line = {
-        "metric": f"{name}_synth_lm_solve", "value": secs, "unit": "s",
-        "values": times,
+        "metric": f"{name}_synth_lm_solve{suffix}", "value": secs,
+        "unit": "s", "values": times,
         "status": res.status_name(), "iterations": it, "cg_matvecs": cg,
         "per_iter_ms": 1e3 * secs / max(it, 1),
         "objective": res.objective, "rmse_px": rmse,
-        "naccepts": res.naccepts, "launches": counts,
+        "naccepts": res.naccepts,
+        "launches": {k: v for k, v in counts.items() if v},
         "plain_value": plain_secs, "plain_status": plain.status_name(),
         "plain_iterations": plain.iterations,
         "plain_objective": plain.objective,
     }
+    if not cam_scatter:
+        line["route"] = "camera_sorted"
     print(json.dumps(line))
 
     if any(plain_counts.values()):
@@ -289,13 +397,58 @@ def check_solves(name, spec, launches_total):
             res.points).all()) or res.cams.shape != problem.cams.shape \
             or res.points.shape != problem.points.shape:
         raise AssertionError(f"{name}: bad solution state")
-    if res.status_name() != plain.status_name() \
-            or abs(it - plain.iterations) > 1 \
-            or abs(res.objective - plain.objective) > 1e-4 * plain.objective:
-        raise AssertionError(f"{name}: kernel and plain routes disagree")
+    if not agree(res, plain):
+        raise AssertionError(f"{name}: kernel and plain routes disagree "
+                             f"({ROUTES[cam_scatter]})")
     if abs(rmse - spec["rmse"]) > 0.01 * spec["rmse"]:
         raise AssertionError(f"{name}: rmse {rmse} not within 1% of "
-                             f"{spec['rmse']}")
+                             f"{spec['rmse']} ({ROUTES[cam_scatter]})")
+    return res
+
+
+def check_solves(name, spec, launches_total):
+    """Phase 3 for one problem: both kernel routes, which must agree."""
+    import torch
+    from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
+    from bundleadjustment_jl_tpu_torch.solver import lm_jit
+
+    def make(seed):
+        return synthetic_bal(
+            ncams=spec["ncams"], npnts=spec["npnts"],
+            obs_per_pnt=spec["obs_per_pnt"], noise_px=1.0, perturb=2e-2,
+            seed=seed, dtype=torch.float32, pad_obs_to=512,
+            device="cuda")[0]
+
+    default = lm_jit.CAM_SCATTER
+    try:
+        res = {cs: check_route(name, spec, make, cs, launches_total)
+               for cs in ROUTES}
+    finally:
+        lm_jit.CAM_SCATTER = default
+    if not agree(res[False], res[True]):
+        raise AssertionError(f"{name}: the fused and camera-sorted kernel "
+                             f"routes disagree")
+
+
+def kernel_table(launches, errs, timings) -> list[dict]:
+    """One row per kernel. ``ms``: one launch of each of the kernel's
+    forms (its counters) summed, on Dubrovnik-356, then LadyBug-49; each
+    form's own times beside it where it has several."""
+    table = []
+    for k, (src, replaces, counters, err_keys) in KERNELS.items():
+        row = {"name": k, "route": "cuda", "source": f"{PKG}/{src}",
+               "replaces": replaces,
+               "launches": sum(launches[c] for c in counters),
+               "max_abs_err": max(errs[e] for e in err_keys)}
+        for prob, tag in (("dubrovnik356", ""), ("ladybug49", "_ladybug49")):
+            parts = {c: timings[c][prob] for c in counters}
+            row["ms" + tag] = sum(kms for kms, _ in parts.values())
+            row["plain_ms" + tag] = sum(pms for _, pms in parts.values())
+            if len(parts) > 1:
+                row["parts" + tag] = {c: {"ms": kms, "plain_ms": pms}
+                                      for c, (kms, pms) in parts.items()}
+        table.append(row)
+    return table
 
 
 def main() -> int:
@@ -331,6 +484,7 @@ def main() -> int:
             obs_per_pnt=spec["obs_per_pnt"], noise_px=1.0, perturb=2e-2,
             seed=0, dtype=torch.float32, pad_obs_to=512, device="cuda")[0]
         check_kernels(name, problem, errs, timings)
+        check_sorted_kernels(name, problem, errs, timings)
         del problem
 
     launches = dict.fromkeys(_cuda.LAUNCHES, 0)
@@ -340,18 +494,7 @@ def main() -> int:
         if v == 0:
             raise AssertionError(f"kernel {k} never launched on the path")
 
-    main_err = {"assemble": "W", "cam_reduce": "cam_reduce",
-                "matvec": "matvec", "objective": "objective"}
-    table = []
-    for k, (src, replaces) in KERNELS.items():
-        kms, pms = timings[k]["dubrovnik356"]
-        lkms, lpms = timings[k]["ladybug49"]
-        table.append({"name": k, "route": "cuda", "source": f"{PKG}/{src}",
-                      "replaces": replaces, "launches": launches[k],
-                      "max_abs_err": errs[main_err[k]], "ms": kms,
-                      "plain_ms": pms, "ms_ladybug49": lkms,
-                      "plain_ms_ladybug49": lpms})
-    print(json.dumps({"kernels": table}))
+    print(json.dumps({"kernels": kernel_table(launches, errs, timings)}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

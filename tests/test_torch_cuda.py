@@ -20,10 +20,14 @@ import pytest
 import torch
 
 from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
+from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.ops import _cuda
 from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
 from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
+from bundleadjustment_jl_tpu_torch.ops import linearize as lz
+from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
 from bundleadjustment_jl_tpu_torch.ops.normal import inv3x3_damped_flat
+from bundleadjustment_jl_tpu_torch.solver import lm_jit
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import levenberg_marquardt_jit
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -94,6 +98,66 @@ def test_chain_edge_cases_on_card(card_problem):
         rtol=1e-5, atol=0.0)
 
 
+@pytest.fixture
+def empty_camera_problem(card_problem):
+    """``card_problem`` with a camera 0 that no observation sees."""
+    p, m = card_problem, card_problem.nobs
+    return BAProblem.from_arrays(
+        torch.cat([p.cams[:1], p.cams]).cpu().numpy(), p.points.cpu().numpy(),
+        p.cam_idx[:m].cpu().numpy() + 1, p.pnt_idx[:m].cpu().numpy(),
+        p.pt2d[:m].cpu().numpy(), dtype=torch.float32, pad_obs_to=512,
+        device="cuda")
+
+
+def sorted_operands(p):
+    """Camera-sorted route operands at the problem's state: JR, W and their
+    camera-sorted copies, a damped Hpp_inv, g_p and a camera vector."""
+    JR_t, W_t = lz.linearize_w_kminor(p, p.cams, p.points)
+    perm = p.cam_perm.long()
+    hp12 = sr.jtj_pnt_reduce(JR_t, p)
+    return dict(JR_t=JR_t, W_t=W_t, JR_cam_t=JR_t[:, perm],
+                W_cam_t=W_t[:, perm],
+                hpp_inv=inv3x3_damped_flat(hp12[:, :9].reshape(-1), 10.0),
+                gp=hp12[:, 9:].reshape(-1).contiguous(),
+                v=torch.ones((p.ncams, 9), device="cuda"))
+
+
+@pytest.mark.cuda
+def test_sorted_kernels_match_plain_on_card(card_problem):
+    """K7, K6 (three products) and K5 (both directions, each point form)
+    against their plain versions."""
+    p = card_problem
+    got = lz.linearize_w_kminor(p, p.cams, p.points)
+    for a, b in zip(got, lz._linearize_plain(p, p.cams, p.points)):
+        close(a, b, afrac=1e-5)
+    o = sorted_operands(p)
+    close(sr.jtj_pnt_reduce(o["JR_t"], p), sr._jtj_pnt_plain(o["JR_t"], p),
+          afrac=1e-5)
+    close(sr.jtj_cam_reduce(o["JR_cam_t"], p),
+          sr._jtj_cam_plain(o["JR_cam_t"], p), afrac=1e-5)
+    close(sr.wcw_cam_reduce(o["W_cam_t"], p, o["hpp_inv"]),
+          sr._wcw_cam_plain(o["W_cam_t"], p, o["hpp_inv"]))
+    for kw in ({}, dict(hpp_inv_f=o["hpp_inv"]),
+               dict(hpp_inv_f=o["hpp_inv"], add_f=o["gp"], sign=-1.0)):
+        close(sr.wtv_point_reduce(o["W_t"], o["v"], p, **kw),
+              sr._wtv_point_plain(o["W_t"], o["v"], p, **kw))
+    t = o["gp"].reshape(-1, 3)
+    close(sr.wt_cam_reduce(o["W_cam_t"], t, p),
+          sr._wt_cam_plain(o["W_cam_t"], t, p))
+
+
+@pytest.mark.cuda
+def test_camera_without_rows_gives_exact_zeros_on_card(empty_camera_problem):
+    p = empty_camera_problem
+    assert int(p.cam_starts[1] - p.cam_starts[0]) == 0
+    o = sorted_operands(p)
+    outs = [sr.jtj_cam_reduce(o["JR_cam_t"], p),
+            sr.wcw_cam_reduce(o["W_cam_t"], p, o["hpp_inv"]),
+            sr.wt_cam_reduce(o["W_cam_t"], o["gp"].reshape(-1, 3), p)]
+    for out in outs:
+        assert not out[0].any() and out[1:].abs().max() > 0
+
+
 @pytest.mark.cuda
 def test_cuda_float64_raises(card_problem):
     p = card_problem
@@ -102,15 +166,45 @@ def test_cuda_float64_raises(card_problem):
 
 
 @pytest.mark.cuda
-def test_solve_on_card_runs_every_kernel(card_problem):
+def test_cuda_float64_raises_on_sorted_wrappers(card_problem):
+    p = card_problem
+    o = {k: x.double() for k, x in sorted_operands(p).items()}
+    calls = [
+        lambda: lz.linearize_w_kminor(p, p.cams.double(), p.points.double()),
+        lambda: sr.jtj_pnt_reduce(o["JR_t"], p),
+        lambda: sr.jtj_cam_reduce(o["JR_cam_t"], p),
+        lambda: sr.wcw_cam_reduce(o["W_cam_t"], p, o["hpp_inv"]),
+        lambda: sr.wtv_point_reduce(o["W_t"], o["v"], p),
+        lambda: sr.wt_cam_reduce(o["W_cam_t"], o["gp"].reshape(-1, 3), p)]
+    for call in calls:
+        with pytest.raises(TypeError, match="float64"):
+            call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cam_scatter", [True, False],
+                         ids=["fused", "sorted"])
+def test_solve_on_card_runs_every_kernel(card_problem, monkeypatch,
+                                         cam_scatter):
+    """Each route launches its kernels as often as the solve's record
+    implies, and none of the other route's."""
+    monkeypatch.setattr(lm_jit, "CAM_SCATTER", cam_scatter)
     _cuda.reset_launches()
     res = levenberg_marquardt_jit(card_problem, max_iters=30,
                                   lam0_mode="diag")
-    it = res.iterations
+    it, acc = res.iterations, res.naccepts
+    cg = int(res.hist_cg[:it].sum())
     assert res.status_name() in ("first_order", "small_obj_change")
-    assert _cuda.LAUNCHES == {
-        "assemble": 1 + res.naccepts, "cam_reduce": it,
-        "matvec": int(res.hist_cg[:it].sum()) + 2 * it, "objective": it}
+    expect = dict.fromkeys(_cuda.LAUNCHES, 0)
+    expect["objective"] = it
+    if cam_scatter:
+        expect.update(assemble=1 + acc, cam_reduce=it, matvec=cg + 2 * it)
+    else:
+        expect.update(linearize=1 + acc, seg_prod_pnt12=1 + acc,
+                      seg_prod_cam90=1 + acc, seg_prod_wcw81=it,
+                      seg_block_point=cg + 2 * it,
+                      seg_block_camera=cg + 3 * it)
+    assert _cuda.LAUNCHES == expect
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])
