@@ -1,6 +1,7 @@
-// Kernel K7: the linearization, one observation row per thread.
+// Kernel K7: the linearization, one observation row per thread; and K8,
+// its W-only form over the camera order.
 //
-// Replaces the TPU kernel `bundleadjustment_jl_tpu/ops/pallas_linearize.py`
+// K7 replaces the TPU kernel `bundleadjustment_jl_tpu/ops/pallas_linearize.py`
 // `_linearize_kernel` (dispatched by `linearize_w_kminor`). Per row it runs
 // the chain (`linearize_chain`, chain.cuh) and writes
 //
@@ -11,12 +12,23 @@
 // the JAX package's `JR_t[:26]` and `W_t[:27]`. Padding rows (w = 0) and
 // rows with z = 0 give exact zeros through the chain's `valid` factor.
 //
-// Design: structure-of-arrays output, so the 32 threads of a warp store
-// 32 neighbouring floats of each of the 53 planes; the camera and point
-// of a row are gathered loads (9 + 3 floats, mostly cached).
+// K8 replaces `_linearize_w_only_kernel` (dispatched by `linearize_w_only`):
+// the camera-sorted W of the huge-n route with camera scatter off,
+// W_cam (27, n) with column j = W of row cam_perm[j], re-linearized rather
+// than permuted. The same chain on the same row gives the same values as
+// K7's W[:, cam_perm]. The TPU side builds camera-sorted (16, n) operand
+// copies in two half slices first; here each thread reads its row's
+// camera, point, observation and weight through cam_perm itself.
 //
-// Bound: writes 53 floats = 212 B a row (288 MB at Dubrovnik-356,
-// n = 1,360,384) and reads ~32 B of problem data; ~300 FLOP a row.
+// Design: structure-of-arrays output, so the 32 threads of a warp store
+// 32 neighbouring floats of each plane; the camera and point of a row are
+// gathered loads (9 + 3 floats, mostly cached). K8's row data (pt2d, w,
+// the indices) are gathered through cam_perm too, its stores coalesced.
+//
+// Bound: K7 writes 53 floats = 212 B a row (288 MB at Dubrovnik-356,
+// n = 1,360,384) and reads ~32 B of problem data; ~300 FLOP a row. K8
+// writes 108 B a row (1.0 GB at Final-4585) and reads the same ~32 B,
+// scattered.
 #include "chain.cuh"
 
 namespace {
@@ -47,6 +59,28 @@ __global__ void ba_linearize_kernel(
       W[(3 * a + b) * n + row] = Jc[a] * Jp[b] + Jc[9 + a] * Jp[3 + b];
 }
 
+__global__ void ba_linearize_w_only_kernel(
+    const float* __restrict__ cams, const float* __restrict__ points,
+    const float* __restrict__ pt2d, const float* __restrict__ w,
+    const int* __restrict__ cam_idx, const int* __restrict__ pnt_idx,
+    const int* __restrict__ cam_perm, long long n,
+    float* __restrict__ W_cam) {
+  const long long j = (long long)blockIdx.x * BA_BLOCK + threadIdx.x;
+  if (j >= n) return;
+  const int row = cam_perm[j];
+  const BaCam cam = ba_load_cam(cams + 9 * cam_idx[row]);
+  const float* x = points + 3 * pnt_idx[row];
+  const float X[3] = {x[0], x[1], x[2]};
+  float Jc[18], Jp[6], res[2];
+  ba_linearize(cam, X, pt2d[2 * row], pt2d[2 * row + 1], w[row], Jc, Jp,
+               res);
+#pragma unroll
+  for (int a = 0; a < 9; ++a)
+#pragma unroll
+    for (int b = 0; b < 3; ++b)
+      W_cam[(3 * a + b) * n + j] = Jc[a] * Jp[b] + Jc[9 + a] * Jp[3 + b];
+}
+
 }  // namespace
 
 // cams (ncams, 9); points (npnts, 3); JR (26, n) and W (27, n) out.
@@ -60,6 +94,22 @@ extern "C" int ba_linearize_rows(const float* cams, const float* points,
     ba_linearize_kernel<<<(unsigned)((n + BA_BLOCK - 1) / BA_BLOCK),
                           BA_BLOCK, 0, s>>>(cams, points, pt2d, w, cam_idx,
                                             pnt_idx, n, JR, W);
+    BA_RETURN_IF_LAUNCH_FAILED();
+  }
+  return 0;
+}
+
+// cams (ncams, 9); points (npnts, 3); W_cam (27, n) out, camera order.
+extern "C" int ba_linearize_w_only(const float* cams, const float* points,
+                                   const float* pt2d, const float* w,
+                                   const int* cam_idx, const int* pnt_idx,
+                                   const int* cam_perm, long long n,
+                                   float* W_cam, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n > 0) {
+    ba_linearize_w_only_kernel<<<(unsigned)((n + BA_BLOCK - 1) / BA_BLOCK),
+                                 BA_BLOCK, 0, s>>>(
+        cams, points, pt2d, w, cam_idx, pnt_idx, cam_perm, n, W_cam);
     BA_RETURN_IF_LAUNCH_FAILED();
   }
   return 0;

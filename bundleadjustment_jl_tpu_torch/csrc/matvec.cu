@@ -14,13 +14,15 @@
 // Design. Point pass: one thread per point walks its contiguous rows and
 // writes t_p (12 B a point). Camera pass: one block per camera walks its
 // rows through cam_perm / cam_starts and block-reduces 9 sums — no atomics,
-// deterministic, no bound on the camera count. The TPU kernel keeps a
+// deterministic, no bound on the camera count (K2's W op product,
+// cam_prod.cuh). The TPU kernel keeps a
 // tile's W in VMEM between the two directions; here W is read once per
 // pass.
 //
 // Bound: streams W twice, 2 x 108 B a row = 294 MB per product at
 // Dubrovnik-356 (n = 1,360,384); the camera pass's loads are gathered by
 // cam_perm. ~54 FMA a row.
+#include "cam_prod.cuh"
 #include "wtv_point.cuh"
 
 namespace {
@@ -33,28 +35,6 @@ __global__ void ba_matvec_point_kernel(
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= npnts) return;
   ba_wtv_point(p, W, v, cam_idx, pnt_starts, hpp_inv, gp, sign, n, t);
-}
-
-__global__ void __launch_bounds__(BA_BLOCK) ba_matvec_camera_kernel(
-    const float* __restrict__ W, const int* __restrict__ pnt_idx,
-    const int* __restrict__ cam_perm, const int* __restrict__ cam_starts,
-    const float* __restrict__ t, long long n, float* __restrict__ out) {
-  const int c = blockIdx.x;
-  float acc[9];
-#pragma unroll
-  for (int a = 0; a < 9; ++a) acc[a] = 0.f;
-  const int end = cam_starts[c + 1];
-  for (int j = cam_starts[c] + threadIdx.x; j < end; j += BA_BLOCK) {
-    const int row = cam_perm[j];
-    const int p = pnt_idx[row];
-    const float tp[3] = {t[3 * p], t[3 * p + 1], t[3 * p + 2]};
-#pragma unroll
-    for (int a = 0; a < 9; ++a)
-      acc[a] += W[(3 * a) * n + row] * tp[0] +
-                W[(3 * a + 1) * n + row] * tp[1] +
-                W[(3 * a + 2) * n + row] * tp[2];
-  }
-  ba_block_sum<9>(acc, out + 9 * (size_t)c);
 }
 
 }  // namespace
@@ -74,8 +54,6 @@ extern "C" int ba_matvec(const float* W, const float* v, const int* cam_idx,
                                   sign, npnts, n, t);
     BA_RETURN_IF_LAUNCH_FAILED();
   }
-  ba_matvec_camera_kernel<<<ncams, BA_BLOCK, 0, s>>>(W, pnt_idx, cam_perm,
-                                                     cam_starts, t, n, out);
-  BA_RETURN_IF_LAUNCH_FAILED();
-  return 0;
+  return ba_launch_cam_prod<true>(ProdWOp{W, pnt_idx, t, n}, cam_perm,
+                                  cam_starts, ncams, out, stream);
 }

@@ -19,13 +19,15 @@
 // K3's point pass). Camera direction: one block per camera strides over
 // its camera-sorted columns of W (coalesced), t[pnt_k] an indexed load
 // through pnt_idx[cam_perm[j]], then a fixed-order block sum: no atomics,
-// deterministic, a camera without rows gives exact zeros. The TPU kernel's
-// camera table, its pre-gathered (16, n) operand and the (8, n) handoff
-// layout have no counterpart.
+// deterministic, a camera without rows gives exact zeros: K2's W op
+// product (cam_prod.cuh) over the camera-sorted copy instead of through
+// cam_perm. The TPU kernel's camera table, its pre-gathered (16, n)
+// operand and the (8, n) handoff layout have no counterpart.
 //
 // Bound: each direction streams W once, 108 B a row (147 MB at
 // Dubrovnik-356, n = 1,360,384), plus 4-8 B of indices; ~54 FMA a row.
 // The point direction's stride-(rows per point) loads are uncoalesced.
+#include "cam_prod.cuh"
 #include "wtv_point.cuh"
 
 namespace {
@@ -38,28 +40,6 @@ __global__ void ba_wtv_point_kernel(
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= npnts) return;
   ba_wtv_point(p, W, v, cam_idx, pnt_starts, hpp_inv, add, sign, n, out);
-}
-
-__global__ void __launch_bounds__(BA_BLOCK) ba_wt_cam_kernel(
-    const float* __restrict__ W_cam, const float* __restrict__ t,
-    const int* __restrict__ pnt_idx, const int* __restrict__ cam_perm,
-    const int* __restrict__ cam_starts, long long n,
-    float* __restrict__ out) {
-  const int c = blockIdx.x;
-  float acc[9];
-#pragma unroll
-  for (int a = 0; a < 9; ++a) acc[a] = 0.f;
-  const int end = cam_starts[c + 1];
-  for (int j = cam_starts[c] + threadIdx.x; j < end; j += BA_BLOCK) {
-    const int p = pnt_idx[cam_perm[j]];
-    const float tp[3] = {t[3 * p], t[3 * p + 1], t[3 * p + 2]};
-#pragma unroll
-    for (int a = 0; a < 9; ++a)
-      acc[a] += W_cam[(3 * a) * n + j] * tp[0] +
-                W_cam[(3 * a + 1) * n + j] * tp[1] +
-                W_cam[(3 * a + 2) * n + j] * tp[2];
-  }
-  ba_block_sum<9>(acc, out + 9 * (size_t)c);
 }
 
 }  // namespace
@@ -86,11 +66,6 @@ extern "C" int ba_wt_cam_reduce(const float* W_cam, const float* t,
                                 const int* pnt_idx, const int* cam_perm,
                                 const int* cam_starts, int ncams,
                                 long long n, float* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ncams > 0) {
-    ba_wt_cam_kernel<<<ncams, BA_BLOCK, 0, s>>>(W_cam, t, pnt_idx, cam_perm,
-                                                cam_starts, n, out);
-    BA_RETURN_IF_LAUNCH_FAILED();
-  }
-  return 0;
+  return ba_launch_cam_prod<false>(ProdWOp{W_cam, pnt_idx, t, n}, cam_perm,
+                                   cam_starts, ncams, out, stream);
 }

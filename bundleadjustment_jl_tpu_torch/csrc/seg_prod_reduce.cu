@@ -20,13 +20,15 @@
 // (neighbouring threads on neighbouring columns: coalesced), keeps the 45
 // upper-triangle sums of the symmetric 9x9 (plus 9 for Jc'r) in
 // registers, and reduces them in a fixed order (ba_block_sum): no atomics,
-// deterministic, a camera without rows gives exact zeros. The TPU kernel's
-// sequential grid and VMEM accumulator have no counterpart.
+// deterministic, a camera without rows gives exact zeros. The camera
+// products and their kernel are K2's (cam_prod.cuh), reading the
+// camera-sorted copy in place of gathering through cam_perm. The TPU
+// kernel's sequential grid and VMEM accumulator have no counterpart.
 //
 // Bound: each product reads its rows once: 32 B a row for jtj_pnt, 80 B
 // for jtj_cam, 108 B of W plus a gathered 24 B of Hpp_inv for wcw_cam
 // (147 MB of W at Dubrovnik-356); ~170 FMA a row for the 9x9 products.
-#include "chain.cuh"
+#include "cam_prod.cuh"
 
 namespace {
 
@@ -60,89 +62,6 @@ __global__ void ba_jtj_pnt_kernel(const float* __restrict__ JR,
   o[9] = g[0]; o[10] = g[1]; o[11] = g[2];
 }
 
-// [Jc'Jc upper (45) | Jc'r (9)] of camera-sorted column j.
-struct ProdCam90 {
-  static constexpr int K = 54;
-  const float* JR;
-  long long n;
-  __device__ __forceinline__ void add(float (&acc)[K], int j) const {
-    float Jc[18];
-#pragma unroll
-    for (int k = 0; k < 18; ++k) Jc[k] = JR[k * n + j];
-    const float r0 = JR[24 * n + j], r1 = JR[25 * n + j];
-    int q = 0;
-#pragma unroll
-    for (int a = 0; a < 9; ++a) {
-#pragma unroll
-      for (int d = a; d < 9; ++d)
-        acc[q++] += Jc[a] * Jc[d] + Jc[9 + a] * Jc[9 + d];
-      acc[45 + a] += Jc[a] * r0 + Jc[9 + a] * r1;
-    }
-  }
-};
-
-// W C W' upper (45) of camera-sorted column j, C = Hpp_inv of its point
-// read as the packed upper triangle (the TPU kernel's sym6 operand).
-struct ProdWcw81 {
-  static constexpr int K = 45;
-  const float* W;
-  const int* pnt_idx;
-  const int* cam_perm;
-  const float* hpp_inv;
-  long long n;
-  __device__ __forceinline__ void add(float (&acc)[K], int j) const {
-    float Wr[27];
-#pragma unroll
-    for (int e = 0; e < 27; ++e) Wr[e] = W[e * n + j];
-    const float* h = hpp_inv + 9 * (size_t)pnt_idx[cam_perm[j]];
-    const float C[3][3] = {{h[0], h[1], h[2]},
-                           {h[1], h[4], h[5]},
-                           {h[2], h[5], h[8]}};
-    float Y[9][3];  // Y = W C
-#pragma unroll
-    for (int a = 0; a < 9; ++a)
-#pragma unroll
-      for (int cc = 0; cc < 3; ++cc)
-        Y[a][cc] = Wr[3 * a] * C[0][cc] + Wr[3 * a + 1] * C[1][cc] +
-                   Wr[3 * a + 2] * C[2][cc];
-    int q = 0;
-#pragma unroll
-    for (int a = 0; a < 9; ++a)
-#pragma unroll
-      for (int d = a; d < 9; ++d)
-        acc[q++] += Y[a][0] * Wr[3 * d] + Y[a][1] * Wr[3 * d + 1] +
-                    Y[a][2] * Wr[3 * d + 2];
-  }
-};
-
-// One block per camera: out row c = [the symmetric 9x9 from the 45 upper
-// sums (81) | the remaining K - 45 sums].
-template <class Prod>
-__global__ void __launch_bounds__(BA_BLOCK) ba_cam_prod_kernel(
-    Prod prod, const int* __restrict__ cam_starts, float* __restrict__ out) {
-  constexpr int K = Prod::K, D_OUT = 81 + (K - 45);
-  const int c = blockIdx.x;
-  float acc[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) acc[k] = 0.f;
-  const int end = cam_starts[c + 1];
-  for (int j = cam_starts[c] + threadIdx.x; j < end; j += BA_BLOCK)
-    prod.add(acc, j);
-  __shared__ float tot[K];
-  ba_block_sum<K>(acc, tot);
-  __syncthreads();
-  for (int k = threadIdx.x; k < D_OUT; k += BA_BLOCK) {
-    float v;
-    if (k < 81) {
-      const int a = k / 9, d = k % 9;
-      v = tot[a <= d ? ba_tri9(a, d) : ba_tri9(d, a)];
-    } else {
-      v = tot[45 + (k - 81)];
-    }
-    out[D_OUT * (size_t)c + k] = v;
-  }
-}
-
 }  // namespace
 
 // JR (26, n) point-sorted; out (npnts, 12).
@@ -159,16 +78,11 @@ extern "C" int ba_jtj_pnt_reduce(const float* JR, const int* pnt_starts,
 }
 
 // JR_cam (26, n) camera-sorted; out (ncams, 90).
-extern "C" int ba_jtj_cam_reduce(const float* JR_cam, const int* cam_starts,
-                                 int ncams, long long n, float* out,
-                                 void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ncams > 0) {
-    ba_cam_prod_kernel<ProdCam90><<<ncams, BA_BLOCK, 0, s>>>(
-        ProdCam90{JR_cam, n}, cam_starts, out);
-    BA_RETURN_IF_LAUNCH_FAILED();
-  }
-  return 0;
+extern "C" int ba_jtj_cam_reduce(const float* JR_cam, const int* cam_perm,
+                                 const int* cam_starts, int ncams,
+                                 long long n, float* out, void* stream) {
+  return ba_launch_cam_prod<false>(ProdCam90{JR_cam, n}, cam_perm,
+                                   cam_starts, ncams, out, stream);
 }
 
 // W_cam (27, n) camera-sorted; hpp_inv (npnts, 9); out (ncams, 81).
@@ -176,11 +90,6 @@ extern "C" int ba_wcw_cam_reduce(const float* W_cam, const int* pnt_idx,
                                  const int* cam_perm, const int* cam_starts,
                                  const float* hpp_inv, int ncams, long long n,
                                  float* out, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ncams > 0) {
-    ba_cam_prod_kernel<ProdWcw81><<<ncams, BA_BLOCK, 0, s>>>(
-        ProdWcw81{W_cam, pnt_idx, cam_perm, hpp_inv, n}, cam_starts, out);
-    BA_RETURN_IF_LAUNCH_FAILED();
-  }
-  return 0;
+  return ba_launch_cam_prod<false>(ProdWcw81{W_cam, pnt_idx, hpp_inv, n},
+                                   cam_perm, cam_starts, ncams, out, stream);
 }

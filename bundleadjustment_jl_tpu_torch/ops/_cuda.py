@@ -35,12 +35,16 @@ NVCC_DEFAULT = Path("/usr/local/cuda/bin/nvcc")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
-# Route A (fused camera scatter): K1 assemble, K2 cam_reduce, K3 matvec;
-# route C (camera-sorted): K7 linearize, K6 seg_prod_* (one key per
-# product), K5 seg_block_* (one key per direction); both: K4 objective.
-LAUNCHES = {"assemble": 0, "cam_reduce": 0, "matvec": 0, "objective": 0,
-            "linearize": 0, "seg_prod_pnt12": 0, "seg_prod_cam90": 0,
-            "seg_prod_wcw81": 0, "seg_block_point": 0, "seg_block_camera": 0}
+# One key per kernel form: K1 assemble; K2 cam_reduce (its `_prod_wcw_rhs`
+# form) and cam_reduce_{w_op,wcw81,cam90}; K3 matvec; K4 objective; K7
+# linearize; K8 linearize_w_only; K6 seg_prod_* (one key per product); K5
+# seg_block_* (one key per direction). Which route runs which:
+# `solver/lm_jit.py:kernel_route`.
+LAUNCHES = {"assemble": 0, "cam_reduce": 0, "cam_reduce_w_op": 0,
+            "cam_reduce_wcw81": 0, "cam_reduce_cam90": 0, "matvec": 0,
+            "objective": 0, "linearize": 0, "linearize_w_only": 0,
+            "seg_prod_pnt12": 0, "seg_prod_cam90": 0, "seg_prod_wcw81": 0,
+            "seg_block_point": 0, "seg_block_camera": 0}
 
 
 def reset_launches() -> None:
@@ -121,11 +125,15 @@ _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 _SIGNATURES = {
     "ba_assemble": [_P] * 9 + [_I, _I, _I64] + [_P] * 6,
     "ba_cam_reduce_wcw_rhs": [_P] * 6 + [_I, _I64, _P, _P],
+    "ba_cam_reduce_w_op": [_P] * 5 + [_I, _I64, _P, _P],
+    "ba_cam_reduce_wcw": [_P] * 5 + [_I, _I64, _P, _P],
+    "ba_cam_reduce_cam90": [_P] * 3 + [_I, _I64, _P, _P],
     "ba_matvec": [_P] * 9 + [_F, _I, _I, _I64, _P, _P, _P],
     "ba_objective": [_P] * 6 + [_I, _I, _I, _I64, _P, _P, _P],
     "ba_linearize_rows": [_P] * 6 + [_I64, _P, _P, _P],
+    "ba_linearize_w_only": [_P] * 7 + [_I64, _P, _P],
     "ba_jtj_pnt_reduce": [_P, _P, _I, _I64, _P, _P],
-    "ba_jtj_cam_reduce": [_P, _P, _I, _I64, _P, _P],
+    "ba_jtj_cam_reduce": [_P, _P, _P, _I, _I64, _P, _P],
     "ba_wcw_cam_reduce": [_P] * 5 + [_I, _I64, _P, _P],
     "ba_wtv_point_reduce": [_P] * 6 + [_F, _I, _I64, _P, _P],
     "ba_wt_cam_reduce": [_P] * 5 + [_I, _I64, _P, _P],

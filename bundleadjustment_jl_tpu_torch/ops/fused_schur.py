@@ -1,12 +1,26 @@
 """Fused Schur-complement reductions over W (K2, K3) — the counterpart of
-`bundleadjustment_jl_tpu/ops/pallas_schur.py` on the camera-scatter route.
+`bundleadjustment_jl_tpu/ops/pallas_schur.py` on the camera-scatter routes.
 
 Same device rule as `ops/fused_assemble.py`: CUDA float32 tensors launch
 the hand-written kernels (``csrc/cam_reduce.cu``, ``csrc/matvec.cu``), CPU
 tensors take the plain PyTorch version beside each wrapper, CUDA float64
 raises. ``W_t`` is the (27, nobs_pad) structure-of-arrays W of the
-assembly (row ``3a+b`` = ``W[a, b]``); per-point operands are flat
-(npnts*9,) / (npnts*3,) or (npnts, 3).
+assembly (row ``3a+b`` = ``W[a, b]``) and ``JR_t`` the (26, nobs_pad)
+linearization of `ops/linearize.py`, both in the point-sorted row order;
+per-point operands are flat (npnts*9,) / (npnts*3,) or (npnts, 3).
+
+K2 (`cam_scatter_reduce`) has one wrapper per product the JAX package
+gives it; each sums its per-row product per camera, reading the rows
+through ``cam_perm`` (no camera-sorted copy):
+
+- :func:`cam_reduce_wcw_rhs` (``_prod_wcw_rhs``): the fused routes' Schur
+  diagonal and reduced right-hand side in one pass;
+- :func:`cam_reduce_w_op` (``_prod_w_op``): ``sum W op[pnt]`` where there
+  is no camera-sorted W (route B1);
+- :func:`cam_reduce_wcw` (``_prod_wcw``): ``sum W C W'``, the Schur
+  diagonal of :func:`ops.schur.schur_diag_blocks` without a camera-sorted W;
+- :func:`cam_reduce_cam90` (``_prod_cam90``): ``[Hcc | g_c]`` over
+  ``JR_t`` on the split assembly of routes B1 and B2.
 """
 
 from __future__ import annotations
@@ -16,7 +30,21 @@ import torch
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.ops import _cuda
 from bundleadjustment_jl_tpu_torch.ops.seg_reduce import (
-    _wtv_point_plain, w_rows)
+    _wtv_point_plain, jtj_cam_rows, seg_sum, w_op_rows, wcw_rows)
+
+
+def _cam_reduce(fn: str, key: str, x: torch.Tensor, problem: BAProblem,
+                d_out: int, *args) -> torch.Tensor:
+    """Launch the K2 form ``fn`` -> (ncams, d_out); ``args`` go between
+    the row-order arrays and the sizes, as in its C signature."""
+    _cuda.require_problem(problem)
+    out = torch.empty((problem.ncams, d_out), dtype=torch.float32,
+                      device=x.device)
+    rc = getattr(_cuda.lib(), fn)(*args, problem.ncams, problem.nobs_pad,
+                                  _cuda.ptr(out), _cuda.stream())
+    _cuda.check(rc, fn)
+    _cuda.LAUNCHES[key] += 1
+    return out
 
 
 def cam_reduce_wcw_rhs(W_t: torch.Tensor, problem: BAProblem,
@@ -26,32 +54,77 @@ def cam_reduce_wcw_rhs(W_t: torch.Tensor, problem: BAProblem,
     (ncams, 90), with ``C = Hpp_inv`` (npnts*9,) and ``t`` (npnts, 3)."""
     if not W_t.is_cuda:
         return _cam_reduce_wcw_rhs_plain(W_t, problem, hpp_inv_f, t)
-    n, nc, npt = problem.nobs_pad, problem.ncams, problem.npnts
-    _cuda.require(W_t, "W_t", torch.float32, (27, n))
+    p, npt = problem, problem.npnts
+    _cuda.require(W_t, "W_t", torch.float32, (27, p.nobs_pad))
     _cuda.require(hpp_inv_f, "hpp_inv_f", torch.float32, (npt * 9,))
     _cuda.require(t, "t", torch.float32, (npt, 3))
-    _cuda.require_problem(problem)
-    out = torch.empty((nc, 90), dtype=torch.float32, device=W_t.device)
-    rc = _cuda.lib().ba_cam_reduce_wcw_rhs(
-        _cuda.ptr(W_t), _cuda.ptr(problem.pnt_idx),
-        _cuda.ptr(problem.cam_perm), _cuda.ptr(problem.cam_starts),
-        _cuda.ptr(hpp_inv_f), _cuda.ptr(t), nc, n, _cuda.ptr(out),
-        _cuda.stream())
-    _cuda.check(rc, "ba_cam_reduce_wcw_rhs")
-    _cuda.LAUNCHES["cam_reduce"] += 1
-    return out
+    return _cam_reduce(
+        "ba_cam_reduce_wcw_rhs", "cam_reduce", W_t, p, 90, _cuda.ptr(W_t),
+        _cuda.ptr(p.pnt_idx), _cuda.ptr(p.cam_perm), _cuda.ptr(p.cam_starts),
+        _cuda.ptr(hpp_inv_f), _cuda.ptr(t))
 
 
 def _cam_reduce_wcw_rhs_plain(W_t, problem, hpp_inv_f, t):
     pi = problem.pnt_idx.long()
-    W = w_rows(W_t)
-    C = hpp_inv_f.reshape(-1, 3, 3)[pi]
-    wcw = torch.einsum("nab,nbc,ndc->nad", W, C, W).reshape(-1, 81)
-    wt = torch.einsum("nab,nb->na", W, t[pi])
-    out = torch.zeros((problem.ncams, 90), dtype=W_t.dtype,
-                      device=W_t.device)
-    return out.index_add_(0, problem.cam_idx.long(),
-                          torch.cat([wcw, wt], dim=1))
+    return seg_sum(torch.cat([wcw_rows(W_t, hpp_inv_f, pi),
+                              w_op_rows(W_t, t, pi)], dim=1),
+                   problem.cam_idx.long(), problem.ncams)
+
+
+def cam_reduce_w_op(W_t: torch.Tensor, problem: BAProblem,
+                    op: torch.Tensor) -> torch.Tensor:
+    """Per-camera ``sum_k W_k op[pnt_k]`` -> (ncams, 9), ``op`` (npnts,
+    3)."""
+    if not W_t.is_cuda:
+        return _cam_reduce_w_op_plain(W_t, problem, op)
+    p = problem
+    _cuda.require(W_t, "W_t", torch.float32, (27, p.nobs_pad))
+    _cuda.require(op, "op", torch.float32, (p.npnts, 3))
+    return _cam_reduce(
+        "ba_cam_reduce_w_op", "cam_reduce_w_op", W_t, p, 9, _cuda.ptr(W_t),
+        _cuda.ptr(p.pnt_idx), _cuda.ptr(p.cam_perm), _cuda.ptr(p.cam_starts),
+        _cuda.ptr(op))
+
+
+def _cam_reduce_w_op_plain(W_t, problem, op):
+    return seg_sum(w_op_rows(W_t, op, problem.pnt_idx.long()),
+                   problem.cam_idx.long(), problem.ncams)
+
+
+def cam_reduce_wcw(W_t: torch.Tensor, problem: BAProblem,
+                   hpp_inv_f: torch.Tensor) -> torch.Tensor:
+    """Per-camera ``sum_k W_k C[pnt_k] W_k'`` -> (ncams, 81), ``C =
+    Hpp_inv`` (npnts*9,)."""
+    if not W_t.is_cuda:
+        return _cam_reduce_wcw_plain(W_t, problem, hpp_inv_f)
+    p = problem
+    _cuda.require(W_t, "W_t", torch.float32, (27, p.nobs_pad))
+    _cuda.require(hpp_inv_f, "hpp_inv_f", torch.float32, (p.npnts * 9,))
+    return _cam_reduce(
+        "ba_cam_reduce_wcw", "cam_reduce_wcw81", W_t, p, 81, _cuda.ptr(W_t),
+        _cuda.ptr(p.pnt_idx), _cuda.ptr(p.cam_perm), _cuda.ptr(p.cam_starts),
+        _cuda.ptr(hpp_inv_f))
+
+
+def _cam_reduce_wcw_plain(W_t, problem, hpp_inv_f):
+    return seg_sum(wcw_rows(W_t, hpp_inv_f, problem.pnt_idx.long()),
+                   problem.cam_idx.long(), problem.ncams)
+
+
+def cam_reduce_cam90(JR_t: torch.Tensor, problem: BAProblem) -> torch.Tensor:
+    """Per-camera ``[Hcc (81) | g_c (9)]`` = sums of ``[Jc'Jc | Jc'r]``
+    over the point-sorted ``JR_t`` (26, n) -> (ncams, 90)."""
+    if not JR_t.is_cuda:
+        return _cam_reduce_cam90_plain(JR_t, problem)
+    p = problem
+    _cuda.require(JR_t, "JR_t", torch.float32, (26, p.nobs_pad))
+    return _cam_reduce(
+        "ba_cam_reduce_cam90", "cam_reduce_cam90", JR_t, p, 90,
+        _cuda.ptr(JR_t), _cuda.ptr(p.cam_perm), _cuda.ptr(p.cam_starts))
+
+
+def _cam_reduce_cam90_plain(JR_t, problem):
+    return seg_sum(jtj_cam_rows(JR_t), problem.cam_idx.long(), problem.ncams)
 
 
 def matvec_cam_scatter(W_t: torch.Tensor, v: torch.Tensor,
@@ -91,8 +164,4 @@ def matvec_cam_scatter(W_t: torch.Tensor, v: torch.Tensor,
 
 def _matvec_plain(W_t, v, problem, hpp_inv_f, gp_f, sign):
     t = _wtv_point_plain(W_t, v, problem, hpp_inv_f, gp_f, sign)
-    out = torch.zeros((problem.ncams, 9), dtype=W_t.dtype, device=W_t.device)
-    out.index_add_(0, problem.cam_idx.long(),
-                   torch.einsum("nab,nb->na", w_rows(W_t),
-                                t[problem.pnt_idx.long()]))
-    return out, t
+    return _cam_reduce_w_op_plain(W_t, problem, t), t

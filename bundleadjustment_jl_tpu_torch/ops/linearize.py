@@ -1,5 +1,7 @@
-"""The linearization on the camera-sorted route (K7) — the counterpart of
-`bundleadjustment_jl_tpu/ops/pallas_linearize.py:linearize_w_kminor`.
+"""The linearization of the split routes (K7) and its W-only form over
+the camera order (K8) — the counterparts of
+`bundleadjustment_jl_tpu/ops/pallas_linearize.py:linearize_w_kminor` and
+`linearize_w_only`.
 
 Same device rule as `ops/fused_assemble.py`: CUDA float32 tensors launch
 the hand-written kernel (``csrc/linearize.cu``), CPU tensors take the
@@ -12,6 +14,10 @@ package's ``JR_t[:26]`` and ``W_t[:27]``:
   (``18+3i+b``), 24-25 the weighted residual;
 - ``W_t`` (27, nobs_pad): row ``3a+b`` holds ``W[a, b]`` of
   ``W_k = Jc_k' Jp_k``.
+
+:func:`linearize_w_only` gives ``W_cam_t`` = ``W_t[:, cam_perm]`` by
+re-running the chain on the rows in camera order, as the JAX package does
+for the huge-n route with camera scatter off (``normal.py:385-442``).
 """
 
 from __future__ import annotations
@@ -57,3 +63,34 @@ def _linearize_plain(problem: BAProblem, cams, points):
     JR_t = torch.cat([Jc.reshape(-1, 18), Jp.reshape(-1, 6), r], dim=1).T
     W_t = torch.einsum("nia,nib->abn", Jc, Jp).reshape(27, -1)
     return JR_t.contiguous(), W_t.contiguous()
+
+
+def linearize_w_only(problem: BAProblem, cams: torch.Tensor,
+                     points: torch.Tensor) -> torch.Tensor:
+    """W of every row at (cams, points), in the camera order -> ``W_cam_t``
+    (27, n), column ``j`` the W of row ``cam_perm[j]``."""
+    if not cams.is_cuda:
+        return _linearize_w_only_plain(problem, cams, points)
+    n, nc, npt = problem.nobs_pad, problem.ncams, problem.npnts
+    _cuda.require(cams, "cams", torch.float32, (nc, 9))
+    _cuda.require(points, "points", torch.float32, (npt, 3))
+    _cuda.require_problem(problem)
+    W_cam_t = torch.empty((27, n), dtype=torch.float32, device=cams.device)
+    p = problem
+    rc = _cuda.lib().ba_linearize_w_only(
+        _cuda.ptr(cams), _cuda.ptr(points), _cuda.ptr(p.pt2d), _cuda.ptr(p.w),
+        _cuda.ptr(p.cam_idx), _cuda.ptr(p.pnt_idx), _cuda.ptr(p.cam_perm), n,
+        _cuda.ptr(W_cam_t), _cuda.stream())
+    _cuda.check(rc, "ba_linearize_w_only")
+    _cuda.LAUNCHES["linearize_w_only"] += 1
+    return W_cam_t
+
+
+def _linearize_w_only_plain(problem: BAProblem, cams, points):
+    """Plain version of :func:`linearize_w_only`: the batched chain on the
+    rows gathered in camera order."""
+    perm = problem.cam_perm.long()
+    _, Jc, Jp = linearize(cams[problem.cam_idx.long()[perm]],
+                          points[problem.pnt_idx.long()[perm]],
+                          problem.pt2d[perm], problem.w[perm])
+    return torch.einsum("nia,nib->abn", Jc, Jp).reshape(27, -1).contiguous()

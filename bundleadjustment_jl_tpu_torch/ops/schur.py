@@ -1,5 +1,5 @@
 """Schur-complement elimination of the points (PyTorch port of
-`bundleadjustment_jl_tpu/ops/schur.py`) on the two kernel routes.
+`bundleadjustment_jl_tpu/ops/schur.py`) on the four kernel routes.
 
 Eliminating the 3x3 point blocks of the damped normal equations gives the
 reduced camera system
@@ -7,19 +7,28 @@ reduced camera system
     S dc = b,  S = Hcc_l - W Hpp_l^{-1} W',  b = -g_c + W Hpp_l^{-1} g_p
     dp = -Hpp_l^{-1} (g_p + W' dc)
 
-``S`` is never formed. Each entry point dispatches, as the JAX package
-does, on whether the blocks carry the camera-sorted ``W_cam_t``:
+``S`` is never formed. Each entry point dispatches as the JAX package
+does, on the route that assembled the blocks (``GNBlocks.route``, carried
+into ``SchurSystem.route``) and on whether they carry the camera-sorted
+``W_cam_t``:
 
-- fused route (``W_cam_t`` None): :func:`reduce_and_diag` gets ``b`` and
-  the exact diagonal blocks of ``S`` from one K2 launch,
-  :func:`schur_matvec` applies ``S`` through one K3 launch, and
-  :func:`back_substitute_quad` gets ``dp`` and the ``||J d||^2`` cross
-  term from one more K3 launch;
-- camera-sorted route: :func:`reduce_system` (K5 camera direction) and
+- route A (``"fused"``): :func:`reduce_and_diag` gets ``b`` and the exact
+  diagonal blocks of ``S`` from one K2 launch, :func:`schur_matvec`
+  applies ``S`` through one K3 launch, and :func:`back_substitute_quad`
+  gets ``dp`` and the ``||J d||^2`` cross term from one more K3 launch;
+- route B1 (``"scatter_split"``): :func:`reduce_and_diag` as on route A;
+  the two-pass matvec (K5 point direction with the fold, then K2's
+  ``W op`` product over the point-sorted W), :func:`back_substitute` (K5
+  point direction) and :func:`quad_form` (K2 ``W op``);
+- routes C (``"sorted"``) and B2 (``"sorted_relin"``):
+  :func:`reduce_system` (K5 camera direction) and
   :func:`schur_diag_blocks` (K6 ``W C W'``), the two-pass matvec (K5 point
   direction with the fold, then K5 camera direction),
-  :func:`back_substitute` (K5 point direction) and :func:`quad_form` (K5
-  camera direction).
+  :func:`back_substitute` and :func:`quad_form` (K5 camera direction).
+
+Every camera-direction sum without ``W_cam_t`` takes K2 over the
+point-sorted W, with it the camera-sorted pass (the JAX package's
+``cam_reduce_scatter_ok``).
 """
 
 from __future__ import annotations
@@ -30,11 +39,15 @@ import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.ops.fused_schur import (
-    cam_reduce_wcw_rhs, matvec_cam_scatter)
+    cam_reduce_w_op, cam_reduce_wcw, cam_reduce_wcw_rhs, matvec_cam_scatter)
 from bundleadjustment_jl_tpu_torch.ops.normal import (
     GNBlocks, damp, inv3x3_damped_flat)
 from bundleadjustment_jl_tpu_torch.ops.seg_reduce import (
     wcw_cam_reduce, wt_cam_reduce, wtv_point_reduce)
+
+# Routes whose camera sums run the camera scatter (K2 over the point-sorted
+# W): the JAX package's `pallas_schur.cam_scatter_ok`.
+_CAM_SCATTER_ROUTES = ("fused", "scatter_split")
 
 
 class SchurSystem(NamedTuple):
@@ -45,7 +58,8 @@ class SchurSystem(NamedTuple):
     g_p_f: torch.Tensor      # (npnts*3,) point gradient
     W_t: torch.Tensor        # (27, nobs_pad)
     problem: BAProblem
-    W_cam_t: torch.Tensor | None = None  # camera-sorted route only
+    W_cam_t: torch.Tensor | None = None  # routes C and B2 only
+    route: str | None = None             # as GNBlocks.route
 
     @property
     def Hcc_l(self):
@@ -56,37 +70,62 @@ class SchurSystem(NamedTuple):
         return self.b_f.reshape(-1, 9)
 
 
+def route_of(x: GNBlocks | SchurSystem) -> str:
+    """The kernel route of ``x``: its ``route``; for blocks built by hand
+    (``route=None``) the camera-sorted route when they carry ``W_cam_t``,
+    else the fused route."""
+    if x.route is not None:
+        return x.route
+    return "sorted" if x.W_cam_t is not None else "fused"
+
+
 def _hpp_dot(Hpp_f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Per-point 3x3 block times (npnts, 3)."""
     return torch.einsum("pab,pb->pa", Hpp_f.reshape(-1, 3, 3), x)
 
 
+def _cam_dir_reduce(problem: BAProblem, W_t: torch.Tensor,
+                    W_cam_t: torch.Tensor | None,
+                    op: torch.Tensor) -> torch.Tensor:
+    """``segsum_cam(W_k op[pnt_k])`` (ncams, 9), ``op`` (npnts, 3): K2's
+    ``W op`` product over the point-sorted W when there is no camera-sorted
+    copy, else K5's camera direction over ``W_cam_t``."""
+    if W_cam_t is None:
+        return cam_reduce_w_op(W_t, problem, op)
+    return wt_cam_reduce(W_cam_t, op, problem)
+
+
 def reduce_system(problem: BAProblem, blocks: GNBlocks, lam) -> SchurSystem:
     """Damp with ``lam`` and form ``b = -g_c + segsum_cam(W_k (Hpp_inv
-    g_p)[pnt_k])`` on the camera-sorted route (K5 camera direction)."""
+    g_p)[pnt_k])``."""
     Hcc_l = damp(blocks.Hcc, lam)
     Hpp_inv_f = inv3x3_damped_flat(blocks.Hpp_f, lam)
-    corr = wt_cam_reduce(blocks.W_cam_t, _hpp_dot(Hpp_inv_f, blocks.g_p),
-                         problem)
+    corr = _cam_dir_reduce(problem, blocks.W_t, blocks.W_cam_t,
+                           _hpp_dot(Hpp_inv_f, blocks.g_p))
     return SchurSystem(Hcc_l_f=Hcc_l.reshape(-1), Hpp_inv_f=Hpp_inv_f,
                        b_f=(-blocks.g_c + corr).reshape(-1),
                        g_p_f=blocks.g_p_f, W_t=blocks.W_t, problem=problem,
-                       W_cam_t=blocks.W_cam_t)
+                       W_cam_t=blocks.W_cam_t, route=route_of(blocks))
 
 
 def schur_diag_blocks(sys: SchurSystem) -> torch.Tensor:
-    """Exact diagonal 9x9 blocks of S, ``Hcc_l - sum W Hpp_inv W'``, on the
-    camera-sorted route (K6)."""
-    wcw = wcw_cam_reduce(sys.W_cam_t, sys.problem, sys.Hpp_inv_f)
+    """Exact diagonal 9x9 blocks of S, ``Hcc_l - sum W Hpp_inv W'``: K2's
+    ``W C W'`` over the point-sorted W when there is no camera-sorted copy,
+    else K6's over ``W_cam_t``."""
+    if sys.W_cam_t is None:
+        wcw = cam_reduce_wcw(sys.W_t, sys.problem, sys.Hpp_inv_f)
+    else:
+        wcw = wcw_cam_reduce(sys.W_cam_t, sys.problem, sys.Hpp_inv_f)
     return sys.Hcc_l - wcw.reshape(-1, 9, 9)
 
 
 def reduce_and_diag(problem: BAProblem, blocks: GNBlocks, lam):
     """(SchurSystem, exact diagonal 9x9 blocks of S) at ``lam``. On the
-    fused route the reduced RHS correction and ``sum W Hpp_inv W'`` come
-    from one K2 launch; on the camera-sorted route this is
+    camera-scatter routes (A, B1) the reduced RHS correction and ``sum W
+    Hpp_inv W'`` come from one K2 launch; elsewhere this is
     :func:`reduce_system` and :func:`schur_diag_blocks`."""
-    if blocks.W_cam_t is not None:
+    route = route_of(blocks)
+    if route not in _CAM_SCATTER_ROUTES:
         sys = reduce_system(problem, blocks, lam)
         return sys, schur_diag_blocks(sys)
     Hcc_l = damp(blocks.Hcc, lam)
@@ -95,23 +134,26 @@ def reduce_and_diag(problem: BAProblem, blocks: GNBlocks, lam):
                              _hpp_dot(Hpp_inv_f, blocks.g_p))
     sys = SchurSystem(Hcc_l_f=Hcc_l.reshape(-1), Hpp_inv_f=Hpp_inv_f,
                       b_f=(-blocks.g_c + out[:, 81:90]).reshape(-1),
-                      g_p_f=blocks.g_p_f, W_t=blocks.W_t, problem=problem)
+                      g_p_f=blocks.g_p_f, W_t=blocks.W_t, problem=problem,
+                      W_cam_t=blocks.W_cam_t, route=route)
     return sys, Hcc_l - out[:, :81].reshape(-1, 9, 9)
 
 
 def schur_matvec(sys: SchurSystem, v: torch.Tensor) -> torch.Tensor:
-    """Matrix-free ``S @ v`` for ``v`` (ncams, 9)."""
+    """Matrix-free ``S @ v`` for ``v`` (ncams, 9): one K3 launch on route
+    A, else two passes (K5's point direction with the fold, then the
+    camera direction)."""
     u = torch.einsum("cab,cb->ca", sys.Hcc_l, v)
-    if sys.W_cam_t is None:
+    if route_of(sys) == "fused":
         return u - matvec_cam_scatter(sys.W_t, v, sys.problem,
                                       sys.Hpp_inv_f)
     t = wtv_point_reduce(sys.W_t, v, sys.problem, hpp_inv_f=sys.Hpp_inv_f)
-    return u - wt_cam_reduce(sys.W_cam_t, t, sys.problem)
+    return u - _cam_dir_reduce(sys.problem, sys.W_t, sys.W_cam_t, t)
 
 
 def back_substitute(sys: SchurSystem, dc: torch.Tensor) -> torch.Tensor:
-    """The point step ``dp = -Hpp_inv (g_p + W' dc)`` (npnts, 3), on the
-    camera-sorted route (K5 point direction with the fold and add)."""
+    """The point step ``dp = -Hpp_inv (g_p + W' dc)`` (npnts, 3), K5's
+    point direction with the fold and add."""
     return wtv_point_reduce(sys.W_t, dc, sys.problem,
                             hpp_inv_f=sys.Hpp_inv_f, add_f=sys.g_p_f,
                             sign=-1.0)
@@ -127,18 +169,19 @@ def _quad(blocks: GNBlocks, dc, dp, cross_cam) -> torch.Tensor:
 
 def quad_form(problem: BAProblem, blocks: GNBlocks, dc: torch.Tensor,
               dp: torch.Tensor) -> torch.Tensor:
-    """``||J d||^2`` from the assembled blocks, its cross term on the
-    camera-sorted route (K5 camera direction)."""
-    return _quad(blocks, dc, dp, wt_cam_reduce(blocks.W_cam_t, dp, problem))
+    """``||J d||^2`` from the assembled blocks, its cross term a
+    camera-direction sum."""
+    return _quad(blocks, dc, dp,
+                 _cam_dir_reduce(problem, blocks.W_t, blocks.W_cam_t, dp))
 
 
 def back_substitute_quad(problem: BAProblem, blocks: GNBlocks,
                          sys: SchurSystem, dc: torch.Tensor):
-    """``(dp (npnts, 3), ||J d||^2)``. On the fused route K3 with ``g_p``
-    folded and ``sign = -1`` yields ``dp`` and the cross term's camera
-    sums together; on the camera-sorted route this is
-    :func:`back_substitute` and :func:`quad_form`."""
-    if sys.W_cam_t is not None:
+    """``(dp (npnts, 3), ||J d||^2)``. On route A K3 with ``g_p`` folded
+    and ``sign = -1`` yields ``dp`` and the cross term's camera sums
+    together; elsewhere this is :func:`back_substitute` and
+    :func:`quad_form`."""
+    if route_of(sys) != "fused":
         dp = back_substitute(sys, dc)
         return dp, quad_form(problem, blocks, dc, dp)
     cross_cam, dp = matvec_cam_scatter(

@@ -39,6 +39,39 @@ def _out(x: torch.Tensor, shape) -> torch.Tensor:
     return torch.empty(shape, dtype=torch.float32, device=x.device)
 
 
+# The plain versions' per-row products and their segment sum (shared with
+# K2's plain versions, `ops/fused_schur.py`).
+def jtj_cam_rows(JR_t: torch.Tensor) -> torch.Tensor:
+    """Per-row ``[Jc'Jc (81) | Jc'r (9)]`` of a (26, n) JR -> (n, 90)."""
+    Jc = JR_t[:18].T.reshape(-1, 2, 9)
+    r = JR_t[R0:R0 + 2].T
+    return torch.cat([torch.einsum("nia,nid->nad", Jc, Jc).reshape(-1, 81),
+                      torch.einsum("nia,ni->na", Jc, r)], dim=1)
+
+
+def wcw_rows(W_t: torch.Tensor, hpp_inv_f: torch.Tensor,
+             pnt: torch.Tensor) -> torch.Tensor:
+    """Per-row ``W_k C[pnt_k] W_k'`` -> (n, 81); ``pnt`` the point id of
+    each column of ``W_t``."""
+    W = w_rows(W_t)
+    C = hpp_inv_f.reshape(-1, 3, 3)[pnt]
+    return torch.einsum("nab,nbc,ndc->nad", W, C, W).reshape(-1, 81)
+
+
+def w_op_rows(W_t: torch.Tensor, op: torch.Tensor,
+              pnt: torch.Tensor) -> torch.Tensor:
+    """Per-row ``W_k op[pnt_k]`` -> (n, 9); ``op`` (npnts, 3)."""
+    return torch.einsum("nab,nb->na", w_rows(W_t), op[pnt])
+
+
+def seg_sum(rows: torch.Tensor, ids: torch.Tensor, nseg: int) -> torch.Tensor:
+    """Sums of ``rows`` by segment id -> (nseg, d), the plain versions'
+    reduction (the JAX package's XLA ``segment_sum``)."""
+    out = torch.zeros((nseg, rows.shape[1]), dtype=rows.dtype,
+                      device=rows.device)
+    return out.index_add_(0, ids, rows)
+
+
 # ---------------------------------------------------------------- K6
 def jtj_pnt_reduce(JR_t: torch.Tensor, problem: BAProblem) -> torch.Tensor:
     """Per-point ``[Hpp (9) | g_p (3)]`` = sums of ``[Jp'Jp | Jp'r]`` over
@@ -78,21 +111,16 @@ def jtj_cam_reduce(JR_cam_t: torch.Tensor,
     _cuda.require_problem(problem)
     out = _out(JR_cam_t, (nc, 90))
     rc = _cuda.lib().ba_jtj_cam_reduce(
-        _cuda.ptr(JR_cam_t), _cuda.ptr(problem.cam_starts), nc, n,
-        _cuda.ptr(out), _cuda.stream())
+        _cuda.ptr(JR_cam_t), _cuda.ptr(problem.cam_perm),
+        _cuda.ptr(problem.cam_starts), nc, n, _cuda.ptr(out), _cuda.stream())
     _cuda.check(rc, "ba_jtj_cam_reduce")
     _cuda.LAUNCHES["seg_prod_cam90"] += 1
     return out
 
 
 def _jtj_cam_plain(JR_cam_t, problem):
-    Jc = JR_cam_t[:18].T.reshape(-1, 2, 9)
-    r = JR_cam_t[R0:R0 + 2].T
-    rows = torch.cat([torch.einsum("nia,nid->nad", Jc, Jc).reshape(-1, 81),
-                      torch.einsum("nia,ni->na", Jc, r)], dim=1)
-    out = torch.zeros((problem.ncams, 90), dtype=JR_cam_t.dtype,
-                      device=JR_cam_t.device)
-    return out.index_add_(0, _cam_sorted_ids(problem)[0], rows)
+    return seg_sum(jtj_cam_rows(JR_cam_t), _cam_sorted_ids(problem)[0],
+                   problem.ncams)
 
 
 def wcw_cam_reduce(W_cam_t: torch.Tensor, problem: BAProblem,
@@ -119,12 +147,7 @@ def wcw_cam_reduce(W_cam_t: torch.Tensor, problem: BAProblem,
 
 def _wcw_cam_plain(W_cam_t, problem, hpp_inv_f):
     ci, pi = _cam_sorted_ids(problem)
-    W = w_rows(W_cam_t)
-    C = hpp_inv_f.reshape(-1, 3, 3)[pi]
-    wcw = torch.einsum("nab,nbc,ndc->nad", W, C, W).reshape(-1, 81)
-    out = torch.zeros((problem.ncams, 81), dtype=W_cam_t.dtype,
-                      device=W_cam_t.device)
-    return out.index_add_(0, ci, wcw)
+    return seg_sum(wcw_rows(W_cam_t, hpp_inv_f, pi), ci, problem.ncams)
 
 
 # ---------------------------------------------------------------- K5
@@ -193,7 +216,4 @@ def wt_cam_reduce(W_cam_t: torch.Tensor, t: torch.Tensor,
 
 def _wt_cam_plain(W_cam_t, t, problem):
     ci, pi = _cam_sorted_ids(problem)
-    out = torch.zeros((problem.ncams, 9), dtype=W_cam_t.dtype,
-                      device=W_cam_t.device)
-    return out.index_add_(0, ci, torch.einsum("nab,nb->na", w_rows(W_cam_t),
-                                              t[pi]))
+    return seg_sum(w_op_rows(W_cam_t, t, pi), ci, problem.ncams)

@@ -1,0 +1,120 @@
+"""Time the port's four kernel routes on synthetic Final-4585, and profile
+a route-B1 and a route-B2 solve, on one CUDA card.
+
+    python -m bundleadjustment_jl_tpu_torch.route_profile
+
+Run from the repository root: the problem (``chip_smoke.FINAL``, built as
+``chip_smoke.py`` builds it) and the solver options (``SOLVE_OPTS``) are
+``chip_smoke.py``'s. Each route is forced by the gate settings of
+``lm_jit.FORCE_ROUTE``: a warm-up per route, then two timed solves per
+route in the order A, B1, C, B2, B2, C, B1, A. Then one ``torch.profiler``
+trace of a solve on B1 and on B2: device busy time (the sum of the trace's
+kernel events), span (first kernel start to last kernel end), idle share,
+and device time by kernel. Prints one JSON line per route and per
+profile; the Chrome traces go to the git-ignored kernel build directory.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import json
+import sys
+import time
+from collections import defaultdict
+from pathlib import Path
+
+import torch
+
+from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
+from bundleadjustment_jl_tpu_torch.ops import _cuda
+from bundleadjustment_jl_tpu_torch.solver import lm_jit
+
+ORDER = ("fused", "scatter_split", "sorted", "sorted_relin")
+PROFILED = ("scatter_split", "sorted_relin")
+
+
+@contextlib.contextmanager
+def forced(route):
+    gates = lm_jit.FORCE_ROUTE[route]
+    old = {k: getattr(lm_jit, k) for k in gates}
+    try:
+        for k, v in gates.items():
+            setattr(lm_jit, k, v)
+        yield
+    finally:
+        for k, v in old.items():
+            setattr(lm_jit, k, v)
+
+
+def kernel_breakdown(trace_path: Path) -> dict:
+    """Busy time, span and idle share of the trace's kernel events, and
+    device ms and launches by kernel name."""
+    events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
+              if e.get("cat") == "kernel"]
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in events:
+        by_name[e["name"]][0] += e["dur"] / 1e3
+        by_name[e["name"]][1] += 1
+    busy = sum(e["dur"] for e in events) / 1e3
+    span = (max(e["ts"] + e["dur"] for e in events)
+            - min(e["ts"] for e in events)) / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    return {"busy_ms": busy, "span_ms": span, "idle_share": 1 - busy / span,
+            "kernels": {k: {"ms": ms, "launches": n} for k, (ms, n) in top}}
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("route_profile: no CUDA card", file=sys.stderr)
+        return 2
+    from chip_smoke import FINAL, card_line, solve
+
+    card = card_line()
+    print(f"card: {card}")
+    out = _cuda.BUILD_DIR / "route_profile"
+    out.mkdir(parents=True, exist_ok=True)
+    name, spec = FINAL
+    problem = synthetic_bal(
+        ncams=spec["ncams"], npnts=spec["npnts"],
+        obs_per_pnt=spec["obs_per_pnt"], noise_px=1.0, perturb=2e-2, seed=0,
+        dtype=torch.float32, pad_obs_to=512, device="cuda")[0]
+
+    def solve_on(route):
+        with forced(route):
+            if lm_jit.kernel_route(problem) != route:
+                raise AssertionError(f"gates did not force {route}")
+            return solve(problem)
+
+    peak, times, last = {}, defaultdict(list), {}
+    for route in ORDER:                                    # warm-ups
+        torch.cuda.reset_peak_memory_stats()
+        solve_on(route)
+        peak[route] = torch.cuda.max_memory_allocated() / 2**30
+    for route in ORDER + ORDER[::-1]:
+        secs, last[route] = solve_on(route)
+        times[route].append(secs)
+    for route in ORDER:
+        res = last[route]
+        print(json.dumps({
+            "problem": name, "route": route, "values": times[route],
+            "status": res.status_name(), "iterations": res.iterations,
+            "cg_matvecs": int(res.hist_cg[:res.iterations].sum()),
+            "naccepts": res.naccepts, "objective": res.objective,
+            "rmse_px": (res.objective / problem.nobs) ** 0.5,
+            "peak_gib": peak[route], "card": card}))
+
+    from torch.profiler import ProfilerActivity, profile
+    for route in PROFILED:
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            secs, _ = solve_on(route)
+        path = out / f"{name}_{route}.json"
+        prof.export_chrome_trace(str(path))
+        print(json.dumps({"problem": name, "route": route,
+                          "profiled_solve_s": secs,
+                          **kernel_breakdown(path)}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

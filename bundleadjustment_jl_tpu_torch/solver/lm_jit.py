@@ -33,20 +33,100 @@ from bundleadjustment_jl_tpu_torch.ops.pcg import (
 from bundleadjustment_jl_tpu_torch.ops.schur import (
     back_substitute_quad, reduce_and_diag, schur_matvec)
 
-# The kernel route, read once per call of `levenberg_marquardt_jit` (one
-# solve never mixes routes); the meaning of the JAX package's
-# `pallas_schur.CAM_SCATTER` and the CLI's `--cam-scatter`:
-#   True  - fused camera-scatter route: K1 assembly, K2, K3 (point-sorted
-#           rows; camera sums through cam_perm);
-#   False - camera-sorted route: K7 linearization, K6 segment products
-#           and K5 segment block sums over camera-sorted copies of JR and
-#           W (what `python -m bundleadjustment_jl_tpu --pallas` runs).
-# The trial objectives run on K4 on both routes. The JAX default is off
-# (env BA_CAM_SCATTER): there the camera scatter is one-hot MXU work that
-# grows with the camera count. The port's kernels have no camera gate, and
-# the fused route is the configuration bench.py measures, so the port's
-# default is on.
+# The kernel route of a solve (one of `ops/normal.py:ROUTES`, which lists
+# each route's kernels): `kernel_route` reads the switch and the gates
+# below once per call of `levenberg_marquardt_jit` (one solve never mixes
+# routes), as the JAX package's `_assemble_kminor` and `ops/schur.py` read
+# theirs. The trial objectives run on K4 on every route.
+#
+# CAM_SCATTER is the JAX package's `pallas_schur.CAM_SCATTER` and the CLI's
+# `--cam-scatter`: camera sums over the point-sorted rows (routes A, B1)
+# rather than over camera-sorted copies (C, B2). The JAX default is off
+# (env BA_CAM_SCATTER); the fused route is the configuration bench.py
+# measures, so the port's default is on.
 CAM_SCATTER = True
+
+# The JAX package's three size gates (`ops/pallas_schur.py`), with its
+# values. Each value was chosen on a TPU (VMEM tables, tile padding);
+# whether it picks the faster route on the H100 is recorded in PERF.md.
+#
+# GATHER_TABLE_MAX_CAMS: the largest camera count whose camera vector the
+# TPU's fused kernels (K1, K3) hold as a VMEM table. Above it the camera
+# scatter splits: K7 + K2 assembly and the two-pass matvec (route B1).
+GATHER_TABLE_MAX_CAMS = 2048
+# CAM_SCATTER_MAX_CAMS: the TPU camera scatter's one-hot work grows with the
+# camera count; above this count camera scatter is off whatever CAM_SCATTER
+# says.
+CAM_SCATTER_MAX_CAMS = 16384
+# GATHER_DIRECT_MAX_BYTES: the huge-n test, nobs_pad * 512 B (one row
+# tile-padded to 128 f32 lanes on the TPU) above this many bytes. There,
+# with camera scatter off, the JAX package builds no camera-sorted JR copy
+# (K2 sums [Hcc | g_c]) and re-linearizes W in the camera order (K8) in
+# place of permuting it (route B2).
+GATHER_DIRECT_MAX_BYTES = 4 << 30
+
+
+def kernel_route(problem: BAProblem) -> str:
+    """The kernel route the JAX package takes for ``problem`` under the
+    switch and gates above (`normal.py:_assemble_kminor`,
+    `pallas_schur.cam_scatter_ok`)."""
+    if CAM_SCATTER and problem.ncams <= CAM_SCATTER_MAX_CAMS:
+        return ("fused" if problem.ncams <= GATHER_TABLE_MAX_CAMS
+                else "scatter_split")
+    huge = problem.nobs_pad * 128 * 4 > GATHER_DIRECT_MAX_BYTES
+    return "sorted_relin" if huge else "sorted"
+
+
+# Settings of the switch and gates above that make `kernel_route` pick each
+# route at any problem size (the JAX package's `pallas_schur` takes the
+# same attributes to the same route).
+FORCE_ROUTE = {
+    "fused": dict(CAM_SCATTER=True, GATHER_TABLE_MAX_CAMS=1 << 62,
+                  CAM_SCATTER_MAX_CAMS=1 << 62),
+    "scatter_split": dict(CAM_SCATTER=True, GATHER_TABLE_MAX_CAMS=0,
+                          CAM_SCATTER_MAX_CAMS=1 << 62),
+    "sorted": dict(CAM_SCATTER=False, GATHER_DIRECT_MAX_BYTES=1 << 62),
+    "sorted_relin": dict(CAM_SCATTER=False, GATHER_DIRECT_MAX_BYTES=0),
+}
+
+
+def expected_launches(route: str, iterations: int, naccepts: int,
+                      cg: int) -> dict:
+    """The kernel launches (`ops/_cuda.py:LAUNCHES` keys) a solve on
+    ``route`` makes, from its iterations, accepts and CG steps (Σ
+    ``hist_cg``); every key not named launches 0 times.
+
+    Every route: K4 once per iteration. Fused (A): K1 at init and per
+    accept, K2 W C W' | W t once per iteration, K3 once per CG step plus
+    the initial residual and the back-substitution. Camera-sorted (C): K7
+    and K6's two assembly products at init and per accept, K6's W C W'
+    once per iteration, K5's point direction once per CG step plus two,
+    its camera direction once more per iteration (the reduced right-hand
+    side and the |J d|^2 cross term, less the back-substitution). B1: K7,
+    K2 cam90 and K6 pnt12 at init and per accept, K2 W C W' | W t once per
+    iteration, K5's point direction and K2's W op each once per CG step
+    plus two. B2: C's counts with K2 cam90 in place of K6 cam90, plus K8
+    at init and per accept."""
+    it, acc = iterations, naccepts
+    expect = {"objective": it}
+    if route == "fused":
+        expect.update(assemble=1 + acc, cam_reduce=it, matvec=cg + 2 * it)
+    elif route == "scatter_split":
+        expect.update(linearize=1 + acc, cam_reduce_cam90=1 + acc,
+                      seg_prod_pnt12=1 + acc, cam_reduce=it,
+                      seg_block_point=cg + 2 * it,
+                      cam_reduce_w_op=cg + 2 * it)
+    else:
+        expect.update(linearize=1 + acc, seg_prod_pnt12=1 + acc,
+                      seg_prod_wcw81=it, seg_block_point=cg + 2 * it,
+                      seg_block_camera=cg + 3 * it)
+        if route == "sorted":
+            expect["seg_prod_cam90"] = 1 + acc
+        else:
+            expect.update(cam_reduce_cam90=1 + acc,
+                          linearize_w_only=1 + acc)
+    return expect
+
 
 # Status codes (the JAX package's mapping of the reference statuses)
 RUNNING = 0
@@ -89,8 +169,10 @@ class LMJitResult(NamedTuple):
 
 
 def _unsupported(option: str, item: str):
+    """Raise for an option of the JAX driver that the port lacks; ``item``
+    is the title of its entry in ROADMAP.md's queue A."""
     raise NotImplementedError(
-        f"{option} is not ported yet (ROADMAP.md, {item})")
+        f"{option} is not ported yet (ROADMAP.md, queue A: {item})")
 
 
 def _ipow(x, y: int):
@@ -123,25 +205,23 @@ def levenberg_marquardt_jit(
     tolerances resolve to the reference defaults in the working dtype.
     ``pcg_rtol=None`` uses the forcing sequence :func:`forcing_rtol`;
     ``pcg_warm`` starts each PCG from the previous camera step."""
-    if use_dense:
-        _unsupported("use_dense", "queue A item 12, the dense path")
-    if use_cgls:
-        _unsupported("use_cgls", "queue A item 12, ops/cgls.py")
-    if use_power:
-        _unsupported("use_power", "queue A item 4, power_series")
+    for option, on in (("use_dense", use_dense), ("use_cgls", use_cgls),
+                       ("use_power", use_power)):
+        if on:
+            _unsupported(option, "CGLS, dense and power solvers")
     if facto_dtype is not None:
-        _unsupported("facto_dtype", "queue A item 9")
+        _unsupported("facto_dtype", "`facto_dtype`: W stored in bf16 or f16")
     cams = problem.cams if cams is None else cams
     points = problem.points if points is None else points
     if cams.dtype not in (torch.float32, torch.float64):
         _unsupported(f"working dtype {cams.dtype}",
-                     "queue A item 13, the precision cascade")
+                     "Precision cascade and an f64 anchor")
     # Full-precision f32 products on the card (no TF32): the counterpart of
     # the JAX package's Precision.HIGHEST pins.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
 
-    cam_scatter = CAM_SCATTER
+    route = kernel_route(problem)
     ft = np_dtype(cams.dtype).type
     eps = np.finfo(ft).eps
     cbrt, sqrt_eps = eps ** (1.0 / 3.0), np.sqrt(eps)
@@ -158,7 +238,7 @@ def levenberg_marquardt_jit(
     nielsen = lam_strategy == "nielsen"
 
     # Initial linearization; one host read.
-    blocks = assemble_blocks(problem, cams, points, cam_scatter)
+    blocks = assemble_blocks(problem, cams, points, route=route)
     init = [blocks.obj, gradient_norm(blocks)]
     if lam0_mode == "diag":
         init.append(torch.maximum(
@@ -256,7 +336,7 @@ def levenberg_marquardt_jit(
         if accept:
             cams = cams + float(s_sel) * dc
             points = points + float(s_sel) * dp
-            blocks = assemble_blocks(problem, cams, points, cam_scatter)
+            blocks = assemble_blocks(problem, cams, points, route=route)
             new = torch.stack([blocks.obj, gradient_norm(blocks)]).cpu()
             obj_n, gnorm_n = (ft(v) for v in new.numpy())
             naccepts += 1
@@ -293,5 +373,4 @@ def levenberg_marquardt_jit(
 def levenberg_marquardt_jit_chunked(*args, **kwargs) -> LMJitResult:
     """The chunked driver (``max_time``, checkpoints, resume) of the JAX
     package; not ported yet."""
-    _unsupported("levenberg_marquardt_jit_chunked",
-                 "queue A item 3, the drivers")
+    _unsupported("levenberg_marquardt_jit_chunked", "Drivers")

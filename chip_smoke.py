@@ -4,14 +4,15 @@ CUDA card.
     python3 chip_smoke.py
 
 1. Prints the torch / CUDA versions and the card (``nvidia-smi``), builds
-   the seven CUDA kernels from ``bundleadjustment_jl_tpu_torch/csrc`` (one
+   the eight CUDA kernels from ``bundleadjustment_jl_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and prints the build time and the
    compiler's register report.
 2. Checks each kernel against its plain PyTorch version on the card, at
    the shapes of synthetic LadyBug-49 and Dubrovnik-356 (as ``bench.py``
    builds them), and times both in turns (plain, kernel, kernel, plain):
-   K1-K4 of the fused camera-scatter route, then K7, K6 and K5 of the
-   camera-sorted route.
+   K1-K4 of the fused camera-scatter route, K7, K6 and K5 of the
+   camera-sorted route, then K2's other three products and K8 of the
+   Final-scale routes (and K8 against K7's W in camera order).
 3. Solves both problems with ``levenberg_marquardt_jit`` and
    ``bench.py``'s options on each kernel route (``lm_jit.CAM_SCATTER``
    True, then False): a warm-up, five timed solves (launch counts reset
@@ -19,8 +20,18 @@ CUDA card.
    after it), and a solve on the plain route. Checks that the kernel and
    plain routes agree, that the two kernel routes agree, and that the
    rmse lands on the data-fixed anchors.
-4. Prints the kernel table as one JSON line, the card line, and last
-   ``{"ok": true, "device": {...}}``.
+4. Builds synthetic Final-4585 (the BAL Final problem
+   ``problem-4585-1324582-9125125``'s sizes) once, checks K2's four
+   products and K8 at its shapes, and solves it with the default gates on
+   route B1 (camera scatter on: more than ``GATHER_TABLE_MAX_CAMS``
+   cameras) and route B2 (camera scatter off: more rows than
+   ``GATHER_DIRECT_MAX_BYTES`` allows): a warm-up, three timed solves and
+   a plain-route solve each, checked as in 3 against the rmse the data
+   fixes (0.8851 px); B1 and B2 must agree. Then, on route B1, the
+   one-pass Schur pieces against their two-pass forms (the only launches
+   of K2's W C W' product, which no solve makes; counted apart).
+5. Prints the run's wall time, the kernel table as one JSON line, the
+   card line, and last ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero before the last
 line. It needs a CUDA card and the repository checkout beside it; it
@@ -47,6 +58,15 @@ PROBLEMS = {
                          rmse=0.8648),
 }
 REPEATS = 5          # timed kernel-route solves per problem; median kept
+# Synthetic Final-4585: the BAL Final problem problem-4585-1324582-9125125
+# (grail.cs.washington.edu, "Final") at its sizes, obs_per_pnt =
+# round(9125125 / 1324582). rmse: the expected fitted rmse under unit pixel
+# noise, sqrt(1 - (9 ncams + 3 npnts) / (2 nobs)) (it gives 0.8653 and
+# 0.7861 for the two anchors above). Three timed solves, not five, for the
+# run's time limit.
+FINAL = ("final4585", dict(ncams=4585, npnts=1324582, obs_per_pnt=7,
+                           rmse=0.8851))
+FINAL_REPEATS = 3
 SOLVE_OPTS = dict(max_iters=100, pcg_max_iters=100, lam0_mode="diag",
                   satol=0.0, srtol=0.0, atol=0.0, rtol=1e-5, oatol=0.0,
                   ortol=1e-4)
@@ -57,7 +77,10 @@ TOL = {"W": (1e-5, 1e-6), "hp12": (1e-4, 1e-3), "hc90": (1e-4, 1e-3),
        "matvec": (1e-4, 1e-4), "objective": (1e-5, 0.0),
        "linearize": (1e-5, 1e-6), "seg_prod_pnt12": (1e-4, 1e-3),
        "seg_prod_cam90": (1e-4, 1e-3), "seg_prod_wcw81": (1e-4, 1e-4),
-       "seg_block_point": (1e-4, 1e-4), "seg_block_camera": (1e-4, 1e-4)}
+       "seg_block_point": (1e-4, 1e-4), "seg_block_camera": (1e-4, 1e-4),
+       "cam_reduce_w_op": (1e-4, 1e-4), "cam_reduce_wcw81": (1e-4, 1e-4),
+       "cam_reduce_cam90": (1e-4, 1e-3), "linearize_w_only": (1e-5, 1e-6),
+       "schur": (1e-4, 1e-4)}
 # name: (source, TPU kernel it replaces, its launch counters, the
 # comparisons whose largest error the table reports)
 KERNELS = {
@@ -66,7 +89,10 @@ KERNELS = {
                  ["assemble"], ["W"]),
     "cam_reduce": ("csrc/cam_reduce.cu",
                    "bundleadjustment_jl_tpu/ops/pallas_schur.py:1109",
-                   ["cam_reduce"], ["cam_reduce"]),
+                   ["cam_reduce", "cam_reduce_w_op", "cam_reduce_wcw81",
+                    "cam_reduce_cam90"],
+                   ["cam_reduce", "cam_reduce_w_op", "cam_reduce_wcw81",
+                    "cam_reduce_cam90"]),
     "matvec": ("csrc/matvec.cu",
                "bundleadjustment_jl_tpu/ops/pallas_schur.py:1550",
                ["matvec"], ["matvec"]),
@@ -76,6 +102,9 @@ KERNELS = {
     "linearize": ("csrc/linearize.cu",
                   "bundleadjustment_jl_tpu/ops/pallas_linearize.py:314",
                   ["linearize"], ["linearize"]),
+    "linearize_w_only": ("csrc/linearize.cu",
+                         "bundleadjustment_jl_tpu/ops/pallas_linearize.py:258",
+                         ["linearize_w_only"], ["linearize_w_only"]),
     "seg_prod_reduce": ("csrc/seg_prod_reduce.cu",
                         "bundleadjustment_jl_tpu/ops/pallas_schur.py:969",
                         ["seg_prod_pnt12", "seg_prod_cam90",
@@ -87,7 +116,17 @@ KERNELS = {
                          ["seg_block_point", "seg_block_camera"],
                          ["seg_block_point", "seg_block_camera"]),
 }
+# Counters no solve launches: K2's W C W' serves `schur_diag_blocks` on
+# blocks without a camera-sorted W, which no solve calls (route B1's
+# diagonal comes from K2's W C W' | W t, as in the JAX driver). Only the
+# Schur check of phase 4 launches it; its count is kept apart from the
+# solves'.
+SCHUR_CHECK_ONLY = ("cam_reduce_wcw81",)
 ROUTES = {True: "fused", False: "sorted"}   # lm_jit.CAM_SCATTER -> name
+# Each route's metric-name suffix and "route" entry in its solve line.
+ROUTE_TAGS = {"fused": ("", None), "sorted": ("_sorted", "camera_sorted"),
+              "scatter_split": ("_scatter_split", "scatter_split"),
+              "sorted_relin": ("_sorted_relin", "sorted_relin")}
 
 
 def card_line() -> str:
@@ -213,17 +252,11 @@ def check_kernels(name, problem, errs, timings):
         print(f"  time {k:10s} kernel {kms:.4f} ms  plain {pms:.4f} ms")
 
 
-def check_sorted_kernels(name, problem, errs, timings):
-    """Phase 2 for one problem, camera-sorted route: K7, K6 (its three
-    products) and K5 (both directions) against their plain versions, at
-    the shapes the route's solve gives them."""
+def checker(name, problem, errs, timings):
+    """``check(key, kernel, plain)``: run the kernel, compare it with its
+    plain version under TOL[key], time both (``time_pair``) and return the
+    kernel's output."""
     import torch
-    from bundleadjustment_jl_tpu_torch.ops import linearize as lz
-    from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
-    from bundleadjustment_jl_tpu_torch.ops.normal import inv3x3_damped_flat
-
-    cams, points = problem.cams, problem.points
-    gen = torch.Generator(device="cuda").manual_seed(1)
     reps = 20 if problem.nobs_pad < 1 << 18 else 5
 
     def check(key, kernel, plain):
@@ -235,6 +268,21 @@ def check_sorted_kernels(name, problem, errs, timings):
             compare(key, g, r, errs)
         timings.setdefault(key, {})[name] = time_pair(kernel, plain, reps)
         return got
+    return check
+
+
+def check_sorted_kernels(name, problem, errs, timings):
+    """Phase 2 for one problem, camera-sorted route: K7, K6 (its three
+    products) and K5 (both directions) against their plain versions, at
+    the shapes the route's solve gives them."""
+    import torch
+    from bundleadjustment_jl_tpu_torch.ops import linearize as lz
+    from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
+    from bundleadjustment_jl_tpu_torch.ops.normal import inv3x3_damped_flat
+
+    cams, points = problem.cams, problem.points
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    check = checker(name, problem, errs, timings)
 
     JR_t, W_t = check("linearize",
                       lambda: lz.linearize_w_kminor(problem, cams, points),
@@ -268,9 +316,65 @@ def check_sorted_kernels(name, problem, errs, timings):
         print(f"  time {k:16s} kernel {kms:.4f} ms  plain {pms:.4f} ms")
 
 
+def check_split_kernels(name, problem, errs, timings, facts,
+                        wcw_rhs=False):
+    """Phase 2 for one problem, the Final-scale routes' kernels: K8 against
+    its plain version and against K7's W in camera order (``facts`` keeps
+    whether the two are bit-identical), K2's cam90, W C W' and W op
+    products against theirs (and its W C W' | W t product with
+    ``wcw_rhs``), at the shapes the routes' solves give them."""
+    import torch
+    from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
+    from bundleadjustment_jl_tpu_torch.ops import linearize as lz
+    from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
+    from bundleadjustment_jl_tpu_torch.ops.normal import inv3x3_damped_flat
+
+    print(f"[split kernels] {name}: nobs_pad {problem.nobs_pad}, ncams "
+          f"{problem.ncams}, npnts {problem.npnts}")
+    cams, points = problem.cams, problem.points
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    check = checker(name, problem, errs, timings)
+    JR_t, W_t = lz.linearize_w_kminor(problem, cams, points)
+    W_cam_t = check("linearize_w_only",
+                    lambda: lz.linearize_w_only(problem, cams, points),
+                    lambda: lz._linearize_w_only_plain(problem, cams, points))
+    W_perm = W_t[:, problem.cam_perm.long()]
+    compare("linearize_w_only", W_cam_t, W_perm, errs)
+    facts.setdefault("k8_bit_identical_to_k7", {})[name] = bool(
+        torch.equal(W_cam_t, W_perm))
+    print(f"  K8 W_cam_t vs K7 W_t[:, cam_perm] bit-identical: "
+          f"{facts['k8_bit_identical_to_k7'][name]}")
+    del W_cam_t, W_perm
+    hc90 = check("cam_reduce_cam90", lambda: fs.cam_reduce_cam90(JR_t, problem),
+                 lambda: fs._cam_reduce_cam90_plain(JR_t, problem))
+    hp12 = sr.jtj_pnt_reduce(JR_t, problem)
+    del JR_t
+    # Damped point blocks as the solver forms them (lambda_0, "diag").
+    lam = 1e-3 * float(torch.maximum(hc90[:, :81:10].max(),
+                                     hp12[:, :9:4].max()))
+    hpp_inv = inv3x3_damped_flat(hp12[:, :9].reshape(-1), lam)
+    check("cam_reduce_wcw81", lambda: fs.cam_reduce_wcw(W_t, problem, hpp_inv),
+          lambda: fs._cam_reduce_wcw_plain(W_t, problem, hpp_inv))
+    # The matvec's operand: its point pass on a random camera vector.
+    v = torch.randn((problem.ncams, 9), generator=gen, device="cuda")
+    t = sr.wtv_point_reduce(W_t, v, problem, hpp_inv_f=hpp_inv)
+    check("cam_reduce_w_op", lambda: fs.cam_reduce_w_op(W_t, problem, t),
+          lambda: fs._cam_reduce_w_op_plain(W_t, problem, t))
+    keys = ["linearize_w_only", "cam_reduce_cam90", "cam_reduce_wcw81",
+            "cam_reduce_w_op"]
+    if wcw_rhs:
+        check("cam_reduce",
+              lambda: fs.cam_reduce_wcw_rhs(W_t, problem, hpp_inv, t),
+              lambda: fs._cam_reduce_wcw_rhs_plain(W_t, problem, hpp_inv, t))
+        keys.append("cam_reduce")
+    for k in keys:
+        kms, pms = timings[k][name]
+        print(f"  time {k:16s} kernel {kms:.4f} ms  plain {pms:.4f} ms")
+
+
 @contextlib.contextmanager
 def plain_route():
-    """Point the solver's kernel call sites, on both routes, at the plain
+    """Point the solver's kernel call sites, on every route, at the plain
     versions, so a solve on CUDA tensors runs the plain PyTorch route."""
     from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
     from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
@@ -293,7 +397,11 @@ def plain_route():
              (normal, "jtj_cam_reduce", sr._jtj_cam_plain),
              (schur, "wcw_cam_reduce", sr._wcw_cam_plain),
              (schur, "wtv_point_reduce", sr._wtv_point_plain),
-             (schur, "wt_cam_reduce", sr._wt_cam_plain)]
+             (schur, "wt_cam_reduce", sr._wt_cam_plain),
+             (normal, "cam_reduce_cam90", fs._cam_reduce_cam90_plain),
+             (normal, "linearize_w_only", lz._linearize_w_only_plain),
+             (schur, "cam_reduce_w_op", fs._cam_reduce_w_op_plain),
+             (schur, "cam_reduce_wcw", fs._cam_reduce_wcw_plain)]
     saved = [getattr(mod, attr) for mod, attr, _ in sites]
     try:
         for mod, attr, fn in sites:
@@ -315,27 +423,14 @@ def solve(problem):
     return time.perf_counter() - t0, res
 
 
-def check_launches(name, res, counts, cam_scatter):
-    """Each kernel launched as often as the solve's own record implies,
-    and none of the other route's. Fused route: K1 at init and per
-    accept, K2 and K4 once per iteration, K3 once per CG step plus the
-    initial residual and the back-substitution. Camera-sorted route: K7
-    and K6's two assembly products at init and per accept, K6's W C W'
-    and K4 once per iteration, K5's point direction once per CG step plus
-    the initial residual and the back-substitution, its camera direction
-    once more per iteration (the reduced right-hand side and the |J d|^2
-    cross term, less the back-substitution)."""
-    it, acc = res.iterations, res.naccepts
-    cg = int(res.hist_cg[:it].sum())
+def check_launches(name, res, counts, route):
+    """Each kernel launched as often as the solve's own record implies
+    (``lm_jit.expected_launches``), and none of the other routes'."""
+    from bundleadjustment_jl_tpu_torch.solver.lm_jit import expected_launches
+    it = res.iterations
     expect = dict.fromkeys(counts, 0)
-    expect["objective"] = it
-    if cam_scatter:
-        expect.update(assemble=1 + acc, cam_reduce=it, matvec=cg + 2 * it)
-    else:
-        expect.update(linearize=1 + acc, seg_prod_pnt12=1 + acc,
-                      seg_prod_cam90=1 + acc, seg_prod_wcw81=it,
-                      seg_block_point=cg + 2 * it,
-                      seg_block_camera=cg + 3 * it)
+    expect.update(expected_launches(route, it, res.naccepts,
+                                    int(res.hist_cg[:it].sum())))
     if counts != expect:
         raise AssertionError(f"{name}: launches {counts} != {expect}")
 
@@ -347,8 +442,10 @@ def agree(res, ref) -> bool:
             and abs(res.objective - ref.objective) <= 1e-4 * ref.objective)
 
 
-def check_route(name, spec, make, cam_scatter, launches_total):
-    """Phase 3 for one problem on one kernel route; returns its solve."""
+def check_route(name, spec, make, cam_scatter, launches_total,
+                repeats=REPEATS):
+    """Phase 3 for one problem on the kernel route the gates pick with
+    ``lm_jit.CAM_SCATTER = cam_scatter``; returns its solve."""
     import torch
     from bundleadjustment_jl_tpu_torch.ops import _cuda
     from bundleadjustment_jl_tpu_torch.solver import lm_jit
@@ -356,13 +453,14 @@ def check_route(name, spec, make, cam_scatter, launches_total):
     lm_jit.CAM_SCATTER = cam_scatter
     solve(make(1))                                    # warm-up
     problem = make(0)
+    route = lm_jit.kernel_route(problem)
     times = []
-    for _ in range(REPEATS):
+    for _ in range(repeats):
         _cuda.reset_launches()
         secs, res = solve(problem)
         counts = dict(_cuda.LAUNCHES)
         times.append(secs)
-        check_launches(name, res, counts, cam_scatter)
+        check_launches(name, res, counts, route)
         for k, v in counts.items():
             launches_total[k] += v
     secs = sorted(times)[len(times) // 2]
@@ -374,7 +472,7 @@ def check_route(name, spec, make, cam_scatter, launches_total):
     it, cg = res.iterations, int(res.hist_cg[:res.iterations].sum())
     nequ = 2 * problem.nobs
     rmse = (2.0 * res.objective / nequ) ** 0.5
-    suffix = "" if cam_scatter else "_sorted"
+    suffix, route_name = ROUTE_TAGS[route]
     line = {
         "metric": f"{name}_synth_lm_solve{suffix}", "value": secs,
         "unit": "s", "values": times,
@@ -387,8 +485,10 @@ def check_route(name, spec, make, cam_scatter, launches_total):
         "plain_iterations": plain.iterations,
         "plain_objective": plain.objective,
     }
-    if not cam_scatter:
-        line["route"] = "camera_sorted"
+    if route_name:
+        line["route"] = route_name
+    if repeats != REPEATS:
+        line["repeats"] = repeats
     print(json.dumps(line))
 
     if any(plain_counts.values()):
@@ -399,10 +499,10 @@ def check_route(name, spec, make, cam_scatter, launches_total):
         raise AssertionError(f"{name}: bad solution state")
     if not agree(res, plain):
         raise AssertionError(f"{name}: kernel and plain routes disagree "
-                             f"({ROUTES[cam_scatter]})")
+                             f"({route})")
     if abs(rmse - spec["rmse"]) > 0.01 * spec["rmse"]:
         raise AssertionError(f"{name}: rmse {rmse} not within 1% of "
-                             f"{spec['rmse']} ({ROUTES[cam_scatter]})")
+                             f"{spec['rmse']} ({route})")
     return res
 
 
@@ -430,23 +530,103 @@ def check_solves(name, spec, launches_total):
                              f"routes disagree")
 
 
-def kernel_table(launches, errs, timings) -> list[dict]:
-    """One row per kernel. ``ms``: one launch of each of the kernel's
-    forms (its counters) summed, on Dubrovnik-356, then LadyBug-49; each
-    form's own times beside it where it has several."""
+def check_final_solves(name, spec, problem, launches_total):
+    """Phase 4: Final-4585 on the routes the default gates pick with camera
+    scatter on (B1) and off (B2), which must agree. The warm-up solves the
+    same problem (it is not rebuilt)."""
+    from bundleadjustment_jl_tpu_torch.solver import lm_jit
+
+    default = lm_jit.CAM_SCATTER
+    res = {}
+    try:
+        for cs, route in ((True, "scatter_split"), (False, "sorted_relin")):
+            lm_jit.CAM_SCATTER = cs
+            if lm_jit.kernel_route(problem) != route:
+                raise AssertionError(f"{name}: the gates pick "
+                                     f"{lm_jit.kernel_route(problem)}, "
+                                     f"not {route}")
+            res[route] = check_route(name, spec, lambda seed: problem, cs,
+                                     launches_total, repeats=FINAL_REPEATS)
+    finally:
+        lm_jit.CAM_SCATTER = default
+    if not agree(res["sorted_relin"], res["scatter_split"]):
+        raise AssertionError(f"{name}: routes B1 and B2 disagree")
+
+
+def check_final_schur(name, problem, errs):
+    """Phase 4, route B1's one-pass Schur pieces against their two-pass
+    forms at Final-4585 (the check of tests/test_cam_scatter.py at this
+    size): ``reduce_and_diag`` against ``reduce_system`` plus
+    ``schur_diag_blocks`` (K2's W C W' | W t product against its W op and
+    W C W' products), ``back_substitute_quad`` against ``back_substitute``
+    plus ``quad_form``. Checks and returns its own launch counts (K2's W
+    op: the reduced right-hand side and the two |J d|^2 cross terms),
+    which are no solve's."""
+    import torch
+    from bundleadjustment_jl_tpu_torch.ops import _cuda
+    from bundleadjustment_jl_tpu_torch.ops import schur as sc
+    from bundleadjustment_jl_tpu_torch.ops.normal import assemble_blocks
+
+    _cuda.reset_launches()
+    blocks = assemble_blocks(problem, route="scatter_split")
+    lam = 1e-3 * float(torch.maximum(blocks.Hcc_f.reshape(-1, 81)[:, ::10]
+                                     .max(), blocks.Hpp_f.reshape(-1, 9)
+                                     [:, ::4].max()))
+    sys1, Sd1 = sc.reduce_and_diag(problem, blocks, lam)
+    sys2 = sc.reduce_system(problem, blocks, lam)
+    Sd2 = sc.schur_diag_blocks(sys2)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    dc = 1e-3 * torch.randn(problem.cams.shape, generator=gen, device="cuda")
+    dp1, q1 = sc.back_substitute_quad(problem, blocks, sys1, dc)
+    dp2 = sc.back_substitute(sys2, dc)
+    q2 = sc.quad_form(problem, blocks, dc, dp2)
+    torch.cuda.synchronize()
+    counts = dict(_cuda.LAUNCHES)
+    print(f"[schur B1] {name}")
+    compare("schur", sys1.b, sys2.b, errs)
+    compare("schur", Sd1, Sd2, errs)
+    compare("schur", dp1, dp2, errs)
+    compare("schur", q1.reshape(1), q2.reshape(1), errs)
+    expect = dict.fromkeys(counts, 0)
+    expect.update(linearize=1, cam_reduce_cam90=1, seg_prod_pnt12=1,
+                  cam_reduce=1, cam_reduce_w_op=3, cam_reduce_wcw81=1,
+                  seg_block_point=2)
+    if counts != expect:
+        raise AssertionError(f"{name}: Schur check launches {counts} != "
+                             f"{expect}")
+    return counts
+
+
+def kernel_table(launches, schur_launches, errs, timings,
+                 facts) -> list[dict]:
+    """One row per kernel. ``launches``: the solves' launches. ``ms``: one
+    launch of each of the kernel's forms (its counters) summed, on
+    Dubrovnik-356, then LadyBug-49 and Final-4585 (where every form was
+    timed there); each form's own times beside it where it has several.
+    A form that only the Schur check launches (SCHUR_CHECK_ONLY) carries
+    that check's launches apart."""
     table = []
     for k, (src, replaces, counters, err_keys) in KERNELS.items():
         row = {"name": k, "route": "cuda", "source": f"{PKG}/{src}",
                "replaces": replaces,
                "launches": sum(launches[c] for c in counters),
                "max_abs_err": max(errs[e] for e in err_keys)}
-        for prob, tag in (("dubrovnik356", ""), ("ladybug49", "_ladybug49")):
+        side = [c for c in counters if c in SCHUR_CHECK_ONLY]
+        if side:
+            row["schur_check_only_launches"] = {
+                c: schur_launches[c] for c in side}
+        for prob, tag in (("dubrovnik356", ""), ("ladybug49", "_ladybug49"),
+                          (FINAL[0], f"_{FINAL[0]}")):
+            if not all(prob in timings[c] for c in counters):
+                continue
             parts = {c: timings[c][prob] for c in counters}
             row["ms" + tag] = sum(kms for kms, _ in parts.values())
             row["plain_ms" + tag] = sum(pms for _, pms in parts.values())
             if len(parts) > 1:
                 row["parts" + tag] = {c: {"ms": kms, "plain_ms": pms}
                                       for c, (kms, pms) in parts.items()}
+        if k == "linearize_w_only":
+            row.update(facts)
         table.append(row)
     return table
 
@@ -465,6 +645,7 @@ def main() -> int:
     from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
     from bundleadjustment_jl_tpu_torch.ops import _cuda
 
+    wall0 = time.perf_counter()
     card = card_line()
     print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
           f"python {sys.version.split()[0]}")
@@ -477,7 +658,7 @@ def main() -> int:
         if "registers" in ln or "spill" in ln or "Compiling" in ln:
             print("  " + ln.strip())
 
-    errs, timings = {}, {}
+    errs, timings, facts = {}, {}, {}
     for name, spec in PROBLEMS.items():
         problem = synthetic_bal(
             ncams=spec["ncams"], npnts=spec["npnts"],
@@ -485,16 +666,37 @@ def main() -> int:
             seed=0, dtype=torch.float32, pad_obs_to=512, device="cuda")[0]
         check_kernels(name, problem, errs, timings)
         check_sorted_kernels(name, problem, errs, timings)
+        check_split_kernels(name, problem, errs, timings, facts)
         del problem
 
     launches = dict.fromkeys(_cuda.LAUNCHES, 0)
     for name, spec in PROBLEMS.items():
         check_solves(name, spec, launches)
-    for k, v in launches.items():
-        if v == 0:
-            raise AssertionError(f"kernel {k} never launched on the path")
 
-    print(json.dumps({"kernels": kernel_table(launches, errs, timings)}))
+    name, spec = FINAL
+    t0 = time.perf_counter()
+    final = synthetic_bal(
+        ncams=spec["ncams"], npnts=spec["npnts"],
+        obs_per_pnt=spec["obs_per_pnt"], noise_px=1.0, perturb=2e-2, seed=0,
+        dtype=torch.float32, pad_obs_to=512, device="cuda")[0]
+    torch.cuda.synchronize()
+    print(f"[{name}] built in {time.perf_counter() - t0:.1f} s: nobs "
+          f"{final.nobs}, nobs_pad {final.nobs_pad}")
+    check_split_kernels(name, final, errs, timings, facts, wcw_rhs=True)
+    check_final_solves(name, spec, final, launches)
+    schur_launches = check_final_schur(name, final, errs)
+    del final
+    for k, v in launches.items():
+        if v == 0 and k not in SCHUR_CHECK_ONLY:
+            raise AssertionError(f"kernel {k} never launched on the path")
+    for k in SCHUR_CHECK_ONLY:
+        if schur_launches[k] == 0:
+            raise AssertionError(f"kernel {k} never launched by the Schur "
+                                 f"check")
+
+    print(f"[wall] {time.perf_counter() - wall0:.1f} s")
+    print(json.dumps({"kernels": kernel_table(launches, schur_launches, errs,
+                                              timings, facts)}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

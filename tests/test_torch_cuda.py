@@ -20,6 +20,7 @@ import pytest
 import torch
 
 from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
+from bundleadjustment_jl_tpu_torch.ops.normal import ROUTES
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.ops import _cuda
 from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
@@ -146,6 +147,43 @@ def test_sorted_kernels_match_plain_on_card(card_problem):
           sr._wt_cam_plain(o["W_cam_t"], t, p))
 
 
+def split_kernel_calls(p, o):
+    """K2's four products and K8, each as (kernel call, plain call), on
+    the operands of :func:`sorted_operands`."""
+    t = o["gp"].reshape(-1, 3)
+    return {
+        "cam_reduce_w_op": (lambda: fs.cam_reduce_w_op(o["W_t"], p, t),
+                            lambda: fs._cam_reduce_w_op_plain(o["W_t"], p, t)),
+        "cam_reduce_wcw81": (
+            lambda: fs.cam_reduce_wcw(o["W_t"], p, o["hpp_inv"]),
+            lambda: fs._cam_reduce_wcw_plain(o["W_t"], p, o["hpp_inv"])),
+        "cam_reduce_cam90": (
+            lambda: fs.cam_reduce_cam90(o["JR_t"], p),
+            lambda: fs._cam_reduce_cam90_plain(o["JR_t"], p)),
+        "cam_reduce": (
+            lambda: fs.cam_reduce_wcw_rhs(o["W_t"], p, o["hpp_inv"], t),
+            lambda: fs._cam_reduce_wcw_rhs_plain(o["W_t"], p, o["hpp_inv"],
+                                                 t)),
+        "linearize_w_only": (
+            lambda: lz.linearize_w_only(p, p.cams, p.points),
+            lambda: lz._linearize_w_only_plain(p, p.cams, p.points)),
+    }
+
+
+@pytest.mark.cuda
+def test_split_kernels_match_plain_on_card(card_problem):
+    """K2's four products and K8 against their plain versions, each
+    launching once; K8 against K7's W in camera order."""
+    p = card_problem
+    o = sorted_operands(p)
+    for key, (kernel, plain) in split_kernel_calls(p, o).items():
+        _cuda.reset_launches()
+        got = kernel()
+        assert _cuda.LAUNCHES[key] == 1
+        close(got, plain(), afrac=1e-5 if key == "linearize_w_only" else 1e-4)
+    close(lz.linearize_w_only(p, p.cams, p.points), o["W_cam_t"], afrac=1e-5)
+
+
 @pytest.mark.cuda
 def test_camera_without_rows_gives_exact_zeros_on_card(empty_camera_problem):
     p = empty_camera_problem
@@ -154,6 +192,8 @@ def test_camera_without_rows_gives_exact_zeros_on_card(empty_camera_problem):
     outs = [sr.jtj_cam_reduce(o["JR_cam_t"], p),
             sr.wcw_cam_reduce(o["W_cam_t"], p, o["hpp_inv"]),
             sr.wt_cam_reduce(o["W_cam_t"], o["gp"].reshape(-1, 3), p)]
+    outs += [kernel() for key, (kernel, _) in split_kernel_calls(p, o).items()
+             if key.startswith("cam_reduce")]
     for out in outs:
         assert not out[0].any() and out[1:].abs().max() > 0
 
@@ -182,29 +222,37 @@ def test_cuda_float64_raises_on_sorted_wrappers(card_problem):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("cam_scatter", [True, False],
-                         ids=["fused", "sorted"])
-def test_solve_on_card_runs_every_kernel(card_problem, monkeypatch,
-                                         cam_scatter):
+def test_cuda_float64_raises_on_split_wrappers(card_problem):
+    p = card_problem
+    o = {k: x.double() for k, x in sorted_operands(p).items()}
+    calls = [
+        lambda: lz.linearize_w_only(p, p.cams.double(), p.points.double()),
+        lambda: fs.cam_reduce_w_op(o["W_t"], p, o["gp"].reshape(-1, 3)),
+        lambda: fs.cam_reduce_wcw(o["W_t"], p, o["hpp_inv"]),
+        lambda: fs.cam_reduce_cam90(o["JR_t"], p)]
+    for call in calls:
+        with pytest.raises(TypeError, match="float64"):
+            call()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ROUTES)
+def test_solve_on_card_runs_every_kernel(card_problem, monkeypatch, route):
     """Each route launches its kernels as often as the solve's record
-    implies, and none of the other route's."""
-    monkeypatch.setattr(lm_jit, "CAM_SCATTER", cam_scatter)
+    implies (``lm_jit.expected_launches``), and none of the other
+    routes'."""
+    for k, v in lm_jit.FORCE_ROUTE[route].items():
+        monkeypatch.setattr(lm_jit, k, v)
+    assert lm_jit.kernel_route(card_problem) == route
     _cuda.reset_launches()
     res = levenberg_marquardt_jit(card_problem, max_iters=30,
                                   lam0_mode="diag")
-    it, acc = res.iterations, res.naccepts
-    cg = int(res.hist_cg[:it].sum())
     assert res.status_name() in ("first_order", "small_obj_change")
+    it = res.iterations
     expect = dict.fromkeys(_cuda.LAUNCHES, 0)
-    expect["objective"] = it
-    if cam_scatter:
-        expect.update(assemble=1 + acc, cam_reduce=it, matvec=cg + 2 * it)
-    else:
-        expect.update(linearize=1 + acc, seg_prod_pnt12=1 + acc,
-                      seg_prod_cam90=1 + acc, seg_prod_wcw81=it,
-                      seg_block_point=cg + 2 * it,
-                      seg_block_camera=cg + 3 * it)
-    assert _cuda.LAUNCHES == expect
+    expect.update(lm_jit.expected_launches(route, it, res.naccepts,
+                                           int(res.hist_cg[:it].sum())))
+    assert dict(_cuda.LAUNCHES) == expect
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])
