@@ -1,11 +1,15 @@
 """PyTorch/CUDA port of the bundle-adjustment engine `bundleadjustment_jl_tpu`.
 
 The JAX package stays the reference; this package mirrors its layout
-(`models/`, `io/`, `ops/`, `solver/`) and ports the f32 Schur-PCG
-Levenberg-Marquardt main path. Its four hot kernels are CUDA C++ for
-Hopper (`csrc/`), built with nvcc at first use (`ops/_cuda.py`). CUDA
-float32 tensors run through them; CPU tensors run through their plain
-PyTorch versions. It imports torch and numpy, never jax.
+(`models/`, `io/`, `ops/`, `solver/`) and ports the Schur-PCG
+Levenberg-Marquardt solver on the JAX package's four kernel routes, with W
+stored in float32, bfloat16 or float16 (`facto_dtype`), and its
+measurement path (`bench.py`, `mv_sweep.py`). Its kernels, one for each
+TPU kernel of the JAX package, are CUDA C++ for Hopper (`csrc/`), built
+with nvcc at first use (`ops/_cuda.py`). Problems are built on the card
+unless the caller asks for the CPU; CUDA tensors run through the kernels,
+CPU tensors through their plain PyTorch versions. It imports torch and
+numpy, never jax.
 """
 
 from bundleadjustment_jl_tpu_torch.io import load_fixture, read_bal, synthetic_bal  # noqa: F401

@@ -1,0 +1,290 @@
+"""The port's bench leg: full LM solves at two BAL sizes on one card — the
+counterpart of the repository's root ``bench.py``, which runs the JAX
+package.
+
+    python -m bundleadjustment_jl_tpu_torch.bench
+
+The problems, solver options and warm-up are root ``bench.py``'s: synthetic
+LadyBug-49 and Dubrovnik-356 (f32, ``pad_obs_to=512``; seed 1 warms up,
+seed 0 is timed), ``solve_cfg``'s keywords, and Dubrovnik-356 again with W
+stored in bfloat16 and in float16 (``facto_dtype``). The problem is on the
+card before the clock starts. ``value`` is the median of five solves, each
+timed by the host clock between two ``torch.cuda.synchronize()`` calls
+(root ``bench.py`` takes the best of two on the TPU); every timed solve is
+in ``values``.
+
+Prints ONE JSON line with root ``bench.py``'s keys (``metric``, ``value``,
+..., ``bf16facto_*``, ``f16facto_*``) plus ``route`` (the kernel route
+`ops/normal.py:kernel_route` picks), ``device`` (the card's name and
+power limit as ``nvidia-smi`` reports them), ``values`` and
+``measured_stream_gbs``: the streaming-read probe (K9, nsmall = 0) at
+Dubrovnik-356's row count. ``roofline_fraction`` holds the traffic model's
+rate against the H100's published 3.35 TB/s (read it beside the power
+limit), ``stream_fraction`` against the probe. ``pallas`` is true: the
+hand-written kernels stand where the JAX leg's Pallas kernels do.
+
+:func:`kernel_bytes` and :func:`bound_ms` give, from shapes, the least
+bytes and the least time of one launch of each kernel form; ``mv_sweep.py``
+and ``chip_smoke.py`` share them, and the problems (:data:`PROBLEMS`,
+:func:`make_problem`, :func:`shape`). A run that finds no card raises.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import time
+import types
+
+import torch
+
+BASE_DUBROVNIK_S = 1200.0   # LM-LDL F64, Dubrovnik-356 (BASELINE.md)
+BASE_LADYBUG_S = 54.3       # LM-LDL F64, LadyBug-49
+MAX_ITERS = 100
+REPEATS = 5
+PROBE_REPS = 20             # probe launches timed for measured_stream_gbs
+
+# NVIDIA H100 SXM, data sheet: HBM3 rate and float32 (non-tensor) peak, at
+# the full 700 W power limit.
+PEAK_HBM_GBS = 3350.0
+PEAK_F32_TFLOPS = 67.0
+
+# root bench.py's problems (benchmark/problems.py:BAL_SIZES), synthetic;
+# and Final-4585, where routes B1 and B2 run: the BAL Final problem
+# problem-4585-1324582-9125125 (grail.cs.washington.edu, "Final") at its
+# sizes, obs_per_pnt = round(9125125 / 1324582).
+PROBLEMS = {
+    "ladybug49": dict(ncams=49, npnts=7776, obs_per_pnt=4),
+    "dubrovnik356": dict(ncams=356, npnts=226730, obs_per_pnt=6),
+    "final4585": dict(ncams=4585, npnts=1324582, obs_per_pnt=7),
+}
+
+SOLVE_OPTS = dict(max_iters=MAX_ITERS, pcg_max_iters=100, lam0_mode="diag",
+                  satol=0.0, srtol=0.0, atol=0.0, rtol=1e-5, oatol=0.0,
+                  ortol=1e-4)
+
+# Arithmetic of one row of each kernel form, from its source (an FMA
+# counts 2): the linearization chain ~300 operations, the forward
+# projection ~60, W = Jc' Jp 81, a 9x3 block times a vector 54, W C W' with
+# its symmetric half 405, [Jc'Jc | Jc'r] 216, [Jp'Jp | Jp'r] 36.
+_CHAIN, _PROJECT = 300, 60
+FLOPS_PER_ROW = {
+    "assemble": 2 * _CHAIN + 81 + 36 + 216, "linearize": _CHAIN + 81,
+    "linearize_w_only": _CHAIN + 81, "objective": _PROJECT,
+    "cam_reduce": 405 + 54, "cam_reduce_w_op": 54, "cam_reduce_wcw81": 405,
+    "cam_reduce_cam90": 216, "matvec": 2 * 54, "seg_prod_pnt12": 36,
+    "seg_prod_cam90": 216, "seg_prod_wcw81": 405, "seg_block_point": 54,
+    "seg_block_camera": 54,
+}
+
+
+def shape(name: str):
+    """The sizes of problem ``name`` that the bounds read: ``nobs_pad``
+    (its rows, padded to 512 as :func:`make_problem` pads them), ``ncams``,
+    ``npnts``."""
+    spec = PROBLEMS[name]
+    rows = spec["npnts"] * min(spec["obs_per_pnt"], spec["ncams"])
+    return types.SimpleNamespace(nobs_pad=-(-rows // 512) * 512,
+                                 ncams=spec["ncams"], npnts=spec["npnts"])
+
+
+def kernel_bytes(name: str, problem, w_itemsize: int = 4, *,
+                 nsmall: int = 0) -> int:
+    """The least bytes one launch of kernel form ``name`` (an
+    ``ops/_cuda.py:LAUNCHES`` key) moves on ``problem``: each input it
+    needs read once, each output written once, W at ``w_itemsize`` bytes a
+    value; scratch and re-reads are not counted. ``stream_probe`` reads
+    (32 + ``nsmall``) rows of ``problem.nobs_pad``; ``objective`` evaluates
+    one trial state, as a solve without a line search does."""
+    n, nc, npt = problem.nobs_pad, problem.ncams, problem.npnts
+    f = i = 4
+    idx = i * n                                   # one (n,) index array
+    W = 27 * n * w_itemsize
+    rows = 3 * n * f + 2 * idx                    # pt2d, w, cam_idx, pnt_idx
+    state = (9 * nc + 3 * npt) * f                # cams, points
+    pnt_starts, cam_starts = (npt + 1) * i, (nc + 1) * i
+    hpp_inv, vec_p, vec_c = 9 * npt * f, 3 * npt * f, 9 * nc * f
+    table = {
+        "assemble": state + rows + idx + pnt_starts + cam_starts + W
+        + 12 * npt * f + 90 * nc * f + f,
+        "linearize": state + rows + 26 * n * f + W,
+        "linearize_w_only": state + rows + idx + W,
+        "objective": state + f + rows,
+        "cam_reduce": W + 2 * idx + cam_starts + hpp_inv + vec_p
+        + 90 * nc * f,
+        "cam_reduce_w_op": W + 2 * idx + cam_starts + vec_p + vec_c,
+        "cam_reduce_wcw81": W + 2 * idx + cam_starts + hpp_inv + 81 * nc * f,
+        "cam_reduce_cam90": 20 * n * f + idx + cam_starts + 90 * nc * f,
+        "matvec": W + 3 * idx + pnt_starts + cam_starts + vec_c + hpp_inv
+        + vec_c,
+        "seg_prod_pnt12": 8 * n * f + pnt_starts + 12 * npt * f,
+        "seg_prod_cam90": 20 * n * f + cam_starts + 90 * nc * f,
+        "seg_prod_wcw81": W + 2 * idx + cam_starts + hpp_inv + 81 * nc * f,
+        "seg_block_point": W + vec_c + idx + pnt_starts + hpp_inv + vec_p,
+        "seg_block_camera": W + vec_p + 2 * idx + cam_starts + vec_c,
+        "stream_probe": (32 + nsmall) * n * f + 32 * f,
+    }
+    return table[name]
+
+
+def kernel_flops(name: str, problem, *, nsmall: int = 0) -> int:
+    """Floating-point operations of one launch of ``name`` on ``problem``
+    (:data:`FLOPS_PER_ROW` a row; one add a value for the probe)."""
+    n = problem.nobs_pad
+    if name == "stream_probe":
+        return (32 + nsmall) * n
+    return FLOPS_PER_ROW[name] * n
+
+
+def bound_ms(name: str, problem, w_itemsize: int = 4, **kw):
+    """``(ms, "bytes" | "operations")``: the least time one launch of
+    ``name`` could take on an H100, the larger of its bytes over
+    :data:`PEAK_HBM_GBS` and its operations over :data:`PEAK_F32_TFLOPS`."""
+    t_bytes = kernel_bytes(name, problem, w_itemsize, **kw) / (
+        PEAK_HBM_GBS * 1e9) * 1e3
+    t_ops = kernel_flops(name, problem, **kw) / (PEAK_F32_TFLOPS * 1e12) * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def traffic_model_bytes(problem, iters: int, cg_total: int,
+                        w_itemsize: int = 4) -> int:
+    """root ``bench.py``'s first-order HBM traffic model of a solve: per CG
+    matvec ~2 W reads + vectors; per iteration one linearization (~W write
+    + problem read) + the trial residuals; W at ``w_itemsize`` bytes."""
+    n, f = problem.nobs_pad, 4
+    per_matvec = (2 * 27 * w_itemsize + (2 * 9 + 2 * 3) * f) * n
+    per_iter = (27 * w_itemsize + (9 + 3 + 2 + 9 + 3 + 12 + 2) * f) * 2 * n
+    return cg_total * per_matvec + iters * per_iter
+
+
+def require_card() -> None:
+    if not torch.cuda.is_available():
+        raise RuntimeError("this measurement needs a CUDA card; "
+                           "torch.cuda.is_available() is false")
+
+
+def card() -> dict:
+    """The card's name and power limit, as ``nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader`` gives them."""
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip().splitlines()[0]
+    name, _, limit = out.rpartition(", ")
+    return {"name": name, "power_limit": limit, "nvidia_smi": out}
+
+
+def make_problem(name: str, seed: int):
+    """Synthetic problem ``name`` of :data:`PROBLEMS` on the card (f32,
+    unit pixel noise, ``pad_obs_to=512``), made from ``seed``."""
+    from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
+    return synthetic_bal(**PROBLEMS[name], noise_px=1.0, perturb=2e-2,
+                         seed=seed, dtype=torch.float32, pad_obs_to=512,
+                         device="cuda")[0]
+
+
+def solve_cfg(problem, facto_dtype=None):
+    from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
+        levenberg_marquardt_jit)
+    return levenberg_marquardt_jit(problem, facto_dtype=facto_dtype,
+                                   **SOLVE_OPTS)
+
+
+def timed_solve(problem, facto_dtype=None):
+    """``(s, result)`` of one :func:`solve_cfg` solve, timed by the host
+    clock between two ``torch.cuda.synchronize()`` calls."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = solve_cfg(problem, facto_dtype)
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, res
+
+
+def run(warm, problem, facto_dtype=None):
+    """``(median s, every timed s, last result)``: one warm-up solve of
+    ``warm``, then :data:`REPEATS` timed solves of ``problem``."""
+    solve_cfg(warm, facto_dtype)
+    times = []
+    for _ in range(REPEATS):
+        secs, res = timed_solve(problem, facto_dtype)
+        times.append(secs)
+    return sorted(times)[len(times) // 2], times, res
+
+
+def measure_stream_gbs(problem) -> float:
+    """The probe's rate (GB/s) over 32 rows of ``problem.nobs_pad``
+    floats, L2 flushed before each launch."""
+    from bundleadjustment_jl_tpu_torch.ops.stream_probe import stream_probe
+    from bundleadjustment_jl_tpu_torch.utils.timing import timed
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    big = torch.rand((32, problem.nobs_pad), generator=gen, device="cuda")
+    return timed(stream_probe, (big,), reps=PROBE_REPS, flush_l2=True,
+                 nbytes=kernel_bytes("stream_probe", problem)).gbs
+
+
+def bench_line() -> dict:
+    """Run the leg and return its JSON line (a dict)."""
+    require_card()
+    from bundleadjustment_jl_tpu_torch.ops import normal
+    from bundleadjustment_jl_tpu_torch.solver.lm_jit import STATUS_NAMES
+
+    def rmse(res, p):
+        return (2.0 * res.objective / (2 * p.nobs)) ** 0.5
+
+    lady_warm = make_problem("ladybug49", 1)
+    lady = make_problem("ladybug49", 0)
+    lady_s, lady_times, lady_res = run(lady_warm, lady)
+    dub_warm, dub = make_problem("dubrovnik356", 1), make_problem(
+        "dubrovnik356", 0)
+    dub_s, dub_times, dub_res = run(dub_warm, dub)
+    bf_s, bf_times, bf_res = run(dub_warm, dub, torch.bfloat16)
+    f16_s, f16_times, f16_res = run(dub_warm, dub, torch.float16)
+    stream_gbs = measure_stream_gbs(dub)
+
+    it = dub_res.iterations
+    cg = int(dub_res.hist_cg[:it].sum())
+    bytes_moved = traffic_model_bytes(dub, it, cg)
+    achieved_gbs = bytes_moved / dub_s / 1e9
+    line = {
+        "metric": "dubrovnik356_synth_lm_solve",
+        "value": dub_s, "unit": "s",
+        "vs_baseline": BASE_DUBROVNIK_S / dub_s,
+        "backend": "cuda",
+        "status": STATUS_NAMES[dub_res.status],
+        "iterations": it, "cg_matvecs": cg,
+        "per_iter_ms": 1e3 * dub_s / max(it, 1),
+        "objective": dub_res.objective,
+        "rmse_px": rmse(dub_res, dub),
+        "pallas": True,
+        "cam_scatter": normal.CAM_SCATTER,
+        "traffic_model_gb": bytes_moved / 1e9,
+        "achieved_gbs": achieved_gbs,
+        "roofline_fraction": achieved_gbs / PEAK_HBM_GBS,
+        "ladybug49_s": lady_s,
+        "ladybug49_vs_baseline": BASE_LADYBUG_S / lady_s,
+        "ladybug49_status": STATUS_NAMES[lady_res.status],
+        "ladybug49_rmse_px": rmse(lady_res, lady),
+    }
+    for tag, s, res in (("bf16facto", bf_s, bf_res),
+                        ("f16facto", f16_s, f16_res)):
+        line.update({f"{tag}_s": s, f"{tag}_vs_baseline": BASE_DUBROVNIK_S / s,
+                     f"{tag}_rmse_px": rmse(res, dub),
+                     f"{tag}_status": STATUS_NAMES[res.status],
+                     f"{tag}_iterations": res.iterations})
+    line.update({
+        "route": normal.kernel_route(dub),
+        "device": card(),
+        "values": dub_times, "ladybug49_values": lady_times,
+        "bf16facto_values": bf_times, "f16facto_values": f16_times,
+        "measured_stream_gbs": stream_gbs,
+        "stream_fraction": achieved_gbs / stream_gbs,
+    })
+    return line
+
+
+def main() -> None:
+    print(json.dumps(bench_line()))
+
+
+if __name__ == "__main__":
+    main()

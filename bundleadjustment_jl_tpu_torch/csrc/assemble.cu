@@ -14,18 +14,24 @@
 // chain for them (~300 FLOP a row) and block-reduces 45 + 9 + 1 values.
 // The objective is the sum of the per-camera partials, in a fixed order.
 //
-// Bound: the point pass writes W, 27 floats = 108 B a row (147 MB at
-// Dubrovnik-356, n = 1,360,384), and reads ~24 B a row of problem data;
-// the camera pass reads ~24 B a row plus a gathered point (12 B).
+// W is stored as float, bf16 or f16 (w_store.cuh; the TPU kernel's
+// `out_dtype`): computed in float, rounded once at the store.
+//
+// Bound: the point pass writes W, 27 values = 108 B a row in f32, 54 B in
+// bf16 / f16 (147 / 73 MB at Dubrovnik-356, n = 1,360,384), and reads
+// ~24 B a row of problem data; the camera pass reads ~24 B a row plus a
+// gathered point (12 B).
 #include "chain.cuh"
+#include "w_store.cuh"
 
 namespace {
 
+template <class T>
 __global__ void ba_assemble_point_kernel(
     const float* __restrict__ cams, const float* __restrict__ points,
     const float* __restrict__ pt2d, const float* __restrict__ w,
     const int* __restrict__ cam_idx, const int* __restrict__ pnt_starts,
-    int npnts, long long n, float* __restrict__ W,
+    int npnts, long long n, T* __restrict__ W,
     float* __restrict__ hp12) {
   const int p = blockIdx.x * blockDim.x + threadIdx.x;
   if (p >= npnts) return;
@@ -42,7 +48,8 @@ __global__ void ba_assemble_point_kernel(
     for (int a = 0; a < 9; ++a)
 #pragma unroll
       for (int b = 0; b < 3; ++b)
-        W[(3 * a + b) * n + row] = Jc[a] * Jp[b] + Jc[9 + a] * Jp[3 + b];
+        ba_stw(W, (3 * a + b) * n + row,
+               Jc[a] * Jp[b] + Jc[9 + a] * Jp[3 + b]);
     int q = 0;
 #pragma unroll
     for (int b = 0; b < 3; ++b) {
@@ -111,21 +118,29 @@ extern "C" const char* ba_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
-// W (27, n): row-major planes, W[(3a+b) n + row]; hp12 (npnts, 12);
-// hc90 (ncams, 90); obj_part (ncams,) scratch; obj (1,).
+// W (27, n): row-major planes, W[(3a+b) n + row], storage w_dtype
+// (w_store.cuh); hp12 (npnts, 12); hc90 (ncams, 90); obj_part (ncams,)
+// scratch; obj (1,).
 extern "C" int ba_assemble(const float* cams, const float* points,
                            const float* pt2d, const float* w,
                            const int* cam_idx, const int* pnt_idx,
                            const int* pnt_starts, const int* cam_perm,
                            const int* cam_starts, int ncams, int npnts,
-                           long long n, float* W, float* hp12, float* hc90,
-                           float* obj_part, float* obj, void* stream) {
+                           long long n, void* W, int w_dtype, float* hp12,
+                           float* hc90, float* obj_part, float* obj,
+                           void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (npnts > 0) {
-    ba_assemble_point_kernel<<<(npnts + BA_BLOCK - 1) / BA_BLOCK, BA_BLOCK,
-                               0, s>>>(cams, points, pt2d, w, cam_idx,
-                                       pnt_starts, npnts, n, W, hp12);
-    BA_RETURN_IF_LAUNCH_FAILED();
+    const int rc = ba_with_w_type(w_dtype, [&](auto tag) {
+      using T = BA_W_TYPE(tag);
+      ba_assemble_point_kernel<T>
+          <<<(npnts + BA_BLOCK - 1) / BA_BLOCK, BA_BLOCK, 0, s>>>(
+              cams, points, pt2d, w, cam_idx, pnt_starts, npnts, n,
+              static_cast<T*>(W), hp12);
+      BA_RETURN_IF_LAUNCH_FAILED();
+      return 0;
+    });
+    if (rc != 0) return rc;
   }
   ba_assemble_camera_kernel<<<ncams, BA_BLOCK, 0, s>>>(
       cams, points, pt2d, w, pnt_idx, cam_perm, cam_starts, hc90, obj_part);

@@ -17,6 +17,9 @@
 // JR is (26, n) structure-of-arrays: rows 0-17 Jc (9 i + a), 18-23 Jp,
 // 24-25 r; W is (27, n), row 3 a + b.
 //
+// W is read in its storage type T (float, bf16 or f16; w_store.cuh) and
+// widened at the load; products and sums are float.
+//
 // Each product keeps its sums in registers: SYM of them are the upper
 // triangle (ba_tri9 order) of a symmetric 9x9, written out as all 81, and
 // the remaining K - SYM are written as they are. No atomics: deterministic,
@@ -24,6 +27,7 @@
 #pragma once
 
 #include "chain.cuh"
+#include "w_store.cuh"
 
 namespace {
 
@@ -43,12 +47,12 @@ __device__ __forceinline__ void ba_wc(const float (&Wr)[27],
                  Wr[3 * a + 2] * C[2][cc];
 }
 
-template <int K>
-__device__ __forceinline__ void ba_load_w(const float* __restrict__ W,
+template <int K, class T>
+__device__ __forceinline__ void ba_load_w(const T* __restrict__ W,
                                           long long n, long long col,
                                           float (&Wr)[K]) {
 #pragma unroll
-  for (int e = 0; e < K; ++e) Wr[e] = W[e * n + col];
+  for (int e = 0; e < K; ++e) Wr[e] = ba_ldw(W, e * n + col);
 }
 
 // acc[0..45) += upper triangle of (W C) W'.
@@ -96,9 +100,10 @@ struct ProdCam90 {
 };
 
 // W C W' upper (45), C = Hpp_inv of the row's point (`_prod_wcw`).
+template <class T>
 struct ProdWcw81 {
   static constexpr int K = 45, SYM = 45;
-  const float* W;
+  const T* W;
   const int* pnt_idx;
   const float* hpp_inv;
   long long n;
@@ -113,9 +118,10 @@ struct ProdWcw81 {
 
 // [W C W' upper (45) | W t (9)], C = Hpp_inv, t = Hpp_inv g_p of the row's
 // point (`_prod_wcw_rhs`).
+template <class T>
 struct ProdWcwRhs {
   static constexpr int K = 54, SYM = 45;
-  const float* W;
+  const T* W;
   const int* pnt_idx;
   const float* hpp_inv;
   const float* t;
@@ -132,9 +138,10 @@ struct ProdWcwRhs {
 };
 
 // W op (9), op a per-point 3-vector (`_prod_w_op`).
+template <class T>
 struct ProdWOp {
   static constexpr int K = 9, SYM = 0;
-  const float* W;
+  const T* W;
   const int* pnt_idx;
   const float* op;
   long long n;
@@ -192,6 +199,20 @@ int ba_launch_cam_prod(const Prod& prod, const int* cam_perm,
     BA_RETURN_IF_LAUNCH_FAILED();
   }
   return 0;
+}
+
+// ba_launch_cam_prod of Prod<T>{W, args...} for the storage type T of
+// ``w_dtype``.
+template <bool kPermuted, template <class> class Prod, class... Args>
+int ba_launch_w_prod(const void* W, int w_dtype, const int* cam_perm,
+                     const int* cam_starts, int ncams, float* out,
+                     void* stream, Args... args) {
+  return ba_with_w_type(w_dtype, [&](auto tag) {
+    using T = BA_W_TYPE(tag);
+    return ba_launch_cam_prod<kPermuted>(
+        Prod<T>{static_cast<const T*>(W), args...}, cam_perm, cam_starts,
+        ncams, out, stream);
+  });
 }
 
 }  // namespace

@@ -22,41 +22,50 @@
 // atomics, no camera table, so no bound on the camera count. K6's camera
 // products are the same template over a camera-sorted copy.
 //
-// Bound: reads each row's W (108 B) or Jc + r (80 B) once, gathered by
-// cam_perm, so each of a row's planes is a scattered 4 B load (147 MB of W
-// at Dubrovnik-356, 1.0 GB at Final-4585), plus the row's point operand
-// (12-48 B, cached); ~250 FMA a row for the 9x9 products, 27 for w_op.
+// W is read in its storage type (float, bf16 or f16: w_dtype, w_store.cuh)
+// and widened at the load; sums are float.
+//
+// Bound: reads each row's W (108 B in f32, 54 B in bf16 / f16) or Jc + r
+// (80 B) once, gathered by cam_perm, so each of a row's planes is a
+// scattered 4 or 2 B load (147 MB of f32 W at Dubrovnik-356, 1.0 GB at
+// Final-4585), plus the row's point operand (12-48 B, cached); ~250 FMA a
+// row for the 9x9 products, 27 for w_op.
 // The gathers, not the arithmetic, bound it: the camera-sorted K6 / K5
 // read the same bytes coalesced.
 #include "cam_prod.cuh"
 
-// W (27, n) planes; hpp_inv (npnts, 9); t (npnts, 3); out (ncams, 90).
-extern "C" int ba_cam_reduce_wcw_rhs(const float* W, const int* pnt_idx,
-                                     const int* cam_perm,
+// W (27, n) planes in storage w_dtype; hpp_inv (npnts, 9); t (npnts, 3);
+// out (ncams, 90).
+extern "C" int ba_cam_reduce_wcw_rhs(const void* W, int w_dtype,
+                                     const int* pnt_idx, const int* cam_perm,
                                      const int* cam_starts,
                                      const float* hpp_inv, const float* t,
                                      int ncams, long long n, float* out,
                                      void* stream) {
-  return ba_launch_cam_prod<true>(ProdWcwRhs{W, pnt_idx, hpp_inv, t, n},
-                                  cam_perm, cam_starts, ncams, out, stream);
+  return ba_launch_w_prod<true, ProdWcwRhs>(W, w_dtype, cam_perm, cam_starts,
+                                            ncams, out, stream, pnt_idx,
+                                            hpp_inv, t, n);
 }
 
-// W (27, n); op (npnts, 3); out (ncams, 9).
-extern "C" int ba_cam_reduce_w_op(const float* W, const int* pnt_idx,
-                                  const int* cam_perm, const int* cam_starts,
-                                  const float* op, int ncams, long long n,
-                                  float* out, void* stream) {
-  return ba_launch_cam_prod<true>(ProdWOp{W, pnt_idx, op, n}, cam_perm,
-                                  cam_starts, ncams, out, stream);
+// W (27, n) in storage w_dtype; op (npnts, 3); out (ncams, 9).
+extern "C" int ba_cam_reduce_w_op(const void* W, int w_dtype,
+                                  const int* pnt_idx, const int* cam_perm,
+                                  const int* cam_starts, const float* op,
+                                  int ncams, long long n, float* out,
+                                  void* stream) {
+  return ba_launch_w_prod<true, ProdWOp>(W, w_dtype, cam_perm, cam_starts,
+                                         ncams, out, stream, pnt_idx, op, n);
 }
 
-// W (27, n); hpp_inv (npnts, 9); out (ncams, 81).
-extern "C" int ba_cam_reduce_wcw(const float* W, const int* pnt_idx,
-                                 const int* cam_perm, const int* cam_starts,
-                                 const float* hpp_inv, int ncams, long long n,
-                                 float* out, void* stream) {
-  return ba_launch_cam_prod<true>(ProdWcw81{W, pnt_idx, hpp_inv, n},
-                                  cam_perm, cam_starts, ncams, out, stream);
+// W (27, n) in storage w_dtype; hpp_inv (npnts, 9); out (ncams, 81).
+extern "C" int ba_cam_reduce_wcw(const void* W, int w_dtype,
+                                 const int* pnt_idx, const int* cam_perm,
+                                 const int* cam_starts, const float* hpp_inv,
+                                 int ncams, long long n, float* out,
+                                 void* stream) {
+  return ba_launch_w_prod<true, ProdWcw81>(W, w_dtype, cam_perm, cam_starts,
+                                           ncams, out, stream, pnt_idx,
+                                           hpp_inv, n);
 }
 
 // JR (26, n) point-sorted; out (ncams, 90).

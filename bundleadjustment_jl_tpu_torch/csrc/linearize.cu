@@ -25,19 +25,26 @@
 // gathered loads (9 + 3 floats, mostly cached). K8's row data (pt2d, w,
 // the indices) are gathered through cam_perm too, its stores coalesced.
 //
-// Bound: K7 writes 53 floats = 212 B a row (288 MB at Dubrovnik-356,
-// n = 1,360,384) and reads ~32 B of problem data; ~300 FLOP a row. K8
-// writes 108 B a row (1.0 GB at Final-4585) and reads the same ~32 B,
-// scattered.
+// W is stored as float, bf16 or f16 (w_store.cuh; the TPU kernels'
+// `w_dtype`): computed in float, rounded once at the store. JR stays
+// float.
+//
+// Bound: K7 writes 53 floats = 212 B a row in f32 (288 MB at
+// Dubrovnik-356, n = 1,360,384; 158 B a row with a 2-byte W) and reads
+// ~32 B of problem data; ~300 FLOP a row. K8 writes 108 B a row in f32,
+// 54 B in bf16 / f16 (1.0 / 0.5 GB at Final-4585) and reads the same
+// ~32 B, scattered.
 #include "chain.cuh"
+#include "w_store.cuh"
 
 namespace {
 
+template <class T>
 __global__ void ba_linearize_kernel(
     const float* __restrict__ cams, const float* __restrict__ points,
     const float* __restrict__ pt2d, const float* __restrict__ w,
     const int* __restrict__ cam_idx, const int* __restrict__ pnt_idx,
-    long long n, float* __restrict__ JR, float* __restrict__ W) {
+    long long n, float* __restrict__ JR, T* __restrict__ W) {
   const long long row = (long long)blockIdx.x * BA_BLOCK + threadIdx.x;
   if (row >= n) return;
   const BaCam cam = ba_load_cam(cams + 9 * cam_idx[row]);
@@ -56,15 +63,17 @@ __global__ void ba_linearize_kernel(
   for (int a = 0; a < 9; ++a)
 #pragma unroll
     for (int b = 0; b < 3; ++b)
-      W[(3 * a + b) * n + row] = Jc[a] * Jp[b] + Jc[9 + a] * Jp[3 + b];
+      ba_stw(W, (3 * a + b) * n + row,
+             Jc[a] * Jp[b] + Jc[9 + a] * Jp[3 + b]);
 }
 
+template <class T>
 __global__ void ba_linearize_w_only_kernel(
     const float* __restrict__ cams, const float* __restrict__ points,
     const float* __restrict__ pt2d, const float* __restrict__ w,
     const int* __restrict__ cam_idx, const int* __restrict__ pnt_idx,
     const int* __restrict__ cam_perm, long long n,
-    float* __restrict__ W_cam) {
+    T* __restrict__ W_cam) {
   const long long j = (long long)blockIdx.x * BA_BLOCK + threadIdx.x;
   if (j >= n) return;
   const int row = cam_perm[j];
@@ -78,39 +87,48 @@ __global__ void ba_linearize_w_only_kernel(
   for (int a = 0; a < 9; ++a)
 #pragma unroll
     for (int b = 0; b < 3; ++b)
-      W_cam[(3 * a + b) * n + j] = Jc[a] * Jp[b] + Jc[9 + a] * Jp[3 + b];
+      ba_stw(W_cam, (3 * a + b) * n + j,
+             Jc[a] * Jp[b] + Jc[9 + a] * Jp[3 + b]);
 }
 
 }  // namespace
 
-// cams (ncams, 9); points (npnts, 3); JR (26, n) and W (27, n) out.
+// cams (ncams, 9); points (npnts, 3); JR (26, n) and W (27, n) out, W in
+// storage w_dtype (w_store.cuh).
 extern "C" int ba_linearize_rows(const float* cams, const float* points,
                                  const float* pt2d, const float* w,
                                  const int* cam_idx, const int* pnt_idx,
-                                 long long n, float* JR, float* W,
+                                 long long n, float* JR, void* W, int w_dtype,
                                  void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > 0) {
-    ba_linearize_kernel<<<(unsigned)((n + BA_BLOCK - 1) / BA_BLOCK),
-                          BA_BLOCK, 0, s>>>(cams, points, pt2d, w, cam_idx,
-                                            pnt_idx, n, JR, W);
+  if (n <= 0) return 0;
+  return ba_with_w_type(w_dtype, [&](auto tag) {
+    using T = BA_W_TYPE(tag);
+    ba_linearize_kernel<T><<<(unsigned)((n + BA_BLOCK - 1) / BA_BLOCK),
+                             BA_BLOCK, 0, s>>>(cams, points, pt2d, w,
+                                               cam_idx, pnt_idx, n, JR,
+                                               static_cast<T*>(W));
     BA_RETURN_IF_LAUNCH_FAILED();
-  }
-  return 0;
+    return 0;
+  });
 }
 
-// cams (ncams, 9); points (npnts, 3); W_cam (27, n) out, camera order.
+// cams (ncams, 9); points (npnts, 3); W_cam (27, n) out, camera order, in
+// storage w_dtype.
 extern "C" int ba_linearize_w_only(const float* cams, const float* points,
                                    const float* pt2d, const float* w,
                                    const int* cam_idx, const int* pnt_idx,
                                    const int* cam_perm, long long n,
-                                   float* W_cam, void* stream) {
+                                   void* W_cam, int w_dtype, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n > 0) {
-    ba_linearize_w_only_kernel<<<(unsigned)((n + BA_BLOCK - 1) / BA_BLOCK),
-                                 BA_BLOCK, 0, s>>>(
-        cams, points, pt2d, w, cam_idx, pnt_idx, cam_perm, n, W_cam);
+  if (n <= 0) return 0;
+  return ba_with_w_type(w_dtype, [&](auto tag) {
+    using T = BA_W_TYPE(tag);
+    ba_linearize_w_only_kernel<T>
+        <<<(unsigned)((n + BA_BLOCK - 1) / BA_BLOCK), BA_BLOCK, 0, s>>>(
+            cams, points, pt2d, w, cam_idx, pnt_idx, cam_perm, n,
+            static_cast<T*>(W_cam));
     BA_RETURN_IF_LAUNCH_FAILED();
-  }
-  return 0;
+    return 0;
+  });
 }

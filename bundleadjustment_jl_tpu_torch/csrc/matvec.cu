@@ -19,16 +19,21 @@
 // tile's W in VMEM between the two directions; here W is read once per
 // pass.
 //
+// W is read in its storage type (float, bf16 or f16: w_dtype, w_store.cuh)
+// and widened at the load; t, the sums and the fold are float.
+//
 // Bound: streams W twice, 2 x 108 B a row = 294 MB per product at
-// Dubrovnik-356 (n = 1,360,384); the camera pass's loads are gathered by
-// cam_perm. ~54 FMA a row.
+// Dubrovnik-356 (n = 1,360,384) in f32, half that in bf16 / f16; the least
+// traffic reads W once. The camera pass's loads are gathered by cam_perm.
+// ~54 FMA a row.
 #include "cam_prod.cuh"
 #include "wtv_point.cuh"
 
 namespace {
 
+template <class T>
 __global__ void ba_matvec_point_kernel(
-    const float* __restrict__ W, const float* __restrict__ v,
+    const T* __restrict__ W, const float* __restrict__ v,
     const int* __restrict__ cam_idx, const int* __restrict__ pnt_starts,
     const float* __restrict__ hpp_inv, const float* __restrict__ gp,
     float sign, int npnts, long long n, float* __restrict__ t) {
@@ -39,21 +44,25 @@ __global__ void ba_matvec_point_kernel(
 
 }  // namespace
 
-// W (27, n) planes; v (ncams, 9); hpp_inv (npnts, 9); gp (npnts, 3) or
-// null; t (npnts, 3) out; out (ncams, 9).
-extern "C" int ba_matvec(const float* W, const float* v, const int* cam_idx,
-                         const int* pnt_idx, const int* pnt_starts,
-                         const int* cam_perm, const int* cam_starts,
-                         const float* hpp_inv, const float* gp, float sign,
-                         int ncams, int npnts, long long n, float* t,
-                         float* out, void* stream) {
+// W (27, n) planes in storage w_dtype; v (ncams, 9); hpp_inv (npnts, 9);
+// gp (npnts, 3) or null; t (npnts, 3) out; out (ncams, 9).
+extern "C" int ba_matvec(const void* W, int w_dtype, const float* v,
+                         const int* cam_idx, const int* pnt_idx,
+                         const int* pnt_starts, const int* cam_perm,
+                         const int* cam_starts, const float* hpp_inv,
+                         const float* gp, float sign, int ncams, int npnts,
+                         long long n, float* t, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (npnts > 0) {
-    ba_matvec_point_kernel<<<(npnts + BA_BLOCK - 1) / BA_BLOCK, BA_BLOCK, 0,
-                             s>>>(W, v, cam_idx, pnt_starts, hpp_inv, gp,
-                                  sign, npnts, n, t);
-    BA_RETURN_IF_LAUNCH_FAILED();
-  }
-  return ba_launch_cam_prod<true>(ProdWOp{W, pnt_idx, t, n}, cam_perm,
-                                  cam_starts, ncams, out, stream);
+  return ba_with_w_type(w_dtype, [&](auto tag) {
+    using T = BA_W_TYPE(tag);
+    const T* Wt = static_cast<const T*>(W);
+    if (npnts > 0) {
+      ba_matvec_point_kernel<T>
+          <<<(npnts + BA_BLOCK - 1) / BA_BLOCK, BA_BLOCK, 0, s>>>(
+              Wt, v, cam_idx, pnt_starts, hpp_inv, gp, sign, npnts, n, t);
+      BA_RETURN_IF_LAUNCH_FAILED();
+    }
+    return ba_launch_cam_prod<true>(ProdWOp<T>{Wt, pnt_idx, t, n}, cam_perm,
+                                    cam_starts, ncams, out, stream);
+  });
 }

@@ -24,16 +24,21 @@
 // cam_perm. The TPU kernel's camera table, its pre-gathered (16, n)
 // operand and the (8, n) handoff layout have no counterpart.
 //
-// Bound: each direction streams W once, 108 B a row (147 MB at
-// Dubrovnik-356, n = 1,360,384), plus 4-8 B of indices; ~54 FMA a row.
+// W is read in its storage type (float, bf16 or f16: w_dtype, w_store.cuh)
+// and widened at the load; operands and sums are float.
+//
+// Bound: each direction streams W once, 108 B a row in f32, 54 B in bf16 /
+// f16 (147 / 73 MB at Dubrovnik-356, n = 1,360,384), plus 4-8 B of
+// indices; ~54 FMA a row.
 // The point direction's stride-(rows per point) loads are uncoalesced.
 #include "cam_prod.cuh"
 #include "wtv_point.cuh"
 
 namespace {
 
+template <class T>
 __global__ void ba_wtv_point_kernel(
-    const float* __restrict__ W, const float* __restrict__ v,
+    const T* __restrict__ W, const float* __restrict__ v,
     const int* __restrict__ cam_idx, const int* __restrict__ pnt_starts,
     const float* __restrict__ hpp_inv, const float* __restrict__ add,
     float sign, int npnts, long long n, float* __restrict__ out) {
@@ -44,28 +49,36 @@ __global__ void ba_wtv_point_kernel(
 
 }  // namespace
 
-// W (27, n) point-sorted; v (ncams, 9); hpp_inv (npnts, 9) or null;
-// add (npnts, 3) or null; out (npnts, 3).
-extern "C" int ba_wtv_point_reduce(const float* W, const float* v,
-                                   const int* cam_idx, const int* pnt_starts,
+// W (27, n) point-sorted, in storage w_dtype; v (ncams, 9); hpp_inv
+// (npnts, 9) or null; add (npnts, 3) or null; out (npnts, 3).
+extern "C" int ba_wtv_point_reduce(const void* W, int w_dtype,
+                                   const float* v, const int* cam_idx,
+                                   const int* pnt_starts,
                                    const float* hpp_inv, const float* add,
                                    float sign, int npnts, long long n,
                                    float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (npnts > 0) {
-    ba_wtv_point_kernel<<<(npnts + BA_BLOCK - 1) / BA_BLOCK, BA_BLOCK, 0,
-                          s>>>(W, v, cam_idx, pnt_starts, hpp_inv, add, sign,
-                               npnts, n, out);
-    BA_RETURN_IF_LAUNCH_FAILED();
-  }
-  return 0;
+  return ba_with_w_type(w_dtype, [&](auto tag) {
+    using T = BA_W_TYPE(tag);
+    if (npnts > 0) {
+      ba_wtv_point_kernel<T>
+          <<<(npnts + BA_BLOCK - 1) / BA_BLOCK, BA_BLOCK, 0, s>>>(
+              static_cast<const T*>(W), v, cam_idx, pnt_starts, hpp_inv, add,
+              sign, npnts, n, out);
+      BA_RETURN_IF_LAUNCH_FAILED();
+    }
+    return 0;
+  });
 }
 
-// W_cam (27, n) camera-sorted; t (npnts, 3); out (ncams, 9).
-extern "C" int ba_wt_cam_reduce(const float* W_cam, const float* t,
-                                const int* pnt_idx, const int* cam_perm,
-                                const int* cam_starts, int ncams,
-                                long long n, float* out, void* stream) {
-  return ba_launch_cam_prod<false>(ProdWOp{W_cam, pnt_idx, t, n}, cam_perm,
-                                   cam_starts, ncams, out, stream);
+// W_cam (27, n) camera-sorted, in storage w_dtype; t (npnts, 3); out
+// (ncams, 9).
+extern "C" int ba_wt_cam_reduce(const void* W_cam, int w_dtype,
+                                const float* t, const int* pnt_idx,
+                                const int* cam_perm, const int* cam_starts,
+                                int ncams, long long n, float* out,
+                                void* stream) {
+  return ba_launch_w_prod<false, ProdWOp>(W_cam, w_dtype, cam_perm,
+                                          cam_starts, ncams, out, stream,
+                                          pnt_idx, t, n);
 }

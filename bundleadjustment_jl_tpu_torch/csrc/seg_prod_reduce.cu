@@ -26,8 +26,9 @@
 // kernel's sequential grid and VMEM accumulator have no counterpart.
 //
 // Bound: each product reads its rows once: 32 B a row for jtj_pnt, 80 B
-// for jtj_cam, 108 B of W plus a gathered 24 B of Hpp_inv for wcw_cam
-// (147 MB of W at Dubrovnik-356); ~170 FMA a row for the 9x9 products.
+// for jtj_cam, 108 B of W (54 B stored as bf16 / f16, w_store.cuh) plus a
+// gathered 24 B of Hpp_inv for wcw_cam (147 MB of f32 W at Dubrovnik-356);
+// ~170 FMA a row for the 9x9 products.
 #include "cam_prod.cuh"
 
 namespace {
@@ -85,11 +86,14 @@ extern "C" int ba_jtj_cam_reduce(const float* JR_cam, const int* cam_perm,
                                    cam_starts, ncams, out, stream);
 }
 
-// W_cam (27, n) camera-sorted; hpp_inv (npnts, 9); out (ncams, 81).
-extern "C" int ba_wcw_cam_reduce(const float* W_cam, const int* pnt_idx,
-                                 const int* cam_perm, const int* cam_starts,
-                                 const float* hpp_inv, int ncams, long long n,
-                                 float* out, void* stream) {
-  return ba_launch_cam_prod<false>(ProdWcw81{W_cam, pnt_idx, hpp_inv, n},
-                                   cam_perm, cam_starts, ncams, out, stream);
+// W_cam (27, n) camera-sorted, in storage w_dtype; hpp_inv (npnts, 9);
+// out (ncams, 81).
+extern "C" int ba_wcw_cam_reduce(const void* W_cam, int w_dtype,
+                                 const int* pnt_idx, const int* cam_perm,
+                                 const int* cam_starts, const float* hpp_inv,
+                                 int ncams, long long n, float* out,
+                                 void* stream) {
+  return ba_launch_w_prod<false, ProdWcw81>(W_cam, w_dtype, cam_perm,
+                                            cam_starts, ncams, out, stream,
+                                            pnt_idx, hpp_inv, n);
 }

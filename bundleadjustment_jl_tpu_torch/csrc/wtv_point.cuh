@@ -6,12 +6,15 @@
 //   out = sign * Hpp_inv_p s   (sign * s when hpp_inv is null)
 //
 // One thread per point walks that point's contiguous rows (pnt_starts).
+// W is read in its storage type T (w_store.cuh) and widened at the load.
 #pragma once
 
 #include "chain.cuh"
+#include "w_store.cuh"
 
+template <class T>
 __device__ __forceinline__ void ba_wtv_point(
-    int p, const float* __restrict__ W, const float* __restrict__ v,
+    int p, const T* __restrict__ W, const float* __restrict__ v,
     const int* __restrict__ cam_idx, const int* __restrict__ pnt_starts,
     const float* __restrict__ hpp_inv, const float* __restrict__ add,
     float sign, long long n, float* __restrict__ out) {
@@ -23,7 +26,8 @@ __device__ __forceinline__ void ba_wtv_point(
     for (int b = 0; b < 3; ++b) {
       float acc = 0.f;
 #pragma unroll
-      for (int a = 0; a < 9; ++a) acc += W[(3 * a + b) * n + row] * vc[a];
+      for (int a = 0; a < 9; ++a)
+        acc += ba_ldw(W, (3 * a + b) * n + row) * vc[a];
       s[b] += acc;
     }
   }

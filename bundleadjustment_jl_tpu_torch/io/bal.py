@@ -52,7 +52,7 @@ def _read_raw(path: str):
 
 
 def read_bal(path: str, dtype=torch.float64, pad_obs_to: int = 128,
-             name: str | None = None, device="cpu") -> BAProblem:
+             name: str | None = None, device="cuda") -> BAProblem:
     """Read a BAL ``.txt`` / ``.txt.bz2`` file into a :class:`BAProblem`."""
     cam_idx, pnt_idx, pt2d, cams_file, points = _read_raw(path)
     # (r, t, f, k1, k2) -> (r, t, k1, k2, f)
@@ -100,7 +100,7 @@ FIXTURE_TRUE_RESIDUALS = np.array([
 
 
 def load_fixture(dtype=torch.float64, pad_obs_to: int = 8,
-                 device="cpu") -> BAProblem:
+                 device="cuda") -> BAProblem:
     """The reference's 5-observation golden problem."""
     x = np.array(_FIXTURE_X, dtype=np.float64)
     points = x[:3].reshape(1, 3)

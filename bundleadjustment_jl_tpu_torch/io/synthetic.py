@@ -47,7 +47,7 @@ def synthetic_bal(ncams: int = 16, npnts: int = 256, obs_per_pnt: int = 4,
                   seed: int = 0, dtype=torch.float64, pad_obs_to: int = 128,
                   name: str | None = None,
                   cam_window: int | float | None = None,
-                  device="cpu") -> tuple[BAProblem, dict]:
+                  device="cuda") -> tuple[BAProblem, dict]:
     """Generate a synthetic BA problem -> ``(problem, truth)``; ``truth``
     holds the ground-truth ``cams``/``points`` (numpy) and the objective
     at the truth. Arguments as in the JAX package, plus ``device``."""

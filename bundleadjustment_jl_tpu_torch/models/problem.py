@@ -83,7 +83,7 @@ class BAProblem:
     @classmethod
     def from_arrays(cls, cams, points, cam_idx, pnt_idx, pt2d,
                     dtype=torch.float64, pad_obs_to: int = 128,
-                    name: str = "ba", device="cpu") -> "BAProblem":
+                    name: str = "ba", device="cuda") -> "BAProblem":
         """Build a padded, point-sorted problem from host arrays (0-based
         indices), as `BAProblem.from_arrays` of the JAX package does."""
         ndt = np_dtype(dtype)
@@ -124,7 +124,7 @@ class BAProblem:
             device=device)
 
     @classmethod
-    def from_numpy(cls, fields: Mapping[str, Any], device="cpu",
+    def from_numpy(cls, fields: Mapping[str, Any], device="cuda",
                    dtype=None) -> "BAProblem":
         """A problem from numpy arrays in the sorted, padded layout —
         e.g. ``{k: np.asarray(getattr(jax_problem, k)) for k in

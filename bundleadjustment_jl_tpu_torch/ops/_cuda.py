@@ -9,9 +9,16 @@ without ``nvcc``, or when the compiler fails, the loader raises with the
 compiler's output.
 
 Each kernel wrapper (``ops/fused_assemble.py``, ``ops/fused_schur.py``,
-``ops/linearize.py``, ``ops/seg_reduce.py``) counts its launches in
-:data:`LAUNCHES` — one per wrapper call that launches the kernel — so a
-run can show which kernels it went through.
+``ops/linearize.py``, ``ops/seg_reduce.py``, ``ops/stream_probe.py``)
+counts its launches in :data:`LAUNCHES` through :func:`launched` — one
+per wrapper call that launches the kernel — so a run can show which
+kernels it went through; the W kernels' launches are also counted by W's
+storage dtype in :data:`W_LAUNCHES`.
+
+The per-observation W blocks may be stored as float32, bfloat16 or float16
+(``facto_dtype``): a wrapper passes the storage as a code of
+:data:`W_CODES`, and the kernel launches its instantiation for that type
+(``csrc/w_store.cuh``).
 """
 
 from __future__ import annotations
@@ -38,18 +45,41 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # One key per kernel form: K1 assemble; K2 cam_reduce (its `_prod_wcw_rhs`
 # form) and cam_reduce_{w_op,wcw81,cam90}; K3 matvec; K4 objective; K7
 # linearize; K8 linearize_w_only; K6 seg_prod_* (one key per product); K5
-# seg_block_* (one key per direction). Which route runs which:
-# `solver/lm_jit.py:kernel_route`.
+# seg_block_* (one key per direction); K9 stream_probe. Which route runs
+# which: `ops/normal.py:kernel_route`; K9 runs on the measurement path
+# (`bench.py`, `mv_sweep.py` of this package).
 LAUNCHES = {"assemble": 0, "cam_reduce": 0, "cam_reduce_w_op": 0,
             "cam_reduce_wcw81": 0, "cam_reduce_cam90": 0, "matvec": 0,
             "objective": 0, "linearize": 0, "linearize_w_only": 0,
             "seg_prod_pnt12": 0, "seg_prod_cam90": 0, "seg_prod_wcw81": 0,
-            "seg_block_point": 0, "seg_block_camera": 0}
+            "seg_block_point": 0, "seg_block_camera": 0, "stream_probe": 0}
+
+# Storage dtypes of W and their codes in the C entry points
+# (`csrc/w_store.cuh`).
+W_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+W_DTYPES = tuple(W_CODES)
+# The kernel forms that write W and those that read it (LAUNCHES keys).
+W_WRITERS = ("assemble", "linearize", "linearize_w_only")
+W_READERS = ("cam_reduce", "cam_reduce_w_op", "cam_reduce_wcw81", "matvec",
+             "seg_prod_wcw81", "seg_block_point", "seg_block_camera")
+# Launches of the W_WRITERS and W_READERS forms by the storage dtype of the
+# W each wrote or read, so a run can show that W went to the kernels narrow
+# (`solver/lm_jit.py:expected_w_launches`).
+W_LAUNCHES = dict.fromkeys(W_DTYPES, 0)
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, W_LAUNCHES):
+        for k in counts:
+            counts[k] = 0
+
+
+def launched(key: str, w: torch.Tensor | None = None) -> None:
+    """Count one launch of kernel form ``key``; ``w``: the W it wrote or
+    read, counted in :data:`W_LAUNCHES` under its dtype."""
+    LAUNCHES[key] += 1
+    if w is not None:
+        W_LAUNCHES[w.dtype] += 1
 
 
 def _sources() -> list[Path]:
@@ -122,21 +152,23 @@ def build() -> Path:
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)
+# Every W pointer is followed by its storage code (W_CODES).
 _SIGNATURES = {
-    "ba_assemble": [_P] * 9 + [_I, _I, _I64] + [_P] * 6,
-    "ba_cam_reduce_wcw_rhs": [_P] * 6 + [_I, _I64, _P, _P],
-    "ba_cam_reduce_w_op": [_P] * 5 + [_I, _I64, _P, _P],
-    "ba_cam_reduce_wcw": [_P] * 5 + [_I, _I64, _P, _P],
+    "ba_assemble": [_P] * 9 + [_I, _I, _I64, _P, _I] + [_P] * 5,
+    "ba_cam_reduce_wcw_rhs": [_P, _I] + [_P] * 5 + [_I, _I64, _P, _P],
+    "ba_cam_reduce_w_op": [_P, _I] + [_P] * 4 + [_I, _I64, _P, _P],
+    "ba_cam_reduce_wcw": [_P, _I] + [_P] * 4 + [_I, _I64, _P, _P],
     "ba_cam_reduce_cam90": [_P] * 3 + [_I, _I64, _P, _P],
-    "ba_matvec": [_P] * 9 + [_F, _I, _I, _I64, _P, _P, _P],
+    "ba_matvec": [_P, _I] + [_P] * 8 + [_F, _I, _I, _I64, _P, _P, _P],
     "ba_objective": [_P] * 6 + [_I, _I, _I, _I64, _P, _P, _P],
-    "ba_linearize_rows": [_P] * 6 + [_I64, _P, _P, _P],
-    "ba_linearize_w_only": [_P] * 7 + [_I64, _P, _P],
+    "ba_linearize_rows": [_P] * 6 + [_I64, _P, _P, _I, _P],
+    "ba_linearize_w_only": [_P] * 7 + [_I64, _P, _I, _P],
     "ba_jtj_pnt_reduce": [_P, _P, _I, _I64, _P, _P],
     "ba_jtj_cam_reduce": [_P, _P, _P, _I, _I64, _P, _P],
-    "ba_wcw_cam_reduce": [_P] * 5 + [_I, _I64, _P, _P],
-    "ba_wtv_point_reduce": [_P] * 6 + [_F, _I, _I64, _P, _P],
-    "ba_wt_cam_reduce": [_P] * 5 + [_I, _I64, _P, _P],
+    "ba_wcw_cam_reduce": [_P, _I] + [_P] * 4 + [_I, _I64, _P, _P],
+    "ba_wtv_point_reduce": [_P, _I] + [_P] * 5 + [_F, _I, _I64, _P, _P],
+    "ba_wt_cam_reduce": [_P, _I] + [_P] * 4 + [_I, _I64, _P, _P],
+    "ba_stream_probe": [_P] * 3 + [_I, _I64, _I, _P, _P, _P],
 }
 
 
@@ -150,6 +182,8 @@ def lib() -> ctypes.CDLL:
         fn.restype = ctypes.c_int
     so.ba_objective_blocks.argtypes = [_I64]
     so.ba_objective_blocks.restype = ctypes.c_int64
+    so.ba_stream_probe_blocks.argtypes = [_I64]
+    so.ba_stream_probe_blocks.restype = ctypes.c_int
     so.ba_error_string.argtypes = [_I]
     so.ba_error_string.restype = ctypes.c_char_p
     return so
@@ -170,20 +204,31 @@ def check(rc: int, name: str) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} ({msg})")
 
 
-def require(t: torch.Tensor, name: str, dtype: torch.dtype,
+def require(t: torch.Tensor, name: str,
+            dtype: torch.dtype | tuple[torch.dtype, ...],
             shape: tuple | None = None) -> None:
-    """Validate a kernel operand: on CUDA, of ``dtype``, contiguous, and
-    (when given) of ``shape``."""
+    """Validate a kernel operand: on CUDA, of ``dtype`` (or one of a tuple
+    of them, e.g. :data:`W_DTYPES` for a W operand), contiguous, and (when
+    given) of ``shape``."""
     if not t.is_cuda:
         raise ValueError(f"{name}: expected a CUDA tensor, got {t.device}")
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: the CUDA kernels take {dtype}, got "
-                        f"{t.dtype} (float64 runs on the CPU path only)")
+    allowed = dtype if isinstance(dtype, tuple) else (dtype,)
+    if t.dtype not in allowed:
+        raise TypeError(f"{name}: the CUDA kernels take "
+                        f"{' or '.join(map(str, allowed))}, got {t.dtype} "
+                        f"(float64 runs on the CPU path only)")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if shape is not None and tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name}: expected shape {tuple(shape)}, got "
                          f"{tuple(t.shape)}")
+
+
+def w_code(t: torch.Tensor, name: str, shape: tuple) -> int:
+    """Validate a W operand (:func:`require` over :data:`W_DTYPES`) and
+    return its storage code."""
+    require(t, name, W_DTYPES, shape)
+    return W_CODES[t.dtype]
 
 
 def require_problem(problem) -> None:

@@ -10,7 +10,8 @@ kernels against on the card.
 
 W travels as structure-of-arrays ``W_t`` (27, nobs_pad), row ``3a+b``
 holding ``W[a, b]`` of ``W_k = Jc_k' Jp_k`` — the JAX package's
-``W_t[:27]``.
+``W_t[:27]`` — stored in ``w_dtype``: float32 or, with ``facto_dtype``,
+bfloat16 or float16 (computed in float32, rounded once at the store).
 """
 
 from __future__ import annotations
@@ -23,18 +24,19 @@ from bundleadjustment_jl_tpu_torch.ops.chain import linearize, project_residual
 
 
 def assemble_scatter(problem: BAProblem, cams: torch.Tensor,
-                     points: torch.Tensor):
-    """Linearize at (cams, points) and assemble -> ``(W_t (27, n),
-    hp12 (npnts, 12) = [Hpp | g_p], hc90 (ncams, 90) = [Hcc | g_c],
-    obj ())``."""
+                     points: torch.Tensor, w_dtype: torch.dtype | None = None):
+    """Linearize at (cams, points) and assemble -> ``(W_t (27, n) in
+    ``w_dtype`` (default: that of ``cams``), hp12 (npnts, 12) = [Hpp |
+    g_p], hc90 (ncams, 90) = [Hcc | g_c], obj ())``."""
     if not cams.is_cuda:
-        return _assemble_plain(problem, cams, points)
+        return _assemble_plain(problem, cams, points, w_dtype)
     n, nc, npt = problem.nobs_pad, problem.ncams, problem.npnts
     _cuda.require(cams, "cams", torch.float32, (nc, 9))
     _cuda.require(points, "points", torch.float32, (npt, 3))
     _cuda.require_problem(problem)
     dev = cams.device
-    W_t = torch.empty((27, n), dtype=torch.float32, device=dev)
+    W_t = torch.empty((27, n), dtype=w_dtype or torch.float32, device=dev)
+    code = _cuda.w_code(W_t, "W_t", (27, n))
     hp12 = torch.empty((npt, 12), dtype=torch.float32, device=dev)
     hc90 = torch.empty((nc, 90), dtype=torch.float32, device=dev)
     obj_part = torch.empty((nc,), dtype=torch.float32, device=dev)
@@ -44,16 +46,17 @@ def assemble_scatter(problem: BAProblem, cams: torch.Tensor,
         _cuda.ptr(cams), _cuda.ptr(points), _cuda.ptr(p.pt2d), _cuda.ptr(p.w),
         _cuda.ptr(p.cam_idx), _cuda.ptr(p.pnt_idx), _cuda.ptr(p.pnt_starts),
         _cuda.ptr(p.cam_perm), _cuda.ptr(p.cam_starts), nc, npt, n,
-        _cuda.ptr(W_t), _cuda.ptr(hp12), _cuda.ptr(hc90),
+        _cuda.ptr(W_t), code, _cuda.ptr(hp12), _cuda.ptr(hc90),
         _cuda.ptr(obj_part), _cuda.ptr(obj), _cuda.stream())
     _cuda.check(rc, "ba_assemble")
-    _cuda.LAUNCHES["assemble"] += 1
+    _cuda.launched("assemble", W_t)
     return W_t, hp12, hc90, obj[0]
 
 
-def _assemble_plain(problem: BAProblem, cams, points):
+def _assemble_plain(problem: BAProblem, cams, points, w_dtype=None):
     """Plain version of :func:`assemble_scatter`: batched einsums and
-    ``index_add_`` segment sums (the JAX package's XLA assembly)."""
+    ``index_add_`` segment sums (the JAX package's XLA assembly); W
+    rounded to ``w_dtype`` at the end."""
     ci = problem.cam_idx.long()
     pi = problem.pnt_idx.long()
     r, Jc, Jp = linearize(cams[ci], points[pi], problem.pt2d, problem.w)
@@ -66,7 +69,8 @@ def _assemble_plain(problem: BAProblem, cams, points):
                        device=hp.device).index_add_(0, pi, hp)
     hc90 = torch.zeros((problem.ncams, 90), dtype=hc.dtype,
                        device=hc.device).index_add_(0, ci, hc)
-    return W_t.contiguous(), hp12, hc90, 0.5 * torch.sum(r * r)
+    return (W_t.to(w_dtype or W_t.dtype).contiguous(), hp12, hc90,
+            0.5 * torch.sum(r * r))
 
 
 def objective_scatter(problem: BAProblem, cams_all: torch.Tensor,
@@ -91,7 +95,7 @@ def objective_scatter(problem: BAProblem, cams_all: torch.Tensor,
         _cuda.ptr(p.w), _cuda.ptr(p.cam_idx), _cuda.ptr(p.pnt_idx), S, nc,
         npt, n, _cuda.ptr(partials), _cuda.ptr(out), _cuda.stream())
     _cuda.check(rc, "ba_objective")
-    _cuda.LAUNCHES["objective"] += 1
+    _cuda.launched("objective")
     return out
 
 

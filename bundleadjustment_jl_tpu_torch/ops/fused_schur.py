@@ -5,7 +5,9 @@ Same device rule as `ops/fused_assemble.py`: CUDA float32 tensors launch
 the hand-written kernels (``csrc/cam_reduce.cu``, ``csrc/matvec.cu``), CPU
 tensors take the plain PyTorch version beside each wrapper, CUDA float64
 raises. ``W_t`` is the (27, nobs_pad) structure-of-arrays W of the
-assembly (row ``3a+b`` = ``W[a, b]``) and ``JR_t`` the (26, nobs_pad)
+assembly (row ``3a+b`` = ``W[a, b]``), stored as float32, bfloat16 or
+float16 (the kernel reads that type and widens at the load; the plain
+versions widen it first), and ``JR_t`` the (26, nobs_pad) float32
 linearization of `ops/linearize.py`, both in the point-sorted row order;
 per-point operands are flat (npnts*9,) / (npnts*3,) or (npnts, 3).
 
@@ -34,16 +36,18 @@ from bundleadjustment_jl_tpu_torch.ops.seg_reduce import (
 
 
 def _cam_reduce(fn: str, key: str, x: torch.Tensor, problem: BAProblem,
-                d_out: int, *args) -> torch.Tensor:
+                d_out: int, *args, w: torch.Tensor | None = None
+                ) -> torch.Tensor:
     """Launch the K2 form ``fn`` -> (ncams, d_out); ``args`` go between
-    the row-order arrays and the sizes, as in its C signature."""
+    the row-order arrays and the sizes, as in its C signature; ``w``: the
+    W it reads (:func:`_cuda.launched`)."""
     _cuda.require_problem(problem)
     out = torch.empty((problem.ncams, d_out), dtype=torch.float32,
                       device=x.device)
     rc = getattr(_cuda.lib(), fn)(*args, problem.ncams, problem.nobs_pad,
                                   _cuda.ptr(out), _cuda.stream())
     _cuda.check(rc, fn)
-    _cuda.LAUNCHES[key] += 1
+    _cuda.launched(key, w)
     return out
 
 
@@ -55,13 +59,13 @@ def cam_reduce_wcw_rhs(W_t: torch.Tensor, problem: BAProblem,
     if not W_t.is_cuda:
         return _cam_reduce_wcw_rhs_plain(W_t, problem, hpp_inv_f, t)
     p, npt = problem, problem.npnts
-    _cuda.require(W_t, "W_t", torch.float32, (27, p.nobs_pad))
+    code = _cuda.w_code(W_t, "W_t", (27, p.nobs_pad))
     _cuda.require(hpp_inv_f, "hpp_inv_f", torch.float32, (npt * 9,))
     _cuda.require(t, "t", torch.float32, (npt, 3))
     return _cam_reduce(
         "ba_cam_reduce_wcw_rhs", "cam_reduce", W_t, p, 90, _cuda.ptr(W_t),
-        _cuda.ptr(p.pnt_idx), _cuda.ptr(p.cam_perm), _cuda.ptr(p.cam_starts),
-        _cuda.ptr(hpp_inv_f), _cuda.ptr(t))
+        code, _cuda.ptr(p.pnt_idx), _cuda.ptr(p.cam_perm), _cuda.ptr(p.cam_starts),
+        _cuda.ptr(hpp_inv_f), _cuda.ptr(t), w=W_t)
 
 
 def _cam_reduce_wcw_rhs_plain(W_t, problem, hpp_inv_f, t):
@@ -78,12 +82,12 @@ def cam_reduce_w_op(W_t: torch.Tensor, problem: BAProblem,
     if not W_t.is_cuda:
         return _cam_reduce_w_op_plain(W_t, problem, op)
     p = problem
-    _cuda.require(W_t, "W_t", torch.float32, (27, p.nobs_pad))
+    code = _cuda.w_code(W_t, "W_t", (27, p.nobs_pad))
     _cuda.require(op, "op", torch.float32, (p.npnts, 3))
     return _cam_reduce(
         "ba_cam_reduce_w_op", "cam_reduce_w_op", W_t, p, 9, _cuda.ptr(W_t),
-        _cuda.ptr(p.pnt_idx), _cuda.ptr(p.cam_perm), _cuda.ptr(p.cam_starts),
-        _cuda.ptr(op))
+        code, _cuda.ptr(p.pnt_idx), _cuda.ptr(p.cam_perm), _cuda.ptr(p.cam_starts),
+        _cuda.ptr(op), w=W_t)
 
 
 def _cam_reduce_w_op_plain(W_t, problem, op):
@@ -98,12 +102,12 @@ def cam_reduce_wcw(W_t: torch.Tensor, problem: BAProblem,
     if not W_t.is_cuda:
         return _cam_reduce_wcw_plain(W_t, problem, hpp_inv_f)
     p = problem
-    _cuda.require(W_t, "W_t", torch.float32, (27, p.nobs_pad))
+    code = _cuda.w_code(W_t, "W_t", (27, p.nobs_pad))
     _cuda.require(hpp_inv_f, "hpp_inv_f", torch.float32, (p.npnts * 9,))
     return _cam_reduce(
         "ba_cam_reduce_wcw", "cam_reduce_wcw81", W_t, p, 81, _cuda.ptr(W_t),
-        _cuda.ptr(p.pnt_idx), _cuda.ptr(p.cam_perm), _cuda.ptr(p.cam_starts),
-        _cuda.ptr(hpp_inv_f))
+        code, _cuda.ptr(p.pnt_idx), _cuda.ptr(p.cam_perm), _cuda.ptr(p.cam_starts),
+        _cuda.ptr(hpp_inv_f), w=W_t)
 
 
 def _cam_reduce_wcw_plain(W_t, problem, hpp_inv_f):
@@ -142,7 +146,7 @@ def matvec_cam_scatter(W_t: torch.Tensor, v: torch.Tensor,
         out, t = _matvec_plain(W_t, v, problem, hpp_inv_f, gp_f, sign)
         return (out, t) if with_dp else out
     n, nc, npt = problem.nobs_pad, problem.ncams, problem.npnts
-    _cuda.require(W_t, "W_t", torch.float32, (27, n))
+    code = _cuda.w_code(W_t, "W_t", (27, n))
     _cuda.require(v, "v", torch.float32, (nc, 9))
     _cuda.require(hpp_inv_f, "hpp_inv_f", torch.float32, (npt * 9,))
     if gp_f is not None:
@@ -152,13 +156,13 @@ def matvec_cam_scatter(W_t: torch.Tensor, v: torch.Tensor,
     out = torch.empty((nc, 9), dtype=torch.float32, device=W_t.device)
     p = problem
     rc = _cuda.lib().ba_matvec(
-        _cuda.ptr(W_t), _cuda.ptr(v), _cuda.ptr(p.cam_idx),
+        _cuda.ptr(W_t), code, _cuda.ptr(v), _cuda.ptr(p.cam_idx),
         _cuda.ptr(p.pnt_idx), _cuda.ptr(p.pnt_starts), _cuda.ptr(p.cam_perm),
         _cuda.ptr(p.cam_starts), _cuda.ptr(hpp_inv_f), _cuda.ptr(gp_f),
         float(sign), nc, npt, n, _cuda.ptr(t), _cuda.ptr(out),
         _cuda.stream())
     _cuda.check(rc, "ba_matvec")
-    _cuda.LAUNCHES["matvec"] += 1
+    _cuda.launched("matvec", W_t)
     return (out, t) if with_dp else out
 
 

@@ -21,7 +21,7 @@ from bundleadjustment_jl_tpu_torch.ops.linearize import (
 from bundleadjustment_jl_tpu_torch.ops.seg_reduce import (
     jtj_cam_reduce, jtj_pnt_reduce)
 
-# The kernel routes (`solver/lm_jit.py:kernel_route` picks one per solve):
+# The kernel routes (`kernel_route` below picks one per solve):
 #   "fused"         A: K1 assembly; K2 + K3 read W through cam_perm.
 #   "sorted"        C: K7, K6 over a camera-sorted copy of JR, W_cam_t a
 #                   camera-sorted copy of W; K6 / K5 downstream.
@@ -30,6 +30,62 @@ from bundleadjustment_jl_tpu_torch.ops.seg_reduce import (
 #   "sorted_relin"  B2: B1's assembly plus W_cam_t re-linearized in the
 #                   camera order (K8); K6 / K5 downstream, as on C.
 ROUTES = ("fused", "sorted", "scatter_split", "sorted_relin")
+
+# `kernel_route` reads the switch and the gates below once per call of
+# `solver/lm_jit.py:levenberg_marquardt_jit` (one solve never mixes
+# routes), as the JAX package's `_assemble_kminor` and `ops/schur.py` read
+# theirs; `ops/schur.py` reads GATHER_TABLE_MAX_CAMS too. The trial
+# objectives run on K4 on every route.
+#
+# CAM_SCATTER is the JAX package's `pallas_schur.CAM_SCATTER` and the CLI's
+# `--cam-scatter`: camera sums over the point-sorted rows (routes A, B1)
+# rather than over camera-sorted copies (C, B2). The JAX default is off
+# (env BA_CAM_SCATTER); the fused route is the configuration bench.py
+# measures, so the port's default is on.
+CAM_SCATTER = True
+
+# The JAX package's three size gates (`ops/pallas_schur.py`), with its
+# values. Each value was chosen on a TPU (VMEM tables, tile padding);
+# whether it picks the faster route on the H100 is recorded in PERF.md.
+#
+# GATHER_TABLE_MAX_CAMS: the largest camera count whose camera vector the
+# TPU's fused kernels (K1, K3) hold as a VMEM table. Above it the camera
+# scatter splits: K7 + K2 assembly and the two-pass matvec (route B1).
+GATHER_TABLE_MAX_CAMS = 2048
+# CAM_SCATTER_MAX_CAMS: the TPU camera scatter's one-hot work grows with the
+# camera count; above this count camera scatter is off whatever CAM_SCATTER
+# says.
+CAM_SCATTER_MAX_CAMS = 16384
+# GATHER_DIRECT_MAX_BYTES: the huge-n test, nobs_pad * 512 B (one row
+# tile-padded to 128 f32 lanes on the TPU) above this many bytes. There,
+# with camera scatter off, the JAX package builds no camera-sorted JR copy
+# (K2 sums [Hcc | g_c]) and re-linearizes W in the camera order (K8) in
+# place of permuting it (route B2).
+GATHER_DIRECT_MAX_BYTES = 4 << 30
+
+
+def kernel_route(problem: BAProblem) -> str:
+    """The kernel route the JAX package takes for ``problem`` under the
+    switch and gates above (`normal.py:_assemble_kminor`,
+    `pallas_schur.cam_scatter_ok`)."""
+    if CAM_SCATTER and problem.ncams <= CAM_SCATTER_MAX_CAMS:
+        return ("fused" if problem.ncams <= GATHER_TABLE_MAX_CAMS
+                else "scatter_split")
+    huge = problem.nobs_pad * 128 * 4 > GATHER_DIRECT_MAX_BYTES
+    return "sorted_relin" if huge else "sorted"
+
+
+# Settings of the switch and gates above (attributes of this module) that
+# make `kernel_route` pick each route at any problem size (the JAX package's
+# `pallas_schur` takes the same attributes to the same route).
+FORCE_ROUTE = {
+    "fused": dict(CAM_SCATTER=True, GATHER_TABLE_MAX_CAMS=1 << 62,
+                  CAM_SCATTER_MAX_CAMS=1 << 62),
+    "scatter_split": dict(CAM_SCATTER=True, GATHER_TABLE_MAX_CAMS=0,
+                          CAM_SCATTER_MAX_CAMS=1 << 62),
+    "sorted": dict(CAM_SCATTER=False, GATHER_DIRECT_MAX_BYTES=1 << 62),
+    "sorted_relin": dict(CAM_SCATTER=False, GATHER_DIRECT_MAX_BYTES=0),
+}
 
 
 class GNBlocks(NamedTuple):
@@ -43,9 +99,15 @@ class GNBlocks(NamedTuple):
     # (27, nobs_pad) W_t[:, cam_perm] on routes C and B2; None on routes A
     # and B1, whose kernels read W_t through cam_perm.
     W_cam_t: torch.Tensor | None = None
-    # The kernel route that assembled the blocks (one of ROUTES); None for
-    # blocks built by hand: see `ops/schur.py:route_of`.
-    route: str | None = None
+    # The kernel route that assembled the blocks (one of ROUTES), on which
+    # `ops/schur.py` dispatches.
+    route: str = "fused"
+    # Range scale of a float16-stored W (`facto_dtype`, the JAX package's
+    # `GNBlocks.w_scale`): W_t and W_cam_t hold ``s * W`` with ``s`` a power
+    # of two (a 0-d tensor on the device) that puts max|W| near 2^14;
+    # `ops/schur.py` hats Hpp_inv by 1/s^2 and g_p by s and unscales dp.
+    # None = 1 (float32 or bfloat16 storage).
+    w_scale: torch.Tensor | None = None
 
     @property
     def g_c(self):
@@ -60,32 +122,35 @@ class GNBlocks(NamedTuple):
         return self.Hcc_f.reshape(-1, 9, 9)
 
 
-def assemble_blocks(problem: BAProblem, cams=None, points=None,
-                    cam_scatter: bool = True, *,
-                    route: str | None = None) -> GNBlocks:
+def assemble_blocks(problem: BAProblem, cams=None, points=None, *,
+                    route: str = "fused",
+                    w_dtype: torch.dtype | None = None) -> GNBlocks:
     """Linearize at (cams, points) and assemble the blocks on ``route``
-    (one of :data:`ROUTES`; by default ``"fused"``, or ``"sorted"`` with
-    ``cam_scatter=False``), as `_assemble_kminor` of the JAX package does:
+    (one of :data:`ROUTES`), as `_assemble_kminor` of the JAX package does,
+    W written in ``w_dtype`` (default: the working dtype; bfloat16 with
+    ``facto_dtype=bfloat16``, as `_w_assemble_dtype` of the JAX solver
+    gives it; float16 is never written raw, see
+    `solver/lm_jit.py:maybe_cast_facto`):
 
     - ``"fused"``: one K1 launch;
     - the others: K7 linearizes into ``JR_t`` and ``W_t`` and K6 sums
       ``[Hpp | g_p]`` over the point-sorted rows. ``"sorted"``: K6 sums
       ``[Hcc | g_c]`` over the camera-sorted copy of ``JR_t`` and the
-      blocks carry ``W_cam_t = W_t[:, cam_perm]``. ``"scatter_split"``: K2
-      sums ``[Hcc | g_c]`` over the point-sorted ``JR_t`` and there is no
-      ``W_cam_t``. ``"sorted_relin"``: the same, plus ``W_cam_t`` from K8.
+      blocks carry ``W_cam_t = W_t[:, cam_perm]`` (taken in the storage
+      dtype). ``"scatter_split"``: K2 sums ``[Hcc | g_c]`` over the
+      point-sorted ``JR_t`` and there is no ``W_cam_t``. ``"sorted_relin"``:
+      the same, plus ``W_cam_t`` from K8.
     """
-    if route is None:
-        route = "fused" if cam_scatter else "sorted"
     if route not in ROUTES:
         raise ValueError(f"unknown kernel route {route!r}; one of {ROUTES}")
     cams = problem.cams if cams is None else cams
     points = problem.points if points is None else points
     if route == "fused":
-        W_t, hp12, hc90, obj = assemble_scatter(problem, cams, points)
+        W_t, hp12, hc90, obj = assemble_scatter(problem, cams, points,
+                                                w_dtype)
         W_cam_t = None
     else:
-        JR_t, W_t = linearize_w_kminor(problem, cams, points)
+        JR_t, W_t = linearize_w_kminor(problem, cams, points, w_dtype)
         obj = 0.5 * torch.sum(JR_t[R0:R0 + 2] ** 2)
         if route == "sorted":
             perm = problem.cam_perm.long()
@@ -93,7 +158,7 @@ def assemble_blocks(problem: BAProblem, cams=None, points=None,
             W_cam_t = W_t[:, perm]
         else:
             hc90 = cam_reduce_cam90(JR_t, problem)
-            W_cam_t = (linearize_w_only(problem, cams, points)
+            W_cam_t = (linearize_w_only(problem, cams, points, w_dtype)
                        if route == "sorted_relin" else None)
         hp12 = jtj_pnt_reduce(JR_t, problem)
     return GNBlocks(g_c_f=hc90[:, 81:90].reshape(-1),

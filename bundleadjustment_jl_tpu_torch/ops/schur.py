@@ -29,6 +29,16 @@ into ``SchurSystem.route``) and on whether they carry the camera-sorted
 Every camera-direction sum without ``W_cam_t`` takes K2 over the
 point-sorted W, with it the camera-sorted pass (the JAX package's
 ``cam_reduce_scatter_ok``).
+
+W may be stored in bfloat16 or float16 (``facto_dtype``). A float16 W holds
+``s W`` (``GNBlocks.w_scale``, a power of two), and the point space is
+hatted as in the JAX package: ``Hpp_inv / s^2`` and ``s g_p`` in the
+SchurSystem, so ``S`` and ``b`` are exact, the point step comes out as
+``dp / s`` and is unscaled at the back-substitution, and ``quad_form``'s
+cross term takes ``dp / s``. Where the JAX package rounds a per-row operand
+to bfloat16 beside a bfloat16 W, so does the port, in the same places
+(:func:`_cam_dir_reduce`, :func:`_point_dir_operand`), so both make the
+same decisions.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from typing import NamedTuple
 import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
+from bundleadjustment_jl_tpu_torch.ops import normal
 from bundleadjustment_jl_tpu_torch.ops.fused_schur import (
     cam_reduce_w_op, cam_reduce_wcw, cam_reduce_wcw_rhs, matvec_cam_scatter)
 from bundleadjustment_jl_tpu_torch.ops.normal import (
@@ -53,13 +64,14 @@ _CAM_SCATTER_ROUTES = ("fused", "scatter_split")
 class SchurSystem(NamedTuple):
     """The damped, point-eliminated camera system at one lambda."""
     Hcc_l_f: torch.Tensor    # (ncams*81,) damped camera blocks
-    Hpp_inv_f: torch.Tensor  # (npnts*9,) inverse damped point blocks
+    Hpp_inv_f: torch.Tensor  # (npnts*9,) inverse damped point blocks (/s^2)
     b_f: torch.Tensor        # (ncams*9,) reduced right-hand side
-    g_p_f: torch.Tensor      # (npnts*3,) point gradient
+    g_p_f: torch.Tensor      # (npnts*3,) point gradient (* s)
     W_t: torch.Tensor        # (27, nobs_pad)
     problem: BAProblem
     W_cam_t: torch.Tensor | None = None  # routes C and B2 only
-    route: str | None = None             # as GNBlocks.route
+    route: str = "fused"                 # as GNBlocks.route
+    w_scale: torch.Tensor | None = None  # as GNBlocks.w_scale
 
     @property
     def Hcc_l(self):
@@ -70,18 +82,13 @@ class SchurSystem(NamedTuple):
         return self.b_f.reshape(-1, 9)
 
 
-def route_of(x: GNBlocks | SchurSystem) -> str:
-    """The kernel route of ``x``: its ``route``; for blocks built by hand
-    (``route=None``) the camera-sorted route when they carry ``W_cam_t``,
-    else the fused route."""
-    if x.route is not None:
-        return x.route
-    return "sorted" if x.W_cam_t is not None else "fused"
-
-
 def _hpp_dot(Hpp_f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Per-point 3x3 block times (npnts, 3)."""
     return torch.einsum("pab,pb->pa", Hpp_f.reshape(-1, 3, 3), x)
+
+
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.bfloat16).to(x.dtype)
 
 
 def _cam_dir_reduce(problem: BAProblem, W_t: torch.Tensor,
@@ -89,23 +96,58 @@ def _cam_dir_reduce(problem: BAProblem, W_t: torch.Tensor,
                     op: torch.Tensor) -> torch.Tensor:
     """``segsum_cam(W_k op[pnt_k])`` (ncams, 9), ``op`` (npnts, 3): K2's
     ``W op`` product over the point-sorted W when there is no camera-sorted
-    copy, else K5's camera direction over ``W_cam_t``."""
+    copy, else K5's camera direction over ``W_cam_t`` — with ``op`` rounded
+    to bfloat16 beside a bfloat16 ``W_cam_t``, as the JAX package's
+    camera-sorted pass gathers it (`ops/schur.py:_cam_dir_reduce`)."""
     if W_cam_t is None:
         return cam_reduce_w_op(W_t, problem, op)
+    if W_cam_t.dtype == torch.bfloat16:
+        op = _bf16_round(op)
     return wt_cam_reduce(W_cam_t, op, problem)
+
+
+def _point_dir_operand(W_t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """The camera vector of K5's point direction: rounded to bfloat16 beside
+    a bfloat16 W when there are more cameras than
+    ``normal.GATHER_TABLE_MAX_CAMS``, where the JAX package pre-gathers it
+    per row in W's storage dtype (`pallas_schur.wtv_point_reduce`)."""
+    if (W_t.dtype == torch.bfloat16
+            and v.shape[0] > normal.GATHER_TABLE_MAX_CAMS):
+        return _bf16_round(v)
+    return v
+
+
+def _hat(blocks: GNBlocks, Hpp_inv_f: torch.Tensor):
+    """``(Hpp_inv / s^2, s g_p)``: the hatted point space of a W stored as
+    ``s W``; ``(Hpp_inv, g_p)`` without a scale."""
+    if blocks.w_scale is None:
+        return Hpp_inv_f, blocks.g_p_f
+    return (Hpp_inv_f / torch.square(blocks.w_scale),
+            blocks.g_p_f * blocks.w_scale)
+
+
+def _unhat(sys: SchurSystem, dp: torch.Tensor) -> torch.Tensor:
+    """The point step from the hatted one, ``dp = s dp_hat``."""
+    return dp if sys.w_scale is None else dp * sys.w_scale
+
+
+def _system(problem: BAProblem, blocks: GNBlocks, Hcc_l, Hpp_inv_f, g_p_f,
+            corr) -> SchurSystem:
+    return SchurSystem(Hcc_l_f=Hcc_l.reshape(-1), Hpp_inv_f=Hpp_inv_f,
+                       b_f=(-blocks.g_c + corr).reshape(-1), g_p_f=g_p_f,
+                       W_t=blocks.W_t, problem=problem,
+                       W_cam_t=blocks.W_cam_t, route=blocks.route,
+                       w_scale=blocks.w_scale)
 
 
 def reduce_system(problem: BAProblem, blocks: GNBlocks, lam) -> SchurSystem:
     """Damp with ``lam`` and form ``b = -g_c + segsum_cam(W_k (Hpp_inv
     g_p)[pnt_k])``."""
     Hcc_l = damp(blocks.Hcc, lam)
-    Hpp_inv_f = inv3x3_damped_flat(blocks.Hpp_f, lam)
+    Hpp_inv_f, g_p_f = _hat(blocks, inv3x3_damped_flat(blocks.Hpp_f, lam))
     corr = _cam_dir_reduce(problem, blocks.W_t, blocks.W_cam_t,
-                           _hpp_dot(Hpp_inv_f, blocks.g_p))
-    return SchurSystem(Hcc_l_f=Hcc_l.reshape(-1), Hpp_inv_f=Hpp_inv_f,
-                       b_f=(-blocks.g_c + corr).reshape(-1),
-                       g_p_f=blocks.g_p_f, W_t=blocks.W_t, problem=problem,
-                       W_cam_t=blocks.W_cam_t, route=route_of(blocks))
+                           _hpp_dot(Hpp_inv_f, g_p_f.reshape(-1, 3)))
+    return _system(problem, blocks, Hcc_l, Hpp_inv_f, g_p_f, corr)
 
 
 def schur_diag_blocks(sys: SchurSystem) -> torch.Tensor:
@@ -124,18 +166,14 @@ def reduce_and_diag(problem: BAProblem, blocks: GNBlocks, lam):
     camera-scatter routes (A, B1) the reduced RHS correction and ``sum W
     Hpp_inv W'`` come from one K2 launch; elsewhere this is
     :func:`reduce_system` and :func:`schur_diag_blocks`."""
-    route = route_of(blocks)
-    if route not in _CAM_SCATTER_ROUTES:
+    if blocks.route not in _CAM_SCATTER_ROUTES:
         sys = reduce_system(problem, blocks, lam)
         return sys, schur_diag_blocks(sys)
     Hcc_l = damp(blocks.Hcc, lam)
-    Hpp_inv_f = inv3x3_damped_flat(blocks.Hpp_f, lam)
+    Hpp_inv_f, g_p_f = _hat(blocks, inv3x3_damped_flat(blocks.Hpp_f, lam))
     out = cam_reduce_wcw_rhs(blocks.W_t, problem, Hpp_inv_f,
-                             _hpp_dot(Hpp_inv_f, blocks.g_p))
-    sys = SchurSystem(Hcc_l_f=Hcc_l.reshape(-1), Hpp_inv_f=Hpp_inv_f,
-                      b_f=(-blocks.g_c + out[:, 81:90]).reshape(-1),
-                      g_p_f=blocks.g_p_f, W_t=blocks.W_t, problem=problem,
-                      W_cam_t=blocks.W_cam_t, route=route)
+                             _hpp_dot(Hpp_inv_f, g_p_f.reshape(-1, 3)))
+    sys = _system(problem, blocks, Hcc_l, Hpp_inv_f, g_p_f, out[:, 81:90])
     return sys, Hcc_l - out[:, :81].reshape(-1, 9, 9)
 
 
@@ -144,19 +182,20 @@ def schur_matvec(sys: SchurSystem, v: torch.Tensor) -> torch.Tensor:
     A, else two passes (K5's point direction with the fold, then the
     camera direction)."""
     u = torch.einsum("cab,cb->ca", sys.Hcc_l, v)
-    if route_of(sys) == "fused":
+    if sys.route == "fused":
         return u - matvec_cam_scatter(sys.W_t, v, sys.problem,
                                       sys.Hpp_inv_f)
-    t = wtv_point_reduce(sys.W_t, v, sys.problem, hpp_inv_f=sys.Hpp_inv_f)
+    t = wtv_point_reduce(sys.W_t, _point_dir_operand(sys.W_t, v), sys.problem,
+                         hpp_inv_f=sys.Hpp_inv_f)
     return u - _cam_dir_reduce(sys.problem, sys.W_t, sys.W_cam_t, t)
 
 
 def back_substitute(sys: SchurSystem, dc: torch.Tensor) -> torch.Tensor:
     """The point step ``dp = -Hpp_inv (g_p + W' dc)`` (npnts, 3), K5's
-    point direction with the fold and add."""
-    return wtv_point_reduce(sys.W_t, dc, sys.problem,
-                            hpp_inv_f=sys.Hpp_inv_f, add_f=sys.g_p_f,
-                            sign=-1.0)
+    point direction with the fold and add (unscaled by ``w_scale``)."""
+    return _unhat(sys, wtv_point_reduce(
+        sys.W_t, _point_dir_operand(sys.W_t, dc), sys.problem,
+        hpp_inv_f=sys.Hpp_inv_f, add_f=sys.g_p_f, sign=-1.0))
 
 
 def _quad(blocks: GNBlocks, dc, dp, cross_cam) -> torch.Tensor:
@@ -170,9 +209,10 @@ def _quad(blocks: GNBlocks, dc, dp, cross_cam) -> torch.Tensor:
 def quad_form(problem: BAProblem, blocks: GNBlocks, dc: torch.Tensor,
               dp: torch.Tensor) -> torch.Tensor:
     """``||J d||^2`` from the assembled blocks, its cross term a
-    camera-direction sum."""
+    camera-direction sum (over ``dp / s`` for a W stored as ``s W``)."""
+    dp_h = dp if blocks.w_scale is None else dp / blocks.w_scale
     return _quad(blocks, dc, dp,
-                 _cam_dir_reduce(problem, blocks.W_t, blocks.W_cam_t, dp))
+                 _cam_dir_reduce(problem, blocks.W_t, blocks.W_cam_t, dp_h))
 
 
 def back_substitute_quad(problem: BAProblem, blocks: GNBlocks,
@@ -180,11 +220,13 @@ def back_substitute_quad(problem: BAProblem, blocks: GNBlocks,
     """``(dp (npnts, 3), ||J d||^2)``. On route A K3 with ``g_p`` folded
     and ``sign = -1`` yields ``dp`` and the cross term's camera sums
     together; elsewhere this is :func:`back_substitute` and
-    :func:`quad_form`."""
-    if route_of(sys) != "fused":
+    :func:`quad_form`. With a float16 W, K3's ``dp`` is hatted and its
+    camera sums ``segsum_cam(s W dp / s)`` already exact."""
+    if sys.route != "fused":
         dp = back_substitute(sys, dc)
         return dp, quad_form(problem, blocks, dc, dp)
     cross_cam, dp = matvec_cam_scatter(
         sys.W_t, dc, problem, sys.Hpp_inv_f, gp_f=sys.g_p_f, sign=-1.0,
         with_dp=True)
+    dp = _unhat(sys, dp)
     return dp, _quad(blocks, dc, dp, cross_cam)

@@ -11,8 +11,10 @@ Point segments run over the point-sorted rows (``pnt_starts``); camera
 segments over the camera-sorted copies ``JR_cam_t = JR_t[:, cam_perm]`` /
 ``W_cam_t = W_t[:, cam_perm]`` (``cam_starts``), whose column ``j`` is the
 row ``cam_perm[j]``. ``JR_t`` is the (26, n) layout of `ops/linearize.py`,
-``W_t`` the (27, n) one of `ops/fused_schur.py`; per-point operands are
-flat (npnts*9,) / (npnts*3,) or (npnts, 3).
+``W_t`` the (27, n) one of `ops/fused_schur.py`, stored as float32,
+bfloat16 or float16 (the kernels read that type and widen at the load; the
+plain versions widen it to the other operand's dtype first); per-point
+operands are flat (npnts*9,) / (npnts*3,) or (npnts, 3).
 """
 
 from __future__ import annotations
@@ -24,9 +26,10 @@ from bundleadjustment_jl_tpu_torch.ops import _cuda
 from bundleadjustment_jl_tpu_torch.ops.linearize import JP0, R0
 
 
-def w_rows(W_t: torch.Tensor) -> torch.Tensor:
-    """(27, n) structure-of-arrays -> (n, 9, 3) blocks."""
-    return W_t.reshape(9, 3, -1).permute(2, 0, 1)
+def w_rows(W_t: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """(27, n) structure-of-arrays -> (n, 9, 3) blocks in ``dtype`` (a
+    bfloat16 / float16 W widened, as the kernels widen it at the load)."""
+    return W_t.to(dtype).reshape(9, 3, -1).permute(2, 0, 1)
 
 
 def _cam_sorted_ids(problem: BAProblem):
@@ -53,7 +56,7 @@ def wcw_rows(W_t: torch.Tensor, hpp_inv_f: torch.Tensor,
              pnt: torch.Tensor) -> torch.Tensor:
     """Per-row ``W_k C[pnt_k] W_k'`` -> (n, 81); ``pnt`` the point id of
     each column of ``W_t``."""
-    W = w_rows(W_t)
+    W = w_rows(W_t, hpp_inv_f.dtype)
     C = hpp_inv_f.reshape(-1, 3, 3)[pnt]
     return torch.einsum("nab,nbc,ndc->nad", W, C, W).reshape(-1, 81)
 
@@ -61,7 +64,7 @@ def wcw_rows(W_t: torch.Tensor, hpp_inv_f: torch.Tensor,
 def w_op_rows(W_t: torch.Tensor, op: torch.Tensor,
               pnt: torch.Tensor) -> torch.Tensor:
     """Per-row ``W_k op[pnt_k]`` -> (n, 9); ``op`` (npnts, 3)."""
-    return torch.einsum("nab,nb->na", w_rows(W_t), op[pnt])
+    return torch.einsum("nab,nb->na", w_rows(W_t, op.dtype), op[pnt])
 
 
 def seg_sum(rows: torch.Tensor, ids: torch.Tensor, nseg: int) -> torch.Tensor:
@@ -86,7 +89,7 @@ def jtj_pnt_reduce(JR_t: torch.Tensor, problem: BAProblem) -> torch.Tensor:
         _cuda.ptr(JR_t), _cuda.ptr(problem.pnt_starts), npt, n,
         _cuda.ptr(out), _cuda.stream())
     _cuda.check(rc, "ba_jtj_pnt_reduce")
-    _cuda.LAUNCHES["seg_prod_pnt12"] += 1
+    _cuda.launched("seg_prod_pnt12")
     return out
 
 
@@ -114,7 +117,7 @@ def jtj_cam_reduce(JR_cam_t: torch.Tensor,
         _cuda.ptr(JR_cam_t), _cuda.ptr(problem.cam_perm),
         _cuda.ptr(problem.cam_starts), nc, n, _cuda.ptr(out), _cuda.stream())
     _cuda.check(rc, "ba_jtj_cam_reduce")
-    _cuda.LAUNCHES["seg_prod_cam90"] += 1
+    _cuda.launched("seg_prod_cam90")
     return out
 
 
@@ -131,17 +134,17 @@ def wcw_cam_reduce(W_cam_t: torch.Tensor, problem: BAProblem,
     if not W_cam_t.is_cuda:
         return _wcw_cam_plain(W_cam_t, problem, hpp_inv_f)
     n, nc, npt = problem.nobs_pad, problem.ncams, problem.npnts
-    _cuda.require(W_cam_t, "W_cam_t", torch.float32, (27, n))
+    code = _cuda.w_code(W_cam_t, "W_cam_t", (27, n))
     _cuda.require(hpp_inv_f, "hpp_inv_f", torch.float32, (npt * 9,))
     _cuda.require_problem(problem)
     out = _out(W_cam_t, (nc, 81))
     p = problem
     rc = _cuda.lib().ba_wcw_cam_reduce(
-        _cuda.ptr(W_cam_t), _cuda.ptr(p.pnt_idx), _cuda.ptr(p.cam_perm),
+        _cuda.ptr(W_cam_t), code, _cuda.ptr(p.pnt_idx), _cuda.ptr(p.cam_perm),
         _cuda.ptr(p.cam_starts), _cuda.ptr(hpp_inv_f), nc, n, _cuda.ptr(out),
         _cuda.stream())
     _cuda.check(rc, "ba_wcw_cam_reduce")
-    _cuda.LAUNCHES["seg_prod_wcw81"] += 1
+    _cuda.launched("seg_prod_wcw81", W_cam_t)
     return out
 
 
@@ -162,7 +165,7 @@ def wtv_point_reduce(W_t: torch.Tensor, v: torch.Tensor, problem: BAProblem,
     if not W_t.is_cuda:
         return _wtv_point_plain(W_t, v, problem, hpp_inv_f, add_f, sign)
     n, nc, npt = problem.nobs_pad, problem.ncams, problem.npnts
-    _cuda.require(W_t, "W_t", torch.float32, (27, n))
+    code = _cuda.w_code(W_t, "W_t", (27, n))
     _cuda.require(v, "v", torch.float32, (nc, 9))
     if hpp_inv_f is not None:
         _cuda.require(hpp_inv_f, "hpp_inv_f", torch.float32, (npt * 9,))
@@ -172,19 +175,19 @@ def wtv_point_reduce(W_t: torch.Tensor, v: torch.Tensor, problem: BAProblem,
     out = _out(W_t, (npt, 3))
     p = problem
     rc = _cuda.lib().ba_wtv_point_reduce(
-        _cuda.ptr(W_t), _cuda.ptr(v), _cuda.ptr(p.cam_idx),
+        _cuda.ptr(W_t), code, _cuda.ptr(v), _cuda.ptr(p.cam_idx),
         _cuda.ptr(p.pnt_starts), _cuda.ptr(hpp_inv_f), _cuda.ptr(add_f),
         float(sign), npt, n, _cuda.ptr(out), _cuda.stream())
     _cuda.check(rc, "ba_wtv_point_reduce")
-    _cuda.LAUNCHES["seg_block_point"] += 1
+    _cuda.launched("seg_block_point", W_t)
     return out
 
 
 def _wtv_point_plain(W_t, v, problem, hpp_inv_f=None, add_f=None,
                      sign=1.0):
-    s = torch.zeros((problem.npnts, 3), dtype=W_t.dtype, device=W_t.device)
+    s = torch.zeros((problem.npnts, 3), dtype=v.dtype, device=v.device)
     s.index_add_(0, problem.pnt_idx.long(),
-                 torch.einsum("nab,na->nb", w_rows(W_t),
+                 torch.einsum("nab,na->nb", w_rows(W_t, v.dtype),
                               v[problem.cam_idx.long()]))
     if add_f is not None:
         s = s + add_f.reshape(-1, 3)
@@ -200,17 +203,17 @@ def wt_cam_reduce(W_cam_t: torch.Tensor, t: torch.Tensor,
     if not W_cam_t.is_cuda:
         return _wt_cam_plain(W_cam_t, t, problem)
     n, nc, npt = problem.nobs_pad, problem.ncams, problem.npnts
-    _cuda.require(W_cam_t, "W_cam_t", torch.float32, (27, n))
+    code = _cuda.w_code(W_cam_t, "W_cam_t", (27, n))
     _cuda.require(t, "t", torch.float32, (npt, 3))
     _cuda.require_problem(problem)
     out = _out(W_cam_t, (nc, 9))
     p = problem
     rc = _cuda.lib().ba_wt_cam_reduce(
-        _cuda.ptr(W_cam_t), _cuda.ptr(t), _cuda.ptr(p.pnt_idx),
+        _cuda.ptr(W_cam_t), code, _cuda.ptr(t), _cuda.ptr(p.pnt_idx),
         _cuda.ptr(p.cam_perm), _cuda.ptr(p.cam_starts), nc, n,
         _cuda.ptr(out), _cuda.stream())
     _cuda.check(rc, "ba_wt_cam_reduce")
-    _cuda.LAUNCHES["seg_block_camera"] += 1
+    _cuda.launched("seg_block_camera", W_cam_t)
     return out
 
 

@@ -3,10 +3,10 @@ a route-B1 and a route-B2 solve, on one CUDA card.
 
     python -m bundleadjustment_jl_tpu_torch.route_profile
 
-Run from the repository root: the problem (``chip_smoke.FINAL``, built as
-``chip_smoke.py`` builds it) and the solver options (``SOLVE_OPTS``) are
-``chip_smoke.py``'s. Each route is forced by the gate settings of
-``lm_jit.FORCE_ROUTE``: a warm-up per route, then two timed solves per
+The problem is ``chip_smoke.py``'s Final-4585 (``bench.make_problem``) and
+each solve is timed as the bench leg times its (``bench.timed_solve``,
+with its options). Each route is forced by the gate settings of
+``normal.FORCE_ROUTE``: a warm-up per route, then two timed solves per
 route in the order A, B1, C, B2, B2, C, B1, A. Then one ``torch.profiler``
 trace of a solve on B1 and on B2: device busy time (the sum of the trace's
 kernel events), span (first kernel start to last kernel end), idle share,
@@ -19,15 +19,13 @@ from __future__ import annotations
 import contextlib
 import json
 import sys
-import time
 from collections import defaultdict
 from pathlib import Path
 
 import torch
 
-from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
-from bundleadjustment_jl_tpu_torch.ops import _cuda
-from bundleadjustment_jl_tpu_torch.solver import lm_jit
+from bundleadjustment_jl_tpu_torch import bench
+from bundleadjustment_jl_tpu_torch.ops import _cuda, normal
 
 ORDER = ("fused", "scatter_split", "sorted", "sorted_relin")
 PROFILED = ("scatter_split", "sorted_relin")
@@ -35,15 +33,15 @@ PROFILED = ("scatter_split", "sorted_relin")
 
 @contextlib.contextmanager
 def forced(route):
-    gates = lm_jit.FORCE_ROUTE[route]
-    old = {k: getattr(lm_jit, k) for k in gates}
+    gates = normal.FORCE_ROUTE[route]
+    old = {k: getattr(normal, k) for k in gates}
     try:
         for k, v in gates.items():
-            setattr(lm_jit, k, v)
+            setattr(normal, k, v)
         yield
     finally:
         for k, v in old.items():
-            setattr(lm_jit, k, v)
+            setattr(normal, k, v)
 
 
 def kernel_breakdown(trace_path: Path) -> dict:
@@ -67,23 +65,18 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("route_profile: no CUDA card", file=sys.stderr)
         return 2
-    from chip_smoke import FINAL, card_line, solve
-
-    card = card_line()
+    card = bench.card()["nvidia_smi"]
     print(f"card: {card}")
     out = _cuda.BUILD_DIR / "route_profile"
     out.mkdir(parents=True, exist_ok=True)
-    name, spec = FINAL
-    problem = synthetic_bal(
-        ncams=spec["ncams"], npnts=spec["npnts"],
-        obs_per_pnt=spec["obs_per_pnt"], noise_px=1.0, perturb=2e-2, seed=0,
-        dtype=torch.float32, pad_obs_to=512, device="cuda")[0]
+    name = "final4585"
+    problem = bench.make_problem(name, 0)
 
     def solve_on(route):
         with forced(route):
-            if lm_jit.kernel_route(problem) != route:
+            if normal.kernel_route(problem) != route:
                 raise AssertionError(f"gates did not force {route}")
-            return solve(problem)
+            return bench.timed_solve(problem)
 
     peak, times, last = {}, defaultdict(list), {}
     for route in ORDER:                                    # warm-ups

@@ -14,6 +14,11 @@ Host reads per LM iteration: one flag per CG step (`ops/pcg.py`), one
 packed block (trial objectives, g'd, ||J d||^2, ||d||, ||x||) at the
 accept decision, and — after an accepted step — the new objective and
 gradient norm that the stopping tests need.
+
+``facto_dtype`` (bfloat16 or float16) stores the per-observation W blocks
+in that dtype, as the JAX solver does (:func:`maybe_cast_facto`); with it
+come the narrow-storage CG floor, the CG stagnation stop and the
+predicted-reduction stop.
 """
 
 from __future__ import annotations
@@ -26,68 +31,20 @@ import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem, np_dtype
 from bundleadjustment_jl_tpu_torch.ops.fused_assemble import objective_scatter
+from bundleadjustment_jl_tpu_torch.ops._cuda import (
+    W_DTYPES, W_READERS, W_WRITERS)
 from bundleadjustment_jl_tpu_torch.ops.normal import (
-    assemble_blocks, gradient_norm)
+    assemble_blocks, gradient_norm, kernel_route)
 from bundleadjustment_jl_tpu_torch.ops.pcg import (
-    block_jacobi_apply, block_jacobi_inverse, forcing_rtol, pcg)
+    STAGNATION_WINDOW, block_jacobi_apply, block_jacobi_inverse,
+    forcing_rtol, pcg)
 from bundleadjustment_jl_tpu_torch.ops.schur import (
     back_substitute_quad, reduce_and_diag, schur_matvec)
 
-# The kernel route of a solve (one of `ops/normal.py:ROUTES`, which lists
-# each route's kernels): `kernel_route` reads the switch and the gates
-# below once per call of `levenberg_marquardt_jit` (one solve never mixes
-# routes), as the JAX package's `_assemble_kminor` and `ops/schur.py` read
-# theirs. The trial objectives run on K4 on every route.
-#
-# CAM_SCATTER is the JAX package's `pallas_schur.CAM_SCATTER` and the CLI's
-# `--cam-scatter`: camera sums over the point-sorted rows (routes A, B1)
-# rather than over camera-sorted copies (C, B2). The JAX default is off
-# (env BA_CAM_SCATTER); the fused route is the configuration bench.py
-# measures, so the port's default is on.
-CAM_SCATTER = True
-
-# The JAX package's three size gates (`ops/pallas_schur.py`), with its
-# values. Each value was chosen on a TPU (VMEM tables, tile padding);
-# whether it picks the faster route on the H100 is recorded in PERF.md.
-#
-# GATHER_TABLE_MAX_CAMS: the largest camera count whose camera vector the
-# TPU's fused kernels (K1, K3) hold as a VMEM table. Above it the camera
-# scatter splits: K7 + K2 assembly and the two-pass matvec (route B1).
-GATHER_TABLE_MAX_CAMS = 2048
-# CAM_SCATTER_MAX_CAMS: the TPU camera scatter's one-hot work grows with the
-# camera count; above this count camera scatter is off whatever CAM_SCATTER
-# says.
-CAM_SCATTER_MAX_CAMS = 16384
-# GATHER_DIRECT_MAX_BYTES: the huge-n test, nobs_pad * 512 B (one row
-# tile-padded to 128 f32 lanes on the TPU) above this many bytes. There,
-# with camera scatter off, the JAX package builds no camera-sorted JR copy
-# (K2 sums [Hcc | g_c]) and re-linearizes W in the camera order (K8) in
-# place of permuting it (route B2).
-GATHER_DIRECT_MAX_BYTES = 4 << 30
-
-
-def kernel_route(problem: BAProblem) -> str:
-    """The kernel route the JAX package takes for ``problem`` under the
-    switch and gates above (`normal.py:_assemble_kminor`,
-    `pallas_schur.cam_scatter_ok`)."""
-    if CAM_SCATTER and problem.ncams <= CAM_SCATTER_MAX_CAMS:
-        return ("fused" if problem.ncams <= GATHER_TABLE_MAX_CAMS
-                else "scatter_split")
-    huge = problem.nobs_pad * 128 * 4 > GATHER_DIRECT_MAX_BYTES
-    return "sorted_relin" if huge else "sorted"
-
-
-# Settings of the switch and gates above that make `kernel_route` pick each
-# route at any problem size (the JAX package's `pallas_schur` takes the
-# same attributes to the same route).
-FORCE_ROUTE = {
-    "fused": dict(CAM_SCATTER=True, GATHER_TABLE_MAX_CAMS=1 << 62,
-                  CAM_SCATTER_MAX_CAMS=1 << 62),
-    "scatter_split": dict(CAM_SCATTER=True, GATHER_TABLE_MAX_CAMS=0,
-                          CAM_SCATTER_MAX_CAMS=1 << 62),
-    "sorted": dict(CAM_SCATTER=False, GATHER_DIRECT_MAX_BYTES=1 << 62),
-    "sorted_relin": dict(CAM_SCATTER=False, GATHER_DIRECT_MAX_BYTES=0),
-}
+# The kernel route of a solve is one of `ops/normal.py:ROUTES`, which lists
+# each route's kernels; `ops/normal.py:kernel_route` picks it once per call
+# of `levenberg_marquardt_jit` from the switch and size gates beside it
+# (`FORCE_ROUTE` there sets them to force a route).
 
 
 def expected_launches(route: str, iterations: int, naccepts: int,
@@ -126,6 +83,70 @@ def expected_launches(route: str, iterations: int, naccepts: int,
             expect.update(cam_reduce_cam90=1 + acc,
                           linearize_w_only=1 + acc)
     return expect
+
+
+def expected_w_launches(launches: dict, facto_dtype) -> dict:
+    """The W storage of a solve's launches (`ops/_cuda.py:W_LAUNCHES`),
+    from its kernel launches (``_cuda.LAUNCHES``) and its ``facto_dtype``:
+    the writers write W in :func:`w_assemble_dtype` (float32 when it gives
+    None), the readers read it in ``facto_dtype`` (float32 when None)."""
+    out = dict.fromkeys(W_DTYPES, 0)
+    out[w_assemble_dtype(facto_dtype) or torch.float32] += sum(
+        launches[k] for k in W_WRITERS)
+    out[facto_dtype or torch.float32] += sum(launches[k] for k in W_READERS)
+    return out
+
+
+# CG relative-tolerance floor under narrow W storage, as a multiple of
+# eps(facto_dtype) (the JAX solver's _CG_FLOOR_MULT): a bfloat16 / float16
+# W bounds the matvec's accuracy, and CG below ~8 eps(facto) chases noise.
+CG_FLOOR_MULT = 8.0
+
+# Storage dtypes `facto_dtype` takes: those the W kernels take.
+FACTO_DTYPES = W_DTYPES
+
+
+def w_assemble_dtype(facto_dtype: torch.dtype | None):
+    """The dtype the assembly may write W in directly (the JAX solver's
+    `_w_assemble_dtype`): bfloat16 shares float32's exponent range; float16
+    must not be written raw (max|W| ~ f^2 overflows it before the range
+    scale is known), so it is written in the working dtype and cast by
+    :func:`maybe_cast_facto`."""
+    if facto_dtype is None or facto_dtype == torch.float16:
+        return None
+    return facto_dtype
+
+
+def f16_scale(W_t: torch.Tensor) -> torch.Tensor:
+    """The range scale of a float16 W (the JAX solver's, after the
+    reference's `normalize_F16!`): the power of two that puts max|W| near
+    2^14, a 0-d float32 tensor on W's device (no host read)."""
+    lo, hi = torch.aminmax(W_t)
+    wmax = torch.maximum(-lo, hi).float()
+    safe = torch.where(torch.isfinite(wmax) & (wmax > 0), wmax,
+                       torch.ones_like(wmax))
+    return torch.exp2(torch.floor(torch.log2(16384.0 / safe)))
+
+
+def maybe_cast_facto(blocks, facto_dtype: torch.dtype | None):
+    """The blocks with W stored in ``facto_dtype`` (the JAX solver's
+    `_maybe_cast_facto`): float16 as ``s W`` with ``s = f16_scale(W)`` in
+    ``w_scale``, ``W_cam_t`` alike; a W already written in the storage dtype
+    (:func:`w_assemble_dtype`) is returned as it is. Hcc and Hpp stay in
+    the working dtype."""
+    if facto_dtype is None or (facto_dtype != torch.float16
+                               and blocks.W_t.dtype == facto_dtype):
+        return blocks
+    scale = f16_scale(blocks.W_t) if facto_dtype == torch.float16 else None
+
+    def store(W):
+        if W is None:
+            return None
+        return (W if scale is None else W * scale).to(facto_dtype)
+
+    return blocks._replace(
+        W_t=store(blocks.W_t), W_cam_t=store(blocks.W_cam_t),
+        w_scale=None if scale is None else scale.to(blocks.W_t.dtype))
 
 
 # Status codes (the JAX package's mapping of the reference statuses)
@@ -204,13 +225,16 @@ def levenberg_marquardt_jit(
     """One-call LM solve with the JAX driver's keywords. ``None``
     tolerances resolve to the reference defaults in the working dtype.
     ``pcg_rtol=None`` uses the forcing sequence :func:`forcing_rtol`;
-    ``pcg_warm`` starts each PCG from the previous camera step."""
+    ``pcg_warm`` starts each PCG from the previous camera step.
+    ``facto_dtype`` (one of :data:`FACTO_DTYPES`) stores W in that dtype
+    (:func:`maybe_cast_facto`)."""
     for option, on in (("use_dense", use_dense), ("use_cgls", use_cgls),
                        ("use_power", use_power)):
         if on:
             _unsupported(option, "CGLS, dense and power solvers")
-    if facto_dtype is not None:
-        _unsupported("facto_dtype", "`facto_dtype`: W stored in bf16 or f16")
+    if facto_dtype is not None and facto_dtype not in FACTO_DTYPES:
+        raise TypeError(f"facto_dtype: one of {FACTO_DTYPES}, got "
+                        f"{facto_dtype!r}")
     cams = problem.cams if cams is None else cams
     points = problem.points if points is None else points
     if cams.dtype not in (torch.float32, torch.float64):
@@ -222,6 +246,12 @@ def levenberg_marquardt_jit(
     torch.set_float32_matmul_precision("highest")
 
     route = kernel_route(problem)
+    w_dtype = w_assemble_dtype(facto_dtype)
+    # "Narrow" W storage (below 4 bytes; the JAX solver's `facto_narrow`,
+    # whose other case, a half-precision working dtype, raises above): only
+    # then the CG floor, the CG stagnation stop and the predicted-reduction
+    # stop. float32 storage keeps the reference's stopping semantics.
+    narrow = facto_dtype is not None and facto_dtype.itemsize < 4
     ft = np_dtype(cams.dtype).type
     eps = np.finfo(ft).eps
     cbrt, sqrt_eps = eps ** (1.0 / 3.0), np.sqrt(eps)
@@ -236,15 +266,20 @@ def levenberg_marquardt_jit(
     nu_d, nu_m, lam_min = ft(nu_d), ft(nu_m), ft(lam_min)
     accept_ratio, good_ratio = ft(accept_ratio), ft(good_ratio)
     nielsen = lam_strategy == "nielsen"
+    cg_floor = (ft(CG_FLOOR_MULT * float(torch.finfo(facto_dtype).eps))
+                if narrow else None)
+    stagnation = STAGNATION_WINDOW if narrow else 0
 
     # Initial linearization; one host read.
-    blocks = assemble_blocks(problem, cams, points, route=route)
+    blocks = assemble_blocks(problem, cams, points, route=route,
+                             w_dtype=w_dtype)
     init = [blocks.obj, gradient_norm(blocks)]
     if lam0_mode == "diag":
         init.append(torch.maximum(
             torch.max(blocks.Hcc_f.reshape(-1, 81)[:, ::10]),
             torch.max(blocks.Hpp_f.reshape(-1, 9)[:, ::4])))
     init = torch.stack(init).cpu().numpy()
+    blocks = maybe_cast_facto(blocks, facto_dtype)
     obj, gnorm = ft(init[0]), ft(init[1])
     with np.errstate(all="ignore"):
         if lam0_mode == "diag":
@@ -275,12 +310,15 @@ def levenberg_marquardt_jit(
         with np.errstate(all="ignore"):
             rtol_cg = (forcing_rtol(gnorm) if pcg_rtol is None
                        else ft(pcg_rtol))
+            if cg_floor is not None:
+                rtol_cg = np.maximum(rtol_cg, cg_floor)
         sys, Sd = reduce_and_diag(problem, blocks, float(lam))
         M_inv = block_jacobi_inverse(Sd)
         res = pcg(lambda v: schur_matvec(sys, v), sys.b,
                   lambda v: block_jacobi_apply(M_inv, v),
                   rtol=float(rtol_cg), max_iters=pcg_max_iters,
-                  x0=dc_carry if pcg_warm else None)
+                  x0=dc_carry if pcg_warm else None,
+                  stagnation_window=stagnation)
         dc, cg_iters = res.x, res.iters
         dp, Jd2 = back_substitute_quad(problem, blocks, sys, dc)
 
@@ -336,8 +374,10 @@ def levenberg_marquardt_jit(
         if accept:
             cams = cams + float(s_sel) * dc
             points = points + float(s_sel) * dp
-            blocks = assemble_blocks(problem, cams, points, route=route)
+            blocks = assemble_blocks(problem, cams, points, route=route,
+                                     w_dtype=w_dtype)
             new = torch.stack([blocks.obj, gradient_norm(blocks)]).cpu()
+            blocks = maybe_cast_facto(blocks, facto_dtype)
             obj_n, gnorm_n = (ft(v) for v in new.numpy())
             naccepts += 1
         else:
@@ -346,6 +386,14 @@ def levenberg_marquardt_jit(
         with np.errstate(all="ignore"):
             obj_tol = oatol + ortol * np.abs(obj)
             small_obj = accept and obj - obj_n < obj_tol
+            if narrow:
+                # Predicted-reduction stop: even the model's full decrease
+                # is below the tolerance, while the gradient is within
+                # three orders of gtol (not a lambda blow-up after
+                # rejections).
+                small_obj = small_obj or bool(
+                    pred > 0 and pred < obj_tol
+                    and gnorm < ft(1e3) * gtol)
             rnorm_n = np.sqrt(ft(2.0) * obj_n)
         if fatal_nan:
             status = EXCEPTION

@@ -4,7 +4,7 @@ CUDA card.
     python3 chip_smoke.py
 
 1. Prints the torch / CUDA versions and the card (``nvidia-smi``), builds
-   the eight CUDA kernels from ``bundleadjustment_jl_tpu_torch/csrc`` (one
+   the nine CUDA kernels from ``bundleadjustment_jl_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and prints the build time and the
    compiler's register report.
 2. Checks each kernel against its plain PyTorch version on the card, at
@@ -14,10 +14,12 @@ CUDA card.
    camera-sorted route, then K2's other three products and K8 of the
    Final-scale routes (and K8 against K7's W in camera order).
 3. Solves both problems with ``levenberg_marquardt_jit`` and
-   ``bench.py``'s options on each kernel route (``lm_jit.CAM_SCATTER``
+   ``bench.py``'s options (``bench.SOLVE_OPTS`` of the port) on each
+   kernel route (``normal.CAM_SCATTER``
    True, then False): a warm-up, five timed solves (launch counts reset
    before each and checked against its iterations, accepts and CG steps
-   after it), and a solve on the plain route. Checks that the kernel and
+   after it, and the W kernels' launches by W's storage dtype against
+   them), and a solve on the plain route. Checks that the kernel and
    plain routes agree, that the two kernel routes agree, and that the
    rmse lands on the data-fixed anchors.
 4. Builds synthetic Final-4585 (the BAL Final problem
@@ -30,8 +32,32 @@ CUDA card.
    fixes (0.8851 px); B1 and B2 must agree. Then, on route B1, the
    one-pass Schur pieces against their two-pass forms (the only launches
    of K2's W C W' product, which no solve makes; counted apart).
-5. Prints the run's wall time, the kernel table as one JSON line, the
-   card line, and last ``{"ok": true, "device": {...}}``.
+5. The streaming-read probe (K9) against its plain version and against
+   ``torch.sum`` (the one-call yardstick, ``library_ms``), at Dubrovnik-356's
+   and Final-4585's row counts with 0, 1 and 2 small rows, each rate beside
+   the H100's published 3.35 TB/s.
+6. Every kernel that reads or writes W with W stored in bfloat16 and in
+   float16 (``facto_dtype``), against its plain version at Dubrovnik-356
+   shapes (K2's W op and K8 also at Final-4585's), timed in turns: the
+   readers to the tolerances of phase 2 (both sides widen the same stored
+   W), the writers' W to those tolerances plus one ulp of the storage
+   dtype (two float32 W within tolerance may round to neighbours), with at
+   most STORE_MISMATCH_MAX of the entries not bit-equal (a store that
+   rounds another way than to nearest changes about half).
+7. ``facto_dtype`` solves: Dubrovnik-356 with bfloat16 and float16 W on
+   routes A and C (a warm-up and five timed solves, launches checked as in
+   3, W's storage dtype checked as in 3, rmse anchored as in 3; each
+   route makes the JAX package's decisions recorded in ``BENCH_r05.json``:
+   its status, iterations within one), then Final-4585 with bfloat16 W on
+   B1 and B2 (three timed solves each, no plain-route solve, for the time
+   limit; the two routes agree on status and on iterations within one).
+8. The bench leg (``python -m bundleadjustment_jl_tpu_torch.bench``): its
+   JSON line, once, with the launches of its run checked (route A's
+   kernels and the probe).
+9. Prints the run's wall time, the kernel table as one JSON line (each
+   kernel's time beside its least time on the card, ``bench.bound_ms``,
+   from this run's shapes), the card line, and last ``{"ok": true,
+   "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero before the last
 line. It needs a CUDA card and the repository checkout beside it; it
@@ -42,7 +68,6 @@ from __future__ import annotations
 
 import contextlib
 import json
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -50,26 +75,22 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 PKG = "bundleadjustment_jl_tpu_torch"
 
-# bench.py's problems (synthetic, seed 0, f32) and the solver-level anchors
-# the data fixes: rmse at the solution.
-PROBLEMS = {
-    "ladybug49": dict(ncams=49, npnts=7776, obs_per_pnt=4, rmse=0.7849),
-    "dubrovnik356": dict(ncams=356, npnts=226730, obs_per_pnt=6,
-                         rmse=0.8648),
-}
+# bench.py's problems (`bench.PROBLEMS`, synthetic, seed 0, f32), then
+# Final-4585, and the solver-level anchors the data fixes: rmse at the
+# solution. LadyBug-49 and Dubrovnik-356: BENCH_r05.json's solver outputs;
+# Final-4585: the expected fitted rmse under unit pixel noise,
+# sqrt(1 - (9 ncams + 3 npnts) / (2 nobs)) (it gives 0.8653 and 0.7861 for
+# the other two).
+PROBLEMS = ("ladybug49", "dubrovnik356")
+FINAL = "final4585"
+RMSE = {"ladybug49": 0.7849, "dubrovnik356": 0.8648, "final4585": 0.8851}
 REPEATS = 5          # timed kernel-route solves per problem; median kept
-# Synthetic Final-4585: the BAL Final problem problem-4585-1324582-9125125
-# (grail.cs.washington.edu, "Final") at its sizes, obs_per_pnt =
-# round(9125125 / 1324582). rmse: the expected fitted rmse under unit pixel
-# noise, sqrt(1 - (9 ncams + 3 npnts) / (2 nobs)) (it gives 0.8653 and
-# 0.7861 for the two anchors above). Three timed solves, not five, for the
-# run's time limit.
-FINAL = ("final4585", dict(ncams=4585, npnts=1324582, obs_per_pnt=7,
-                           rmse=0.8851))
-FINAL_REPEATS = 3
-SOLVE_OPTS = dict(max_iters=100, pcg_max_iters=100, lam0_mode="diag",
-                  satol=0.0, srtol=0.0, atol=0.0, rtol=1e-5, oatol=0.0,
-                  ortol=1e-4)
+FINAL_REPEATS = 3    # at Final-4585, for the run's time limit
+# The JAX package's decisions with W stored narrow at Dubrovnik-356
+# (BENCH_r05.json, bench.py's bf16facto_* / f16facto_* keys): status and
+# iterations, which the port's narrow solves must make.
+FACTO_RECORD = {"bfloat16": ("small_obj_change", 9),
+                "float16": ("first_order", 9)}
 # Kernel vs plain, |kernel - plain| <= rtol |plain| + afrac max|plain|:
 # summation order differs (blocks, FMA contraction), nothing else.
 TOL = {"W": (1e-5, 1e-6), "hp12": (1e-4, 1e-3), "hc90": (1e-4, 1e-3),
@@ -80,7 +101,10 @@ TOL = {"W": (1e-5, 1e-6), "hp12": (1e-4, 1e-3), "hc90": (1e-4, 1e-3),
        "seg_block_point": (1e-4, 1e-4), "seg_block_camera": (1e-4, 1e-4),
        "cam_reduce_w_op": (1e-4, 1e-4), "cam_reduce_wcw81": (1e-4, 1e-4),
        "cam_reduce_cam90": (1e-4, 1e-3), "linearize_w_only": (1e-5, 1e-6),
-       "schur": (1e-4, 1e-4)}
+       "schur": (1e-4, 1e-4),
+       # sums of (32 + nsmall) rows of n uniform [0, 1) values, f32 partial
+       # sums in another order
+       "stream_probe": (1e-5, 0.0)}
 # name: (source, TPU kernel it replaces, its launch counters, the
 # comparisons whose largest error the table reports)
 KERNELS = {
@@ -115,26 +139,29 @@ KERNELS = {
                          "bundleadjustment_jl_tpu/ops/pallas_schur.py:647",
                          ["seg_block_point", "seg_block_camera"],
                          ["seg_block_point", "seg_block_camera"]),
+    "stream_probe": ("csrc/stream_probe.cu", "scripts/tpu_mv_sweep.py:120",
+                     ["stream_probe"], ["stream_probe"]),
 }
+# Storage dtypes of W checked and timed beside float32 (2 bytes a value).
+NARROW = ("bfloat16", "float16")
+# A writer's stored W against its plain version's: the largest share of
+# entries that may differ at all. The two float32 W differ in their last
+# bits (FMA contraction) before the store rounds them, so a few round to
+# the neighbour: on an H100 at Dubrovnik-356, 4.5e-5 of the entries in
+# bfloat16 and 3.0e-4 in float16 (8x finer). A store that rounds toward
+# zero instead of to nearest changes about half.
+STORE_MISMATCH_MAX = 1e-3
 # Counters no solve launches: K2's W C W' serves `schur_diag_blocks` on
 # blocks without a camera-sorted W, which no solve calls (route B1's
 # diagonal comes from K2's W C W' | W t, as in the JAX driver). Only the
 # Schur check of phase 4 launches it; its count is kept apart from the
 # solves'.
 SCHUR_CHECK_ONLY = ("cam_reduce_wcw81",)
-ROUTES = {True: "fused", False: "sorted"}   # lm_jit.CAM_SCATTER -> name
+ROUTES = {True: "fused", False: "sorted"}   # normal.CAM_SCATTER -> name
 # Each route's metric-name suffix and "route" entry in its solve line.
 ROUTE_TAGS = {"fused": ("", None), "sorted": ("_sorted", "camera_sorted"),
               "scatter_split": ("_scatter_split", "scatter_split"),
               "sorted_relin": ("_sorted_relin", "sorted_relin")}
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True, timeout=60)
-    return out.stdout.strip().splitlines()[0]
 
 
 def compare(name, got, ref, errs):
@@ -154,6 +181,46 @@ def compare(name, got, ref, errs):
           f"rtol {rtol:g} atol {afrac:g}*max  violations {bad}")
     if bad:
         raise AssertionError(f"{name}: {bad} entries outside tolerance")
+    errs[name] = max(errs.get(name, 0.0), err)
+
+
+def compare_stored(name, got, ref, errs):
+    """Raise unless the writer's stored W ``got`` matches its plain
+    version's ``ref`` (both in the storage dtype) within one ulp of that
+    dtype on top of the float32 tolerance TOL[name] (the two float32 W
+    differ by that much — on cancelling entries by more than their last
+    bit — before the store rounds them), with at most STORE_MISMATCH_MAX
+    of the entries not bit-equal, and with any non-finite entries (a raw
+    float16 W past 65504) at the same places; record the max abs error of
+    the finite ones."""
+    import torch
+    mant, emin = {torch.bfloat16: (7, -126), torch.float16: (10, -14)}[
+        got.dtype]
+    if got.dtype != ref.dtype:
+        raise AssertionError(f"{name}: stored as {got.dtype}, plain "
+                             f"{ref.dtype}")
+    g, r = got.float(), ref.float()
+    fin = torch.isfinite(r)
+    if not (torch.equal(fin, torch.isfinite(g))
+            and torch.equal(g[~fin], r[~fin])):
+        raise AssertionError(f"{name}: non-finite entries differ")
+    g, r = g[fin], r[fin]
+    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp(
+        min=2.0 ** emin))) - mant)
+    rtol, afrac = TOL[name]
+    diff = (g - r).abs()
+    bad = int((diff > ulp + rtol * r.abs()
+               + afrac * float(r.abs().max())).sum())
+    differ = int((diff != 0).sum())
+    err = float(diff.max()) if diff.numel() else 0.0
+    print(f"  {name:10s} {str(got.dtype)[6:]} max_abs_err {err:.3e}  "
+          f"non-finite {int((~fin).sum())}  beyond TOL + one ulp {bad}  "
+          f"not bit-equal {differ} of {got.numel()}")
+    if bad:
+        raise AssertionError(f"{name}: {bad} entries beyond TOL + one ulp")
+    if differ > STORE_MISMATCH_MAX * got.numel():
+        raise AssertionError(f"{name}: {differ} of {got.numel()} entries "
+                             f"not bit-equal to the plain version's")
     errs[name] = max(errs.get(name, 0.0), err)
 
 
@@ -372,6 +439,151 @@ def check_split_kernels(name, problem, errs, timings, facts,
         print(f"  time {k:16s} kernel {kms:.4f} ms  plain {pms:.4f} ms")
 
 
+def check_probe(errs, timings, probe):
+    """Phase 5: K9 against its plain version at Dubrovnik-356's and
+    Final-4585's row counts, 0-2 small rows. With no small row the plain
+    version is ``torch.sum(big, 1)``, the one-call yardstick: its time is
+    the probe's ``library_ms``. ``probe`` gets, per row count, the rates in
+    GB/s."""
+    import torch
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.ops.stream_probe import (
+        _stream_probe_plain, stream_probe)
+
+    for name in ("dubrovnik356", FINAL):
+        shape = bench.shape(name)
+        n = shape.nobs_pad
+        gen = torch.Generator(device="cuda").manual_seed(4)
+        big = torch.rand((32, n), generator=gen, device="cuda")
+        small = [torch.rand((n,), generator=gen, device="cuda")
+                 for _ in range(2)]
+        for nsmall in (0, 1, 2):
+            args = (big, *small[:nsmall])
+            got = stream_probe(*args)
+            torch.cuda.synchronize()
+            compare("stream_probe", got, _stream_probe_plain(*args), errs)
+            kms, pms = time_pair(lambda: stream_probe(*args),
+                                 lambda: _stream_probe_plain(*args), 10)
+            nbytes = bench.kernel_bytes("stream_probe", shape, nsmall=nsmall)
+            gbs = nbytes / (kms * 1e-3) / 1e9
+            of_peak = gbs / bench.PEAK_HBM_GBS
+            line = {"kernel_gbs": gbs, "kernel_ms": kms, "plain_ms": pms,
+                    "of_peak_hbm": of_peak}
+            if nsmall == 0:
+                timings.setdefault("stream_probe", {})[name] = (kms, pms)
+                timings.setdefault("library", {})[name] = pms
+            probe.setdefault(name, {})[f"nsmall{nsmall}"] = line
+            print(f"  probe {name} nsmall {nsmall}: kernel {kms:.4f} ms "
+                  f"({gbs:.1f} GB/s, {of_peak:.3f} of "
+                  f"{bench.PEAK_HBM_GBS / 1e3:g} TB/s)  plain"
+                  f"{' (torch.sum)' if nsmall == 0 else ''} {pms:.4f} ms")
+        del big, small
+
+
+def narrow_w(W, dtype):
+    """W stored as the solver stores it: bfloat16 rounded, float16 scaled
+    by its power-of-two range scale first (`lm_jit.f16_scale`)."""
+    import torch
+    from bundleadjustment_jl_tpu_torch.solver import lm_jit
+    if dtype == torch.float16:
+        W = W * lm_jit.f16_scale(W)
+    return W.to(dtype).contiguous()
+
+
+def check_narrow(name, problem, errs, timings, final=False):
+    """Phase 6 for one problem: every kernel that reads or writes W, with W
+    in bfloat16 and in float16, against its plain version (``final``: K2's
+    W op and K8 only), timed in turns, five launches a window as phase 2
+    times the float32 forms at this size (two at Final-4585, where each
+    launch takes milliseconds and the plain versions are slow). Times go to
+    ``timings["<key>@<dtype>"]``."""
+    import torch
+    from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
+    from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
+    from bundleadjustment_jl_tpu_torch.ops import linearize as lz
+    from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
+    from bundleadjustment_jl_tpu_torch.ops.normal import inv3x3_damped_flat
+
+    print(f"[narrow W] {name}: nobs_pad {problem.nobs_pad}")
+    cams, points = problem.cams, problem.points
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    JR_t, W32 = lz.linearize_w_kminor(problem, cams, points)
+    hp12 = sr.jtj_pnt_reduce(JR_t, problem)
+    del JR_t
+    lam = 1e-3 * float(hp12[:, :9:4].max())
+    hpp_inv = inv3x3_damped_flat(hp12[:, :9].reshape(-1), lam)
+    g_p = hp12[:, 9:12].reshape(-1).contiguous()
+    t = torch.einsum("pab,pb->pa", hpp_inv.reshape(-1, 3, 3),
+                     g_p.reshape(-1, 3))
+    v = torch.randn((problem.ncams, 9), generator=gen, device="cuda")
+    perm = problem.cam_perm.long()
+    for dt in NARROW:
+        dtype = getattr(torch, dt)
+
+        def check(key, kernel, plain, stored=(), tols=None):
+            """``stored``: indices of outputs that are W (compared to
+            TOL + one ulp); the rest to TOL[key], or TOL[tols[i]] for
+            output i."""
+            got = kernel()
+            torch.cuda.synchronize()
+            ref = plain()
+            pairs = (list(zip(got, ref)) if isinstance(got, tuple)
+                     else [(got, ref)])
+            for i, (g, r) in enumerate(pairs):
+                if i in stored:
+                    compare_stored(tols[i] if tols else key, g, r, errs)
+                else:
+                    compare(tols[i] if tols else key, g.reshape(-1),
+                            r.reshape(-1), errs)
+            timings.setdefault(f"{key}@{dt}", {})[name] = time_pair(
+                kernel, plain, 2 if final else 5)
+
+        W = narrow_w(W32, dtype)
+        if not final:
+            check("assemble",
+                  lambda: fa.assemble_scatter(problem, cams, points, dtype),
+                  lambda: fa._assemble_plain(problem, cams, points, dtype),
+                  stored=(0,), tols=("W", "hp12", "hc90", "obj"))
+            check("linearize",
+                  lambda: lz.linearize_w_kminor(problem, cams, points, dtype),
+                  lambda: lz._linearize_plain(problem, cams, points, dtype),
+                  stored=(1,))
+        check("linearize_w_only",
+              lambda: lz.linearize_w_only(problem, cams, points, dtype),
+              lambda: lz._linearize_w_only_plain(problem, cams, points,
+                                                 dtype), stored=(0,))
+        check("cam_reduce_w_op", lambda: fs.cam_reduce_w_op(W, problem, t),
+              lambda: fs._cam_reduce_w_op_plain(W, problem, t))
+        if not final:
+            W_cam = W[:, perm].contiguous()
+            check("cam_reduce",
+                  lambda: fs.cam_reduce_wcw_rhs(W, problem, hpp_inv, t),
+                  lambda: fs._cam_reduce_wcw_rhs_plain(W, problem, hpp_inv,
+                                                       t))
+            check("cam_reduce_wcw81",
+                  lambda: fs.cam_reduce_wcw(W, problem, hpp_inv),
+                  lambda: fs._cam_reduce_wcw_plain(W, problem, hpp_inv))
+            check("matvec",
+                  lambda: fs.matvec_cam_scatter(W, v, problem, hpp_inv),
+                  lambda: fs._matvec_plain(W, v, problem, hpp_inv, None,
+                                           1.0)[0])
+            check("seg_block_point",
+                  lambda: sr.wtv_point_reduce(W, v, problem,
+                                              hpp_inv_f=hpp_inv),
+                  lambda: sr._wtv_point_plain(W, v, problem, hpp_inv))
+            check("seg_block_camera",
+                  lambda: sr.wt_cam_reduce(W_cam, t, problem),
+                  lambda: sr._wt_cam_plain(W_cam, t, problem))
+            check("seg_prod_wcw81",
+                  lambda: sr.wcw_cam_reduce(W_cam, problem, hpp_inv),
+                  lambda: sr._wcw_cam_plain(W_cam, problem, hpp_inv))
+            del W_cam
+        del W
+    for k in sorted(k for k in timings if "@" in k and name in timings[k]):
+        kms, pms = timings[k][name]
+        print(f"  time {k:26s} kernel {kms:.4f} ms  plain {pms:.4f} ms")
+
+
 @contextlib.contextmanager
 def plain_route():
     """Point the solver's kernel call sites, on every route, at the plain
@@ -412,27 +624,23 @@ def plain_route():
             setattr(mod, attr, fn)
 
 
-def solve(problem):
-    import torch
-    from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
-        levenberg_marquardt_jit)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    res = levenberg_marquardt_jit(problem, **SOLVE_OPTS)
-    torch.cuda.synchronize()
-    return time.perf_counter() - t0, res
-
-
-def check_launches(name, res, counts, route):
+def check_launches(name, res, counts, w_counts, route, facto):
     """Each kernel launched as often as the solve's own record implies
-    (``lm_jit.expected_launches``), and none of the other routes'."""
-    from bundleadjustment_jl_tpu_torch.solver.lm_jit import expected_launches
+    (``lm_jit.expected_launches``), and none of the other routes'; the W
+    kernels' launches ``w_counts`` (``_cuda.W_LAUNCHES``) with W in the
+    dtypes ``facto`` implies (``lm_jit.expected_w_launches``)."""
+    from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
+        expected_launches, expected_w_launches)
     it = res.iterations
     expect = dict.fromkeys(counts, 0)
     expect.update(expected_launches(route, it, res.naccepts,
                                     int(res.hist_cg[:it].sum())))
     if counts != expect:
         raise AssertionError(f"{name}: launches {counts} != {expect}")
+    w_expect = expected_w_launches(counts, facto)
+    if w_counts != w_expect:
+        raise AssertionError(f"{name}: W launches by storage dtype "
+                             f"{w_counts} != {w_expect}")
 
 
 def agree(res, ref) -> bool:
@@ -442,115 +650,134 @@ def agree(res, ref) -> bool:
             and abs(res.objective - ref.objective) <= 1e-4 * ref.objective)
 
 
-def check_route(name, spec, make, cam_scatter, launches_total,
-                repeats=REPEATS):
-    """Phase 3 for one problem on the kernel route the gates pick with
-    ``lm_jit.CAM_SCATTER = cam_scatter``; returns its solve."""
-    import torch
-    from bundleadjustment_jl_tpu_torch.ops import _cuda
-    from bundleadjustment_jl_tpu_torch.solver import lm_jit
+def agree_decisions(res, ref) -> bool:
+    """Same status, iterations within one (the narrow-W solves' check:
+    their objectives carry the storage dtype's noise)."""
+    return (res.status_name() == ref.status_name()
+            and abs(res.iterations - ref.iterations) <= 1)
 
-    lm_jit.CAM_SCATTER = cam_scatter
-    solve(make(1))                                    # warm-up
+
+def check_route(name, make, cam_scatter, launches_total, repeats=REPEATS,
+                facto=None, plain_solve=True):
+    """Phase 3 for one problem on the kernel route the gates pick with
+    ``normal.CAM_SCATTER = cam_scatter``, W stored in ``facto``
+    (``facto_dtype``; None: float32); returns its solve. With
+    ``plain_solve`` the plain route solves it too, and must agree."""
+    import torch
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.ops import _cuda, normal
+
+    normal.CAM_SCATTER = cam_scatter
+    bench.solve_cfg(make(1), facto)                   # warm-up
     problem = make(0)
-    route = lm_jit.kernel_route(problem)
+    route = normal.kernel_route(problem)
     times = []
     for _ in range(repeats):
         _cuda.reset_launches()
-        secs, res = solve(problem)
-        counts = dict(_cuda.LAUNCHES)
+        secs, res = bench.timed_solve(problem, facto)
+        counts, w_counts = dict(_cuda.LAUNCHES), dict(_cuda.W_LAUNCHES)
         times.append(secs)
-        check_launches(name, res, counts, route)
+        check_launches(name, res, counts, w_counts, route, facto)
         for k, v in counts.items():
             launches_total[k] += v
     secs = sorted(times)[len(times) // 2]
-    with plain_route():
-        _cuda.reset_launches()
-        plain_secs, plain = solve(problem)
-        plain_counts = dict(_cuda.LAUNCHES)
 
     it, cg = res.iterations, int(res.hist_cg[:res.iterations].sum())
     nequ = 2 * problem.nobs
     rmse = (2.0 * res.objective / nequ) ** 0.5
     suffix, route_name = ROUTE_TAGS[route]
+    tag = {None: "", torch.bfloat16: "_bf16facto",
+           torch.float16: "_f16facto"}[facto]
     line = {
-        "metric": f"{name}_synth_lm_solve{suffix}", "value": secs,
+        "metric": f"{name}_synth_lm_solve{suffix}{tag}", "value": secs,
         "unit": "s", "values": times,
         "status": res.status_name(), "iterations": it, "cg_matvecs": cg,
         "per_iter_ms": 1e3 * secs / max(it, 1),
         "objective": res.objective, "rmse_px": rmse,
         "naccepts": res.naccepts,
         "launches": {k: v for k, v in counts.items() if v},
-        "plain_value": plain_secs, "plain_status": plain.status_name(),
-        "plain_iterations": plain.iterations,
-        "plain_objective": plain.objective,
+        "w_launches": {str(k)[6:]: v for k, v in w_counts.items() if v},
     }
+    if plain_solve:
+        with plain_route():
+            _cuda.reset_launches()
+            plain_secs, plain = bench.timed_solve(problem, facto)
+            plain_counts = dict(_cuda.LAUNCHES)
+        line.update({"plain_value": plain_secs,
+                     "plain_status": plain.status_name(),
+                     "plain_iterations": plain.iterations,
+                     "plain_objective": plain.objective})
     if route_name:
         line["route"] = route_name
+    if facto is not None:
+        line["facto_dtype"] = str(facto)[6:]
     if repeats != REPEATS:
         line["repeats"] = repeats
     print(json.dumps(line))
 
-    if any(plain_counts.values()):
-        raise AssertionError(f"{name}: plain route launched {plain_counts}")
     if not (torch.isfinite(res.cams).all() and torch.isfinite(
             res.points).all()) or res.cams.shape != problem.cams.shape \
             or res.points.shape != problem.points.shape:
         raise AssertionError(f"{name}: bad solution state")
-    if not agree(res, plain):
-        raise AssertionError(f"{name}: kernel and plain routes disagree "
-                             f"({route})")
-    if abs(rmse - spec["rmse"]) > 0.01 * spec["rmse"]:
+    if res.status_name() == "exception":
+        raise AssertionError(f"{name}: the solve ended in an exception")
+    if plain_solve:
+        if any(plain_counts.values()):
+            raise AssertionError(f"{name}: plain route launched "
+                                 f"{plain_counts}")
+        if not agree(res, plain):
+            raise AssertionError(f"{name}: kernel and plain routes disagree "
+                                 f"({route})")
+    if abs(rmse - RMSE[name]) > 0.01 * RMSE[name]:
         raise AssertionError(f"{name}: rmse {rmse} not within 1% of "
-                             f"{spec['rmse']} ({route})")
+                             f"{RMSE[name]} ({route})")
     return res
 
 
-def check_solves(name, spec, launches_total):
+def check_solves(name, launches_total):
     """Phase 3 for one problem: both kernel routes, which must agree."""
-    import torch
-    from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
-    from bundleadjustment_jl_tpu_torch.solver import lm_jit
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.ops import normal
 
-    def make(seed):
-        return synthetic_bal(
-            ncams=spec["ncams"], npnts=spec["npnts"],
-            obs_per_pnt=spec["obs_per_pnt"], noise_px=1.0, perturb=2e-2,
-            seed=seed, dtype=torch.float32, pad_obs_to=512,
-            device="cuda")[0]
-
-    default = lm_jit.CAM_SCATTER
+    default = normal.CAM_SCATTER
     try:
-        res = {cs: check_route(name, spec, make, cs, launches_total)
-               for cs in ROUTES}
+        res = {cs: check_route(name, lambda seed: bench.make_problem(
+            name, seed), cs, launches_total) for cs in ROUTES}
     finally:
-        lm_jit.CAM_SCATTER = default
+        normal.CAM_SCATTER = default
     if not agree(res[False], res[True]):
         raise AssertionError(f"{name}: the fused and camera-sorted kernel "
                              f"routes disagree")
 
 
-def check_final_solves(name, spec, problem, launches_total):
-    """Phase 4: Final-4585 on the routes the default gates pick with camera
-    scatter on (B1) and off (B2), which must agree. The warm-up solves the
-    same problem (it is not rebuilt)."""
-    from bundleadjustment_jl_tpu_torch.solver import lm_jit
+def final_routes(problem, launches_total, facto=None, plain_solve=True):
+    """Final-4585 on the routes the default gates pick with camera scatter
+    on (B1) and off (B2), W stored in ``facto``: ``{route: its solve}``.
+    The warm-up solves the same problem (it is not rebuilt)."""
+    from bundleadjustment_jl_tpu_torch.ops import normal
 
-    default = lm_jit.CAM_SCATTER
+    default = normal.CAM_SCATTER
     res = {}
     try:
         for cs, route in ((True, "scatter_split"), (False, "sorted_relin")):
-            lm_jit.CAM_SCATTER = cs
-            if lm_jit.kernel_route(problem) != route:
-                raise AssertionError(f"{name}: the gates pick "
-                                     f"{lm_jit.kernel_route(problem)}, "
+            normal.CAM_SCATTER = cs
+            if normal.kernel_route(problem) != route:
+                raise AssertionError(f"{FINAL}: the gates pick "
+                                     f"{normal.kernel_route(problem)}, "
                                      f"not {route}")
-            res[route] = check_route(name, spec, lambda seed: problem, cs,
-                                     launches_total, repeats=FINAL_REPEATS)
+            res[route] = check_route(FINAL, lambda seed: problem, cs,
+                                     launches_total, repeats=FINAL_REPEATS,
+                                     facto=facto, plain_solve=plain_solve)
     finally:
-        lm_jit.CAM_SCATTER = default
+        normal.CAM_SCATTER = default
+    return res
+
+
+def check_final_solves(problem, launches_total):
+    """Phase 4: Final-4585 on B1 and B2, which must agree."""
+    res = final_routes(problem, launches_total)
     if not agree(res["sorted_relin"], res["scatter_split"]):
-        raise AssertionError(f"{name}: routes B1 and B2 disagree")
+        raise AssertionError(f"{FINAL}: routes B1 and B2 disagree")
 
 
 def check_final_schur(name, problem, errs):
@@ -597,14 +824,93 @@ def check_final_schur(name, problem, errs):
     return counts
 
 
+def check_facto_solves(final, launches_total):
+    """Phase 7: ``facto_dtype`` solves. Dubrovnik-356 with bfloat16 and
+    float16 W on routes A and C, each held to the JAX package's record
+    (FACTO_RECORD: its status, iterations within one), then Final-4585 with
+    bfloat16 W on B1 and B2. The two routes of a problem must agree."""
+    import torch
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.ops import normal
+
+    name = "dubrovnik356"
+    built = {seed: bench.make_problem(name, seed) for seed in (0, 1)}
+    default = normal.CAM_SCATTER
+    try:
+        for dt in NARROW:
+            status, iters = FACTO_RECORD[dt]
+            res = {}
+            for cs in ROUTES:
+                r = res[cs] = check_route(
+                    name, built.__getitem__, cs, launches_total,
+                    facto=getattr(torch, dt), plain_solve=False)
+                print(f"  {name} W {dt} route {ROUTES[cs]}: "
+                      f"{r.status_name()} / {r.iterations} iterations "
+                      f"(the JAX package's record: {status} / {iters})")
+                if (r.status_name() != status
+                        or abs(r.iterations - iters) > 1):
+                    raise AssertionError(
+                        f"{name}: W in {dt} on route {ROUTES[cs]} ends "
+                        f"{r.status_name()} / {r.iterations}, not the JAX "
+                        f"record {status} / {iters}")
+            if not agree_decisions(res[True], res[False]):
+                raise AssertionError(f"{name}: routes A and C disagree with "
+                                     f"W in {dt}")
+    finally:
+        normal.CAM_SCATTER = default
+    del built
+    res = final_routes(final, launches_total, facto=torch.bfloat16,
+                       plain_solve=False)
+    if not agree_decisions(res["scatter_split"], res["sorted_relin"]):
+        raise AssertionError(f"{FINAL}: routes B1 and B2 disagree with W in "
+                             f"bfloat16")
+
+
+def check_bench(launches_total):
+    """Phase 8: the bench leg, once; its launches counted from 0 and every
+    kernel of its route and the probe launched. Returns its line."""
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.ops import _cuda
+    from bundleadjustment_jl_tpu_torch.solver.lm_jit import expected_launches
+
+    _cuda.reset_launches()
+    line = bench.bench_line()
+    counts = dict(_cuda.LAUNCHES)
+    print(json.dumps(line))
+    need = [k for k, v in expected_launches(line["route"], 1, 0, 0).items()
+            if v] + ["stream_probe"]
+    missing = [k for k in need if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"bench: kernels {missing} never launched")
+    for k, v in counts.items():
+        launches_total[k] += v
+    for tag, anchor in (("", RMSE["dubrovnik356"]),
+                        ("ladybug49_", RMSE["ladybug49"]),
+                        ("bf16facto_", RMSE["dubrovnik356"]),
+                        ("f16facto_", RMSE["dubrovnik356"])):
+        if line[f"{tag}status"] == "exception" or abs(
+                line[f"{tag}rmse_px"] - anchor) > 0.01 * anchor:
+            raise AssertionError(f"bench: {tag}status / rmse "
+                                 f"{line[tag + 'status']} "
+                                 f"{line[tag + 'rmse_px']}")
+    return line
+
+
 def kernel_table(launches, schur_launches, errs, timings,
                  facts) -> list[dict]:
-    """One row per kernel. ``launches``: the solves' launches. ``ms``: one
-    launch of each of the kernel's forms (its counters) summed, on
-    Dubrovnik-356, then LadyBug-49 and Final-4585 (where every form was
-    timed there); each form's own times beside it where it has several.
+    """One row per kernel. ``launches``: the main paths' launches (the
+    solves and the bench leg). ``ms``: one launch of each of the kernel's
+    forms (its counters) summed, on Dubrovnik-356, then LadyBug-49 and
+    Final-4585 (where every form was timed there); each form's own times
+    beside it where it has several. ``bound_ms``: the same forms' least
+    time on the card at those shapes (``bench.bound_ms``: bytes over
+    3.35 TB/s or operations over 67 TFLOP/s, the larger). ``narrow``: the
+    W forms' times with W in bfloat16 and float16, each beside its bound.
     A form that only the Schur check launches (SCHUR_CHECK_ONLY) carries
     that check's launches apart."""
+    from bundleadjustment_jl_tpu_torch import bench
+
+    shapes = {k: bench.shape(k) for k in (*PROBLEMS, FINAL)}
     table = []
     for k, (src, replaces, counters, err_keys) in KERNELS.items():
         row = {"name": k, "route": "cuda", "source": f"{PKG}/{src}",
@@ -616,15 +922,31 @@ def kernel_table(launches, schur_launches, errs, timings,
             row["schur_check_only_launches"] = {
                 c: schur_launches[c] for c in side}
         for prob, tag in (("dubrovnik356", ""), ("ladybug49", "_ladybug49"),
-                          (FINAL[0], f"_{FINAL[0]}")):
-            if not all(prob in timings[c] for c in counters):
+                          (FINAL, f"_{FINAL}")):
+            if not all(prob in timings.get(c, {}) for c in counters):
                 continue
             parts = {c: timings[c][prob] for c in counters}
+            bounds = {c: bench.bound_ms(c, shapes[prob]) for c in counters}
             row["ms" + tag] = sum(kms for kms, _ in parts.values())
             row["plain_ms" + tag] = sum(pms for _, pms in parts.values())
+            row["bound_ms" + tag] = sum(b for b, _ in bounds.values())
+            row["bound_by" + tag] = max(bounds.values())[1]
+            lib = timings.get("library", {}).get(prob) if k == \
+                "stream_probe" else None
+            row["library_ms" + tag] = lib
             if len(parts) > 1:
-                row["parts" + tag] = {c: {"ms": kms, "plain_ms": pms}
-                                      for c, (kms, pms) in parts.items()}
+                row["parts" + tag] = {
+                    c: {"ms": kms, "plain_ms": pms, "bound_ms": bounds[c][0]}
+                    for c, (kms, pms) in parts.items()}
+        narrow = {}
+        for c in counters:
+            for dt in NARROW:
+                for prob, (kms, pms) in timings.get(f"{c}@{dt}", {}).items():
+                    narrow.setdefault(c, {}).setdefault(dt, {})[prob] = {
+                        "ms": kms, "plain_ms": pms,
+                        "bound_ms": bench.bound_ms(c, shapes[prob], 2)[0]}
+        if narrow:
+            row["narrow"] = narrow
         if k == "linearize_w_only":
             row.update(facts)
         table.append(row)
@@ -642,11 +964,11 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
-    from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
+    from bundleadjustment_jl_tpu_torch import bench
     from bundleadjustment_jl_tpu_torch.ops import _cuda
 
     wall0 = time.perf_counter()
-    card = card_line()
+    card = bench.card()["nvidia_smi"]
     print(f"torch {torch.__version__}  cuda {torch.version.cuda}  "
           f"python {sys.version.split()[0]}")
     print(f"card: {card}")
@@ -658,34 +980,34 @@ def main() -> int:
         if "registers" in ln or "spill" in ln or "Compiling" in ln:
             print("  " + ln.strip())
 
-    errs, timings, facts = {}, {}, {}
-    for name, spec in PROBLEMS.items():
-        problem = synthetic_bal(
-            ncams=spec["ncams"], npnts=spec["npnts"],
-            obs_per_pnt=spec["obs_per_pnt"], noise_px=1.0, perturb=2e-2,
-            seed=0, dtype=torch.float32, pad_obs_to=512, device="cuda")[0]
+    errs, timings, facts, probe = {}, {}, {}, {}
+    for name in PROBLEMS:
+        problem = bench.make_problem(name, 0)
         check_kernels(name, problem, errs, timings)
         check_sorted_kernels(name, problem, errs, timings)
         check_split_kernels(name, problem, errs, timings, facts)
+        if name == "dubrovnik356":
+            check_narrow(name, problem, errs, timings)
         del problem
+    print("[probe] K9 vs plain and torch.sum")
+    check_probe(errs, timings, probe)
 
     launches = dict.fromkeys(_cuda.LAUNCHES, 0)
-    for name, spec in PROBLEMS.items():
-        check_solves(name, spec, launches)
+    for name in PROBLEMS:
+        check_solves(name, launches)
 
-    name, spec = FINAL
     t0 = time.perf_counter()
-    final = synthetic_bal(
-        ncams=spec["ncams"], npnts=spec["npnts"],
-        obs_per_pnt=spec["obs_per_pnt"], noise_px=1.0, perturb=2e-2, seed=0,
-        dtype=torch.float32, pad_obs_to=512, device="cuda")[0]
+    final = bench.make_problem(FINAL, 0)
     torch.cuda.synchronize()
-    print(f"[{name}] built in {time.perf_counter() - t0:.1f} s: nobs "
+    print(f"[{FINAL}] built in {time.perf_counter() - t0:.1f} s: nobs "
           f"{final.nobs}, nobs_pad {final.nobs_pad}")
-    check_split_kernels(name, final, errs, timings, facts, wcw_rhs=True)
-    check_final_solves(name, spec, final, launches)
-    schur_launches = check_final_schur(name, final, errs)
+    check_split_kernels(FINAL, final, errs, timings, facts, wcw_rhs=True)
+    check_narrow(FINAL, final, errs, timings, final=True)
+    check_final_solves(final, launches)
+    schur_launches = check_final_schur(FINAL, final, errs)
+    check_facto_solves(final, launches)
     del final
+    check_bench(launches)
     for k, v in launches.items():
         if v == 0 and k not in SCHUR_CHECK_ONLY:
             raise AssertionError(f"kernel {k} never launched on the path")
@@ -695,9 +1017,10 @@ def main() -> int:
                                  f"check")
 
     print(f"[wall] {time.perf_counter() - wall0:.1f} s")
+    print(json.dumps({"probe": probe}))
     print(json.dumps({"kernels": kernel_table(launches, schur_launches, errs,
                                               timings, facts)}))
-    print(card_line())
+    print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

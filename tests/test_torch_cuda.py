@@ -20,14 +20,14 @@ import pytest
 import torch
 
 from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
-from bundleadjustment_jl_tpu_torch.ops.normal import ROUTES
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.ops import _cuda
 from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
 from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
 from bundleadjustment_jl_tpu_torch.ops import linearize as lz
+from bundleadjustment_jl_tpu_torch.ops import normal
 from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
-from bundleadjustment_jl_tpu_torch.ops.normal import inv3x3_damped_flat
+from bundleadjustment_jl_tpu_torch.ops.normal import ROUTES, inv3x3_damped_flat
 from bundleadjustment_jl_tpu_torch.solver import lm_jit
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import levenberg_marquardt_jit
 
@@ -240,10 +240,10 @@ def test_cuda_float64_raises_on_split_wrappers(card_problem):
 def test_solve_on_card_runs_every_kernel(card_problem, monkeypatch, route):
     """Each route launches its kernels as often as the solve's record
     implies (``lm_jit.expected_launches``), and none of the other
-    routes'."""
-    for k, v in lm_jit.FORCE_ROUTE[route].items():
-        monkeypatch.setattr(lm_jit, k, v)
-    assert lm_jit.kernel_route(card_problem) == route
+    routes'; every W kernel takes a float32 W."""
+    for k, v in normal.FORCE_ROUTE[route].items():
+        monkeypatch.setattr(normal, k, v)
+    assert normal.kernel_route(card_problem) == route
     _cuda.reset_launches()
     res = levenberg_marquardt_jit(card_problem, max_iters=30,
                                   lam0_mode="diag")
@@ -253,6 +253,109 @@ def test_solve_on_card_runs_every_kernel(card_problem, monkeypatch, route):
     expect.update(lm_jit.expected_launches(route, it, res.naccepts,
                                            int(res.hist_cg[:it].sum())))
     assert dict(_cuda.LAUNCHES) == expect
+    assert dict(_cuda.W_LAUNCHES) == lm_jit.expected_w_launches(expect, None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [4099, 1 << 16], ids=["scalar", "float4"])
+def test_stream_probe_matches_plain_on_card(n):
+    """K9 with 0-2 small rows, on rows whose length is and is not a
+    multiple of four floats, against its plain version; one launch each."""
+    from bundleadjustment_jl_tpu_torch.ops import stream_probe as sp
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    big = torch.rand((32, n), generator=gen, device="cuda")
+    small = [torch.rand((n,), generator=gen, device="cuda") for _ in range(2)]
+    for nsmall in (0, 1, 2):
+        _cuda.reset_launches()
+        got = sp.stream_probe(big, *small[:nsmall])
+        assert _cuda.LAUNCHES["stream_probe"] == 1
+        torch.testing.assert_close(
+            got, sp._stream_probe_plain(big, *small[:nsmall]), rtol=1e-5,
+            atol=0.0)
+
+
+def narrow(W, dtype):
+    """W as the solver stores it in ``dtype`` (float16 range-scaled)."""
+    if dtype == torch.float16:
+        W = W * lm_jit.f16_scale(W)
+    return W.to(dtype).contiguous()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_narrow_w_kernels_match_plain_on_card(card_problem, dtype):
+    """Every kernel that reads W, given W in ``dtype``, against its plain
+    version (which widens the same stored W); every writer's W to one ulp
+    of ``dtype`` plus 1e-6 of the largest entry (the two float32 W differ
+    there on cancelling entries before rounding). Each launches its own
+    instantiation: no float32 copy of W is made for it."""
+    p = card_problem
+    o = sorted_operands(p)
+    W = narrow(o["W_t"], dtype)
+    W_cam = W[:, p.cam_perm.long()].contiguous()
+    t = o["gp"].reshape(-1, 3)
+    readers = [
+        (lambda: fs.cam_reduce_wcw_rhs(W, p, o["hpp_inv"], t),
+         lambda: fs._cam_reduce_wcw_rhs_plain(W, p, o["hpp_inv"], t)),
+        (lambda: fs.cam_reduce_w_op(W, p, t),
+         lambda: fs._cam_reduce_w_op_plain(W, p, t)),
+        (lambda: fs.cam_reduce_wcw(W, p, o["hpp_inv"]),
+         lambda: fs._cam_reduce_wcw_plain(W, p, o["hpp_inv"])),
+        (lambda: fs.matvec_cam_scatter(W, o["v"], p, o["hpp_inv"]),
+         lambda: fs._matvec_plain(W, o["v"], p, o["hpp_inv"], None, 1.0)[0]),
+        (lambda: sr.wtv_point_reduce(W, o["v"], p, hpp_inv_f=o["hpp_inv"]),
+         lambda: sr._wtv_point_plain(W, o["v"], p, o["hpp_inv"])),
+        (lambda: sr.wt_cam_reduce(W_cam, t, p),
+         lambda: sr._wt_cam_plain(W_cam, t, p)),
+        (lambda: sr.wcw_cam_reduce(W_cam, p, o["hpp_inv"]),
+         lambda: sr._wcw_cam_plain(W_cam, p, o["hpp_inv"]))]
+    for kernel, plain in readers:
+        close(kernel(), plain())
+    eps = torch.finfo(dtype).eps
+    writers = [
+        (lambda: fa.assemble_scatter(p, p.cams, p.points, dtype)[0],
+         lambda: fa._assemble_plain(p, p.cams, p.points, dtype)[0]),
+        (lambda: lz.linearize_w_kminor(p, p.cams, p.points, dtype)[1],
+         lambda: lz._linearize_plain(p, p.cams, p.points, dtype)[1]),
+        (lambda: lz.linearize_w_only(p, p.cams, p.points, dtype),
+         lambda: lz._linearize_w_only_plain(p, p.cams, p.points, dtype))]
+    for kernel, plain in writers:
+        got, ref = kernel(), plain()
+        assert got.dtype == ref.dtype == dtype
+        fin = torch.isfinite(ref)
+        assert torch.equal(fin, torch.isfinite(got))
+        ref32 = ref[fin].float()
+        torch.testing.assert_close(got[fin].float(), ref32, rtol=eps,
+                                   atol=1e-6 * float(ref32.abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+@pytest.mark.parametrize("route", ROUTES)
+def test_facto_solve_on_card_runs_every_kernel(card_problem, monkeypatch,
+                                               route, dtype):
+    """A solve with W stored in ``dtype`` launches its route's kernels as
+    often as its record implies, each W reader on a W stored in ``dtype``
+    (the writers on the dtype the assembly writes: bfloat16, or float32
+    before float16's range scale), and converges as the float32 solve
+    does."""
+    for k, v in normal.FORCE_ROUTE[route].items():
+        monkeypatch.setattr(normal, k, v)
+    opts = dict(max_iters=30, lam0_mode="diag")
+    base = levenberg_marquardt_jit(card_problem, **opts)
+    _cuda.reset_launches()
+    res = levenberg_marquardt_jit(card_problem, facto_dtype=dtype, **opts)
+    assert res.status_name() in ("first_order", "small_obj_change")
+    assert res.objective == pytest.approx(base.objective, rel=2e-2)
+    it = res.iterations
+    expect = dict.fromkeys(_cuda.LAUNCHES, 0)
+    expect.update(lm_jit.expected_launches(route, it, res.naccepts,
+                                           int(res.hist_cg[:it].sum())))
+    assert dict(_cuda.LAUNCHES) == expect
+    w_expect = lm_jit.expected_w_launches(expect, dtype)
+    assert dict(_cuda.W_LAUNCHES) == w_expect and w_expect[dtype] > 0
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])

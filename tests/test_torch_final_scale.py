@@ -47,20 +47,20 @@ from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
 from bundleadjustment_jl_tpu_torch.ops import normal, schur
 from bundleadjustment_jl_tpu_torch.ops.linearize import (
     linearize_w_kminor, linearize_w_only)
-from bundleadjustment_jl_tpu_torch.ops.normal import GNBlocks, assemble_blocks
+from bundleadjustment_jl_tpu_torch.ops.normal import (
+    GNBlocks, assemble_blocks, kernel_route)
 from bundleadjustment_jl_tpu_torch.solver import lm_jit
-from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
-    kernel_route, levenberg_marquardt_jit)
+from bundleadjustment_jl_tpu_torch.solver.lm_jit import levenberg_marquardt_jit
 
 ROOT = Path(__file__).resolve().parents[1]
 LAM = 0.37
 B_ROUTES = ["scatter_split", "sorted_relin"]
 
 # Gate settings: attributes set alike on the JAX `pallas_schur` and the
-# port's `lm_jit` (the port's gates carry the JAX names and values), keyed
+# port's `ops/normal.py` (the port's gates carry the JAX names and values), keyed
 # by the route they select (the port's FORCE_ROUTE) unless named below.
 GATES = dict(
-    lm_jit.FORCE_ROUTE,
+    normal.FORCE_ROUTE,
     scatter_cap_sorted=dict(CAM_SCATTER=True, CAM_SCATTER_MAX_CAMS=4),
     scatter_cap_relin=dict(CAM_SCATTER=True, CAM_SCATTER_MAX_CAMS=4,
                            GATHER_DIRECT_MAX_BYTES=0))
@@ -73,7 +73,8 @@ JAX_ONLY = {"sorted_relin": dict(GATHER_CHUNK=512)}
 
 def to_port(jp):
     return BAProblem.from_numpy(
-        {k: np.asarray(getattr(jp, k)) for k in BAProblem.FIELDS})
+        {k: np.asarray(getattr(jp, k)) for k in BAProblem.FIELDS},
+        device="cpu")
 
 
 def close32(got, ref):
@@ -117,14 +118,14 @@ def jax_route(setting):
 @contextlib.contextmanager
 def port_route(setting):
     flags = GATES[setting]
-    old = {k: getattr(lm_jit, k) for k in flags}
+    old = {k: getattr(normal, k) for k in flags}
     try:
         for k, v in flags.items():
-            setattr(lm_jit, k, v)
+            setattr(normal, k, v)
         yield
     finally:
         for k, v in old.items():
-            setattr(lm_jit, k, v)
+            setattr(normal, k, v)
 
 
 @contextlib.contextmanager
@@ -223,7 +224,7 @@ def test_cam_reduce_camera_without_rows_is_zero(prob32, product):
         np.concatenate([np.asarray(jp.cams[:1]), np.asarray(jp.cams)]),
         np.asarray(jp.points), np.asarray(jp.cam_idx[:m]) + 1,
         np.asarray(jp.pnt_idx[:m]), np.asarray(jp.pt2d[:m]),
-        dtype=torch.float32, pad_obs_to=128)
+        dtype=torch.float32, pad_obs_to=128, device="cpu")
     JR_t, W_t = linearize_w_kminor(p, p.cams, p.points)
     C = torch.eye(3).repeat(p.npnts, 1, 1).reshape(-1)
     t = torch.ones((p.npnts, 3))
@@ -407,7 +408,7 @@ def test_default_gates_pick_the_jax_route(monkeypatch, ncams, nobs_pad,
                                           cam_scatter, route):
     """With the JAX values of the gates, the problems the port measures
     stay on routes A and C, and Final-scale sizes take route B."""
-    monkeypatch.setattr(lm_jit, "CAM_SCATTER", cam_scatter)
+    monkeypatch.setattr(normal, "CAM_SCATTER", cam_scatter)
     shape = types.SimpleNamespace(ncams=ncams, nobs_pad=nobs_pad)
     assert kernel_route(shape) == route
 
@@ -456,7 +457,7 @@ def test_route_keeps_its_call_sites_for_a_whole_solve(monkeypatch, route):
         monkeypatch.setattr(mods[mod], attr,
                             wrap(site, getattr(mods[mod], attr)))
     for k, v in GATES[route].items():
-        monkeypatch.setattr(lm_jit, k, v)
+        monkeypatch.setattr(normal, k, v)
     jp, _ = jax_synthetic(**P10)
     res = levenberg_marquardt_jit(to_port(jp), max_iters=3)
     assert res.iterations == 3 and res.naccepts > 0
@@ -472,8 +473,7 @@ def _queue_a_titles() -> set:
 
 
 @pytest.mark.parametrize("option", [
-    "use_dense", "use_cgls", "use_power", "facto_dtype", "working_dtype",
-    "chunked"])
+    "use_dense", "use_cgls", "use_power", "working_dtype", "chunked"])
 def test_unsupported_options_name_a_roadmap_item(option):
     """Each option the port lacks names, by its title, an item that exists
     in ROADMAP.md's queue A."""
@@ -483,8 +483,6 @@ def test_unsupported_options_name_a_roadmap_item(option):
         "use_dense": lambda: levenberg_marquardt_jit(tp, use_dense=True),
         "use_cgls": lambda: levenberg_marquardt_jit(tp, use_cgls=True),
         "use_power": lambda: levenberg_marquardt_jit(tp, use_power=True),
-        "facto_dtype": lambda: levenberg_marquardt_jit(
-            tp, facto_dtype=torch.bfloat16),
         "working_dtype": lambda: levenberg_marquardt_jit(
             tp, tp.cams.half(), tp.points.half()),
         "chunked": lambda: lm_jit.levenberg_marquardt_jit_chunked(tp),

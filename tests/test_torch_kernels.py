@@ -50,7 +50,8 @@ def close32(got, ref):
 
 def to_port(jp):
     return BAProblem.from_numpy(
-        {k: np.asarray(getattr(jp, k)) for k in BAProblem.FIELDS})
+        {k: np.asarray(getattr(jp, k)) for k in BAProblem.FIELDS},
+        device="cpu")
 
 
 def close64(got, ref):

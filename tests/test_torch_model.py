@@ -33,7 +33,7 @@ LAYOUT = ("cams", "points", "cam_idx", "pnt_idx", "pt2d", "w", "pnt_starts",
 def to_port(jp, **override):
     fields = {k: np.asarray(getattr(jp, k)) for k in BAProblem.FIELDS}
     fields.update(override)
-    return BAProblem.from_numpy(fields)
+    return BAProblem.from_numpy(fields, device="cpu")
 
 
 @pytest.mark.parametrize("kw", [
@@ -48,7 +48,7 @@ def test_synthetic_bal_identical_to_jax(kw):
     """Same seed -> bit-identical arrays and the same sorted, padded
     layout in both packages."""
     jp, jtruth = jax_synthetic(**kw)
-    tp, truth = synthetic_bal(**kw)
+    tp, truth = synthetic_bal(**kw, device="cpu")
     for k in LAYOUT:
         np.testing.assert_array_equal(getattr(tp, k).numpy(),
                                       np.asarray(getattr(jp, k)), err_msg=k)
@@ -79,7 +79,7 @@ def test_from_numpy_carries_jax_problem():
                                       np.asarray(getattr(jp, k)), err_msg=k)
     t32 = BAProblem.from_numpy(
         {k: np.asarray(getattr(jp, k)) for k in BAProblem.FIELDS},
-        dtype=torch.float32)
+        dtype=torch.float32, device="cpu")
     assert t32.cams.dtype == torch.float32 and t32.w.dtype == torch.float32
 
 
@@ -92,7 +92,7 @@ def test_read_bal_matches_jax(tmp_path):
     jp, _ = jax_synthetic(ncams=5, npnts=30, obs_per_pnt=3, seed=2)
     path = str(tmp_path / "problem-5-30-pre.txt.bz2")
     write_bal(path, jp)
-    ref, got = jax_read_bal(path), read_bal(path)
+    ref, got = jax_read_bal(path), read_bal(path, device="cpu")
     for k in LAYOUT:
         np.testing.assert_array_equal(getattr(got, k).numpy(),
                                       np.asarray(getattr(ref, k)), err_msg=k)
@@ -102,7 +102,7 @@ def test_read_bal_matches_jax(tmp_path):
 
 
 def test_fixture_golden_residuals():
-    r = residuals(load_fixture()).numpy()
+    r = residuals(load_fixture(device="cpu")).numpy()
     np.testing.assert_allclose(r[0], [-9.0202263, 11.2639583], atol=1e-7)
     np.testing.assert_allclose(r[:5], FIXTURE_TRUE_RESIDUALS, atol=1e-7)
     assert np.all(r[5:] == 0.0)
@@ -165,11 +165,38 @@ def test_import_never_loads_jax():
 
         sys.meta_path.insert(0, Block())
         import bundleadjustment_jl_tpu_torch as pkg
+        names = []
         for mod in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + "."):
             importlib.import_module(mod.name)
+            names.append(mod.name)
+        print(" ".join(names))
         print("jax" in sys.modules)
     """)
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert out.stdout.strip() == "False"
+    names, loaded = out.stdout.strip().splitlines()
+    assert loaded == "False"
+    # the measurement path's modules are among those imported
+    for mod in ("bench", "mv_sweep", "utils.timing", "ops.stream_probe"):
+        assert f"bundleadjustment_jl_tpu_torch.{mod}" in names.split(), mod
+
+
+@pytest.mark.parametrize("fn", [
+    "io.synthetic.synthetic_bal", "io.bal.read_bal", "io.bal.load_fixture",
+    "models.problem.BAProblem.from_arrays",
+    "models.problem.BAProblem.from_numpy"])
+def test_problem_constructors_default_to_the_card(fn):
+    """Every entry point that builds a problem puts it on the card unless
+    the caller asks for the CPU."""
+    import importlib
+    import inspect
+    mod, _, attr = fn.rpartition(".")
+    if mod.endswith("BAProblem"):
+        obj = getattr(importlib.import_module(
+            "bundleadjustment_jl_tpu_torch." + mod.rpartition(".")[0]),
+            "BAProblem")
+    else:
+        obj = importlib.import_module("bundleadjustment_jl_tpu_torch." + mod)
+    default = inspect.signature(getattr(obj, attr)).parameters["device"]
+    assert default.default == "cuda"

@@ -27,7 +27,8 @@ from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
 
 def to_port(jp):
     return BAProblem.from_numpy(
-        {k: np.asarray(getattr(jp, k)) for k in BAProblem.FIELDS})
+        {k: np.asarray(getattr(jp, k)) for k in BAProblem.FIELDS},
+        device="cpu")
 
 
 P9 = dict(ncams=8, npnts=60, obs_per_pnt=3, noise_px=0.4, perturb=2e-3,
@@ -91,8 +92,7 @@ def test_solver_f32_matches_jax_pallas_cam_scatter():
 
 
 @pytest.mark.parametrize("option, value", [
-    ("use_dense", True), ("use_cgls", True), ("use_power", True),
-    ("facto_dtype", torch.bfloat16)])
+    ("use_dense", True), ("use_cgls", True), ("use_power", True)])
 def test_options_outside_the_slice_raise(option, value):
     jp, _ = jax_synthetic(**P10)
     with pytest.raises(NotImplementedError, match="ROADMAP"):

@@ -1,4 +1,4 @@
-"""The port's camera-sorted route (``lm_jit.CAM_SCATTER = False``) against
+"""The port's camera-sorted route (``normal.CAM_SCATTER = False``) against
 the JAX package's, on the CPU.
 
 On the CPU each wrapper runs its plain PyTorch version, which is what the
@@ -30,12 +30,11 @@ from bundleadjustment_jl_tpu.ops.pallas_schur import gather_k_minor, pad_rows
 from bundleadjustment_jl_tpu.solver.lm_jit import (
     levenberg_marquardt_jit as jax_lm)
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
-from bundleadjustment_jl_tpu_torch.ops import schur
+from bundleadjustment_jl_tpu_torch.ops import normal, schur
 from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
 from bundleadjustment_jl_tpu_torch.ops.linearize import linearize_w_kminor
 from bundleadjustment_jl_tpu_torch.ops.normal import (
     GNBlocks, assemble_blocks)
-from bundleadjustment_jl_tpu_torch.solver import lm_jit
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import levenberg_marquardt_jit
 
 LAM = 0.37
@@ -43,7 +42,8 @@ LAM = 0.37
 
 def to_port(jp):
     return BAProblem.from_numpy(
-        {k: np.asarray(getattr(jp, k)) for k in BAProblem.FIELDS})
+        {k: np.asarray(getattr(jp, k)) for k in BAProblem.FIELDS},
+        device="cpu")
 
 
 def close32(got, ref):
@@ -76,12 +76,12 @@ def jax_sorted_route():
 
 @contextlib.contextmanager
 def port_sorted_route():
-    old = lm_jit.CAM_SCATTER
+    old = normal.CAM_SCATTER
     try:
-        lm_jit.CAM_SCATTER = False
+        normal.CAM_SCATTER = False
         yield
     finally:
-        lm_jit.CAM_SCATTER = old
+        normal.CAM_SCATTER = old
 
 
 @pytest.fixture(scope="module")
@@ -186,7 +186,7 @@ def test_seg_block_reduce_f32_matches_pallas(prob32, jax32, form):
 def test_assemble_sorted_f32_matches_pallas(prob32, jax32):
     _, tp = prob32
     ref = jax32["blocks"]
-    got = assemble_blocks(tp, cam_scatter=False)
+    got = assemble_blocks(tp, route="sorted")
     for name in ("g_c_f", "g_p_f", "Hcc_f", "Hpp_f"):
         close32(getattr(got, name), getattr(ref, name))
     close32(got.W_t, np.asarray(ref.W_t)[:27])
@@ -205,7 +205,7 @@ def test_schur_pieces_f32_match_pallas(prob32, jax32, piece):
     blocks = GNBlocks(g_c_f=tt(jb.g_c_f), g_p_f=tt(jb.g_p_f),
                       Hcc_f=tt(jb.Hcc_f), Hpp_f=tt(jb.Hpp_f),
                       obj=tt(jb.obj), W_t=tt(jb.W_t[:27]),
-                      W_cam_t=tt(jb.W_cam_t[:27]))
+                      W_cam_t=tt(jb.W_cam_t[:27]), route="sorted")
     dc = 1e-2 * jax32["v"]
     with jax_sorted_route():
         sys_ref = jax_schur.reduce_system(jp, jb, LAM)
@@ -249,17 +249,15 @@ SORTED_SITES = [("normal", "linearize_w_kminor"),
 @pytest.mark.parametrize("cam_scatter", [True, False],
                          ids=["fused", "sorted"])
 def test_route_switch_keeps_one_route_per_solve(monkeypatch, cam_scatter):
-    """``lm_jit.CAM_SCATTER`` picks the route for the whole solve: the
+    """``normal.CAM_SCATTER`` picks the route for the whole solve: the
     other route's kernel call sites are never reached."""
-    from bundleadjustment_jl_tpu_torch.ops import normal
-
     def refuse(*args, **kwargs):
         raise AssertionError("the other route was called")
 
     mods = {"normal": normal, "schur": schur}
     for mod, attr in SORTED_SITES if cam_scatter else FUSED_SITES:
         monkeypatch.setattr(mods[mod], attr, refuse)
-    monkeypatch.setattr(lm_jit, "CAM_SCATTER", cam_scatter)
+    monkeypatch.setattr(normal, "CAM_SCATTER", cam_scatter)
     jp, _ = jax_synthetic(**P10)
     res = levenberg_marquardt_jit(to_port(jp), max_iters=3)
     assert res.iterations == 3 and res.naccepts > 0
