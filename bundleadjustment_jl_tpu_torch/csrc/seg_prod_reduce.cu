@@ -21,8 +21,8 @@
 // upper-triangle sums of the symmetric 9x9 (plus 9 for Jc'r) in
 // registers, and reduces them in a fixed order (ba_block_sum): no atomics,
 // deterministic, a camera without rows gives exact zeros. The camera
-// products and their kernel are K2's (cam_prod.cuh), reading the
-// camera-sorted copy in place of gathering through cam_perm. The TPU
+// products are K2's (cam_prod.cuh); their kernel, ba_launch_cam_prod,
+// reads the camera-sorted copy where K2 reads point-order tiles. The TPU
 // kernel's sequential grid and VMEM accumulator have no counterpart.
 //
 // Bound: each product reads its rows once: 32 B a row for jtj_pnt, 80 B
@@ -82,8 +82,9 @@ extern "C" int ba_jtj_pnt_reduce(const float* JR, const int* pnt_starts,
 extern "C" int ba_jtj_cam_reduce(const float* JR_cam, const int* cam_perm,
                                  const int* cam_starts, int ncams,
                                  long long n, float* out, void* stream) {
-  return ba_launch_cam_prod<false>(ProdCam90{JR_cam, n}, cam_perm,
-                                   cam_starts, ncams, out, stream);
+  return ba_launch_cam_prod<ProdCam90>(
+      BaRows<float>{JR_cam, n, nullptr, nullptr, nullptr}, cam_perm,
+      cam_starts, ncams, out, stream);
 }
 
 // W_cam (27, n) camera-sorted, in storage w_dtype; hpp_inv (npnts, 9);
@@ -93,7 +94,9 @@ extern "C" int ba_wcw_cam_reduce(const void* W_cam, int w_dtype,
                                  const int* cam_starts, const float* hpp_inv,
                                  int ncams, long long n, float* out,
                                  void* stream) {
-  return ba_launch_w_prod<false, ProdWcw81>(W_cam, w_dtype, cam_perm,
-                                            cam_starts, ncams, out, stream,
-                                            pnt_idx, hpp_inv, n);
+  return ba_with_w_rows(W_cam, w_dtype, n, pnt_idx, hpp_inv, nullptr,
+                        [&](auto in) {
+                          return ba_launch_cam_prod<ProdWcw81>(
+                              in, cam_perm, cam_starts, ncams, out, stream);
+                        });
 }

@@ -16,7 +16,8 @@ point's segment and contribute exact zeros. ``pnt_starts`` (npnts+1,)
 delimits the point segments; ``cam_perm`` (nobs_pad,) lists the rows in
 camera order and ``cam_starts`` (ncams+1,) delimits the camera segments of
 that order. The rows are always point-sorted here, so the JAX field
-``pnt_perm`` has no counterpart.
+``pnt_perm`` has no counterpart. ``plans`` holds the kernels' launch plans
+(`ops/plans.py`).
 """
 
 from __future__ import annotations
@@ -73,6 +74,10 @@ class BAProblem:
     cam_perm: torch.Tensor    # (nobs_pad,) int32
     cam_starts: torch.Tensor  # (ncams+1,) int32
     name: str = "ba"
+    # Kernel launch plans built from the index arrays at first use
+    # (`ops/plans.py`), kept here so a solve builds each once.
+    plans: dict = dataclasses.field(default_factory=dict, repr=False,
+                                    compare=False)
 
     # Fields :meth:`from_numpy` reads; each is ``np.asarray`` of the JAX
     # problem attribute of the same name.

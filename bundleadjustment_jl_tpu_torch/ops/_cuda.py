@@ -152,21 +152,36 @@ def build() -> Path:
 
 _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
                     ctypes.c_float)
+
+
+class TilePlanC(ctypes.Structure):
+    """K2's plan as its C entry points take it (``csrc/cam_prod.cuh``
+    ``BaTilePlan``), by pointer: the device arrays of
+    :class:`ops.plans.TilePlan`."""
+    _fields_ = [("tile_rows", _P), ("tile_run_starts", _P),
+                ("tile_run_bounds", _P), ("tile_runs", _P),
+                ("cam_run_starts", _P), ("ntiles", _I), ("rows", _I)]
+
+
+_PLAN = ctypes.POINTER(TilePlanC)
 # Every W pointer is followed by its storage code (W_CODES).
 _SIGNATURES = {
     "ba_assemble": [_P] * 9 + [_I, _I, _I64, _P, _I] + [_P] * 5,
-    "ba_cam_reduce_wcw_rhs": [_P, _I] + [_P] * 5 + [_I, _I64, _P, _P],
-    "ba_cam_reduce_w_op": [_P, _I] + [_P] * 4 + [_I, _I64, _P, _P],
-    "ba_cam_reduce_wcw": [_P, _I] + [_P] * 4 + [_I, _I64, _P, _P],
-    "ba_cam_reduce_cam90": [_P] * 3 + [_I, _I64, _P, _P],
-    "ba_matvec": [_P, _I] + [_P] * 8 + [_F, _I, _I, _I64, _P, _P, _P],
+    "ba_cam_reduce_wcw_rhs": [_P, _I] + [_P] * 3 + [_PLAN, _I, _I64]
+    + [_P] * 3,
+    "ba_cam_reduce_w_op": [_P, _I, _P, _P, _PLAN, _I, _I64] + [_P] * 3,
+    "ba_cam_reduce_wcw": [_P, _I, _P, _P, _PLAN, _I, _I64] + [_P] * 3,
+    "ba_cam_reduce_cam90": [_P, _PLAN, _I, _I64] + [_P] * 3,
+    "ba_matvec": [_P, _I] + [_P] * 5 + [_I, _PLAN, _P, _P, _F, _I, _I64]
+    + [_P] * 4,
     "ba_objective": [_P] * 6 + [_I, _I, _I, _I64, _P, _P, _P],
     "ba_linearize_rows": [_P] * 6 + [_I64, _P, _P, _I, _P],
     "ba_linearize_w_only": [_P] * 7 + [_I64, _P, _I, _P],
     "ba_jtj_pnt_reduce": [_P, _P, _I, _I64, _P, _P],
     "ba_jtj_cam_reduce": [_P, _P, _P, _I, _I64, _P, _P],
     "ba_wcw_cam_reduce": [_P, _I] + [_P] * 4 + [_I, _I64, _P, _P],
-    "ba_wtv_point_reduce": [_P, _I] + [_P] * 5 + [_F, _I, _I64, _P, _P],
+    "ba_wtv_point_reduce": [_P, _I] + [_P] * 5 + [_I, _P, _P, _F, _I64, _P,
+                                                   _P],
     "ba_wt_cam_reduce": [_P, _I] + [_P] * 4 + [_I, _I64, _P, _P],
     "ba_stream_probe": [_P] * 3 + [_I, _I64, _I, _P, _P, _P],
 }
@@ -191,6 +206,14 @@ def lib() -> ctypes.CDLL:
 
 def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
+
+
+def tile_plan_arg(plan) -> ctypes._Pointer:
+    """:class:`ops.plans.TilePlan` as the C entry points take it."""
+    return ctypes.pointer(TilePlanC(
+        ptr(plan.tile_rows), ptr(plan.tile_run_starts),
+        ptr(plan.tile_run_bounds), ptr(plan.tile_runs),
+        ptr(plan.cam_run_starts), plan.ntiles, plan.rows))
 
 
 def stream() -> ctypes.c_void_p:

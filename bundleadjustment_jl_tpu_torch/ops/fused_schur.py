@@ -12,8 +12,10 @@ linearization of `ops/linearize.py`, both in the point-sorted row order;
 per-point operands are flat (npnts*9,) / (npnts*3,) or (npnts, 3).
 
 K2 (`cam_scatter_reduce`) has one wrapper per product the JAX package
-gives it; each sums its per-row product per camera, reading the rows
-through ``cam_perm`` (no camera-sorted copy):
+gives it; each sums its per-row product per camera over the point-sorted
+rows (no camera-sorted copy), in point-order tiles with per-run partial
+sums (plan :func:`ops.plans.tile_plan`, a (nruns, K) scratch buffer per
+call; ``csrc/cam_prod.cuh``):
 
 - :func:`cam_reduce_wcw_rhs` (``_prod_wcw_rhs``): the fused routes' Schur
   diagonal and reduced right-hand side in one pass;
@@ -23,6 +25,9 @@ through ``cam_perm`` (no camera-sorted copy):
   diagonal of :func:`ops.schur.schur_diag_blocks` without a camera-sorted W;
 - :func:`cam_reduce_cam90` (``_prod_cam90``): ``[Hcc | g_c]`` over
   ``JR_t`` on the split assembly of routes B1 and B2.
+
+K3 (:func:`matvec_cam_scatter`) is K5's point pass then K2's W op product,
+launched back to back (two plans; one launch counted).
 """
 
 from __future__ import annotations
@@ -30,22 +35,31 @@ from __future__ import annotations
 import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
-from bundleadjustment_jl_tpu_torch.ops import _cuda
+from bundleadjustment_jl_tpu_torch.ops import _cuda, plans
 from bundleadjustment_jl_tpu_torch.ops.seg_reduce import (
     _wtv_point_plain, jtj_cam_rows, seg_sum, w_op_rows, wcw_rows)
+
+# Partial sums a run of each K2 form keeps (csrc/cam_prod.cuh, Prod*::K):
+# the upper triangle of a symmetric 9x9 is 45.
+PARTIAL_K = {"ba_cam_reduce_wcw_rhs": 54, "ba_cam_reduce_w_op": 9,
+             "ba_cam_reduce_wcw": 45, "ba_cam_reduce_cam90": 54}
 
 
 def _cam_reduce(fn: str, key: str, x: torch.Tensor, problem: BAProblem,
                 d_out: int, *args, w: torch.Tensor | None = None
                 ) -> torch.Tensor:
     """Launch the K2 form ``fn`` -> (ncams, d_out); ``args`` go between
-    the row-order arrays and the sizes, as in its C signature; ``w``: the
+    the row-order arrays and the plan, as in its C signature; ``w``: the
     W it reads (:func:`_cuda.launched`)."""
     _cuda.require_problem(problem)
+    plan = plans.tile_plan(problem)
+    partial = torch.empty((plan.nruns, PARTIAL_K[fn]), dtype=torch.float32,
+                          device=x.device)
     out = torch.empty((problem.ncams, d_out), dtype=torch.float32,
                       device=x.device)
-    rc = getattr(_cuda.lib(), fn)(*args, problem.ncams, problem.nobs_pad,
-                                  _cuda.ptr(out), _cuda.stream())
+    rc = getattr(_cuda.lib(), fn)(
+        *args, _cuda.tile_plan_arg(plan), problem.ncams, problem.nobs_pad,
+        _cuda.ptr(partial), _cuda.ptr(out), _cuda.stream())
     _cuda.check(rc, fn)
     _cuda.launched(key, w)
     return out
@@ -64,8 +78,8 @@ def cam_reduce_wcw_rhs(W_t: torch.Tensor, problem: BAProblem,
     _cuda.require(t, "t", torch.float32, (npt, 3))
     return _cam_reduce(
         "ba_cam_reduce_wcw_rhs", "cam_reduce", W_t, p, 90, _cuda.ptr(W_t),
-        code, _cuda.ptr(p.pnt_idx), _cuda.ptr(p.cam_perm), _cuda.ptr(p.cam_starts),
-        _cuda.ptr(hpp_inv_f), _cuda.ptr(t), w=W_t)
+        code, _cuda.ptr(p.pnt_idx), _cuda.ptr(hpp_inv_f), _cuda.ptr(t),
+        w=W_t)
 
 
 def _cam_reduce_wcw_rhs_plain(W_t, problem, hpp_inv_f, t):
@@ -86,8 +100,7 @@ def cam_reduce_w_op(W_t: torch.Tensor, problem: BAProblem,
     _cuda.require(op, "op", torch.float32, (p.npnts, 3))
     return _cam_reduce(
         "ba_cam_reduce_w_op", "cam_reduce_w_op", W_t, p, 9, _cuda.ptr(W_t),
-        code, _cuda.ptr(p.pnt_idx), _cuda.ptr(p.cam_perm), _cuda.ptr(p.cam_starts),
-        _cuda.ptr(op), w=W_t)
+        code, _cuda.ptr(p.pnt_idx), _cuda.ptr(op), w=W_t)
 
 
 def _cam_reduce_w_op_plain(W_t, problem, op):
@@ -106,8 +119,7 @@ def cam_reduce_wcw(W_t: torch.Tensor, problem: BAProblem,
     _cuda.require(hpp_inv_f, "hpp_inv_f", torch.float32, (p.npnts * 9,))
     return _cam_reduce(
         "ba_cam_reduce_wcw", "cam_reduce_wcw81", W_t, p, 81, _cuda.ptr(W_t),
-        code, _cuda.ptr(p.pnt_idx), _cuda.ptr(p.cam_perm), _cuda.ptr(p.cam_starts),
-        _cuda.ptr(hpp_inv_f), w=W_t)
+        code, _cuda.ptr(p.pnt_idx), _cuda.ptr(hpp_inv_f), w=W_t)
 
 
 def _cam_reduce_wcw_plain(W_t, problem, hpp_inv_f):
@@ -124,7 +136,7 @@ def cam_reduce_cam90(JR_t: torch.Tensor, problem: BAProblem) -> torch.Tensor:
     _cuda.require(JR_t, "JR_t", torch.float32, (26, p.nobs_pad))
     return _cam_reduce(
         "ba_cam_reduce_cam90", "cam_reduce_cam90", JR_t, p, 90,
-        _cuda.ptr(JR_t), _cuda.ptr(p.cam_perm), _cuda.ptr(p.cam_starts))
+        _cuda.ptr(JR_t))
 
 
 def _cam_reduce_cam90_plain(JR_t, problem):
@@ -152,15 +164,18 @@ def matvec_cam_scatter(W_t: torch.Tensor, v: torch.Tensor,
     if gp_f is not None:
         _cuda.require(gp_f, "gp_f", torch.float32, (npt * 3,))
     _cuda.require_problem(problem)
+    plan, blocks = plans.tile_plan(problem), plans.point_blocks(problem)
     t = torch.empty((npt, 3), dtype=torch.float32, device=W_t.device)
+    partial = torch.empty((plan.nruns, 9), dtype=torch.float32,
+                          device=W_t.device)
     out = torch.empty((nc, 9), dtype=torch.float32, device=W_t.device)
     p = problem
     rc = _cuda.lib().ba_matvec(
         _cuda.ptr(W_t), code, _cuda.ptr(v), _cuda.ptr(p.cam_idx),
-        _cuda.ptr(p.pnt_idx), _cuda.ptr(p.pnt_starts), _cuda.ptr(p.cam_perm),
-        _cuda.ptr(p.cam_starts), _cuda.ptr(hpp_inv_f), _cuda.ptr(gp_f),
-        float(sign), nc, npt, n, _cuda.ptr(t), _cuda.ptr(out),
-        _cuda.stream())
+        _cuda.ptr(p.pnt_idx), _cuda.ptr(p.pnt_starts), _cuda.ptr(blocks),
+        blocks.shape[0] - 1, _cuda.tile_plan_arg(plan), _cuda.ptr(hpp_inv_f),
+        _cuda.ptr(gp_f), float(sign), nc, n, _cuda.ptr(t),
+        _cuda.ptr(partial), _cuda.ptr(out), _cuda.stream())
     _cuda.check(rc, "ba_matvec")
     _cuda.launched("matvec", W_t)
     return (out, t) if with_dp else out

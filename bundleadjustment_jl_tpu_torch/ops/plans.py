@@ -1,0 +1,133 @@
+"""Launch plans of the two row-reduction kernels that read the point-sorted
+W (or JR) in row order: K2's camera direction (``csrc/cam_prod.cuh``,
+read through ``cam_perm``) and K5's point direction
+(``csrc/wtv_point.cuh``).
+
+A plan depends only on the problem's index arrays (``cam_idx``,
+``cam_perm``, ``pnt_starts``), so it is built once per problem, with torch
+ops on the problem's device, at the first kernel call that needs it, and
+kept on the problem (``BAProblem.plans``); the LM loop never rebuilds it.
+
+K2, :class:`TilePlan`. The point-sorted rows are cut into tiles of
+:data:`TILE_ROWS` rows. A *run* is a maximal stretch of ``cam_perm`` with
+one camera and one tile. ``cam_perm`` is the stable argsort of ``cam_idx``,
+so each camera's rows ascend, its runs are consecutive in ``cam_perm`` and
+come in tile order (:func:`build_tile_plan` checks this and raises
+otherwise). Pass 1
+of the kernel takes one block per tile: it stages the tile's rows of every
+plane, sums each run, and writes the run's sums to row ``r`` (the run's
+id, in ``cam_perm`` order) of a (nruns, K) scratch buffer. Pass 2 sums
+each camera's runs ``[cam_run_starts[c], cam_run_starts[c+1])`` in run
+order. Pass 1 walks the tile's runs through arrays in tile order
+(``tile_rows``, ``tile_run_bounds``, ``tile_runs``), so every read it makes
+of the plan is coalesced.
+
+K5, :func:`point_blocks`: the points cut into ranges of about
+:data:`POINT_BLOCK_ROWS` rows each, one block per range.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+# Rows of a K2 tile: csrc/cam_prod.cuh:BA_TILE_ROWS (the kernel refuses a
+# plan of another size). Chosen by measurement (see there).
+TILE_ROWS = 512
+# Target rows of a K5 point block; a block ends at the first point boundary
+# at or after each multiple of it. Its chunk of csrc/wtv_point.cuh
+# (BA_PNT_CHUNK, 1536 rows) holds a block whose last point runs a few
+# hundred rows past the target in one pass.
+POINT_BLOCK_ROWS = 1024
+
+
+class TilePlan(NamedTuple):
+    """K2's plan (int32 tensors on the problem's device). Runs have two
+    orders: their id ``r`` is their place in ``cam_perm`` order; *tile
+    order* lists tile 0's runs, then tile 1's, each tile's in camera
+    order."""
+    rows: int                       # R, rows per tile
+    run_bounds: torch.Tensor        # (nruns+1,) run r = cam_perm[b[r]:b[r+1]]
+    cam_run_starts: torch.Tensor    # (ncams+1,) camera c's runs, by id
+    tile_runs: torch.Tensor         # (nruns,) run ids in tile order
+    tile_run_starts: torch.Tensor   # (ntiles+1,) tile t's runs, tile order
+    tile_run_bounds: torch.Tensor   # (nruns+1,) tile-order runs in tile_rows
+    tile_rows: torch.Tensor         # (n,) cam_perm's rows in tile order
+
+    @property
+    def nruns(self) -> int:
+        return self.tile_runs.shape[0]
+
+    @property
+    def ntiles(self) -> int:
+        return self.tile_run_starts.shape[0] - 1
+
+
+def _i32(x: torch.Tensor) -> torch.Tensor:
+    return x.to(torch.int32).contiguous()
+
+
+def build_tile_plan(problem, rows: int = TILE_ROWS) -> TilePlan:
+    """K2's plan for ``problem`` with tiles of ``rows`` rows (uncached;
+    :func:`tile_plan` keeps it on the problem). Raises ValueError unless
+    ``cam_perm`` lists the cameras in order and each camera's rows in
+    ascending order (a stable argsort of ``cam_idx``)."""
+    perm = problem.cam_perm.long()
+    n, dev = perm.shape[0], perm.device
+    cam = problem.cam_idx.long()[perm]
+    tile = perm // rows
+    same_cam = cam[1:] == cam[:-1]
+    if bool(((cam[1:] < cam[:-1])
+             | (same_cam & (perm[1:] <= perm[:-1]))).any()):
+        raise ValueError("cam_perm must list the cameras in order and each "
+                         "camera's rows in ascending order (a stable argsort "
+                         "of cam_idx)")
+    new = torch.ones(n, dtype=torch.bool, device=dev)
+    new[1:] = ~same_cam | (tile[1:] != tile[:-1])
+    starts = torch.nonzero(new).flatten()
+    run_bounds = torch.cat([starts, starts.new_tensor([n])])
+    run_tile = tile[starts]
+    cam_run_starts = torch.searchsorted(
+        cam[starts], torch.arange(problem.ncams + 1, device=dev))
+    tile_sorted, tile_runs = torch.sort(run_tile, stable=True)
+    ntiles = -(-n // rows)
+    tile_run_starts = torch.searchsorted(
+        tile_sorted, torch.arange(ntiles + 1, device=dev))
+    lens = (run_bounds[1:] - run_bounds[:-1])[tile_runs]
+    tile_run_bounds = torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)])
+    # Positions in tile order: stable, so camera order within a tile, and
+    # each tile-order run's rows are contiguous.
+    tile_rows = perm[torch.sort(tile, stable=True).indices]
+    return TilePlan(rows, _i32(run_bounds), _i32(cam_run_starts),
+                    _i32(tile_runs), _i32(tile_run_starts),
+                    _i32(tile_run_bounds), _i32(tile_rows))
+
+
+def build_point_blocks(problem, rows: int = POINT_BLOCK_ROWS) -> torch.Tensor:
+    """K5's plan (uncached; :func:`point_blocks` keeps it on the problem):
+    (nblocks+1,) int32 point bounds, block b taking the points
+    ``[bounds[b], bounds[b+1])``. A block ends at the first point that
+    starts at or after each multiple of ``rows``, so it holds at most
+    ``rows`` rows plus the rows of its last point."""
+    ps = problem.pnt_starts.long()
+    dev, npt = ps.device, problem.npnts
+    cuts = torch.searchsorted(ps, rows * torch.arange(
+        1, -(-problem.nobs_pad // rows), device=dev))
+    ends = ps.new_tensor([0, npt])
+    return _i32(torch.unique(torch.cat([ends, cuts.clamp(max=npt)])))
+
+
+def tile_plan(problem) -> TilePlan:
+    """K2's plan of ``problem``, built at the first call."""
+    if "tiles" not in problem.plans:
+        problem.plans["tiles"] = build_tile_plan(problem, TILE_ROWS)
+    return problem.plans["tiles"]
+
+
+def point_blocks(problem) -> torch.Tensor:
+    """K5's point ranges of ``problem``, built at the first call."""
+    if "point_blocks" not in problem.plans:
+        problem.plans["point_blocks"] = build_point_blocks(problem,
+                                                           POINT_BLOCK_ROWS)
+    return problem.plans["point_blocks"]

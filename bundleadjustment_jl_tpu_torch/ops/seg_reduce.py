@@ -7,7 +7,8 @@ the hand-written kernels (``csrc/seg_prod_reduce.cu``,
 ``csrc/seg_block_reduce.cu``), CPU tensors take the plain PyTorch version
 beside each wrapper (same signature), CUDA float64 raises.
 
-Point segments run over the point-sorted rows (``pnt_starts``); camera
+Point segments run over the point-sorted rows (``pnt_starts``; K5's point
+direction in blocks of point ranges, :func:`ops.plans.point_blocks`); camera
 segments over the camera-sorted copies ``JR_cam_t = JR_t[:, cam_perm]`` /
 ``W_cam_t = W_t[:, cam_perm]`` (``cam_starts``), whose column ``j`` is the
 row ``cam_perm[j]``. ``JR_t`` is the (26, n) layout of `ops/linearize.py`,
@@ -22,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
-from bundleadjustment_jl_tpu_torch.ops import _cuda
+from bundleadjustment_jl_tpu_torch.ops import _cuda, plans
 from bundleadjustment_jl_tpu_torch.ops.linearize import JP0, R0
 
 
@@ -173,11 +174,12 @@ def wtv_point_reduce(W_t: torch.Tensor, v: torch.Tensor, problem: BAProblem,
         _cuda.require(add_f, "add_f", torch.float32, (npt * 3,))
     _cuda.require_problem(problem)
     out = _out(W_t, (npt, 3))
-    p = problem
+    p, blocks = problem, plans.point_blocks(problem)
     rc = _cuda.lib().ba_wtv_point_reduce(
         _cuda.ptr(W_t), code, _cuda.ptr(v), _cuda.ptr(p.cam_idx),
-        _cuda.ptr(p.pnt_starts), _cuda.ptr(hpp_inv_f), _cuda.ptr(add_f),
-        float(sign), npt, n, _cuda.ptr(out), _cuda.stream())
+        _cuda.ptr(p.pnt_idx), _cuda.ptr(p.pnt_starts), _cuda.ptr(blocks),
+        blocks.shape[0] - 1, _cuda.ptr(hpp_inv_f), _cuda.ptr(add_f),
+        float(sign), n, _cuda.ptr(out), _cuda.stream())
     _cuda.check(rc, "ba_wtv_point_reduce")
     _cuda.launched("seg_block_point", W_t)
     return out

@@ -7,12 +7,16 @@ CUDA card.
    the nine CUDA kernels from ``bundleadjustment_jl_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and prints the build time and the
    compiler's register report.
-2. Checks each kernel against its plain PyTorch version on the card, at
-   the shapes of synthetic LadyBug-49 and Dubrovnik-356 (as ``bench.py``
-   builds them), and times both in turns (plain, kernel, kernel, plain):
-   K1-K4 of the fused camera-scatter route, K7, K6 and K5 of the
-   camera-sorted route, then K2's other three products and K8 of the
-   Final-scale routes (and K8 against K7's W in camera order).
+2. Builds each launch plan (``ops/plans.py``: K2's tiles, K5's point
+   ranges) once more and prints its build time, then checks each kernel
+   against its plain PyTorch version on the card, at the shapes of
+   synthetic LadyBug-49 and Dubrovnik-356 (as ``bench.py`` builds them),
+   and times both in turns (plain, kernel, kernel, plain): K1-K4 of the
+   fused camera-scatter route, K7, K6 and K5 of the camera-sorted route,
+   then K2's other three products and K8 of the Final-scale routes (and
+   K8 against K7's W in camera order). The forms that read through a plan
+   (REPEAT_CHECKED) launch twice and must give bit-identical outputs.
+   Then phase 6 for the problem.
 3. Solves both problems with ``levenberg_marquardt_jit`` and
    ``bench.py``'s options (``bench.SOLVE_OPTS`` of the port) on each
    kernel route (``normal.CAM_SCATTER``
@@ -23,8 +27,9 @@ CUDA card.
    plain routes agree, that the two kernel routes agree, and that the
    rmse lands on the data-fixed anchors.
 4. Builds synthetic Final-4585 (the BAL Final problem
-   ``problem-4585-1324582-9125125``'s sizes) once, checks K2's four
-   products and K8 at its shapes, and solves it with the default gates on
+   ``problem-4585-1324582-9125125``'s sizes) once, runs phase 2 on it
+   (every kernel but K9, timed there too) and phase 6's Final form, and
+   solves it with the default gates on
    route B1 (camera scatter on: more than ``GATHER_TABLE_MAX_CAMS``
    cameras) and route B2 (camera scatter off: more rows than
    ``GATHER_DIRECT_MAX_BYTES`` allows): a warm-up, three timed solves and
@@ -37,8 +42,9 @@ CUDA card.
    and Final-4585's row counts with 0, 1 and 2 small rows, each rate beside
    the H100's published 3.35 TB/s.
 6. Every kernel that reads or writes W with W stored in bfloat16 and in
-   float16 (``facto_dtype``), against its plain version at Dubrovnik-356
-   shapes (K2's W op and K8 also at Final-4585's), timed in turns: the
+   float16 (``facto_dtype``), against its plain version at LadyBug-49 and
+   Dubrovnik-356 shapes (K8 and the planned readers, K2's W products, K3
+   and K5's point direction, also at Final-4585's), timed in turns: the
    readers to the tolerances of phase 2 (both sides widen the same stored
    W), the writers' W to those tolerances plus one ulp of the storage
    dtype (two float32 W within tolerance may round to neighbours), with at
@@ -56,8 +62,9 @@ CUDA card.
    kernels and the probe).
 9. Prints the run's wall time, the kernel table as one JSON line (each
    kernel's time beside its least time on the card, ``bench.bound_ms``,
-   from this run's shapes), the card line, and last ``{"ok": true,
-   "device": {...}}``.
+   from this run's shapes, at each problem; the plans' build times and
+   the repeat checks under their kernels), the card line, and last
+   ``{"ok": true, "device": {...}}``.
 
 Any failed check raises, so the script exits non-zero before the last
 line. It needs a CUDA card and the repository checkout beside it; it
@@ -142,6 +149,14 @@ KERNELS = {
     "stream_probe": ("csrc/stream_probe.cu", "scripts/tpu_mv_sweep.py:120",
                      ["stream_probe"], ["stream_probe"]),
 }
+# The forms that read the point-sorted rows through a launch plan
+# (`ops/plans.py`: K2's four, K5's point direction, K3 = both): a second
+# launch must give bit-identical output (fixed-order sums, no atomics).
+REPEAT_CHECKED = ("cam_reduce", "cam_reduce_w_op", "cam_reduce_wcw81",
+                  "cam_reduce_cam90", "seg_block_point", "matvec")
+# counter -> its row of the kernel table
+KERNEL_OF = {c: k for k, (_, _, counters, _) in KERNELS.items()
+             for c in counters}
 # Storage dtypes of W checked and timed beside float32 (2 bytes a value).
 NARROW = ("bfloat16", "float16")
 # A writer's stored W against its plain version's: the largest share of
@@ -246,8 +261,9 @@ def time_pair(kernel, plain, reps):
     return med["kernel"], med["plain"]
 
 
-def check_kernels(name, problem, errs, timings):
-    """Phase 2 for one problem: every kernel against its plain version."""
+def check_kernels(name, problem, errs, timings, facts):
+    """Phase 2 for one problem: route A's kernels (K1-K4) against their
+    plain versions."""
     import torch
     from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
     from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
@@ -269,6 +285,7 @@ def check_kernels(name, problem, errs, timings):
     timings.setdefault("assemble", {})[name] = time_pair(
         lambda: fa.assemble_scatter(problem, cams, points),
         lambda: fa._assemble_plain(problem, cams, points), reps)
+    check = checker(name, problem, errs, timings, facts)
 
     # Damped point blocks as the solver forms them (lambda_0, "diag").
     lam = 1e-3 * float(torch.maximum(hc90[:, :81:10].max(),
@@ -276,30 +293,18 @@ def check_kernels(name, problem, errs, timings):
     hpp_inv = inv3x3_damped_flat(hp12[:, :9].reshape(-1), lam)
     g_p = hp12[:, 9:12].contiguous()
     t = torch.einsum("pab,pb->pa", hpp_inv.reshape(-1, 3, 3), g_p)
-    out = fs.cam_reduce_wcw_rhs(W_t, problem, hpp_inv, t)
-    torch.cuda.synchronize()
-    compare("cam_reduce", out,
-            fs._cam_reduce_wcw_rhs_plain(W_t, problem, hpp_inv, t), errs)
-    timings.setdefault("cam_reduce", {})[name] = time_pair(
-        lambda: fs.cam_reduce_wcw_rhs(W_t, problem, hpp_inv, t),
-        lambda: fs._cam_reduce_wcw_rhs_plain(W_t, problem, hpp_inv, t),
-        reps)
-
+    check("cam_reduce",
+          lambda: fs.cam_reduce_wcw_rhs(W_t, problem, hpp_inv, t),
+          lambda: fs._cam_reduce_wcw_rhs_plain(W_t, problem, hpp_inv, t))
     v = torch.randn((problem.ncams, 9), generator=gen, device="cuda")
-    out = fs.matvec_cam_scatter(W_t, v, problem, hpp_inv)
-    torch.cuda.synchronize()
-    compare("matvec", out,
-            fs._matvec_plain(W_t, v, problem, hpp_inv, None, 1.0)[0], errs)
     gp_f = g_p.reshape(-1)
-    out, dp = fs.matvec_cam_scatter(W_t, v, problem, hpp_inv, gp_f=gp_f,
-                                    sign=-1.0, with_dp=True)
-    torch.cuda.synchronize()
-    pout, pdp = fs._matvec_plain(W_t, v, problem, hpp_inv, gp_f, -1.0)
-    compare("matvec", out, pout, errs)
-    compare("matvec", dp, pdp, errs)
-    timings.setdefault("matvec", {})[name] = time_pair(
-        lambda: fs.matvec_cam_scatter(W_t, v, problem, hpp_inv),
-        lambda: fs._matvec_plain(W_t, v, problem, hpp_inv, None, 1.0), reps)
+    check("matvec",
+          lambda: fs.matvec_cam_scatter(W_t, v, problem, hpp_inv, gp_f=gp_f,
+                                        sign=-1.0, with_dp=True),
+          lambda: fs._matvec_plain(W_t, v, problem, hpp_inv, gp_f, -1.0))
+    check("matvec",        # the Schur matvec's form, timed
+          lambda: fs.matvec_cam_scatter(W_t, v, problem, hpp_inv),
+          lambda: fs._matvec_plain(W_t, v, problem, hpp_inv, None, 1.0)[0])
 
     dc = 1e-3 * torch.randn(cams.shape, generator=gen, device="cuda")
     dpt = 1e-3 * torch.randn(points.shape, generator=gen, device="cuda")
@@ -319,26 +324,75 @@ def check_kernels(name, problem, errs, timings):
         print(f"  time {k:10s} kernel {kms:.4f} ms  plain {pms:.4f} ms")
 
 
-def checker(name, problem, errs, timings):
-    """``check(key, kernel, plain)``: run the kernel, compare it with its
-    plain version under TOL[key], time both (``time_pair``) and return the
-    kernel's output."""
+def outputs(x):
+    return list(x) if isinstance(x, tuple) else [x]
+
+
+def check_repeat(key, tag, kernel, got, facts):
+    """For the redesigned forms (REPEAT_CHECKED): launch ``kernel`` again
+    and raise unless its output is bit-identical to ``got`` (fixed-order
+    sums, no atomics); recorded under the kernel's row in ``facts``."""
+    import torch
+    if key not in REPEAT_CHECKED:
+        return
+    again = kernel()
+    torch.cuda.synchronize()
+    same = all(torch.equal(g, a)
+               for g, a in zip(outputs(got), outputs(again)))
+    facts.setdefault(KERNEL_OF[key], {}).setdefault(
+        "repeat_bit_identical", {})[f"{key}@{tag}"] = same
+    if not same:
+        raise AssertionError(f"{key} at {tag}: a repeat launch is not "
+                             f"bit-identical")
+
+
+def checker(name, problem, errs, timings, facts):
+    """``check(key, kernel, plain)``: run the kernel (twice for the
+    redesigned forms: ``check_repeat``), compare it with its plain version
+    under TOL[key], time both (``time_pair``) and return the kernel's
+    output."""
     import torch
     reps = 20 if problem.nobs_pad < 1 << 18 else 5
 
     def check(key, kernel, plain):
         got = kernel()
         torch.cuda.synchronize()
+        check_repeat(key, name, kernel, got, facts)
         ref = plain()
-        for g, r in (zip(got, ref) if isinstance(got, tuple)
-                     else [(got, ref)]):
+        for g, r in zip(outputs(got), outputs(ref)):
             compare(key, g, r, errs)
         timings.setdefault(key, {})[name] = time_pair(kernel, plain, reps)
         return got
     return check
 
 
-def check_sorted_kernels(name, problem, errs, timings):
+def plan_times(name, problem, facts):
+    """Build each plan of ``problem`` twice more (``ops/plans.py``,
+    uncached) and record the second build's time (the first loads torch's
+    sort kernels in a fresh process): K2's tiles under the K2 and K3 rows,
+    K5's point ranges under the K5 and K3 rows."""
+    import torch
+    from bundleadjustment_jl_tpu_torch.ops import plans
+    for label, build, rows in (
+            ("tile_plan", plans.build_tile_plan, ("cam_reduce", "matvec")),
+            ("point_blocks", plans.build_point_blocks,
+             ("seg_block_reduce", "matvec"))):
+        build(problem)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = build(problem)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        size = (f"{plan.nruns} runs, {plan.nruns / problem.nobs_pad:.3f} "
+                f"a row" if label == "tile_plan"
+                else f"{plan.shape[0] - 1} blocks")
+        print(f"  plan {label:12s} {name}: {ms:.2f} ms ({size})")
+        for k in rows:
+            facts.setdefault(k, {}).setdefault("plan_build_ms", {})[
+                f"{label}@{name}"] = ms
+
+
+def check_sorted_kernels(name, problem, errs, timings, facts):
     """Phase 2 for one problem, camera-sorted route: K7, K6 (its three
     products) and K5 (both directions) against their plain versions, at
     the shapes the route's solve gives them."""
@@ -349,7 +403,7 @@ def check_sorted_kernels(name, problem, errs, timings):
 
     cams, points = problem.cams, problem.points
     gen = torch.Generator(device="cuda").manual_seed(1)
-    check = checker(name, problem, errs, timings)
+    check = checker(name, problem, errs, timings, facts)
 
     JR_t, W_t = check("linearize",
                       lambda: lz.linearize_w_kminor(problem, cams, points),
@@ -383,13 +437,11 @@ def check_sorted_kernels(name, problem, errs, timings):
         print(f"  time {k:16s} kernel {kms:.4f} ms  plain {pms:.4f} ms")
 
 
-def check_split_kernels(name, problem, errs, timings, facts,
-                        wcw_rhs=False):
+def check_split_kernels(name, problem, errs, timings, facts):
     """Phase 2 for one problem, the Final-scale routes' kernels: K8 against
     its plain version and against K7's W in camera order (``facts`` keeps
     whether the two are bit-identical), K2's cam90, W C W' and W op
-    products against theirs (and its W C W' | W t product with
-    ``wcw_rhs``), at the shapes the routes' solves give them."""
+    products against theirs, at the shapes the routes' solves give them."""
     import torch
     from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
     from bundleadjustment_jl_tpu_torch.ops import linearize as lz
@@ -400,17 +452,17 @@ def check_split_kernels(name, problem, errs, timings, facts,
           f"{problem.ncams}, npnts {problem.npnts}")
     cams, points = problem.cams, problem.points
     gen = torch.Generator(device="cuda").manual_seed(2)
-    check = checker(name, problem, errs, timings)
+    check = checker(name, problem, errs, timings, facts)
     JR_t, W_t = lz.linearize_w_kminor(problem, cams, points)
     W_cam_t = check("linearize_w_only",
                     lambda: lz.linearize_w_only(problem, cams, points),
                     lambda: lz._linearize_w_only_plain(problem, cams, points))
     W_perm = W_t[:, problem.cam_perm.long()]
     compare("linearize_w_only", W_cam_t, W_perm, errs)
-    facts.setdefault("k8_bit_identical_to_k7", {})[name] = bool(
-        torch.equal(W_cam_t, W_perm))
-    print(f"  K8 W_cam_t vs K7 W_t[:, cam_perm] bit-identical: "
-          f"{facts['k8_bit_identical_to_k7'][name]}")
+    same = bool(torch.equal(W_cam_t, W_perm))
+    facts.setdefault("linearize_w_only", {}).setdefault(
+        "k8_bit_identical_to_k7", {})[name] = same
+    print(f"  K8 W_cam_t vs K7 W_t[:, cam_perm] bit-identical: {same}")
     del W_cam_t, W_perm
     hc90 = check("cam_reduce_cam90", lambda: fs.cam_reduce_cam90(JR_t, problem),
                  lambda: fs._cam_reduce_cam90_plain(JR_t, problem))
@@ -427,14 +479,8 @@ def check_split_kernels(name, problem, errs, timings, facts,
     t = sr.wtv_point_reduce(W_t, v, problem, hpp_inv_f=hpp_inv)
     check("cam_reduce_w_op", lambda: fs.cam_reduce_w_op(W_t, problem, t),
           lambda: fs._cam_reduce_w_op_plain(W_t, problem, t))
-    keys = ["linearize_w_only", "cam_reduce_cam90", "cam_reduce_wcw81",
-            "cam_reduce_w_op"]
-    if wcw_rhs:
-        check("cam_reduce",
-              lambda: fs.cam_reduce_wcw_rhs(W_t, problem, hpp_inv, t),
-              lambda: fs._cam_reduce_wcw_rhs_plain(W_t, problem, hpp_inv, t))
-        keys.append("cam_reduce")
-    for k in keys:
+    for k in ("linearize_w_only", "cam_reduce_cam90", "cam_reduce_wcw81",
+              "cam_reduce_w_op"):
         kms, pms = timings[k][name]
         print(f"  time {k:16s} kernel {kms:.4f} ms  plain {pms:.4f} ms")
 
@@ -490,13 +536,16 @@ def narrow_w(W, dtype):
     return W.to(dtype).contiguous()
 
 
-def check_narrow(name, problem, errs, timings, final=False):
+def check_narrow(name, problem, errs, timings, facts, final=False):
     """Phase 6 for one problem: every kernel that reads or writes W, with W
-    in bfloat16 and in float16, against its plain version (``final``: K2's
-    W op and K8 only), timed in turns, five launches a window as phase 2
-    times the float32 forms at this size (two at Final-4585, where each
-    launch takes milliseconds and the plain versions are slow). Times go to
-    ``timings["<key>@<dtype>"]``."""
+    in bfloat16 and in float16, against its plain version (``final``: K8
+    and the forms read through a launch plan, K2's three W products, K3
+    and K5's point direction; not the writers of route A and C or the
+    camera-sorted readers), timed in turns, five launches a window as
+    phase 2 times the float32 forms at this size (two at Final-4585, where
+    each launch takes milliseconds and the plain versions are slow); the
+    planned forms launched twice, bit-identical (``check_repeat``). Times
+    go to ``timings["<key>@<dtype>"]``."""
     import torch
     from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
     from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
@@ -526,9 +575,9 @@ def check_narrow(name, problem, errs, timings, final=False):
             output i."""
             got = kernel()
             torch.cuda.synchronize()
+            check_repeat(key, f"{name}@{dt}", kernel, got, facts)
             ref = plain()
-            pairs = (list(zip(got, ref)) if isinstance(got, tuple)
-                     else [(got, ref)])
+            pairs = list(zip(outputs(got), outputs(ref)))
             for i, (g, r) in enumerate(pairs):
                 if i in stored:
                     compare_stored(tols[i] if tols else key, g, r, errs)
@@ -554,23 +603,21 @@ def check_narrow(name, problem, errs, timings, final=False):
                                                  dtype), stored=(0,))
         check("cam_reduce_w_op", lambda: fs.cam_reduce_w_op(W, problem, t),
               lambda: fs._cam_reduce_w_op_plain(W, problem, t))
+        check("cam_reduce",
+              lambda: fs.cam_reduce_wcw_rhs(W, problem, hpp_inv, t),
+              lambda: fs._cam_reduce_wcw_rhs_plain(W, problem, hpp_inv, t))
+        check("cam_reduce_wcw81",
+              lambda: fs.cam_reduce_wcw(W, problem, hpp_inv),
+              lambda: fs._cam_reduce_wcw_plain(W, problem, hpp_inv))
+        check("matvec",
+              lambda: fs.matvec_cam_scatter(W, v, problem, hpp_inv),
+              lambda: fs._matvec_plain(W, v, problem, hpp_inv, None,
+                                       1.0)[0])
+        check("seg_block_point",
+              lambda: sr.wtv_point_reduce(W, v, problem, hpp_inv_f=hpp_inv),
+              lambda: sr._wtv_point_plain(W, v, problem, hpp_inv))
         if not final:
             W_cam = W[:, perm].contiguous()
-            check("cam_reduce",
-                  lambda: fs.cam_reduce_wcw_rhs(W, problem, hpp_inv, t),
-                  lambda: fs._cam_reduce_wcw_rhs_plain(W, problem, hpp_inv,
-                                                       t))
-            check("cam_reduce_wcw81",
-                  lambda: fs.cam_reduce_wcw(W, problem, hpp_inv),
-                  lambda: fs._cam_reduce_wcw_plain(W, problem, hpp_inv))
-            check("matvec",
-                  lambda: fs.matvec_cam_scatter(W, v, problem, hpp_inv),
-                  lambda: fs._matvec_plain(W, v, problem, hpp_inv, None,
-                                           1.0)[0])
-            check("seg_block_point",
-                  lambda: sr.wtv_point_reduce(W, v, problem,
-                                              hpp_inv_f=hpp_inv),
-                  lambda: sr._wtv_point_plain(W, v, problem, hpp_inv))
             check("seg_block_camera",
                   lambda: sr.wt_cam_reduce(W_cam, t, problem),
                   lambda: sr._wt_cam_plain(W_cam, t, problem))
@@ -947,8 +994,7 @@ def kernel_table(launches, schur_launches, errs, timings,
                         "bound_ms": bench.bound_ms(c, shapes[prob], 2)[0]}
         if narrow:
             row["narrow"] = narrow
-        if k == "linearize_w_only":
-            row.update(facts)
+        row.update(facts.get(k, {}))
         table.append(row)
     return table
 
@@ -983,11 +1029,11 @@ def main() -> int:
     errs, timings, facts, probe = {}, {}, {}, {}
     for name in PROBLEMS:
         problem = bench.make_problem(name, 0)
-        check_kernels(name, problem, errs, timings)
-        check_sorted_kernels(name, problem, errs, timings)
+        plan_times(name, problem, facts)
+        check_kernels(name, problem, errs, timings, facts)
+        check_sorted_kernels(name, problem, errs, timings, facts)
         check_split_kernels(name, problem, errs, timings, facts)
-        if name == "dubrovnik356":
-            check_narrow(name, problem, errs, timings)
+        check_narrow(name, problem, errs, timings, facts)
         del problem
     print("[probe] K9 vs plain and torch.sum")
     check_probe(errs, timings, probe)
@@ -1001,8 +1047,11 @@ def main() -> int:
     torch.cuda.synchronize()
     print(f"[{FINAL}] built in {time.perf_counter() - t0:.1f} s: nobs "
           f"{final.nobs}, nobs_pad {final.nobs_pad}")
-    check_split_kernels(FINAL, final, errs, timings, facts, wcw_rhs=True)
-    check_narrow(FINAL, final, errs, timings, final=True)
+    plan_times(FINAL, final, facts)
+    check_kernels(FINAL, final, errs, timings, facts)
+    check_sorted_kernels(FINAL, final, errs, timings, facts)
+    check_split_kernels(FINAL, final, errs, timings, facts)
+    check_narrow(FINAL, final, errs, timings, facts, final=True)
     check_final_solves(final, launches)
     schur_launches = check_final_schur(FINAL, final, errs)
     check_facto_solves(final, launches)

@@ -16,6 +16,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -25,7 +26,7 @@ from bundleadjustment_jl_tpu_torch.ops import _cuda
 from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
 from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
 from bundleadjustment_jl_tpu_torch.ops import linearize as lz
-from bundleadjustment_jl_tpu_torch.ops import normal
+from bundleadjustment_jl_tpu_torch.ops import normal, plans
 from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
 from bundleadjustment_jl_tpu_torch.ops.normal import ROUTES, inv3x3_damped_flat
 from bundleadjustment_jl_tpu_torch.solver import lm_jit
@@ -356,6 +357,108 @@ def test_facto_solve_on_card_runs_every_kernel(card_problem, monkeypatch,
     assert dict(_cuda.LAUNCHES) == expect
     w_expect = lm_jit.expected_w_launches(expect, dtype)
     assert dict(_cuda.W_LAUNCHES) == w_expect and w_expect[dtype] > 0
+
+
+def edge_problem(case):
+    """Shapes at the edges of K2's tiles and K5's point ranges (on the
+    card): one camera holding every real row; more cameras (700) than a K2
+    tile has rows (512); a point with more rows (2000) than a K5 chunk
+    (1536), and a padding tail (to 8192 rows) longer than one, on the last
+    point."""
+    rng = np.random.default_rng(7)
+    if case == "one_camera":
+        ncams, npnts = 3, 300
+        pnt = np.repeat(np.arange(npnts), 4)
+        cam = np.ones_like(pnt)
+    elif case == "many_cameras":
+        ncams, npnts = 700, 400
+        pnt = np.repeat(np.arange(npnts), 5)
+        cam = rng.integers(0, ncams, size=pnt.size)
+    else:
+        ncams, npnts = 50, 200
+        pnt = np.concatenate([np.zeros(2000, int),
+                              np.repeat(np.arange(1, npnts), 3)])
+        cam = rng.integers(0, ncams, size=pnt.size)
+    return BAProblem.from_arrays(
+        rng.standard_normal((ncams, 9)), rng.standard_normal((npnts, 3)),
+        cam, pnt, rng.standard_normal((pnt.size, 2)), dtype=torch.float32,
+        pad_obs_to=8192 if case == "long_point" else 512, device="cuda")
+
+
+def edge_operands(p, dtype):
+    """Random W (stored in ``dtype``), JR, an SPD Hpp_inv, point and
+    camera vectors for :func:`edge_problem`'s problem."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    n, npt = p.nobs_pad, p.npnts
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    A = rand(npt, 3, 3)
+    return dict(W=narrow(rand(27, n), dtype) if dtype != torch.float32
+                else rand(27, n), JR=rand(26, n),
+                hpp_inv=(A @ A.transpose(1, 2) + torch.eye(3, device="cuda"))
+                .reshape(-1).contiguous(), t=rand(npt, 3),
+                gp=rand(npt * 3), v=rand(p.ncams, 9))
+
+
+def redesigned_calls(p, o):
+    """K2's four forms, K5's point direction in its three forms and K3 in
+    its two, each as (kernel call, plain call)."""
+    W, hp, t, gp, v = o["W"], o["hpp_inv"], o["t"], o["gp"], o["v"]
+    calls = {
+        "cam_reduce_w_op": (lambda: fs.cam_reduce_w_op(W, p, t),
+                            lambda: fs._cam_reduce_w_op_plain(W, p, t)),
+        "cam_reduce_wcw81": (lambda: fs.cam_reduce_wcw(W, p, hp),
+                             lambda: fs._cam_reduce_wcw_plain(W, p, hp)),
+        "cam_reduce": (lambda: fs.cam_reduce_wcw_rhs(W, p, hp, t),
+                       lambda: fs._cam_reduce_wcw_rhs_plain(W, p, hp, t)),
+        "matvec": (lambda: fs.matvec_cam_scatter(W, v, p, hp),
+                   lambda: fs._matvec_plain(W, v, p, hp, None, 1.0)[0]),
+        "matvec_dp": (
+            lambda: fs.matvec_cam_scatter(W, v, p, hp, gp_f=gp, sign=-1.0,
+                                          with_dp=True),
+            lambda: fs._matvec_plain(W, v, p, hp, gp, -1.0)),
+    }
+    for form, kw in (("", {}), ("_fold", dict(hpp_inv_f=hp)),
+                     ("_fold_add_sign", dict(hpp_inv_f=hp, add_f=gp,
+                                             sign=-1.0))):
+        calls["seg_block_point" + form] = (
+            lambda kw=kw: sr.wtv_point_reduce(W, v, p, **kw),
+            lambda kw=kw: sr._wtv_point_plain(W, v, p, **kw))
+    if W.dtype == torch.float32:
+        calls["cam_reduce_cam90"] = (
+            lambda: fs.cam_reduce_cam90(o["JR"], p),
+            lambda: fs._cam_reduce_cam90_plain(o["JR"], p))
+    return calls
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("case", ["one_camera", "many_cameras",
+                                  "long_point"])
+def test_redesigned_kernels_at_edge_shapes_on_card(case, dtype):
+    """K2's tiled camera reduce (each form), K5's point ranges (each
+    form) and K3 against their plain versions at :func:`edge_problem`'s
+    shapes, W in ``dtype``; a second launch gives bit-identical output
+    (fixed-order sums, no atomics)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    p = edge_problem(case)
+    o = edge_operands(p, dtype)
+    for key, (kernel, plain) in redesigned_calls(p, o).items():
+        got, again = kernel(), kernel()
+        want = plain()
+        pairs = (zip(got, want, again) if isinstance(got, tuple)
+                 else [(got, want, again)])
+        for g, w, a in pairs:
+            close(g, w)
+            assert torch.equal(g, a), key
+    if case == "long_point":
+        seg = p.pnt_starts[1:] - p.pnt_starts[:-1]
+        assert int(seg[0]) == 2000 and int(seg[-1]) > 1536
+    if case == "many_cameras":
+        assert p.ncams > plans.TILE_ROWS
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])

@@ -1,0 +1,409 @@
+"""The launch plans of K2's camera direction and K5's point direction
+(`bundleadjustment_jl_tpu_torch/ops/plans.py`), on the CPU.
+
+The CUDA kernels (``csrc/cam_prod.cuh``, ``csrc/wtv_point.cuh``) run only
+on a card; here each plan is checked for the properties the kernels rely
+on, and the kernels' walks are written out in torch ops over the plan (the
+same reads, in the same roles) and held to the JAX package's
+`cam_scatter_reduce` (Pallas interpret mode, as its own tests run it) and
+to the port's plain twins. Small tiles and chunks, so every edge is hit.
+
+Tolerances: f32 against the JAX kernel, rtol 1e-4 with atol 1e-5 of the
+largest entry (f32 sums in another order); f64 against the f64 plain twin,
+rtol 1e-12 (the same sums in another order); f64 against the JAX kernel's
+f32 output, the f32 tolerance.
+"""
+
+import re
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from bundleadjustment_jl_tpu.io.synthetic import synthetic_bal as jax_synthetic
+from bundleadjustment_jl_tpu.ops import pallas_schur
+from bundleadjustment_jl_tpu.ops.pallas_schur import (
+    cam_scatter_reduce, pad_rows, tile_bounds)
+from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
+from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
+from bundleadjustment_jl_tpu_torch.ops import plans
+from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
+
+CSRC = Path(__file__).resolve().parents[1] / "bundleadjustment_jl_tpu_torch" \
+    / "csrc"
+
+
+def problem_of(cam_idx, pnt_idx, ncams, npnts, pad_obs_to=8):
+    """A CPU float32 problem with the given observations (state random)."""
+    rng = np.random.default_rng(0)
+    m = len(cam_idx)
+    return BAProblem.from_arrays(
+        rng.standard_normal((ncams, 9)), rng.standard_normal((npnts, 3)),
+        np.asarray(cam_idx), np.asarray(pnt_idx),
+        rng.standard_normal((m, 2)), dtype=torch.float32,
+        pad_obs_to=pad_obs_to, device="cpu")
+
+
+def random_problem(seed, ncams, npnts, obs, pad_obs_to=8):
+    rng = np.random.default_rng(seed)
+    pnt = np.repeat(np.arange(npnts), obs)
+    cam = rng.integers(0, ncams, size=pnt.size)
+    return problem_of(cam, pnt, ncams, npnts, pad_obs_to)
+
+
+# Observation layouts, each with the edge it puts in front of the plan.
+CASES = {
+    "random": lambda: random_problem(1, ncams=7, npnts=40, obs=3),
+    # cameras 0, 3 and 5 see nothing
+    "empty_cameras": lambda: problem_of(
+        [1, 2, 4, 6, 1, 6, 2, 4, 6, 1], [0, 0, 1, 1, 2, 3, 3, 4, 5, 5], 7, 6),
+    # nobs_pad = 13, not a multiple of the tile
+    "ragged_tail": lambda: random_problem(2, ncams=4, npnts=6, obs=2,
+                                          pad_obs_to=13),
+    # camera 1's rows all lie in tile 0; camera 0 sees every point, so its
+    # rows spread over every tile
+    "one_tile_and_many": lambda: problem_of(
+        [0, 1, 0, 1, 0] + [0, 2] * 20,
+        [0, 0, 1, 1, 2] + list(np.repeat(np.arange(3, 23), 2)), 3, 23),
+    # one camera holds every row (no padding)
+    "one_camera": lambda: problem_of([1] * 32, list(np.arange(32) // 4), 3,
+                                     8),
+}
+R = 8
+
+
+def runs_of(problem, plan):
+    """(camera, tile) of each run, from cam_perm and run_bounds."""
+    perm = problem.cam_perm.long()
+    first = perm[plan.run_bounds[:-1].long()]
+    return problem.cam_idx.long()[first], first // plan.rows
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_tile_plan_runs_partition_cam_perm(case):
+    """Every cam_perm position lies in exactly one run; a run is one
+    camera and one tile, and maximal; a camera's runs are consecutive
+    (cam_run_starts) and come in tile order; no run is empty."""
+    p = CASES[case]()
+    plan = plans.build_tile_plan(p, rows=R)
+    n = p.nobs_pad
+    b = plan.run_bounds.long()
+    assert int(b[0]) == 0 and int(b[-1]) == n
+    assert bool((b[1:] > b[:-1]).all())
+    perm = p.cam_perm.long()
+    cam, tile = p.cam_idx.long()[perm], perm // R
+    run_of_pos = torch.repeat_interleave(torch.arange(plan.nruns),
+                                         b[1:] - b[:-1])
+    assert run_of_pos.shape[0] == n
+    for key in (cam, tile):            # constant within a run
+        first = key[b[:-1]]
+        assert torch.equal(key, first[run_of_pos])
+    run_cam, run_tile = runs_of(p, plan)
+    same = (run_cam[1:] == run_cam[:-1]) & (run_tile[1:] == run_tile[:-1])
+    assert not bool(same.any())        # maximal
+    crs = plan.cam_run_starts.long()
+    assert crs.shape[0] == p.ncams + 1 and int(crs[0]) == 0 \
+        and int(crs[-1]) == plan.nruns
+    for c in range(p.ncams):
+        ids = torch.arange(int(crs[c]), int(crs[c + 1]))
+        assert bool((run_cam[ids] == c).all())
+        assert bool((run_tile[ids][1:] > run_tile[ids][:-1]).all())
+        starts = p.cam_starts.long()
+        assert int(b[crs[c]]) == int(starts[c]) or ids.numel() == 0
+    if case == "empty_cameras":
+        assert [c for c in range(p.ncams) if crs[c] == crs[c + 1]] \
+            == [0, 3, 5]
+    if case == "one_tile_and_many":
+        assert run_tile[crs[1]:crs[2]].tolist() == [0]
+        assert int(crs[1] - crs[0]) == plan.ntiles > 4
+    if case == "one_camera":
+        assert int(crs[2] - crs[1]) == plan.ntiles == plan.nruns
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_tile_plan_tile_order(case):
+    """Tile order lists each run once, tile by tile; tile t's stretch of
+    tile_rows is exactly its rows [t R, (t+1) R), and each tile-order
+    run's stretch is its run's cam_perm stretch."""
+    p = CASES[case]()
+    plan = plans.build_tile_plan(p, rows=R)
+    n = p.nobs_pad
+    assert plan.ntiles == -(-n // R)
+    tr = plan.tile_runs.long()
+    assert torch.equal(torch.sort(tr).values, torch.arange(plan.nruns))
+    _, run_tile = runs_of(p, plan)
+    trs, trb = plan.tile_run_starts.long(), plan.tile_run_bounds.long()
+    rows = plan.tile_rows.long()
+    perm, b = p.cam_perm.long(), plan.run_bounds.long()
+    for t in range(plan.ntiles):
+        slots = range(int(trs[t]), int(trs[t + 1]))
+        assert all(int(run_tile[tr[s]]) == t for s in slots)
+        lo, hi = t * R, min((t + 1) * R, n)
+        assert int(trb[trs[t]]) == lo and int(trb[trs[t + 1]]) == hi
+        assert torch.equal(torch.sort(rows[lo:hi]).values,
+                           torch.arange(lo, hi))
+        for s in slots:
+            r = int(tr[s])
+            assert torch.equal(rows[trb[s]:trb[s + 1]],
+                               perm[b[r]:b[r + 1]])
+
+
+def test_tile_plan_refuses_unsorted_cam_perm():
+    p = CASES["random"]()
+    perm = p.cam_perm.clone()
+    c = int(torch.argmax(p.cam_starts[1:] - p.cam_starts[:-1]))
+    j = int(p.cam_starts[c])
+    perm[j], perm[j + 1] = int(perm[j + 1]), int(perm[j])
+    p.cam_perm = perm
+    with pytest.raises(ValueError, match="ascending"):
+        plans.build_tile_plan(p, rows=R)
+
+
+def test_tile_plan_kept_on_the_problem():
+    """Built once per problem, at the first call, with the kernels' R."""
+    p = CASES["random"]()
+    assert "tiles" not in p.plans
+    first = plans.tile_plan(p)
+    assert first.rows == plans.TILE_ROWS and plans.tile_plan(p) is first
+    blocks = plans.point_blocks(p)
+    assert plans.point_blocks(p) is blocks
+
+
+def test_plan_sizes_match_the_kernels():
+    """The Python plans' sizes are the CUDA sources' constants: K2's tile
+    (the kernel refuses another) and K5's chunk, which holds a block of
+    POINT_BLOCK_ROWS rows with room for its last point."""
+    head = (CSRC / "cam_prod.cuh").read_text()
+    assert int(re.search(r"BA_TILE_ROWS = (\d+);", head)[1]) \
+        == plans.TILE_ROWS
+    wtv = (CSRC / "wtv_point.cuh").read_text()
+    per = int(re.search(r"BA_PNT_ROWS_PER_THREAD = (\d+);", wtv)[1])
+    block = int(re.search(r"BA_BLOCK = (\d+);",
+                          (CSRC / "chain.cuh").read_text())[1])
+    assert per * block >= plans.POINT_BLOCK_ROWS + 256
+
+
+# ------------------------------------------------------- K2: two passes
+def two_pass(rows_val, plan, ncams):
+    """The kernel's two passes in torch ops: pass 1 sums each tile-order
+    run's rows (read at tile_rows) into its run id's partial; pass 2 sums
+    each camera's runs [cam_run_starts[c], cam_run_starts[c+1])."""
+    trb = plan.tile_run_bounds.long()
+    slot_of_q = torch.repeat_interleave(torch.arange(plan.nruns),
+                                        trb[1:] - trb[:-1])
+    run_of_q = plan.tile_runs.long()[slot_of_q]
+    partial = torch.zeros((plan.nruns, rows_val.shape[1]),
+                          dtype=rows_val.dtype)
+    partial.index_add_(0, run_of_q, rows_val[plan.tile_rows.long()])
+    crs = plan.cam_run_starts.long()
+    cam_of_run = torch.repeat_interleave(torch.arange(ncams),
+                                         crs[1:] - crs[:-1])
+    return torch.zeros((ncams, rows_val.shape[1]),
+                       dtype=rows_val.dtype).index_add_(0, cam_of_run,
+                                                        partial)
+
+
+@pytest.fixture(scope="module")
+def jprob():
+    jp, _ = jax_synthetic(ncams=9, npnts=300, obs_per_pnt=4, seed=11,
+                          dtype=jnp.float32, noise_px=1.0, perturb=2e-2,
+                          pad_obs_to=1280)
+    tp = BAProblem.from_numpy(
+        {k: np.asarray(getattr(jp, k)) for k in BAProblem.FIELDS},
+        device="cpu")
+    rng = np.random.default_rng(0)
+    W = rng.standard_normal((27, jp.nobs_pad)).astype(np.float32)
+    W[:, jp.nobs:] = 0.0
+    JR = rng.standard_normal((26, jp.nobs_pad)).astype(np.float32)
+    A = rng.standard_normal((jp.npnts, 3, 3)).astype(np.float32)
+    C = (A @ np.swapaxes(A, 1, 2) + 3.0 * np.eye(3, dtype=np.float32))
+    op = rng.standard_normal((jp.npnts, 3)).astype(np.float32)
+    return jp, tp, dict(W=W, JR=JR, C=C.reshape(-1), op=op)
+
+
+def jax_cam_reduce(jp, ops, product):
+    """`cam_scatter_reduce` with the JAX package's product, interpreted."""
+    W_t = pad_rows(jnp.asarray(ops["W"]), 32)
+    bounds = tile_bounds(jp.pnt_starts, jp.npnts)
+    kw = dict(idx_row=jp.pnt_idx, interpret=True)
+    C = jnp.asarray(ops["C"])
+    h6 = C.reshape(-1, 9)[:, jnp.array([0, 1, 2, 4, 5, 8])]
+    op_t = jnp.asarray(ops["op"]).T
+    if product == "w_op":
+        return cam_scatter_reduce(W_t, jp.cam_idx, bounds, jp.ncams, d_out=9,
+                                  prod=pallas_schur._prod_w_op,
+                                  op_t=pad_rows(op_t, 8), **kw)
+    if product == "wcw":
+        return cam_scatter_reduce(W_t, jp.cam_idx, bounds, jp.ncams,
+                                  d_out=81, prod=pallas_schur._prod_wcw,
+                                  op_t=pad_rows(h6.T, 8), **kw)
+    if product == "wcw_rhs":
+        op16 = pad_rows(jnp.concatenate([h6.T, op_t], axis=0), 16)
+        return cam_scatter_reduce(W_t, jp.cam_idx, bounds, jp.ncams,
+                                  d_out=90, prod=pallas_schur._prod_wcw_rhs,
+                                  op_t=op16, **kw)
+    JR = pad_rows(jnp.asarray(ops["JR"]), 32)
+    return cam_scatter_reduce(JR, jp.cam_idx, bounds, jp.ncams, d_out=90,
+                              prod=pallas_schur._prod_cam90, interpret=True)
+
+
+@pytest.fixture(scope="module")
+def jax_refs(jprob):
+    """The JAX kernel's output per product, computed once."""
+    jp, _, ops = jprob
+    cache = {}
+
+    def get(product):
+        if product not in cache:
+            cache[product] = np.asarray(jax_cam_reduce(jp, ops, product))
+        return cache[product]
+    return get
+
+
+def port_rows_and_plain(tp, ops, product, dtype):
+    """Per-row products (n, d_out) in point order, and the plain twin."""
+    W = torch.from_numpy(ops["W"]).to(dtype)
+    JR = torch.from_numpy(ops["JR"]).to(dtype)
+    C = torch.from_numpy(ops["C"]).to(dtype)
+    op = torch.from_numpy(ops["op"]).to(dtype)
+    pi = tp.pnt_idx.long()
+    rows = {"w_op": lambda: sr.w_op_rows(W, op, pi),
+            "wcw": lambda: sr.wcw_rows(W, C, pi),
+            "wcw_rhs": lambda: torch.cat([sr.wcw_rows(W, C, pi),
+                                          sr.w_op_rows(W, op, pi)], dim=1),
+            "cam90": lambda: sr.jtj_cam_rows(JR)}[product]()
+    plain = {"w_op": lambda: fs.cam_reduce_w_op(W, tp, op),
+             "wcw": lambda: fs.cam_reduce_wcw(W, tp, C),
+             "wcw_rhs": lambda: fs.cam_reduce_wcw_rhs(W, tp, C, op),
+             "cam90": lambda: fs.cam_reduce_cam90(JR, tp)}[product]()
+    return rows, plain
+
+
+def close32(got, ref):
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    np.testing.assert_allclose(got, ref, rtol=1e-4,
+                               atol=1e-5 * np.abs(ref).max())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("rows", [8, 64, plans.TILE_ROWS])
+@pytest.mark.parametrize("product", ["w_op", "wcw", "wcw_rhs", "cam90"])
+def test_two_pass_sum_matches_pallas_and_plain(jprob, jax_refs, product,
+                                                rows, dtype):
+    """K2's plan-driven two passes, for each product, against the JAX
+    `cam_scatter_reduce` and the port's plain twin."""
+    _, tp, ops = jprob
+    plan = plans.build_tile_plan(tp, rows=rows)
+    row_vals, plain = port_rows_and_plain(tp, ops, product, dtype)
+    got = two_pass(row_vals, plan, tp.ncams)
+    close32(got, jax_refs(product))
+    if dtype == torch.float64:
+        torch.testing.assert_close(got, plain, rtol=1e-12, atol=1e-12)
+    else:
+        close32(got, plain)
+
+
+# ------------------------------------------------------- K5: point ranges
+def point_walk(y, problem, bounds, chunk):
+    """The K5 kernel's walk (csrc/wtv_point.cuh) in Python over per-row
+    3-vectors ``y`` (n, 3): each block's rows in chunks; points that end
+    in a chunk are summed in row order, the point that runs past it
+    carries its sum. Returns the sums and how often each point was
+    written."""
+    ps, pidx = problem.pnt_starts.tolist(), problem.pnt_idx.tolist()
+    out = torch.zeros((problem.npnts, 3), dtype=y.dtype)
+    written = [0] * problem.npnts
+    bounds = bounds.tolist()
+    for b in range(len(bounds) - 1):
+        p_next, p_end = bounds[b], bounds[b + 1]
+        carried, carry = False, torch.zeros(3, dtype=y.dtype)
+        r1 = ps[p_end]
+        c0 = ps[p_next]
+        while True:
+            c1 = min(c0 + chunk, r1)
+            last = c1 == r1
+            p_fin = p_end if last else pidx[c1]
+            for p in range(p_next, p_fin):
+                s = carry.clone() if carried and p == p_next \
+                    else torch.zeros(3, dtype=y.dtype)
+                for row in range(max(ps[p], c0), ps[p + 1]):
+                    s += y[row]
+                out[p] = s
+                written[p] += 1
+            if last:
+                break
+            if ps[p_fin] < c1:
+                s = carry.clone() if carried and p_fin == p_next \
+                    else torch.zeros(3, dtype=y.dtype)
+                for row in range(max(ps[p_fin], c0), c1):
+                    s += y[row]
+                carry, carried = s, True
+            else:
+                carried = False
+            p_next = p_fin
+            c0 += chunk
+    return out, written
+
+
+# Layouts for K5: a long point (more rows than a chunk) mid-range, points
+# without rows, and the padding tail on the last point.
+K5_CASES = {
+    "random": lambda: random_problem(3, ncams=5, npnts=60, obs=3,
+                                     pad_obs_to=64),
+    "long_and_empty": lambda: problem_of(
+        list(np.arange(50) % 4) + [1, 2, 3, 0, 1] + list(np.arange(30) % 4),
+        [0, 0, 2] + [3] * 45 + [4, 4] + [7] * 5 + list(8 + np.arange(30) // 3),
+        4, 20, pad_obs_to=40),
+}
+
+
+@pytest.mark.parametrize("case", K5_CASES)
+@pytest.mark.parametrize("rows", [4, 16, plans.POINT_BLOCK_ROWS])
+def test_point_blocks_cover_and_balance(case, rows):
+    """Every point lies in exactly one block; a block holds at most
+    ``rows`` rows plus the rows of its last point; blocks are not
+    empty of points."""
+    p = K5_CASES[case]()
+    bounds = plans.build_point_blocks(p, rows=rows).long()
+    assert int(bounds[0]) == 0 and int(bounds[-1]) == p.npnts
+    assert bool((bounds[1:] > bounds[:-1]).all())
+    ps = p.pnt_starts.long()
+    seg = ps[1:] - ps[:-1]
+    for b in range(bounds.shape[0] - 1):
+        lo, hi = int(bounds[b]), int(bounds[b + 1])
+        assert int(ps[hi] - ps[lo]) <= rows + int(seg[hi - 1])
+    if rows == 4 and case == "long_and_empty":
+        assert int(seg.max()) > 8      # a point longer than the chunk below
+
+
+@pytest.mark.parametrize("case", K5_CASES)
+@pytest.mark.parametrize("chunk", [8, 64])
+@pytest.mark.parametrize("form", ["plain", "fold", "fold_add_sign"])
+def test_point_walk_matches_plain(case, chunk, form):
+    """The K5 walk over its plan (blocks of 4 rows, chunks of 8 or 64
+    rows, so points cross chunks and blocks end mid-chunk) writes every
+    point once and gives the plain twin's sums, in f64."""
+    p = K5_CASES[case]()
+    rng = np.random.default_rng(5)
+    n, npt = p.nobs_pad, p.npnts
+    W = torch.from_numpy(rng.standard_normal((27, n)))
+    v = torch.from_numpy(rng.standard_normal((p.ncams, 9)))
+    A = rng.standard_normal((npt, 3, 3))
+    hpp = torch.from_numpy((A @ A.transpose(0, 2, 1)).reshape(-1))
+    add = torch.from_numpy(rng.standard_normal(npt * 3))
+    kw = {"plain": {}, "fold": dict(hpp_inv_f=hpp),
+          "fold_add_sign": dict(hpp_inv_f=hpp, add_f=add, sign=-1.0)}[form]
+    y = torch.einsum("nab,na->nb", sr.w_rows(W, v.dtype),
+                     v[p.cam_idx.long()])
+    s, written = point_walk(y, p, plans.build_point_blocks(p, rows=4), chunk)
+    assert written == [1] * npt
+    if "add_f" in kw:
+        s = s + add.reshape(-1, 3)
+    if "hpp_inv_f" in kw:
+        s = torch.einsum("pab,pb->pa", hpp.reshape(-1, 3, 3), s)
+    s = kw.get("sign", 1.0) * s
+    torch.testing.assert_close(s, sr.wtv_point_reduce(W, v, p, **kw),
+                               rtol=1e-12, atol=1e-12)
