@@ -1,9 +1,10 @@
-// Device code shared by K2 (cam_reduce.cu), K3's camera pass (matvec.cu),
-// K6's camera products (seg_prod_reduce.cu) and K5's camera direction
-// (seg_block_reduce.cu): per-camera sums of a per-row product, in two
-// designs that differ in where a camera's rows lie.
+// Device code shared by K2 (cam_reduce.cu), K3's camera pass (matvec.cu)
+// and K6's camera products (seg_prod_reduce.cu): per-camera sums of a
+// per-row product, in two designs that differ in where a camera's rows
+// lie. K5's camera direction (seg_block_reduce.cu) takes its W op product
+// and run-sum pass.
 //
-// Camera-sorted copy (K6, K5: JR_cam_t, W_cam_t), ba_launch_cam_prod: one
+// Camera-sorted copy (K6: JR_cam_t, W_cam_t), ba_launch_cam_prod: one
 // block per camera strides over its columns j in [cam_starts[c],
 // cam_starts[c+1]) (coalesced), then a fixed-order block sum.
 //

@@ -1,6 +1,7 @@
-// Device code shared by K5's point direction (seg_block_reduce.cu) and K3's
-// point pass (matvec.cu): each point's segment of the point-sorted rows,
-// reduced and optionally folded with its damped inverse block,
+// Device code shared by K5's point direction (seg_block_reduce.cu), K3's
+// point pass (matvec.cu) and K1's point pass (assemble.cu, through
+// ba_point_walk): each point's segment of the point-sorted rows, reduced
+// and, for K5 and K3, optionally folded with its damped inverse block,
 //
 //   s   = sum_{k in p} W_k' v[cam_k]  (+ add_p)
 //   out = sign * Hpp_inv_p s   (sign * s when hpp_inv is null)
@@ -36,9 +37,9 @@
 #include "chain.cuh"
 #include "w_store.cuh"
 
-// Rows of one chunk: 6 a thread. A block's range is ~1024 rows
-// (ops/plans.py:POINT_BLOCK_ROWS), so its last point may run ~500 rows
-// past the target and still take one chunk.
+// Rows of one chunk of K5's walk: 6 a thread. A block's range is ~1024
+// rows (ops/plans.py:POINT_BLOCK_ROWS), so its last point may run ~500
+// rows past the target and still take one chunk.
 constexpr int BA_PNT_ROWS_PER_THREAD = 6;
 constexpr int BA_PNT_CHUNK = BA_BLOCK * BA_PNT_ROWS_PER_THREAD;
 
@@ -66,34 +67,36 @@ __device__ __forceinline__ void ba_point_out(
         sign * (h[3 * a] * s[0] + h[3 * a + 1] * s[1] + h[3 * a + 2] * s[2]);
 }
 
-template <class T>
-__global__ void __launch_bounds__(BA_BLOCK) ba_wtv_point_kernel(
-    const T* __restrict__ W, const float* __restrict__ v,
-    const int* __restrict__ cam_idx, const int* __restrict__ pnt_idx,
-    const int* __restrict__ pnt_starts, const int* __restrict__ block_pnts,
-    const float* __restrict__ hpp_inv, const float* __restrict__ add,
-    float sign, long long n, float* __restrict__ out) {
-  __shared__ float sy[3][BA_PNT_CHUNK];
-  __shared__ float carry[3];
+// The walk of one block over its point range [block_pnts[b],
+// block_pnts[b+1]) in chunks of BA_BLOCK * RPT rows. row(r, y) gives row
+// r's D values (one thread per row: lanes on neighbouring rows); out(p, s)
+// writes point p from the sum of its rows' values, taken in row order by
+// the point's owner thread, the point running past a chunk carrying its sum
+// to the next. K5's point direction (D = 3) and K1's point pass (D = 9)
+// walk so; every thread of the block must call it.
+template <int D, int RPT, class Row, class Out>
+__device__ __forceinline__ void ba_point_walk(
+    const int* __restrict__ pnt_idx, const int* __restrict__ pnt_starts,
+    const int* __restrict__ block_pnts, Row row, Out out) {
+  constexpr int CHUNK = BA_BLOCK * RPT;
+  static_assert(D * CHUNK * sizeof(float) <= 48 * 1024,
+                "the chunk's values must fit in static shared memory");
+  __shared__ float sy[D][CHUNK];
+  __shared__ float carry[D];
   const int p_end = block_pnts[blockIdx.x + 1];
   int p_next = block_pnts[blockIdx.x];  // first point not yet written
   bool carried = false;                 // carry holds p_next's sum so far
   const int r1 = pnt_starts[p_end];
-  for (int c0 = pnt_starts[p_next];; c0 += BA_PNT_CHUNK) {
-    const int c1 = min(c0 + BA_PNT_CHUNK, r1);
+  for (int c0 = pnt_starts[p_next];; c0 += CHUNK) {
+    const int c1 = min(c0 + CHUNK, r1);
 #pragma unroll
-    for (int k = 0; k < BA_PNT_ROWS_PER_THREAD; ++k) {
-      const int row = c0 + k * BA_BLOCK + threadIdx.x;
-      if (row < c1) {
-        const float* vc = v + 9 * (size_t)cam_idx[row];
+    for (int k = 0; k < RPT; ++k) {
+      const int r = c0 + k * BA_BLOCK + threadIdx.x;
+      if (r < c1) {
+        float y[D];
+        row(r, y);
 #pragma unroll
-        for (int b = 0; b < 3; ++b) {
-          float acc = 0.f;
-#pragma unroll
-          for (int a = 0; a < 9; ++a)
-            acc += ba_ldw(W, (3 * a + b) * n + row) * __ldg(vc + a);
-          sy[b][row - c0] = acc;
-        }
+        for (int d = 0; d < D; ++d) sy[d][r - c0] = y[d];
       }
     }
     __syncthreads();
@@ -102,14 +105,14 @@ __global__ void __launch_bounds__(BA_BLOCK) ba_wtv_point_kernel(
     const int p_fin = last ? p_end : pnt_idx[c1];
     for (int p = p_next + threadIdx.x; p < p_fin; p += BA_BLOCK) {
       const bool cont = carried && p == p_next;
-      float s[3];
+      float s[D];
 #pragma unroll
-      for (int a = 0; a < 3; ++a) s[a] = cont ? carry[a] : 0.f;
+      for (int d = 0; d < D; ++d) s[d] = cont ? carry[d] : 0.f;
       const int e = pnt_starts[p + 1];
-      for (int row = max(pnt_starts[p], c0); row < e; ++row)
+      for (int r = max(pnt_starts[p], c0); r < e; ++r)
 #pragma unroll
-        for (int b = 0; b < 3; ++b) s[b] += sy[b][row - c0];
-      ba_point_out(p, s, hpp_inv, add, sign, out);
+        for (int d = 0; d < D; ++d) s[d] += sy[d][r - c0];
+      out(p, s);
     }
     if (last) break;
     // Point p_fin holds row c1; if it started before c1 it carries.
@@ -118,14 +121,14 @@ __global__ void __launch_bounds__(BA_BLOCK) ba_wtv_point_kernel(
     if (pc_start < c1) {
       if (threadIdx.x == 0) {
         const bool cont = carried && p_fin == p_next;
-        float s[3];
+        float s[D];
 #pragma unroll
-        for (int a = 0; a < 3; ++a) s[a] = cont ? carry[a] : 0.f;
-        for (int row = max(pc_start, c0); row < c1; ++row)
+        for (int d = 0; d < D; ++d) s[d] = cont ? carry[d] : 0.f;
+        for (int r = max(pc_start, c0); r < c1; ++r)
 #pragma unroll
-          for (int b = 0; b < 3; ++b) s[b] += sy[b][row - c0];
+          for (int d = 0; d < D; ++d) s[d] += sy[d][r - c0];
 #pragma unroll
-        for (int a = 0; a < 3; ++a) carry[a] = s[a];
+        for (int d = 0; d < D; ++d) carry[d] = s[d];
       }
       carried = true;
     } else {
@@ -134,6 +137,31 @@ __global__ void __launch_bounds__(BA_BLOCK) ba_wtv_point_kernel(
     p_next = p_fin;
     __syncthreads();
   }
+}
+
+template <class T>
+__global__ void __launch_bounds__(BA_BLOCK) ba_wtv_point_kernel(
+    const T* __restrict__ W, const float* __restrict__ v,
+    const int* __restrict__ cam_idx, const int* __restrict__ pnt_idx,
+    const int* __restrict__ pnt_starts, const int* __restrict__ block_pnts,
+    const float* __restrict__ hpp_inv, const float* __restrict__ add,
+    float sign, long long n, float* __restrict__ out) {
+  ba_point_walk<3, BA_PNT_ROWS_PER_THREAD>(
+      pnt_idx, pnt_starts, block_pnts,
+      [&](int row, float (&y)[3]) {
+        const float* vc = v + 9 * (size_t)cam_idx[row];
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+          float acc = 0.f;
+#pragma unroll
+          for (int a = 0; a < 9; ++a)
+            acc += ba_ldw(W, (3 * a + b) * n + row) * __ldg(vc + a);
+          y[b] = acc;
+        }
+      },
+      [&](int p, float (&s)[3]) {
+        ba_point_out(p, s, hpp_inv, add, sign, out);
+      });
 }
 
 // Launch on ``stream``: one block per point range of ``block_pnts``

@@ -75,7 +75,9 @@ class BAProblem:
     cam_starts: torch.Tensor  # (ncams+1,) int32
     name: str = "ba"
     # Kernel launch plans built from the index arrays at first use
-    # (`ops/plans.py`), kept here so a solve builds each once.
+    # (`ops/plans.py`), kept here so a solve builds each once. `astype` and
+    # `with_state` keep the index arrays and share this dict; a problem
+    # built with new indices starts with an empty one.
     plans: dict = dataclasses.field(default_factory=dict, repr=False,
                                     compare=False)
 
@@ -168,3 +170,46 @@ class BAProblem:
     @property
     def nobs_pad(self) -> int:
         return self.cam_idx.shape[0]
+
+    @property
+    def nvar(self) -> int:
+        """9*ncams + 3*npnts (`BALNLPModels.jl:95`)."""
+        return 9 * self.ncams + 3 * self.npnts
+
+    @property
+    def nequ(self) -> int:
+        """2*nobs (`BALNLPModels.jl:97`)."""
+        return 2 * self.nobs
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self.cams.dtype
+
+    def _with_floats(self, cams, points, pt2d, w) -> "BAProblem":
+        """This problem with new float arrays and the same index arrays, so
+        the copy shares ``plans`` (they depend only on the indices)."""
+        return dataclasses.replace(self, cams=cams, points=points, pt2d=pt2d,
+                                   w=w, plans=self.plans)
+
+    def astype(self, dtype) -> "BAProblem":
+        dt = torch_dtype(dtype)
+        return self._with_floats(self.cams.to(dt), self.points.to(dt),
+                                 self.pt2d.to(dt), self.w.to(dt))
+
+    # ----- state <-> reference flat layout ----------------------------------
+    def state(self) -> tuple[torch.Tensor, torch.Tensor]:
+        return self.cams, self.points
+
+    def with_state(self, cams, points) -> "BAProblem":
+        return self._with_floats(cams, points, self.pt2d, self.w)
+
+    def flatten_state(self, cams=None, points=None) -> torch.Tensor:
+        """Flat vector in the reference's points-first layout
+        (`ReadFiles.jl:29-30`): ``[X_1..X_npnts, C_1..C_ncams]``."""
+        cams = self.cams if cams is None else cams
+        points = self.points if points is None else points
+        return torch.cat([points.reshape(-1), cams.reshape(-1)])
+
+    def unflatten_state(self, x: torch.Tensor):
+        np3 = 3 * self.npnts
+        return x[np3:].reshape(self.ncams, 9), x[:np3].reshape(self.npnts, 3)

@@ -163,10 +163,20 @@ class TilePlanC(ctypes.Structure):
                 ("cam_run_starts", _P), ("ntiles", _I), ("rows", _I)]
 
 
+class CamColPlanC(ctypes.Structure):
+    """K5 camera direction's plan as its C entry point takes it
+    (``csrc/seg_block_reduce.cu`` ``BaCamColPlan``), by pointer: the device
+    arrays of :class:`ops.plans.CamColPlan`."""
+    _fields_ = [("cam_pnt", _P), ("run_bounds", _P),
+                ("range_run_starts", _P), ("cam_run_starts", _P),
+                ("nranges", _I), ("cols", _I)]
+
+
 _PLAN = ctypes.POINTER(TilePlanC)
+_COLS = ctypes.POINTER(CamColPlanC)
 # Every W pointer is followed by its storage code (W_CODES).
 _SIGNATURES = {
-    "ba_assemble": [_P] * 9 + [_I, _I, _I64, _P, _I] + [_P] * 5,
+    "ba_assemble": [_P] * 8 + [_I, _P, _P, _I, _I64, _P, _I] + [_P] * 5,
     "ba_cam_reduce_wcw_rhs": [_P, _I] + [_P] * 3 + [_PLAN, _I, _I64]
     + [_P] * 3,
     "ba_cam_reduce_w_op": [_P, _I, _P, _P, _PLAN, _I, _I64] + [_P] * 3,
@@ -182,7 +192,7 @@ _SIGNATURES = {
     "ba_wcw_cam_reduce": [_P, _I] + [_P] * 4 + [_I, _I64, _P, _P],
     "ba_wtv_point_reduce": [_P, _I] + [_P] * 5 + [_I, _P, _P, _F, _I64, _P,
                                                    _P],
-    "ba_wt_cam_reduce": [_P, _I] + [_P] * 4 + [_I, _I64, _P, _P],
+    "ba_wt_cam_reduce": [_P, _I, _P, _COLS, _I, _I64] + [_P] * 3,
     "ba_stream_probe": [_P] * 3 + [_I, _I64, _I, _P, _P, _P],
 }
 
@@ -214,6 +224,13 @@ def tile_plan_arg(plan) -> ctypes._Pointer:
         ptr(plan.tile_rows), ptr(plan.tile_run_starts),
         ptr(plan.tile_run_bounds), ptr(plan.tile_runs),
         ptr(plan.cam_run_starts), plan.ntiles, plan.rows))
+
+
+def cam_col_plan_arg(plan) -> ctypes._Pointer:
+    """:class:`ops.plans.CamColPlan` as the C entry point takes it."""
+    return ctypes.pointer(CamColPlanC(
+        ptr(plan.cam_pnt), ptr(plan.run_bounds), ptr(plan.range_run_starts),
+        ptr(plan.cam_run_starts), plan.nranges, plan.cols))
 
 
 def stream() -> ctypes.c_void_p:

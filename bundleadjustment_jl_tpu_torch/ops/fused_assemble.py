@@ -8,6 +8,10 @@ beside it (any dtype). CUDA float64 raises, as the JAX package's kernels
 refuse f64. The plain versions are also what ``chip_smoke.py`` checks the
 kernels against on the card.
 
+K1 runs two passes (``csrc/assemble.cu``): the point pass in K5's point
+ranges (:func:`ops.plans.point_blocks`), the camera pass a block per camera
+over ``cam_perm``.
+
 W travels as structure-of-arrays ``W_t`` (27, nobs_pad), row ``3a+b``
 holding ``W[a, b]`` of ``W_k = Jc_k' Jp_k`` — the JAX package's
 ``W_t[:27]`` — stored in ``w_dtype``: float32 or, with ``facto_dtype``,
@@ -19,7 +23,7 @@ from __future__ import annotations
 import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
-from bundleadjustment_jl_tpu_torch.ops import _cuda
+from bundleadjustment_jl_tpu_torch.ops import _cuda, plans
 from bundleadjustment_jl_tpu_torch.ops.chain import linearize, project_residual
 
 
@@ -35,6 +39,7 @@ def assemble_scatter(problem: BAProblem, cams: torch.Tensor,
     _cuda.require(points, "points", torch.float32, (npt, 3))
     _cuda.require_problem(problem)
     dev = cams.device
+    blocks = plans.point_blocks(problem)
     W_t = torch.empty((27, n), dtype=w_dtype or torch.float32, device=dev)
     code = _cuda.w_code(W_t, "W_t", (27, n))
     hp12 = torch.empty((npt, 12), dtype=torch.float32, device=dev)
@@ -45,9 +50,10 @@ def assemble_scatter(problem: BAProblem, cams: torch.Tensor,
     rc = _cuda.lib().ba_assemble(
         _cuda.ptr(cams), _cuda.ptr(points), _cuda.ptr(p.pt2d), _cuda.ptr(p.w),
         _cuda.ptr(p.cam_idx), _cuda.ptr(p.pnt_idx), _cuda.ptr(p.pnt_starts),
-        _cuda.ptr(p.cam_perm), _cuda.ptr(p.cam_starts), nc, npt, n,
-        _cuda.ptr(W_t), code, _cuda.ptr(hp12), _cuda.ptr(hc90),
-        _cuda.ptr(obj_part), _cuda.ptr(obj), _cuda.stream())
+        _cuda.ptr(blocks), blocks.shape[0] - 1, _cuda.ptr(p.cam_perm),
+        _cuda.ptr(p.cam_starts), nc, n, _cuda.ptr(W_t), code,
+        _cuda.ptr(hp12), _cuda.ptr(hc90), _cuda.ptr(obj_part), _cuda.ptr(obj),
+        _cuda.stream())
     _cuda.check(rc, "ba_assemble")
     _cuda.launched("assemble", W_t)
     return W_t, hp12, hc90, obj[0]

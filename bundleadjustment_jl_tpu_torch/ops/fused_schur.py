@@ -155,8 +155,8 @@ def matvec_cam_scatter(W_t: torch.Tensor, v: torch.Tensor,
     point step dp, returned with ``out``, the |J d|^2 cross term's camera
     sums."""
     if not W_t.is_cuda:
-        out, t = _matvec_plain(W_t, v, problem, hpp_inv_f, gp_f, sign)
-        return (out, t) if with_dp else out
+        return _matvec_cam_scatter_plain(W_t, v, problem, hpp_inv_f, gp_f,
+                                         sign, with_dp)
     n, nc, npt = problem.nobs_pad, problem.ncams, problem.npnts
     code = _cuda.w_code(W_t, "W_t", (27, n))
     _cuda.require(v, "v", torch.float32, (nc, 9))
@@ -184,3 +184,10 @@ def matvec_cam_scatter(W_t: torch.Tensor, v: torch.Tensor,
 def _matvec_plain(W_t, v, problem, hpp_inv_f, gp_f, sign):
     t = _wtv_point_plain(W_t, v, problem, hpp_inv_f, gp_f, sign)
     return _cam_reduce_w_op_plain(W_t, problem, t), t
+
+
+def _matvec_cam_scatter_plain(W_t, v, problem, hpp_inv_f, gp_f=None,
+                              sign=1.0, with_dp=False):
+    """Plain version of :func:`matvec_cam_scatter`, same signature."""
+    out, t = _matvec_plain(W_t, v, problem, hpp_inv_f, gp_f, sign)
+    return (out, t) if with_dp else out

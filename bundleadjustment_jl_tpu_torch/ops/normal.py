@@ -9,17 +9,15 @@ Damping is Levenberg's ``lambda I``.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 
-from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
-from bundleadjustment_jl_tpu_torch.ops.fused_assemble import assemble_scatter
-from bundleadjustment_jl_tpu_torch.ops.fused_schur import cam_reduce_cam90
-from bundleadjustment_jl_tpu_torch.ops.linearize import (
-    R0, linearize_w_kminor, linearize_w_only)
-from bundleadjustment_jl_tpu_torch.ops.seg_reduce import (
-    jtj_cam_reduce, jtj_pnt_reduce)
+from bundleadjustment_jl_tpu_torch.models.problem import BAProblem, torch_dtype
+from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
+from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
+from bundleadjustment_jl_tpu_torch.ops import linearize as lz
+from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
 
 # The kernel routes (`kernel_route` below picks one per solve):
 #   "fused"         A: K1 assembly; K2 + K3 read W through cam_perm.
@@ -62,6 +60,66 @@ CAM_SCATTER_MAX_CAMS = 16384
 # (K2 sums [Hcc | g_c]) and re-linearizes W in the camera order (K8) in
 # place of permuting it (route B2).
 GATHER_DIRECT_MAX_BYTES = 4 << 30
+
+
+class Stages(NamedTuple):
+    """The callables a solve's stages call, one field per kernel wrapper and
+    named after it: :data:`KERNELS` (the wrappers) or :data:`PLAIN` (their
+    plain twins, same signatures). :func:`solve_stages` picks the table
+    once per solve; `GNBlocks` and `ops/schur.py:SchurSystem` carry it."""
+    assemble_scatter: Callable      # K1
+    linearize_w_kminor: Callable    # K7
+    jtj_pnt_reduce: Callable        # K6 pnt12
+    jtj_cam_reduce: Callable        # K6 cam90
+    cam_reduce_cam90: Callable      # K2 cam90
+    linearize_w_only: Callable      # K8
+    cam_reduce_wcw_rhs: Callable    # K2 W C W' | W t
+    matvec_cam_scatter: Callable    # K3
+    cam_reduce_w_op: Callable       # K2 W op
+    cam_reduce_wcw: Callable        # K2 W C W'
+    wcw_cam_reduce: Callable        # K6 wcw81
+    wtv_point_reduce: Callable      # K5 point direction
+    wt_cam_reduce: Callable         # K5 camera direction
+    objective_scatter: Callable     # K4
+
+
+KERNELS = Stages(
+    fa.assemble_scatter, lz.linearize_w_kminor, sr.jtj_pnt_reduce,
+    sr.jtj_cam_reduce, fs.cam_reduce_cam90, lz.linearize_w_only,
+    fs.cam_reduce_wcw_rhs, fs.matvec_cam_scatter, fs.cam_reduce_w_op,
+    fs.cam_reduce_wcw, sr.wcw_cam_reduce, sr.wtv_point_reduce,
+    sr.wt_cam_reduce, fa.objective_scatter)
+PLAIN = Stages(
+    fa._assemble_plain, lz._linearize_plain, sr._jtj_pnt_plain,
+    sr._jtj_cam_plain, fs._cam_reduce_cam90_plain, lz._linearize_w_only_plain,
+    fs._cam_reduce_wcw_rhs_plain, fs._matvec_cam_scatter_plain,
+    fs._cam_reduce_w_op_plain, fs._cam_reduce_wcw_plain, sr._wcw_cam_plain,
+    sr._wtv_point_plain, sr._wt_cam_plain, fa._objective_plain)
+
+# PALLAS_MODE is the JAX package's `pallas_schur.PALLAS_MODE`: the kernels
+# on (default here, as bench.py measures) or the plain route everywhere.
+PALLAS_MODE = True
+
+
+def solve_stages(dtype) -> Stages:
+    """The stage table of a solve in working dtype ``dtype``, read once per
+    solve by `solver/lm_jit.py`: :data:`PLAIN` for float64 or with
+    :data:`PALLAS_MODE` off, else :data:`KERNELS`.
+
+    The kernels accumulate in float32 and have no float64 form; the JAX
+    package keeps its XLA path for float64 (`pallas_schur.problem_ok`), and
+    the plain route is that path, run on whatever device the tensors are on.
+    No kernel wrapper is reached there, so a wrapper's refusal of CUDA
+    float64 stands. `problem_ok`'s other tests do not carry over: the
+    port's problems are always point-sorted with ``cam_perm``, and its
+    kernels take any padding (``nobs_pad % 128`` is a TPU lane rule), so a
+    float32 solve on the card runs the kernels or raises. The plain twins'
+    segment sums are ``index_add_``, atomics on CUDA: an f64 solve on the
+    card makes the CPU f64 solve's decisions (status, iterations) with its
+    objective within rel 1e-9, not bit for bit."""
+    if PALLAS_MODE and torch_dtype(dtype) != torch.float64:
+        return KERNELS
+    return PLAIN
 
 
 def kernel_route(problem: BAProblem) -> str:
@@ -108,6 +166,9 @@ class GNBlocks(NamedTuple):
     # `ops/schur.py` hats Hpp_inv by 1/s^2 and g_p by s and unscales dp.
     # None = 1 (float32 or bfloat16 storage).
     w_scale: torch.Tensor | None = None
+    # The stage table of the solve (`solve_stages`), through which
+    # `ops/schur.py` calls its kernels or their plain twins.
+    stages: Stages = KERNELS
 
     @property
     def g_c(self):
@@ -124,13 +185,15 @@ class GNBlocks(NamedTuple):
 
 def assemble_blocks(problem: BAProblem, cams=None, points=None, *,
                     route: str = "fused",
-                    w_dtype: torch.dtype | None = None) -> GNBlocks:
+                    w_dtype: torch.dtype | None = None,
+                    stages: Stages | None = None) -> GNBlocks:
     """Linearize at (cams, points) and assemble the blocks on ``route``
     (one of :data:`ROUTES`), as `_assemble_kminor` of the JAX package does,
     W written in ``w_dtype`` (default: the working dtype; bfloat16 with
     ``facto_dtype=bfloat16``, as `_w_assemble_dtype` of the JAX solver
     gives it; float16 is never written raw, see
-    `solver/lm_jit.py:maybe_cast_facto`):
+    `solver/lm_jit.py:maybe_cast_facto`), each step below called through
+    ``stages`` (default :data:`KERNELS`; :func:`solve_stages`):
 
     - ``"fused"``: one K1 launch;
     - the others: K7 linearizes into ``JR_t`` and ``W_t`` and K6 sums
@@ -145,27 +208,29 @@ def assemble_blocks(problem: BAProblem, cams=None, points=None, *,
         raise ValueError(f"unknown kernel route {route!r}; one of {ROUTES}")
     cams = problem.cams if cams is None else cams
     points = problem.points if points is None else points
+    st = KERNELS if stages is None else stages
     if route == "fused":
-        W_t, hp12, hc90, obj = assemble_scatter(problem, cams, points,
-                                                w_dtype)
+        W_t, hp12, hc90, obj = st.assemble_scatter(problem, cams, points,
+                                                   w_dtype)
         W_cam_t = None
     else:
-        JR_t, W_t = linearize_w_kminor(problem, cams, points, w_dtype)
-        obj = 0.5 * torch.sum(JR_t[R0:R0 + 2] ** 2)
+        JR_t, W_t = st.linearize_w_kminor(problem, cams, points, w_dtype)
+        obj = 0.5 * torch.sum(JR_t[lz.R0:lz.R0 + 2] ** 2)
         if route == "sorted":
             perm = problem.cam_perm.long()
-            hc90 = jtj_cam_reduce(JR_t[:, perm], problem)
+            hc90 = st.jtj_cam_reduce(JR_t[:, perm], problem)
             W_cam_t = W_t[:, perm]
         else:
-            hc90 = cam_reduce_cam90(JR_t, problem)
-            W_cam_t = (linearize_w_only(problem, cams, points, w_dtype)
+            hc90 = st.cam_reduce_cam90(JR_t, problem)
+            W_cam_t = (st.linearize_w_only(problem, cams, points, w_dtype)
                        if route == "sorted_relin" else None)
-        hp12 = jtj_pnt_reduce(JR_t, problem)
+        hp12 = st.jtj_pnt_reduce(JR_t, problem)
     return GNBlocks(g_c_f=hc90[:, 81:90].reshape(-1),
                     g_p_f=hp12[:, 9:12].reshape(-1),
                     Hcc_f=hc90[:, :81].reshape(-1),
                     Hpp_f=hp12[:, :9].reshape(-1),
-                    obj=obj, W_t=W_t, W_cam_t=W_cam_t, route=route)
+                    obj=obj, W_t=W_t, W_cam_t=W_cam_t, route=route,
+                    stages=st)
 
 
 def gradient_norm(blocks: GNBlocks) -> torch.Tensor:

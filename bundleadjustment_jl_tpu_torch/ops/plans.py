@@ -1,12 +1,14 @@
-"""Launch plans of the two row-reduction kernels that read the point-sorted
-W (or JR) in row order: K2's camera direction (``csrc/cam_prod.cuh``,
-read through ``cam_perm``) and K5's point direction
-(``csrc/wtv_point.cuh``).
+"""Launch plans of the row-reduction kernels: K2's camera direction over the
+point-sorted rows (``csrc/cam_prod.cuh``, read through ``cam_perm``), K5's
+point direction and K1's point pass (``csrc/wtv_point.cuh``), and K5's
+camera direction over the camera-sorted copy of W
+(``csrc/seg_block_reduce.cu``).
 
 A plan depends only on the problem's index arrays (``cam_idx``,
-``cam_perm``, ``pnt_starts``), so it is built once per problem, with torch
-ops on the problem's device, at the first kernel call that needs it, and
-kept on the problem (``BAProblem.plans``); the LM loop never rebuilds it.
+``pnt_idx``, ``cam_perm``, ``pnt_starts``), so it is built once per
+problem, with torch ops on the problem's device, at the first kernel call
+that needs it, and kept on the problem (``BAProblem.plans``); the LM loop
+never rebuilds it.
 
 K2, :class:`TilePlan`. The point-sorted rows are cut into tiles of
 :data:`TILE_ROWS` rows. A *run* is a maximal stretch of ``cam_perm`` with
@@ -22,8 +24,18 @@ order. Pass 1 walks the tile's runs through arrays in tile order
 (``tile_rows``, ``tile_run_bounds``, ``tile_runs``), so every read it makes
 of the plan is coalesced.
 
-K5, :func:`point_blocks`: the points cut into ranges of about
-:data:`POINT_BLOCK_ROWS` rows each, one block per range.
+K5's point direction, :func:`point_blocks`: the points cut into ranges of
+about :data:`POINT_BLOCK_ROWS` rows each, one block per range.
+
+K5's camera direction, :class:`CamColPlan` (``csrc/seg_block_reduce.cu``),
+over the camera-sorted copy ``W_cam_t`` (column ``j`` the row
+``cam_perm[j]``): the columns are cut into ranges of
+:data:`CAM_BLOCK_COLS` columns, one block per range. A *run* is a maximal
+stretch of columns with one camera and one range; columns are in camera
+order, so run ids in column order are in camera order too. Pass 1 sums each
+run's columns into ``partial[run]``, pass 2 each camera's runs
+``[cam_run_starts[c], cam_run_starts[c+1])`` in run order. ``cam_pnt`` =
+``pnt_idx[cam_perm]`` gives each column's point with one coalesced read.
 """
 
 from __future__ import annotations
@@ -40,6 +52,13 @@ TILE_ROWS = 512
 # (BA_PNT_CHUNK, 1536 rows) holds a block whose last point runs a few
 # hundred rows past the target in one pass.
 POINT_BLOCK_ROWS = 1024
+# Columns of a K5 camera-direction range. A multiple of
+# csrc/seg_block_reduce.cu:BA_CAM_COL_ALIGN (so each thread's columns start
+# aligned in every plane), at most BA_CAM_COLS_MAX (the range's run bounds
+# are staged in shared memory); the kernel refuses others. Chosen by
+# measurement (`python -m bundleadjustment_jl_tpu_torch.tile_sweep --sweep
+# cam_cols`: within 6% of the best at Dubrovnik-356 and Final-4585, PERF.md).
+CAM_BLOCK_COLS = 2048
 
 
 class TilePlan(NamedTuple):
@@ -62,6 +81,23 @@ class TilePlan(NamedTuple):
     @property
     def ntiles(self) -> int:
         return self.tile_run_starts.shape[0] - 1
+
+
+class CamColPlan(NamedTuple):
+    """K5 camera direction's plan (int32 tensors on the problem's device)."""
+    cols: int                       # C, columns per range
+    cam_pnt: torch.Tensor           # (n,) pnt_idx[cam_perm]
+    run_bounds: torch.Tensor        # (nruns+1,) run r = columns [b[r], b[r+1])
+    range_run_starts: torch.Tensor  # (nranges+1,) range b's runs
+    cam_run_starts: torch.Tensor    # (ncams+1,) camera c's runs
+
+    @property
+    def nruns(self) -> int:
+        return self.run_bounds.shape[0] - 1
+
+    @property
+    def nranges(self) -> int:
+        return self.range_run_starts.shape[0] - 1
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -118,6 +154,29 @@ def build_point_blocks(problem, rows: int = POINT_BLOCK_ROWS) -> torch.Tensor:
     return _i32(torch.unique(torch.cat([ends, cuts.clamp(max=npt)])))
 
 
+def build_cam_col_plan(problem, cols: int = CAM_BLOCK_COLS) -> CamColPlan:
+    """K5 camera direction's plan for ``problem`` with ranges of ``cols``
+    columns (uncached; :func:`cam_col_plan` keeps it on the problem).
+    Raises ValueError unless ``cam_perm`` lists the cameras in order."""
+    perm = problem.cam_perm.long()
+    n, dev = perm.shape[0], perm.device
+    cam = problem.cam_idx.long()[perm]
+    if bool((cam[1:] < cam[:-1]).any()):
+        raise ValueError("cam_perm must list the cameras in order")
+    rng = torch.arange(n, device=dev) // cols
+    new = torch.ones(n, dtype=torch.bool, device=dev)
+    new[1:] = (cam[1:] != cam[:-1]) | (rng[1:] != rng[:-1])
+    starts = torch.nonzero(new).flatten()
+    nranges = -(-n // cols)
+    return CamColPlan(
+        cols, _i32(problem.pnt_idx.long()[perm]),
+        _i32(torch.cat([starts, starts.new_tensor([n])])),
+        _i32(torch.searchsorted(rng[starts],
+                                torch.arange(nranges + 1, device=dev))),
+        _i32(torch.searchsorted(cam[starts], torch.arange(
+            problem.ncams + 1, device=dev))))
+
+
 def tile_plan(problem) -> TilePlan:
     """K2's plan of ``problem``, built at the first call."""
     if "tiles" not in problem.plans:
@@ -131,3 +190,11 @@ def point_blocks(problem) -> torch.Tensor:
         problem.plans["point_blocks"] = build_point_blocks(problem,
                                                            POINT_BLOCK_ROWS)
     return problem.plans["point_blocks"]
+
+
+def cam_col_plan(problem) -> CamColPlan:
+    """K5 camera direction's plan of ``problem``, built at the first call."""
+    if "cam_cols" not in problem.plans:
+        problem.plans["cam_cols"] = build_cam_col_plan(problem,
+                                                       CAM_BLOCK_COLS)
+    return problem.plans["cam_cols"]

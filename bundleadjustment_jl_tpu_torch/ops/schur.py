@@ -49,12 +49,8 @@ import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.ops import normal
-from bundleadjustment_jl_tpu_torch.ops.fused_schur import (
-    cam_reduce_w_op, cam_reduce_wcw, cam_reduce_wcw_rhs, matvec_cam_scatter)
 from bundleadjustment_jl_tpu_torch.ops.normal import (
-    GNBlocks, damp, inv3x3_damped_flat)
-from bundleadjustment_jl_tpu_torch.ops.seg_reduce import (
-    wcw_cam_reduce, wt_cam_reduce, wtv_point_reduce)
+    KERNELS, GNBlocks, Stages, damp, inv3x3_damped_flat)
 
 # Routes whose camera sums run the camera scatter (K2 over the point-sorted
 # W): the JAX package's `pallas_schur.cam_scatter_ok`.
@@ -72,6 +68,7 @@ class SchurSystem(NamedTuple):
     W_cam_t: torch.Tensor | None = None  # routes C and B2 only
     route: str = "fused"                 # as GNBlocks.route
     w_scale: torch.Tensor | None = None  # as GNBlocks.w_scale
+    stages: Stages = KERNELS             # as GNBlocks.stages
 
     @property
     def Hcc_l(self):
@@ -92,18 +89,19 @@ def _bf16_round(x: torch.Tensor) -> torch.Tensor:
 
 
 def _cam_dir_reduce(problem: BAProblem, W_t: torch.Tensor,
-                    W_cam_t: torch.Tensor | None,
-                    op: torch.Tensor) -> torch.Tensor:
+                    W_cam_t: torch.Tensor | None, op: torch.Tensor,
+                    st: Stages) -> torch.Tensor:
     """``segsum_cam(W_k op[pnt_k])`` (ncams, 9), ``op`` (npnts, 3): K2's
     ``W op`` product over the point-sorted W when there is no camera-sorted
     copy, else K5's camera direction over ``W_cam_t`` — with ``op`` rounded
     to bfloat16 beside a bfloat16 ``W_cam_t``, as the JAX package's
-    camera-sorted pass gathers it (`ops/schur.py:_cam_dir_reduce`)."""
+    camera-sorted pass gathers it (`ops/schur.py:_cam_dir_reduce`); each
+    through the stage table ``st``."""
     if W_cam_t is None:
-        return cam_reduce_w_op(W_t, problem, op)
+        return st.cam_reduce_w_op(W_t, problem, op)
     if W_cam_t.dtype == torch.bfloat16:
         op = _bf16_round(op)
-    return wt_cam_reduce(W_cam_t, op, problem)
+    return st.wt_cam_reduce(W_cam_t, op, problem)
 
 
 def _point_dir_operand(W_t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -137,7 +135,7 @@ def _system(problem: BAProblem, blocks: GNBlocks, Hcc_l, Hpp_inv_f, g_p_f,
                        b_f=(-blocks.g_c + corr).reshape(-1), g_p_f=g_p_f,
                        W_t=blocks.W_t, problem=problem,
                        W_cam_t=blocks.W_cam_t, route=blocks.route,
-                       w_scale=blocks.w_scale)
+                       w_scale=blocks.w_scale, stages=blocks.stages)
 
 
 def reduce_system(problem: BAProblem, blocks: GNBlocks, lam) -> SchurSystem:
@@ -146,7 +144,8 @@ def reduce_system(problem: BAProblem, blocks: GNBlocks, lam) -> SchurSystem:
     Hcc_l = damp(blocks.Hcc, lam)
     Hpp_inv_f, g_p_f = _hat(blocks, inv3x3_damped_flat(blocks.Hpp_f, lam))
     corr = _cam_dir_reduce(problem, blocks.W_t, blocks.W_cam_t,
-                           _hpp_dot(Hpp_inv_f, g_p_f.reshape(-1, 3)))
+                           _hpp_dot(Hpp_inv_f, g_p_f.reshape(-1, 3)),
+                           blocks.stages)
     return _system(problem, blocks, Hcc_l, Hpp_inv_f, g_p_f, corr)
 
 
@@ -155,9 +154,10 @@ def schur_diag_blocks(sys: SchurSystem) -> torch.Tensor:
     ``W C W'`` over the point-sorted W when there is no camera-sorted copy,
     else K6's over ``W_cam_t``."""
     if sys.W_cam_t is None:
-        wcw = cam_reduce_wcw(sys.W_t, sys.problem, sys.Hpp_inv_f)
+        wcw = sys.stages.cam_reduce_wcw(sys.W_t, sys.problem, sys.Hpp_inv_f)
     else:
-        wcw = wcw_cam_reduce(sys.W_cam_t, sys.problem, sys.Hpp_inv_f)
+        wcw = sys.stages.wcw_cam_reduce(sys.W_cam_t, sys.problem,
+                                        sys.Hpp_inv_f)
     return sys.Hcc_l - wcw.reshape(-1, 9, 9)
 
 
@@ -171,8 +171,9 @@ def reduce_and_diag(problem: BAProblem, blocks: GNBlocks, lam):
         return sys, schur_diag_blocks(sys)
     Hcc_l = damp(blocks.Hcc, lam)
     Hpp_inv_f, g_p_f = _hat(blocks, inv3x3_damped_flat(blocks.Hpp_f, lam))
-    out = cam_reduce_wcw_rhs(blocks.W_t, problem, Hpp_inv_f,
-                             _hpp_dot(Hpp_inv_f, g_p_f.reshape(-1, 3)))
+    out = blocks.stages.cam_reduce_wcw_rhs(
+        blocks.W_t, problem, Hpp_inv_f,
+        _hpp_dot(Hpp_inv_f, g_p_f.reshape(-1, 3)))
     sys = _system(problem, blocks, Hcc_l, Hpp_inv_f, g_p_f, out[:, 81:90])
     return sys, Hcc_l - out[:, :81].reshape(-1, 9, 9)
 
@@ -183,17 +184,19 @@ def schur_matvec(sys: SchurSystem, v: torch.Tensor) -> torch.Tensor:
     camera direction)."""
     u = torch.einsum("cab,cb->ca", sys.Hcc_l, v)
     if sys.route == "fused":
-        return u - matvec_cam_scatter(sys.W_t, v, sys.problem,
-                                      sys.Hpp_inv_f)
-    t = wtv_point_reduce(sys.W_t, _point_dir_operand(sys.W_t, v), sys.problem,
-                         hpp_inv_f=sys.Hpp_inv_f)
-    return u - _cam_dir_reduce(sys.problem, sys.W_t, sys.W_cam_t, t)
+        return u - sys.stages.matvec_cam_scatter(sys.W_t, v, sys.problem,
+                                                 sys.Hpp_inv_f)
+    t = sys.stages.wtv_point_reduce(
+        sys.W_t, _point_dir_operand(sys.W_t, v), sys.problem,
+        hpp_inv_f=sys.Hpp_inv_f)
+    return u - _cam_dir_reduce(sys.problem, sys.W_t, sys.W_cam_t, t,
+                               sys.stages)
 
 
 def back_substitute(sys: SchurSystem, dc: torch.Tensor) -> torch.Tensor:
     """The point step ``dp = -Hpp_inv (g_p + W' dc)`` (npnts, 3), K5's
     point direction with the fold and add (unscaled by ``w_scale``)."""
-    return _unhat(sys, wtv_point_reduce(
+    return _unhat(sys, sys.stages.wtv_point_reduce(
         sys.W_t, _point_dir_operand(sys.W_t, dc), sys.problem,
         hpp_inv_f=sys.Hpp_inv_f, add_f=sys.g_p_f, sign=-1.0))
 
@@ -212,7 +215,8 @@ def quad_form(problem: BAProblem, blocks: GNBlocks, dc: torch.Tensor,
     camera-direction sum (over ``dp / s`` for a W stored as ``s W``)."""
     dp_h = dp if blocks.w_scale is None else dp / blocks.w_scale
     return _quad(blocks, dc, dp,
-                 _cam_dir_reduce(problem, blocks.W_t, blocks.W_cam_t, dp_h))
+                 _cam_dir_reduce(problem, blocks.W_t, blocks.W_cam_t, dp_h,
+                                 blocks.stages))
 
 
 def back_substitute_quad(problem: BAProblem, blocks: GNBlocks,
@@ -225,7 +229,7 @@ def back_substitute_quad(problem: BAProblem, blocks: GNBlocks,
     if sys.route != "fused":
         dp = back_substitute(sys, dc)
         return dp, quad_form(problem, blocks, dc, dp)
-    cross_cam, dp = matvec_cam_scatter(
+    cross_cam, dp = sys.stages.matvec_cam_scatter(
         sys.W_t, dc, problem, sys.Hpp_inv_f, gp_f=sys.g_p_f, sign=-1.0,
         with_dp=True)
     dp = _unhat(sys, dp)

@@ -11,7 +11,9 @@ Point segments run over the point-sorted rows (``pnt_starts``; K5's point
 direction in blocks of point ranges, :func:`ops.plans.point_blocks`); camera
 segments over the camera-sorted copies ``JR_cam_t = JR_t[:, cam_perm]`` /
 ``W_cam_t = W_t[:, cam_perm]`` (``cam_starts``), whose column ``j`` is the
-row ``cam_perm[j]``. ``JR_t`` is the (26, n) layout of `ops/linearize.py`,
+row ``cam_perm[j]`` (K5's camera direction in column ranges with per-run
+partial sums, :func:`ops.plans.cam_col_plan`, a (nruns, 9) scratch buffer
+per call). ``JR_t`` is the (26, n) layout of `ops/linearize.py`,
 ``W_t`` the (27, n) one of `ops/fused_schur.py`, stored as float32,
 bfloat16 or float16 (the kernels read that type and widen at the load; the
 plain versions widen it to the other operand's dtype first); per-point
@@ -208,12 +210,12 @@ def wt_cam_reduce(W_cam_t: torch.Tensor, t: torch.Tensor,
     code = _cuda.w_code(W_cam_t, "W_cam_t", (27, n))
     _cuda.require(t, "t", torch.float32, (npt, 3))
     _cuda.require_problem(problem)
+    plan = plans.cam_col_plan(problem)
+    partial = _out(W_cam_t, (plan.nruns, 9))
     out = _out(W_cam_t, (nc, 9))
-    p = problem
     rc = _cuda.lib().ba_wt_cam_reduce(
-        _cuda.ptr(W_cam_t), code, _cuda.ptr(t), _cuda.ptr(p.pnt_idx),
-        _cuda.ptr(p.cam_perm), _cuda.ptr(p.cam_starts), nc, n,
-        _cuda.ptr(out), _cuda.stream())
+        _cuda.ptr(W_cam_t), code, _cuda.ptr(t), _cuda.cam_col_plan_arg(plan),
+        nc, n, _cuda.ptr(partial), _cuda.ptr(out), _cuda.stream())
     _cuda.check(rc, "ba_wt_cam_reduce")
     _cuda.launched("seg_block_camera", W_cam_t)
     return out

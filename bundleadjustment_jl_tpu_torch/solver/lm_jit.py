@@ -30,11 +30,10 @@ import numpy as np
 import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem, np_dtype
-from bundleadjustment_jl_tpu_torch.ops.fused_assemble import objective_scatter
 from bundleadjustment_jl_tpu_torch.ops._cuda import (
     W_DTYPES, W_READERS, W_WRITERS)
 from bundleadjustment_jl_tpu_torch.ops.normal import (
-    assemble_blocks, gradient_norm, kernel_route)
+    assemble_blocks, gradient_norm, kernel_route, solve_stages)
 from bundleadjustment_jl_tpu_torch.ops.pcg import (
     STAGNATION_WINDOW, block_jacobi_apply, block_jacobi_inverse,
     forcing_rtol, pcg)
@@ -44,7 +43,10 @@ from bundleadjustment_jl_tpu_torch.ops.schur import (
 # The kernel route of a solve is one of `ops/normal.py:ROUTES`, which lists
 # each route's kernels; `ops/normal.py:kernel_route` picks it once per call
 # of `levenberg_marquardt_jit` from the switch and size gates beside it
-# (`FORCE_ROUTE` there sets them to force a route).
+# (`FORCE_ROUTE` there sets them to force a route). Beside it, once per call,
+# `ops/normal.py:solve_stages` picks the stage table: the kernel wrappers, or
+# their plain twins for float64 or with `normal.PALLAS_MODE` off (the JAX
+# solver keeps XLA there), no kernel launched.
 
 
 def expected_launches(route: str, iterations: int, naccepts: int,
@@ -128,6 +130,15 @@ def f16_scale(W_t: torch.Tensor) -> torch.Tensor:
     return torch.exp2(torch.floor(torch.log2(16384.0 / safe)))
 
 
+def narrow_w(W: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """W as a solve with ``facto_dtype=dtype`` stores it: rounded to
+    ``dtype``, a float16 W first scaled by :func:`f16_scale` (float32 is
+    kept as it is)."""
+    if dtype == torch.float16:
+        W = W * f16_scale(W)
+    return W.to(dtype).contiguous()
+
+
 def maybe_cast_facto(blocks, facto_dtype: torch.dtype | None):
     """The blocks with W stored in ``facto_dtype`` (the JAX solver's
     `_maybe_cast_facto`): float16 as ``s W`` with ``s = f16_scale(W)`` in
@@ -184,9 +195,22 @@ class LMJitResult(NamedTuple):
     hist_lam: np.ndarray
     hist_cg: np.ndarray         # int32 CG matvecs per iteration
     naccepts: int
+    elapsed_time: float = math.nan  # wall seconds (chunked driver only)
 
     def status_name(self) -> str:
         return STATUS_NAMES[int(self.status)]
+
+    @property
+    def neval_jac(self) -> int:
+        """One linearization per accepted step plus the initial one (the
+        reference's `neval_jac`, `BALNLPModels.jl:162`)."""
+        return int(self.naccepts) + 1
+
+    @property
+    def neval_residual(self) -> int:
+        """One (batched) trial objective per iteration plus the
+        linearizations' residuals."""
+        return int(self.iterations) + self.neval_jac
 
 
 def _unsupported(option: str, item: str):
@@ -246,6 +270,7 @@ def levenberg_marquardt_jit(
     torch.set_float32_matmul_precision("highest")
 
     route = kernel_route(problem)
+    stages = solve_stages(cams.dtype)
     w_dtype = w_assemble_dtype(facto_dtype)
     # "Narrow" W storage (below 4 bytes; the JAX solver's `facto_narrow`,
     # whose other case, a half-precision working dtype, raises above): only
@@ -272,7 +297,7 @@ def levenberg_marquardt_jit(
 
     # Initial linearization; one host read.
     blocks = assemble_blocks(problem, cams, points, route=route,
-                             w_dtype=w_dtype)
+                             w_dtype=w_dtype, stages=stages)
     init = [blocks.obj, gradient_norm(blocks)]
     if lam0_mode == "diag":
         init.append(torch.maximum(
@@ -325,7 +350,7 @@ def levenberg_marquardt_jit(
         gd = torch.sum(blocks.g_c * dc) + torch.sum(blocks.g_p * dp)
         dnorm_t = torch.sqrt(torch.sum(dc * dc) + torch.sum(dp * dp))
         xnorm = torch.sqrt(torch.sum(cams ** 2) + torch.sum(points ** 2))
-        objs_t = objective_scatter(
+        objs_t = stages.objective_scatter(
             problem, cams[None] + scales[:, None, None] * dc[None],
             points[None] + scales[:, None, None] * dp[None])
         packed = torch.cat([objs_t, torch.stack([gd, Jd2, dnorm_t, xnorm])])
@@ -375,7 +400,7 @@ def levenberg_marquardt_jit(
             cams = cams + float(s_sel) * dc
             points = points + float(s_sel) * dp
             blocks = assemble_blocks(problem, cams, points, route=route,
-                                     w_dtype=w_dtype)
+                                     w_dtype=w_dtype, stages=stages)
             new = torch.stack([blocks.obj, gradient_norm(blocks)]).cpu()
             blocks = maybe_cast_facto(blocks, facto_dtype)
             obj_n, gnorm_n = (ft(v) for v in new.numpy())

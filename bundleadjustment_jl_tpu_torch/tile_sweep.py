@@ -1,7 +1,16 @@
-"""Time K2's tiled camera reduce and K3 at several tile sizes on one card:
-the measurement behind ``csrc/cam_prod.cuh:BA_TILE_ROWS``.
+"""Time K2's tiled camera reduce and K3 at several tile sizes, and K5's
+camera direction at several column ranges, on one card: the measurements
+behind ``csrc/cam_prod.cuh:BA_TILE_ROWS`` and
+``ops/plans.py:CAM_BLOCK_COLS``.
 
-    python -m bundleadjustment_jl_tpu_torch.tile_sweep
+    python -m bundleadjustment_jl_tpu_torch.tile_sweep [--sweep tiles|cam_cols]
+
+Without ``--sweep`` both run. Column ranges (``cam_cols``): for each C
+of :data:`COLS_ORDER` (2048 first and last, for the spread)
+``plans.CAM_BLOCK_COLS = C`` and the problem's K5 plan rebuilt (the kernel
+takes C at run time), then K5's camera direction timed over the
+camera-sorted W in float32, bfloat16 and float16 at synthetic
+Dubrovnik-356 and Final-4585, as below. Tile sizes (``tiles``):
 
 For each tile size R of :data:`ORDER` (1024 first and last, to show the
 run-to-run spread), a copy of ``csrc/`` with ``BA_TILE_ROWS = R`` is built
@@ -28,6 +37,7 @@ import torch
 from bundleadjustment_jl_tpu_torch import bench
 
 ORDER = (1024, 256, 512, 1024)
+COLS_ORDER = (2048, 1024, 4096, 8192, 2048)
 REPS = 10
 
 
@@ -108,10 +118,68 @@ def sweep() -> dict:
     return out
 
 
+def sweep_cam_cols() -> dict:
+    bench.require_card()
+    from bundleadjustment_jl_tpu_torch.ops import linearize as lz
+    from bundleadjustment_jl_tpu_torch.ops import plans
+    from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
+    from bundleadjustment_jl_tpu_torch.solver.lm_jit import narrow_w
+    from bundleadjustment_jl_tpu_torch.utils.timing import timed
+
+    default = plans.CAM_BLOCK_COLS
+    out = {"device": bench.card(), "lines": []}
+    try:
+        for name in ("dubrovnik356", "final4585"):
+            p = bench.make_problem(name, 0)
+            W = lz.linearize_w_only(p, p.cams, p.points)
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            t = torch.randn((p.npnts, 3), generator=gen, device="cuda")
+            Ws = {str(dt)[6:]: narrow_w(W, dt) for dt in
+                  (torch.float32, torch.bfloat16, torch.float16)}
+            for cols in COLS_ORDER:
+                plans.CAM_BLOCK_COLS = cols
+                p.plans.pop("cam_cols", None)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                plan = plans.cam_col_plan(p)
+                torch.cuda.synchronize()
+                build_ms = 1e3 * (time.perf_counter() - t0)
+                for dt, Wc in Ws.items():
+                    size = Wc.element_size()
+                    ms = timed(sr.wt_cam_reduce, (Wc, t, p), reps=REPS,
+                               flush_l2=True).ms
+                    bound = bench.bound_ms("seg_block_camera", p,
+                                           size)[0]
+                    line = {"problem": name, "cols": cols,
+                            "form": f"seg_block_camera@{dt}", "ms": ms,
+                            "bound_ms": bound, "nruns": plan.nruns,
+                            "nranges": plan.nranges,
+                            "plan_build_ms": build_ms}
+                    out["lines"].append(line)
+                    print(f"{name:13s} C {cols:5d} "
+                          f"{line['form']:26s} {ms:9.4f} ms  bound "
+                          f"{bound:.4f} ({bound / ms:.3f})  runs "
+                          f"{plan.nruns}  plan {build_ms:.1f} ms",
+                          flush=True)
+            del p, W, Ws
+    finally:
+        plans.CAM_BLOCK_COLS = default
+    return out
+
+
 def main() -> None:
-    out = sweep()
-    print(f"card: {out['device']['nvidia_smi']}")
-    print(json.dumps(out))
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--sweep", choices=("tiles", "cam_cols"))
+    which = ap.parse_args().sweep
+    outs = {}
+    if which in (None, "cam_cols"):
+        outs["cam_cols"] = sweep_cam_cols()
+    if which in (None, "tiles"):
+        outs["tiles"] = sweep()
+    card = next(iter(outs.values()))["device"]["nvidia_smi"]
+    print(f"card: {card}")
+    print(json.dumps(outs))
 
 
 if __name__ == "__main__":

@@ -8,24 +8,31 @@ CUDA card.
    ``nvcc`` per source, in parallel) and prints the build time and the
    compiler's register report.
 2. Builds each launch plan (``ops/plans.py``: K2's tiles, K5's point
-   ranges) once more and prints its build time, then checks each kernel
+   ranges, K5's camera-direction column ranges) once more and prints its
+   build time, then checks each kernel
    against its plain PyTorch version on the card, at the shapes of
    synthetic LadyBug-49 and Dubrovnik-356 (as ``bench.py`` builds them),
    and times both in turns (plain, kernel, kernel, plain): K1-K4 of the
    fused camera-scatter route, K7, K6 and K5 of the camera-sorted route,
    then K2's other three products and K8 of the Final-scale routes (and
    K8 against K7's W in camera order). The forms that read through a plan
-   (REPEAT_CHECKED) launch twice and must give bit-identical outputs.
-   Then phase 6 for the problem.
+   (REPEAT_CHECKED) launch twice and must give bit-identical outputs. K1's
+   point pass and camera pass are timed apart (``torch.profiler``, by
+   kernel: ``kernel_profile.device_ms``). Then phase 6 for the problem.
 3. Solves both problems with ``levenberg_marquardt_jit`` and
    ``bench.py``'s options (``bench.SOLVE_OPTS`` of the port) on each
    kernel route (``normal.CAM_SCATTER``
    True, then False): a warm-up, five timed solves (launch counts reset
    before each and checked against its iterations, accepts and CG steps
    after it, and the W kernels' launches by W's storage dtype against
-   them), and a solve on the plain route. Checks that the kernel and
-   plain routes agree, that the two kernel routes agree, and that the
-   rmse lands on the data-fixed anchors.
+   them), and a solve on the plain route (``normal.PALLAS_MODE`` off, the
+   solver's own plain-route decision: no kernel launched). Checks that the
+   kernel and plain routes agree, that the two kernel routes agree, and
+   that the rmse lands on the data-fixed anchors. Then Dubrovnik-356 in
+   float64, as the default constructor builds it (on the card): a warm-up
+   and a timed solve, which take the plain route by the solver's decision
+   (no kernel launched), its rmse on the anchor, and its objective's
+   relative gap to route A's float32 solve.
 4. Builds synthetic Final-4585 (the BAL Final problem
    ``problem-4585-1324582-9125125``'s sizes) once, runs phase 2 on it
    (every kernel but K9, timed there too) and phase 6's Final form, and
@@ -43,8 +50,8 @@ CUDA card.
    the H100's published 3.35 TB/s.
 6. Every kernel that reads or writes W with W stored in bfloat16 and in
    float16 (``facto_dtype``), against its plain version at LadyBug-49 and
-   Dubrovnik-356 shapes (K8 and the planned readers, K2's W products, K3
-   and K5's point direction, also at Final-4585's), timed in turns: the
+   Dubrovnik-356 shapes (all but K7 and K6 at Final-4585's too), timed in
+   turns: the
    readers to the tolerances of phase 2 (both sides widen the same stored
    W), the writers' W to those tolerances plus one ulp of the storage
    dtype (two float32 W within tolerance may round to neighbours), with at
@@ -98,6 +105,9 @@ FINAL_REPEATS = 3    # at Final-4585, for the run's time limit
 # iterations, which the port's narrow solves must make.
 FACTO_RECORD = {"bfloat16": ("small_obj_change", 9),
                 "float16": ("first_order", 9)}
+# Cycles the card spins a timed call before a window of ``time_pair``
+# (~0.5 ms at the H100's 1.98 GHz): time for the host to enqueue the call.
+SPIN_CYCLES = 1_000_000
 # Kernel vs plain, |kernel - plain| <= rtol |plain| + afrac max|plain|:
 # summation order differs (blocks, FMA contraction), nothing else.
 TOL = {"W": (1e-5, 1e-6), "hp12": (1e-4, 1e-3), "hc90": (1e-4, 1e-3),
@@ -149,11 +159,13 @@ KERNELS = {
     "stream_probe": ("csrc/stream_probe.cu", "scripts/tpu_mv_sweep.py:120",
                      ["stream_probe"], ["stream_probe"]),
 }
-# The forms that read the point-sorted rows through a launch plan
-# (`ops/plans.py`: K2's four, K5's point direction, K3 = both): a second
-# launch must give bit-identical output (fixed-order sums, no atomics).
+# The forms that read their rows through a launch plan (`ops/plans.py`:
+# K2's four, K5's both directions, K3 = K5 point + K2 W op, K1's point
+# pass = K5's point walk): a second launch must give bit-identical output
+# (fixed-order sums, no atomics).
 REPEAT_CHECKED = ("cam_reduce", "cam_reduce_w_op", "cam_reduce_wcw81",
-                  "cam_reduce_cam90", "seg_block_point", "matvec")
+                  "cam_reduce_cam90", "seg_block_point", "matvec",
+                  "assemble", "seg_block_camera")
 # counter -> its row of the kernel table
 KERNEL_OF = {c: k for k, (_, _, counters, _) in KERNELS.items()
              for c in counters}
@@ -241,7 +253,12 @@ def compare_stored(name, got, ref, errs):
 
 def time_pair(kernel, plain, reps):
     """Median ms per call of ``kernel`` and ``plain``, timed in turns
-    (plain, kernel, kernel, plain) with CUDA events over ``reps`` calls."""
+    (plain, kernel, kernel, plain) with CUDA events over ``reps`` calls.
+    Before each window the card spins SPIN_CYCLES a call
+    (``torch.cuda._sleep``) while the host enqueues the window's calls, so
+    the window times the card's work: a wrapper's host work takes about as
+    long as a small kernel (~0.1 ms), and without the spin the window held
+    it."""
     import torch
     times = {"kernel": [], "plain": []}
     fns = {"kernel": kernel, "plain": plain}
@@ -251,6 +268,7 @@ def time_pair(kernel, plain, reps):
             torch.cuda.synchronize()
             start = torch.cuda.Event(enable_timing=True)
             stop = torch.cuda.Event(enable_timing=True)
+            torch.cuda._sleep(SPIN_CYCLES * reps)
             start.record()
             for _ in range(reps):
                 fns[which]()
@@ -259,6 +277,18 @@ def time_pair(kernel, plain, reps):
             times[which].append(start.elapsed_time(stop) / reps)
     med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
     return med["kernel"], med["plain"]
+
+
+def pass_times(fn, tag) -> dict:
+    """Device ms a call of each pass of ``fn`` (its kernels, by name,
+    under ``torch.profiler``: ``kernel_profile.device_ms``): K1's point
+    pass (``ba_assemble_point_kernel``) and camera pass (the rest: the
+    camera kernel and the objective's sum)."""
+    from bundleadjustment_jl_tpu_torch.kernel_profile import device_ms
+    by_name = device_ms(fn, tag)
+    point = sum(ms for k, ms in by_name.items() if "point_kernel" in k)
+    return {"point": point, "camera": sum(by_name.values()) - point,
+            "kernels": by_name}
 
 
 def check_kernels(name, problem, errs, timings, facts):
@@ -275,16 +305,21 @@ def check_kernels(name, problem, errs, timings, facts):
     gen = torch.Generator(device="cuda").manual_seed(0)
     reps = 20 if problem.nobs_pad < 1 << 18 else 5
 
-    W_t, hp12, hc90, obj = fa.assemble_scatter(problem, cams, points)
+    def assemble():
+        return fa.assemble_scatter(problem, cams, points)
+    W_t, hp12, hc90, obj = assemble()
     torch.cuda.synchronize()
+    check_repeat("assemble", name, assemble, (W_t, hp12, hc90, obj), facts)
     pW, php, phc, pobj = fa._assemble_plain(problem, cams, points)
     compare("W", W_t, pW, errs)
     compare("hp12", hp12, php, errs)
     compare("hc90", hc90, phc, errs)
     compare("obj", obj.reshape(1), pobj.reshape(1), errs)
     timings.setdefault("assemble", {})[name] = time_pair(
-        lambda: fa.assemble_scatter(problem, cams, points),
-        lambda: fa._assemble_plain(problem, cams, points), reps)
+        assemble, lambda: fa._assemble_plain(problem, cams, points), reps)
+    passes = pass_times(assemble, f"{name}_assemble")
+    facts.setdefault("assemble", {}).setdefault("pass_ms", {})[name] = passes
+    print(f"  K1 passes (device ms a call): {json.dumps(passes)}")
     check = checker(name, problem, errs, timings, facts)
 
     # Damped point blocks as the solver forms them (lambda_0, "diag").
@@ -370,22 +405,25 @@ def plan_times(name, problem, facts):
     """Build each plan of ``problem`` twice more (``ops/plans.py``,
     uncached) and record the second build's time (the first loads torch's
     sort kernels in a fresh process): K2's tiles under the K2 and K3 rows,
-    K5's point ranges under the K5 and K3 rows."""
+    K5's point ranges under the K5 and K3 rows, K5's column ranges under
+    the K5 row. (K1 reads the point ranges.)"""
     import torch
     from bundleadjustment_jl_tpu_torch.ops import plans
     for label, build, rows in (
             ("tile_plan", plans.build_tile_plan, ("cam_reduce", "matvec")),
             ("point_blocks", plans.build_point_blocks,
-             ("seg_block_reduce", "matvec"))):
+             ("seg_block_reduce", "matvec")),
+            ("cam_col_plan", plans.build_cam_col_plan,
+             ("seg_block_reduce",))):
         build(problem)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         plan = build(problem)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
-        size = (f"{plan.nruns} runs, {plan.nruns / problem.nobs_pad:.3f} "
-                f"a row" if label == "tile_plan"
-                else f"{plan.shape[0] - 1} blocks")
+        size = (f"{plan.shape[0] - 1} blocks" if label == "point_blocks"
+                else f"{plan.nruns} runs, {plan.nruns / problem.nobs_pad:.3f}"
+                f" a row")
         print(f"  plan {label:12s} {name}: {ms:.2f} ms ({size})")
         for k in rows:
             facts.setdefault(k, {}).setdefault("plan_build_ms", {})[
@@ -526,22 +564,11 @@ def check_probe(errs, timings, probe):
         del big, small
 
 
-def narrow_w(W, dtype):
-    """W stored as the solver stores it: bfloat16 rounded, float16 scaled
-    by its power-of-two range scale first (`lm_jit.f16_scale`)."""
-    import torch
-    from bundleadjustment_jl_tpu_torch.solver import lm_jit
-    if dtype == torch.float16:
-        W = W * lm_jit.f16_scale(W)
-    return W.to(dtype).contiguous()
-
-
 def check_narrow(name, problem, errs, timings, facts, final=False):
     """Phase 6 for one problem: every kernel that reads or writes W, with W
-    in bfloat16 and in float16, against its plain version (``final``: K8
-    and the forms read through a launch plan, K2's three W products, K3
-    and K5's point direction; not the writers of route A and C or the
-    camera-sorted readers), timed in turns, five launches a window as
+    in bfloat16 and in float16, against its plain version (``final``:
+    all but K7 and K6, the writers and readers of route C alone), timed in
+    turns, five launches a window as
     phase 2 times the float32 forms at this size (two at Final-4585, where
     each launch takes milliseconds and the plain versions are slow); the
     planned forms launched twice, bit-identical (``check_repeat``). Times
@@ -552,6 +579,7 @@ def check_narrow(name, problem, errs, timings, facts, final=False):
     from bundleadjustment_jl_tpu_torch.ops import linearize as lz
     from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
     from bundleadjustment_jl_tpu_torch.ops.normal import inv3x3_damped_flat
+    from bundleadjustment_jl_tpu_torch.solver import lm_jit
 
     print(f"[narrow W] {name}: nobs_pad {problem.nobs_pad}")
     cams, points = problem.cams, problem.points
@@ -587,12 +615,12 @@ def check_narrow(name, problem, errs, timings, facts, final=False):
             timings.setdefault(f"{key}@{dt}", {})[name] = time_pair(
                 kernel, plain, 2 if final else 5)
 
-        W = narrow_w(W32, dtype)
+        W = lm_jit.narrow_w(W32, dtype)
+        check("assemble",
+              lambda: fa.assemble_scatter(problem, cams, points, dtype),
+              lambda: fa._assemble_plain(problem, cams, points, dtype),
+              stored=(0,), tols=("W", "hp12", "hc90", "obj"))
         if not final:
-            check("assemble",
-                  lambda: fa.assemble_scatter(problem, cams, points, dtype),
-                  lambda: fa._assemble_plain(problem, cams, points, dtype),
-                  stored=(0,), tols=("W", "hp12", "hc90", "obj"))
             check("linearize",
                   lambda: lz.linearize_w_kminor(problem, cams, points, dtype),
                   lambda: lz._linearize_plain(problem, cams, points, dtype),
@@ -616,15 +644,15 @@ def check_narrow(name, problem, errs, timings, facts, final=False):
         check("seg_block_point",
               lambda: sr.wtv_point_reduce(W, v, problem, hpp_inv_f=hpp_inv),
               lambda: sr._wtv_point_plain(W, v, problem, hpp_inv))
+        W_cam = W[:, perm].contiguous()
+        check("seg_block_camera",
+              lambda: sr.wt_cam_reduce(W_cam, t, problem),
+              lambda: sr._wt_cam_plain(W_cam, t, problem))
         if not final:
-            W_cam = W[:, perm].contiguous()
-            check("seg_block_camera",
-                  lambda: sr.wt_cam_reduce(W_cam, t, problem),
-                  lambda: sr._wt_cam_plain(W_cam, t, problem))
             check("seg_prod_wcw81",
                   lambda: sr.wcw_cam_reduce(W_cam, problem, hpp_inv),
                   lambda: sr._wcw_cam_plain(W_cam, problem, hpp_inv))
-            del W_cam
+        del W_cam
         del W
     for k in sorted(k for k in timings if "@" in k and name in timings[k]):
         kms, pms = timings[k][name]
@@ -633,42 +661,16 @@ def check_narrow(name, problem, errs, timings, facts, final=False):
 
 @contextlib.contextmanager
 def plain_route():
-    """Point the solver's kernel call sites, on every route, at the plain
-    versions, so a solve on CUDA tensors runs the plain PyTorch route."""
-    from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
-    from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
-    from bundleadjustment_jl_tpu_torch.ops import linearize as lz
-    from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
-    from bundleadjustment_jl_tpu_torch.ops import normal, schur
-    from bundleadjustment_jl_tpu_torch.solver import lm_jit
-
-    def matvec_plain(W_t, v, problem, hpp_inv_f, gp_f=None, sign=1.0,
-                     with_dp=False):
-        out, t = fs._matvec_plain(W_t, v, problem, hpp_inv_f, gp_f, sign)
-        return (out, t) if with_dp else out
-
-    sites = [(normal, "assemble_scatter", fa._assemble_plain),
-             (schur, "cam_reduce_wcw_rhs", fs._cam_reduce_wcw_rhs_plain),
-             (schur, "matvec_cam_scatter", matvec_plain),
-             (lm_jit, "objective_scatter", fa._objective_plain),
-             (normal, "linearize_w_kminor", lz._linearize_plain),
-             (normal, "jtj_pnt_reduce", sr._jtj_pnt_plain),
-             (normal, "jtj_cam_reduce", sr._jtj_cam_plain),
-             (schur, "wcw_cam_reduce", sr._wcw_cam_plain),
-             (schur, "wtv_point_reduce", sr._wtv_point_plain),
-             (schur, "wt_cam_reduce", sr._wt_cam_plain),
-             (normal, "cam_reduce_cam90", fs._cam_reduce_cam90_plain),
-             (normal, "linearize_w_only", lz._linearize_w_only_plain),
-             (schur, "cam_reduce_w_op", fs._cam_reduce_w_op_plain),
-             (schur, "cam_reduce_wcw", fs._cam_reduce_wcw_plain)]
-    saved = [getattr(mod, attr) for mod, attr, _ in sites]
+    """``normal.PALLAS_MODE`` off (the JAX package's ``PALLAS_MODE``): the
+    solver's stage table (`ops/normal.py:solve_stages`) is then the plain
+    twins for every stage of a solve on CUDA tensors."""
+    from bundleadjustment_jl_tpu_torch.ops import normal
+    old = normal.PALLAS_MODE
+    normal.PALLAS_MODE = False
     try:
-        for mod, attr, fn in sites:
-            setattr(mod, attr, fn)
         yield
     finally:
-        for (mod, attr, _), fn in zip(sites, saved):
-            setattr(mod, attr, fn)
+        normal.PALLAS_MODE = old
 
 
 def check_launches(name, res, counts, w_counts, route, facto):
@@ -782,7 +784,8 @@ def check_route(name, make, cam_scatter, launches_total, repeats=REPEATS,
 
 
 def check_solves(name, launches_total):
-    """Phase 3 for one problem: both kernel routes, which must agree."""
+    """Phase 3 for one problem: both kernel routes, which must agree;
+    returns ``{normal.CAM_SCATTER: the route's solve}``."""
     from bundleadjustment_jl_tpu_torch import bench
     from bundleadjustment_jl_tpu_torch.ops import normal
 
@@ -795,6 +798,7 @@ def check_solves(name, launches_total):
     if not agree(res[False], res[True]):
         raise AssertionError(f"{name}: the fused and camera-sorted kernel "
                              f"routes disagree")
+    return res
 
 
 def final_routes(problem, launches_total, facto=None, plain_solve=True):
@@ -818,6 +822,56 @@ def final_routes(problem, launches_total, facto=None, plain_solve=True):
     finally:
         normal.CAM_SCATTER = default
     return res
+
+
+def check_f64_solve(f32_res):
+    """Phase 3, float64: Dubrovnik-356 built by the default constructor
+    (float64, on the card) from the same seed and options as the float32
+    problem, solved with bench's options after a warm-up (seed 1): the
+    solver's plain route, no kernel launched; the rmse on the anchor; the
+    relative gap of its objective to ``f32_res`` (route A's float32
+    solve)."""
+    import torch
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
+    from bundleadjustment_jl_tpu_torch.ops import _cuda, normal
+
+    name = "dubrovnik356"
+
+    def make(seed):
+        return synthetic_bal(**bench.PROBLEMS[name], noise_px=1.0,
+                             perturb=2e-2, seed=seed, pad_obs_to=512)[0]
+    bench.solve_cfg(make(1))                            # warm-up
+    problem = make(0)
+    if problem.dtype != torch.float64 or not problem.cams.is_cuda:
+        raise AssertionError(f"{name}: the default constructor built "
+                             f"{problem.dtype} on {problem.cams.device}")
+    if normal.solve_stages(problem.dtype) is not normal.PLAIN:
+        raise AssertionError(f"{name}: float64 is not on the plain route")
+    _cuda.reset_launches()
+    secs, res = bench.timed_solve(problem)
+    counts = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    it = res.iterations
+    rmse = (2.0 * res.objective / (2 * problem.nobs)) ** 0.5
+    gap = abs(f32_res.objective - res.objective) / res.objective
+    print(json.dumps({
+        "metric": f"{name}_synth_lm_solve_f64", "value": secs, "unit": "s",
+        "status": res.status_name(), "iterations": it,
+        "cg_matvecs": int(res.hist_cg[:it].sum()),
+        "objective": res.objective, "rmse_px": rmse, "route": "plain",
+        "launches": counts, "f32_objective": f32_res.objective,
+        "f32_status": f32_res.status_name(),
+        "f32_iterations": f32_res.iterations, "rel_gap_f32_f64": gap}))
+    if counts:
+        raise AssertionError(f"{name}: the float64 solve launched {counts}")
+    if res.status_name() == "exception" or not (
+            torch.isfinite(res.cams).all() and torch.isfinite(
+                res.points).all()):
+        raise AssertionError(f"{name}: the float64 solve failed")
+    if abs(rmse - RMSE[name]) > 0.01 * RMSE[name]:
+        raise AssertionError(f"{name}: float64 rmse {rmse} not within 1% of "
+                             f"{RMSE[name]}")
+    return {"value": secs, "rel_gap_f32_f64": gap}
 
 
 def check_final_solves(problem, launches_total):
@@ -1039,8 +1093,8 @@ def main() -> int:
     check_probe(errs, timings, probe)
 
     launches = dict.fromkeys(_cuda.LAUNCHES, 0)
-    for name in PROBLEMS:
-        check_solves(name, launches)
+    solves = {name: check_solves(name, launches) for name in PROBLEMS}
+    f64 = check_f64_solve(solves["dubrovnik356"][True])
 
     t0 = time.perf_counter()
     final = bench.make_problem(FINAL, 0)
@@ -1066,7 +1120,7 @@ def main() -> int:
                                  f"check")
 
     print(f"[wall] {time.perf_counter() - wall0:.1f} s")
-    print(json.dumps({"probe": probe}))
+    print(json.dumps({"probe": probe, "f64_solve": f64}))
     print(json.dumps({"kernels": kernel_table(launches, schur_launches, errs,
                                               timings, facts)}))
     print(card)

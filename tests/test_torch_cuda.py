@@ -258,6 +258,56 @@ def test_solve_on_card_runs_every_kernel(card_problem, monkeypatch, route):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("route", ROUTES)
+def test_f32_solve_at_any_padding_runs_the_kernels(monkeypatch, route):
+    """A float32 problem padded to 8 rows (its row count no multiple of
+    128, where the JAX package keeps XLA) solves on its route's kernels,
+    launched as often as ``lm_jit.expected_launches`` says: the port's
+    kernels take any padding."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    p = synthetic_bal(ncams=12, npnts=900, obs_per_pnt=4, seed=3,
+                      noise_px=1.0, perturb=2e-2, dtype=torch.float32,
+                      pad_obs_to=8, device="cuda")[0]
+    assert p.nobs_pad % 128 != 0
+    for k, v in normal.FORCE_ROUTE[route].items():
+        monkeypatch.setattr(normal, k, v)
+    _cuda.reset_launches()
+    res = levenberg_marquardt_jit(p, max_iters=30, lam0_mode="diag")
+    assert res.status_name() in ("first_order", "small_obj_change")
+    it = res.iterations
+    expect = dict.fromkeys(_cuda.LAUNCHES, 0)
+    expect.update(lm_jit.expected_launches(route, it, res.naccepts,
+                                           int(res.hist_cg[:it].sum())))
+    assert dict(_cuda.LAUNCHES) == expect
+
+
+@pytest.mark.cuda
+def test_default_f64_solve_on_card_takes_the_plain_route():
+    """The default problem (float64, on the card) solves on the plain route
+    with no kernel launched, and makes the CPU float64 solve's decisions:
+    the same status and iterations, objective within rel 1e-9 (the plain
+    twins' index_add_ sums with atomics on the card, so not bit for
+    bit)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    kw = dict(ncams=12, npnts=900, obs_per_pnt=4, seed=3, noise_px=1.0,
+              perturb=2e-2)
+    card = synthetic_bal(**kw)[0]
+    assert card.dtype == torch.float64 and card.cams.is_cuda
+    assert normal.solve_stages(card.dtype) is normal.PLAIN
+    opts = dict(max_iters=30, lam0_mode="diag")
+    _cuda.reset_launches()
+    got = levenberg_marquardt_jit(card, **opts)
+    assert not any(_cuda.LAUNCHES.values()), dict(_cuda.LAUNCHES)
+    assert got.cams.is_cuda
+    ref = levenberg_marquardt_jit(synthetic_bal(**kw, device="cpu")[0],
+                                  **opts)
+    assert got.status == ref.status and got.iterations == ref.iterations
+    assert got.objective == pytest.approx(ref.objective, rel=1e-9)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("n", [4099, 1 << 16], ids=["scalar", "float4"])
 def test_stream_probe_matches_plain_on_card(n):
     """K9 with 0-2 small rows, on rows whose length is and is not a
@@ -277,13 +327,6 @@ def test_stream_probe_matches_plain_on_card(n):
             atol=0.0)
 
 
-def narrow(W, dtype):
-    """W as the solver stores it in ``dtype`` (float16 range-scaled)."""
-    if dtype == torch.float16:
-        W = W * lm_jit.f16_scale(W)
-    return W.to(dtype).contiguous()
-
-
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
 def test_narrow_w_kernels_match_plain_on_card(card_problem, dtype):
@@ -294,7 +337,7 @@ def test_narrow_w_kernels_match_plain_on_card(card_problem, dtype):
     instantiation: no float32 copy of W is made for it."""
     p = card_problem
     o = sorted_operands(p)
-    W = narrow(o["W_t"], dtype)
+    W = lm_jit.narrow_w(o["W_t"], dtype)
     W_cam = W[:, p.cam_perm.long()].contiguous()
     t = o["gp"].reshape(-1, 3)
     readers = [
@@ -360,12 +403,16 @@ def test_facto_solve_on_card_runs_every_kernel(card_problem, monkeypatch,
 
 
 def edge_problem(case):
-    """Shapes at the edges of K2's tiles and K5's point ranges (on the
-    card): one camera holding every real row; more cameras (700) than a K2
-    tile has rows (512); a point with more rows (2000) than a K5 chunk
-    (1536), and a padding tail (to 8192 rows) longer than one, on the last
-    point."""
+    """Shapes at the edges of K2's and K1's tiles, K5's and K1's point
+    ranges and K5's camera-direction column ranges (on the card): one
+    camera holding every real row; more cameras (700) than a K2 tile has
+    rows (512), each of a few rows; a point with more rows (2000) than a K5
+    chunk (1536), and a padding tail (to 8192 rows) longer than one, on the
+    last point; a camera with more rows (~9000) than several column ranges
+    (2048); cameras without rows, and a row count (1203) no multiple of 4
+    (the scalar paths of the 16 B loads)."""
     rng = np.random.default_rng(7)
+    pad = 512
     if case == "one_camera":
         ncams, npnts = 3, 300
         pnt = np.repeat(np.arange(npnts), 4)
@@ -374,15 +421,37 @@ def edge_problem(case):
         ncams, npnts = 700, 400
         pnt = np.repeat(np.arange(npnts), 5)
         cam = rng.integers(0, ncams, size=pnt.size)
+    elif case == "long_camera":
+        ncams, npnts = 20, 3000
+        pnt = np.repeat(np.arange(npnts), 4)
+        cam = np.where(rng.random(pnt.size) < 0.75, 0,
+                       rng.integers(1, ncams, size=pnt.size))
+    elif case == "empty_cameras_ragged":
+        ncams, npnts, pad = 50, 401, 1
+        pnt = np.repeat(np.arange(npnts), 3)
+        cam = rng.integers(10, ncams, size=pnt.size)
     else:
-        ncams, npnts = 50, 200
+        ncams, npnts, pad = 50, 200, 8192
         pnt = np.concatenate([np.zeros(2000, int),
                               np.repeat(np.arange(1, npnts), 3)])
         cam = rng.integers(0, ncams, size=pnt.size)
     return BAProblem.from_arrays(
         rng.standard_normal((ncams, 9)), rng.standard_normal((npnts, 3)),
         cam, pnt, rng.standard_normal((pnt.size, 2)), dtype=torch.float32,
-        pad_obs_to=8192 if case == "long_point" else 512, device="cuda")
+        pad_obs_to=pad, device="cuda")
+
+
+def k1_state(p):
+    """Cameras 10 units from the points (depths 5-15, focal 500), so the
+    chain's values stay in range, and points near the origin."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=gen, device="cuda")
+    cams = torch.cat([0.1 * rand(p.ncams, 3), rand(p.ncams, 2),
+                      rand(p.ncams, 1) - 10.0, 1e-3 * rand(p.ncams, 2),
+                      torch.full((p.ncams, 1), 500.0, device="cuda")], 1)
+    return cams.contiguous(), rand(p.npnts, 3)
 
 
 def edge_operands(p, dtype):
@@ -394,7 +463,7 @@ def edge_operands(p, dtype):
     def rand(*shape):
         return torch.randn(shape, generator=gen, device="cuda")
     A = rand(npt, 3, 3)
-    return dict(W=narrow(rand(27, n), dtype) if dtype != torch.float32
+    return dict(W=lm_jit.narrow_w(rand(27, n), dtype) if dtype != torch.float32
                 else rand(27, n), JR=rand(26, n),
                 hpp_inv=(A @ A.transpose(1, 2) + torch.eye(3, device="cuda"))
                 .reshape(-1).contiguous(), t=rand(npt, 3),
@@ -402,10 +471,14 @@ def edge_operands(p, dtype):
 
 
 def redesigned_calls(p, o):
-    """K2's four forms, K5's point direction in its three forms and K3 in
-    its two, each as (kernel call, plain call)."""
+    """K2's four forms, K5's point direction in its three forms and its
+    camera direction, and K3 in its two, each as (kernel call, plain
+    call)."""
     W, hp, t, gp, v = o["W"], o["hpp_inv"], o["t"], o["gp"], o["v"]
+    W_cam = W[:, p.cam_perm.long()].contiguous()
     calls = {
+        "seg_block_camera": (lambda: sr.wt_cam_reduce(W_cam, t, p),
+                             lambda: sr._wt_cam_plain(W_cam, t, p)),
         "cam_reduce_w_op": (lambda: fs.cam_reduce_w_op(W, p, t),
                             lambda: fs._cam_reduce_w_op_plain(W, p, t)),
         "cam_reduce_wcw81": (lambda: fs.cam_reduce_wcw(W, p, hp),
@@ -436,12 +509,15 @@ def redesigned_calls(p, o):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 @pytest.mark.parametrize("case", ["one_camera", "many_cameras",
-                                  "long_point"])
+                                  "long_point", "long_camera",
+                                  "empty_cameras_ragged"])
 def test_redesigned_kernels_at_edge_shapes_on_card(case, dtype):
-    """K2's tiled camera reduce (each form), K5's point ranges (each
-    form) and K3 against their plain versions at :func:`edge_problem`'s
-    shapes, W in ``dtype``; a second launch gives bit-identical output
-    (fixed-order sums, no atomics)."""
+    """K2's tiled camera reduce (each form), K5's point ranges (each form)
+    and column ranges, K3, and K1 writing W in ``dtype`` against their
+    plain versions at :func:`edge_problem`'s shapes, W in ``dtype``; a
+    second launch gives bit-identical output (fixed-order sums, no
+    atomics). K1's W to one ulp of ``dtype`` plus 1e-6 of its largest
+    entry (the two float32 W differ there before rounding)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     p = edge_problem(case)
@@ -454,11 +530,28 @@ def test_redesigned_kernels_at_edge_shapes_on_card(case, dtype):
         for g, w, a in pairs:
             close(g, w)
             assert torch.equal(g, a), key
+    cams, points = k1_state(p)
+    got = fa.assemble_scatter(p, cams, points, dtype)
+    again = fa.assemble_scatter(p, cams, points, dtype)
+    want = fa._assemble_plain(p, cams, points, dtype)
+    assert all(torch.equal(g, a) for g, a in zip(got, again))
+    assert got[0].dtype == want[0].dtype == dtype
+    ref32 = want[0].float()
+    torch.testing.assert_close(got[0].float(), ref32,
+                               rtol=torch.finfo(dtype).eps,
+                               atol=1e-6 * float(ref32.abs().max()))
+    for g, w in zip(got[1:], want[1:]):
+        close(g.reshape(-1), w.reshape(-1), afrac=1e-5)
     if case == "long_point":
         seg = p.pnt_starts[1:] - p.pnt_starts[:-1]
         assert int(seg[0]) == 2000 and int(seg[-1]) > 1536
     if case == "many_cameras":
         assert p.ncams > plans.TILE_ROWS
+    if case == "long_camera":
+        seg = p.cam_starts[1:] - p.cam_starts[:-1]
+        assert int(seg[0]) > 4 * plans.CAM_BLOCK_COLS
+    if case == "empty_cameras_ragged":
+        assert p.nobs_pad % 4 != 0 and int(p.cam_starts[10]) == 0
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])

@@ -332,6 +332,8 @@ P9 = dict(ncams=8, npnts=60, obs_per_pnt=3, noise_px=0.4, perturb=2e-3,
           seed=9)
 P10 = dict(ncams=6, npnts=40, obs_per_pnt=3, noise_px=0.3, perturb=2e-3,
            seed=10)
+NO_STOPS = dict(atol=0.0, rtol=0.0, restol=0.0, satol=0.0, srtol=0.0,
+                oatol=0.0, ortol=0.0)
 F64_CASES = {"P9": (P9, dict(max_iters=60, pcg_max_iters=200)),
              "P10": (P10, dict(max_iters=40, lam0_mode="diag"))}
 
@@ -413,27 +415,28 @@ def test_default_gates_pick_the_jax_route(monkeypatch, ncams, nobs_pad,
     assert kernel_route(shape) == route
 
 
-# Each kernel call site of a solve and the routes that reach it.
+# Each kernel a solve calls (a field of `normal.Stages`) and the routes
+# that reach it.
 # `cam_reduce_wcw` (K2 W C W') serves `schur_diag_blocks` without a
 # camera-sorted W, which no solve calls: route B1's diagonal comes from
 # `cam_reduce_wcw_rhs`, as in the JAX driver.
 ALL = set(normal.ROUTES)
 SPLIT = {"sorted", "scatter_split", "sorted_relin"}
 SITES = {
-    ("normal", "assemble_scatter"): {"fused"},
-    ("normal", "linearize_w_kminor"): SPLIT,
-    ("normal", "jtj_pnt_reduce"): SPLIT,
-    ("normal", "jtj_cam_reduce"): {"sorted"},
-    ("normal", "cam_reduce_cam90"): {"scatter_split", "sorted_relin"},
-    ("normal", "linearize_w_only"): {"sorted_relin"},
-    ("schur", "cam_reduce_wcw_rhs"): {"fused", "scatter_split"},
-    ("schur", "matvec_cam_scatter"): {"fused"},
-    ("schur", "cam_reduce_w_op"): {"scatter_split"},
-    ("schur", "cam_reduce_wcw"): set(),
-    ("schur", "wcw_cam_reduce"): {"sorted", "sorted_relin"},
-    ("schur", "wtv_point_reduce"): SPLIT,
-    ("schur", "wt_cam_reduce"): {"sorted", "sorted_relin"},
-    ("lm_jit", "objective_scatter"): ALL,
+    "assemble_scatter": {"fused"},
+    "linearize_w_kminor": SPLIT,
+    "jtj_pnt_reduce": SPLIT,
+    "jtj_cam_reduce": {"sorted"},
+    "cam_reduce_cam90": {"scatter_split", "sorted_relin"},
+    "linearize_w_only": {"sorted_relin"},
+    "cam_reduce_wcw_rhs": {"fused", "scatter_split"},
+    "matvec_cam_scatter": {"fused"},
+    "cam_reduce_w_op": {"scatter_split"},
+    "cam_reduce_wcw": set(),
+    "wcw_cam_reduce": {"sorted", "sorted_relin"},
+    "wtv_point_reduce": SPLIT,
+    "wt_cam_reduce": {"sorted", "sorted_relin"},
+    "objective_scatter": ALL,
 }
 
 
@@ -441,7 +444,6 @@ SITES = {
 def test_route_keeps_its_call_sites_for_a_whole_solve(monkeypatch, route):
     """The route `kernel_route` picks serves the whole solve: every call
     site of that route is reached, no other route's is."""
-    mods = {"normal": normal, "schur": schur, "lm_jit": lm_jit}
     calls = dict.fromkeys(SITES, 0)
 
     def wrap(site, fn):
@@ -452,14 +454,14 @@ def test_route_keeps_its_call_sites_for_a_whole_solve(monkeypatch, route):
             return fn(*args, **kwargs)
         return call
 
-    for site in SITES:
-        mod, attr = site
-        monkeypatch.setattr(mods[mod], attr,
-                            wrap(site, getattr(mods[mod], attr)))
+    monkeypatch.setattr(normal, "KERNELS", normal.KERNELS._replace(**{
+        site: wrap(site, getattr(normal.KERNELS, site)) for site in SITES}))
     for k, v in GATES[route].items():
         monkeypatch.setattr(normal, k, v)
-    jp, _ = jax_synthetic(**P10)
-    res = levenberg_marquardt_jit(to_port(jp), max_iters=3)
+    # float32 (a float64 solve takes the plain route and reaches no
+    # site), no stopping tolerance, so all three iterations run.
+    jp, _ = jax_synthetic(**P10, dtype=jnp.float32)
+    res = levenberg_marquardt_jit(to_port(jp), max_iters=3, **NO_STOPS)
     assert res.iterations == 3 and res.naccepts > 0
     assert {s for s, n in calls.items() if n} == {
         s for s, routes in SITES.items() if route in routes}

@@ -178,8 +178,8 @@ def test_import_never_loads_jax():
     names, loaded = out.stdout.strip().splitlines()
     assert loaded == "False"
     # the measurement path's modules are among those imported
-    for mod in ("bench", "mv_sweep", "tile_sweep", "utils.timing",
-                "ops.stream_probe", "ops.plans"):
+    for mod in ("bench", "mv_sweep", "tile_sweep", "kernel_profile",
+                "utils.timing", "ops.stream_probe", "ops.plans"):
         assert f"bundleadjustment_jl_tpu_torch.{mod}" in names.split(), mod
 
 

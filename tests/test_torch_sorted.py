@@ -235,15 +235,14 @@ P9 = dict(ncams=8, npnts=60, obs_per_pnt=3, noise_px=0.4, perturb=2e-3,
           seed=9)
 P10 = dict(ncams=6, npnts=40, obs_per_pnt=3, noise_px=0.3, perturb=2e-3,
            seed=10)
+NO_STOPS = dict(atol=0.0, rtol=0.0, restol=0.0, satol=0.0, srtol=0.0,
+                oatol=0.0, ortol=0.0)
 
 
-FUSED_SITES = [("normal", "assemble_scatter"),
-               ("schur", "cam_reduce_wcw_rhs"),
-               ("schur", "matvec_cam_scatter")]
-SORTED_SITES = [("normal", "linearize_w_kminor"),
-                ("normal", "jtj_pnt_reduce"), ("normal", "jtj_cam_reduce"),
-                ("schur", "wcw_cam_reduce"), ("schur", "wtv_point_reduce"),
-                ("schur", "wt_cam_reduce")]
+# Kernels (fields of `normal.Stages`) of each route.
+FUSED_SITES = ["assemble_scatter", "cam_reduce_wcw_rhs", "matvec_cam_scatter"]
+SORTED_SITES = ["linearize_w_kminor", "jtj_pnt_reduce", "jtj_cam_reduce",
+                "wcw_cam_reduce", "wtv_point_reduce", "wt_cam_reduce"]
 
 
 @pytest.mark.parametrize("cam_scatter", [True, False],
@@ -254,12 +253,14 @@ def test_route_switch_keeps_one_route_per_solve(monkeypatch, cam_scatter):
     def refuse(*args, **kwargs):
         raise AssertionError("the other route was called")
 
-    mods = {"normal": normal, "schur": schur}
-    for mod, attr in SORTED_SITES if cam_scatter else FUSED_SITES:
-        monkeypatch.setattr(mods[mod], attr, refuse)
+    monkeypatch.setattr(normal, "KERNELS", normal.KERNELS._replace(
+        **dict.fromkeys(SORTED_SITES if cam_scatter else FUSED_SITES,
+                        refuse)))
     monkeypatch.setattr(normal, "CAM_SCATTER", cam_scatter)
-    jp, _ = jax_synthetic(**P10)
-    res = levenberg_marquardt_jit(to_port(jp), max_iters=3)
+    # float32 (a float64 solve takes the plain route and reaches no
+    # site), no stopping tolerance, so all three iterations run.
+    jp, _ = jax_synthetic(**P10, dtype=jnp.float32)
+    res = levenberg_marquardt_jit(to_port(jp), max_iters=3, **NO_STOPS)
     assert res.iterations == 3 and res.naccepts > 0
 
 

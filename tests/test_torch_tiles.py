@@ -1,17 +1,24 @@
-"""The launch plans of K2's camera direction and K5's point direction
-(`bundleadjustment_jl_tpu_torch/ops/plans.py`), on the CPU.
+"""The launch plans of the row-reduction kernels
+(`bundleadjustment_jl_tpu_torch/ops/plans.py`), on the CPU: K2's camera
+direction (tiles), K5's point direction and K1's point pass (point
+ranges), K5's camera direction (column ranges); and K1's camera pass, a
+block per camera.
 
-The CUDA kernels (``csrc/cam_prod.cuh``, ``csrc/wtv_point.cuh``) run only
-on a card; here each plan is checked for the properties the kernels rely
-on, and the kernels' walks are written out in torch ops over the plan (the
-same reads, in the same roles) and held to the JAX package's
-`cam_scatter_reduce` (Pallas interpret mode, as its own tests run it) and
-to the port's plain twins. Small tiles and chunks, so every edge is hit.
+The CUDA kernels (``csrc/cam_prod.cuh``, ``csrc/wtv_point.cuh``,
+``csrc/seg_block_reduce.cu``, ``csrc/assemble.cu``) run only on a card;
+here each plan is checked for the properties the kernels rely on, and the
+kernels' walks are written out in torch ops over the plan (the same reads,
+in the same roles) and held to the JAX package's kernels
+(`cam_scatter_reduce`, `wt_cam_reduce`, `assemble_scatter`; Pallas
+interpret mode, as its own tests run them) and to the port's plain twins.
+Small tiles, ranges and chunks, so every edge is hit.
 
 Tolerances: f32 against the JAX kernel, rtol 1e-4 with atol 1e-5 of the
-largest entry (f32 sums in another order); f64 against the f64 plain twin,
-rtol 1e-12 (the same sums in another order); f64 against the JAX kernel's
-f32 output, the f32 tolerance.
+largest entry (f32 sums in another order; K1 against the JAX assembly:
+`tests/test_torch_kernels.py`'s, which allows the two packages' f32 chains
+to round differently); f64 against the f64 plain twin, rtol 1e-12 (the same
+sums in another order); f64 against the JAX kernel's f32 output, the f32
+tolerance.
 """
 
 import re
@@ -24,12 +31,15 @@ import torch
 
 from bundleadjustment_jl_tpu.io.synthetic import synthetic_bal as jax_synthetic
 from bundleadjustment_jl_tpu.ops import pallas_schur
+from bundleadjustment_jl_tpu.ops.normal import assemble_blocks as jax_assemble
 from bundleadjustment_jl_tpu.ops.pallas_schur import (
-    cam_scatter_reduce, pad_rows, tile_bounds)
+    cam_scatter_reduce, gather_k_minor, pad_rows, tile_bounds)
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
+from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
 from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
 from bundleadjustment_jl_tpu_torch.ops import plans
 from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
+from bundleadjustment_jl_tpu_torch.ops.chain import linearize
 
 CSRC = Path(__file__).resolve().parents[1] / "bundleadjustment_jl_tpu_torch" \
     / "csrc"
@@ -171,18 +181,28 @@ def test_tile_plan_kept_on_the_problem():
     assert plans.point_blocks(p) is blocks
 
 
+def constant(name, source):
+    return int(re.search(rf"{name} = (\d+);", (CSRC / source).read_text())[1])
+
+
 def test_plan_sizes_match_the_kernels():
     """The Python plans' sizes are the CUDA sources' constants: K2's tile
-    (the kernel refuses another) and K5's chunk, which holds a block of
-    POINT_BLOCK_ROWS rows with room for its last point."""
-    head = (CSRC / "cam_prod.cuh").read_text()
-    assert int(re.search(r"BA_TILE_ROWS = (\d+);", head)[1]) \
-        == plans.TILE_ROWS
-    wtv = (CSRC / "wtv_point.cuh").read_text()
-    per = int(re.search(r"BA_PNT_ROWS_PER_THREAD = (\d+);", wtv)[1])
-    block = int(re.search(r"BA_BLOCK = (\d+);",
-                          (CSRC / "chain.cuh").read_text())[1])
-    assert per * block >= plans.POINT_BLOCK_ROWS + 256
+    (the kernel refuses another); K5's chunk and K1's point chunk, which
+    hold a block of POINT_BLOCK_ROWS rows with room for its last point;
+    K5's camera range, a multiple of the columns a thread takes and at
+    most the kernel's largest (it refuses others)."""
+    assert constant("BA_TILE_ROWS", "cam_prod.cuh") == plans.TILE_ROWS
+    block = constant("BA_BLOCK", "chain.cuh")
+    for name, source in (("BA_PNT_ROWS_PER_THREAD", "wtv_point.cuh"),
+                         ("BA_ASM_ROWS_PER_THREAD", "assemble.cu")):
+        assert constant(name, source) * block >= plans.POINT_BLOCK_ROWS + 256
+    align = constant("BA_CAM_COL_ALIGN", "seg_block_reduce.cu")
+    # a thread's columns: BA_CAM_LOAD_BYTES of a 2-byte W at most
+    assert align % (constant("BA_CAM_LOAD_BYTES", "seg_block_reduce.cu")
+                    // 2) == 0
+    assert align % 4 == 0 and plans.CAM_BLOCK_COLS % align == 0
+    assert plans.CAM_BLOCK_COLS <= constant("BA_CAM_COLS_MAX",
+                                            "seg_block_reduce.cu")
 
 
 # ------------------------------------------------------- K2: two passes
@@ -308,18 +328,18 @@ def test_two_pass_sum_matches_pallas_and_plain(jprob, jax_refs, product,
 
 # ------------------------------------------------------- K5: point ranges
 def point_walk(y, problem, bounds, chunk):
-    """The K5 kernel's walk (csrc/wtv_point.cuh) in Python over per-row
-    3-vectors ``y`` (n, 3): each block's rows in chunks; points that end
-    in a chunk are summed in row order, the point that runs past it
-    carries its sum. Returns the sums and how often each point was
+    """The point walk of K5 and K1 (csrc/wtv_point.cuh ba_point_walk) in
+    Python over per-row values ``y`` (n, D): each block's rows in chunks;
+    points that end in a chunk are summed in row order, the point that runs
+    past it carries its sum. Returns the sums and how often each point was
     written."""
     ps, pidx = problem.pnt_starts.tolist(), problem.pnt_idx.tolist()
-    out = torch.zeros((problem.npnts, 3), dtype=y.dtype)
+    out = torch.zeros((problem.npnts, y.shape[1]), dtype=y.dtype)
     written = [0] * problem.npnts
     bounds = bounds.tolist()
     for b in range(len(bounds) - 1):
         p_next, p_end = bounds[b], bounds[b + 1]
-        carried, carry = False, torch.zeros(3, dtype=y.dtype)
+        carried, carry = False, torch.zeros(y.shape[1], dtype=y.dtype)
         r1 = ps[p_end]
         c0 = ps[p_next]
         while True:
@@ -328,7 +348,7 @@ def point_walk(y, problem, bounds, chunk):
             p_fin = p_end if last else pidx[c1]
             for p in range(p_next, p_fin):
                 s = carry.clone() if carried and p == p_next \
-                    else torch.zeros(3, dtype=y.dtype)
+                    else torch.zeros(y.shape[1], dtype=y.dtype)
                 for row in range(max(ps[p], c0), ps[p + 1]):
                     s += y[row]
                 out[p] = s
@@ -337,7 +357,7 @@ def point_walk(y, problem, bounds, chunk):
                 break
             if ps[p_fin] < c1:
                 s = carry.clone() if carried and p_fin == p_next \
-                    else torch.zeros(3, dtype=y.dtype)
+                    else torch.zeros(y.shape[1], dtype=y.dtype)
                 for row in range(max(ps[p_fin], c0), c1):
                     s += y[row]
                 carry, carried = s, True
@@ -407,3 +427,252 @@ def test_point_walk_matches_plain(case, chunk, form):
     s = kw.get("sign", 1.0) * s
     torch.testing.assert_close(s, sr.wtv_point_reduce(W, v, p, **kw),
                                rtol=1e-12, atol=1e-12)
+
+
+# ------------------------------------------------ K5 camera: column ranges
+def many_small_cameras():
+    """700 cameras of 1-3 rows each, 300 points."""
+    rng = np.random.default_rng(4)
+    cam = np.repeat(np.arange(700), rng.integers(1, 4, size=700))
+    pnt = rng.integers(0, 300, size=cam.size)
+    return problem_of(cam, pnt, 700, 300)
+
+
+# Column layouts, each with the edge it puts in front of the plan (ranges
+# of 16 columns below).
+CAM_CASES = {
+    "random": lambda: random_problem(1, ncams=7, npnts=40, obs=3),
+    "one_camera": CASES["one_camera"],
+    # camera 0 holds 100 columns: more than several ranges
+    "long_camera": lambda: problem_of(
+        [0] * 100 + [1, 2, 1, 2], list(np.arange(104) // 2), 3, 52),
+    "many_small_cameras": many_small_cameras,
+    "empty_cameras": CASES["empty_cameras"],
+    # 37 real rows padded to 96: the padding rows sit on the last camera
+    # and the last range is short (96 is not a multiple of 64)
+    "padding_tail": lambda: random_problem(5, ncams=4, npnts=37, obs=1,
+                                           pad_obs_to=96),
+}
+
+
+@pytest.mark.parametrize("case", CAM_CASES)
+@pytest.mark.parametrize("cols", [8, 16, 64, plans.CAM_BLOCK_COLS])
+def test_cam_col_plan_runs_partition_the_columns(case, cols):
+    """Every camera-sorted column lies in exactly one run; a run is one
+    camera and one range, and maximal; each range's runs and each camera's
+    runs are consecutive ids (range_run_starts, cam_run_starts); cam_pnt is
+    each column's point."""
+    p = CAM_CASES[case]()
+    plan = plans.build_cam_col_plan(p, cols=cols)
+    n = p.nobs_pad
+    b = plan.run_bounds.long()
+    assert int(b[0]) == 0 and int(b[-1]) == n
+    assert bool((b[1:] > b[:-1]).all())
+    perm = p.cam_perm.long()
+    cam, rng = p.cam_idx.long()[perm], torch.arange(n) // cols
+    assert torch.equal(plan.cam_pnt.long(), p.pnt_idx.long()[perm])
+    run_of_col = torch.repeat_interleave(torch.arange(plan.nruns),
+                                         b[1:] - b[:-1])
+    for key in (cam, rng):            # constant within a run
+        assert torch.equal(key, key[b[:-1]][run_of_col])
+    run_cam, run_rng = cam[b[:-1]], rng[b[:-1]]
+    same = (run_cam[1:] == run_cam[:-1]) & (run_rng[1:] == run_rng[:-1])
+    assert not bool(same.any())       # maximal
+    assert plan.nranges == -(-n // cols)
+    for starts, key, count in ((plan.range_run_starts, run_rng,
+                                plan.nranges),
+                               (plan.cam_run_starts, run_cam, p.ncams)):
+        s = starts.long()
+        assert s.shape[0] == count + 1 and int(s[0]) == 0 \
+            and int(s[-1]) == plan.nruns
+        assert torch.equal(key, torch.repeat_interleave(
+            torch.arange(count), s[1:] - s[:-1]))
+    empty = [c for c in range(p.ncams) if plan.cam_run_starts[c]
+             == plan.cam_run_starts[c + 1]]
+    assert empty == [c for c in range(p.ncams)
+                     if p.cam_starts[c] == p.cam_starts[c + 1]]
+    if case == "long_camera" and cols == 16:
+        assert int(plan.cam_run_starts[1]) >= 100 // 16
+    if case == "many_small_cameras" and cols == 64:
+        assert int((plan.range_run_starts[1:]
+                    - plan.range_run_starts[:-1]).max()) >= 20
+
+
+def cam_walk(y, plan, V, block):
+    """K5 camera direction's pass 1 and 2 (csrc/seg_block_reduce.cu) in
+    torch ops over per-column 9-vectors ``y`` (n, 9), camera order: each
+    range in chunks of ``block`` threads of ``V`` columns; each thread's
+    segmented total from its last run head, the threads' totals scanned in
+    order (the sum open at a chunk's end carried to the next), then each
+    thread's columns from the sum open before it, a run's last column
+    writing ``partial[run]``; pass 2 sums each camera's runs in order.
+    Returns the camera sums and how often each run was written."""
+    n, C = y.shape[0], plan.cols
+    bounds, rrs = plan.run_bounds.tolist(), plan.range_run_starts.tolist()
+    partial = torch.zeros((plan.nruns, 9), dtype=y.dtype)
+    written = [0] * plan.nruns
+    zero = torch.zeros(9, dtype=y.dtype)
+
+    def columns(sb, l0, nv):
+        """(k, run index, head, last) of a thread's columns."""
+        r = max(i for i in range(len(sb) - 1) if sb[i] <= l0)
+        for k in range(nv):
+            if r + 1 < len(sb) - 1 and sb[r + 1] <= l0 + k:
+                r += 1
+            yield k, r, sb[r] == l0 + k, sb[r + 1] == l0 + k + 1
+
+    for b in range(plan.nranges):
+        c0, r0 = b * C, rrs[b]
+        length = min(C, n - c0)
+        sb = [bounds[r0 + i] - c0 for i in range(rrs[b + 1] - r0)] + [length]
+        open_sum = zero
+        for s0 in range(0, length, block * V):
+            threads = []
+            for i in range(block):
+                l0 = s0 + i * V
+                nv = max(0, min(V, length - l0))
+                f, v = False, zero
+                for k, _, head, _ in (columns(sb, l0, nv) if nv else []):
+                    v = y[c0 + l0 + k] if head else v + y[c0 + l0 + k]
+                    f = f or head
+                threads.append((l0, nv, f, v))
+            for l0, nv, f, v in threads:
+                run = open_sum
+                for k, r, head, last in (columns(sb, l0, nv) if nv else []):
+                    run = y[c0 + l0 + k] if head else run + y[c0 + l0 + k]
+                    if last:
+                        partial[r0 + r] = run
+                        written[r0 + r] += 1
+                open_sum = v if f else open_sum + v
+    crs = plan.cam_run_starts.long()
+    cam_of_run = torch.repeat_interleave(torch.arange(crs.shape[0] - 1),
+                                         crs[1:] - crs[:-1])
+    out = torch.zeros((crs.shape[0] - 1, 9), dtype=y.dtype)
+    return out.index_add_(0, cam_of_run, partial), written
+
+
+def cam_products(W_cam, t, problem):
+    """Per-column ``W_k t[pnt_k]`` (n, 9) over the camera-sorted W."""
+    return sr.w_op_rows(W_cam, t, problem.pnt_idx.long()[
+        problem.cam_perm.long()])
+
+
+@pytest.mark.parametrize("case", CAM_CASES)
+@pytest.mark.parametrize("V, block", [(4, 2), (8, 4), (4, 8)])
+def test_cam_walk_matches_plain(case, V, block):
+    """The walk over 16-column ranges (chunks of 8, 32 or 32 columns, so
+    runs cross threads, warps' worth of threads and chunks) writes every
+    run once and gives the plain twin's sums, in f64."""
+    p = CAM_CASES[case]()
+    rng = np.random.default_rng(6)
+    W_cam = torch.from_numpy(rng.standard_normal((27, p.nobs_pad)))
+    t = torch.from_numpy(rng.standard_normal((p.npnts, 3)))
+    plan = plans.build_cam_col_plan(p, cols=16)
+    got, written = cam_walk(cam_products(W_cam, t, p), plan, V, block)
+    assert written == [1] * plan.nruns
+    torch.testing.assert_close(got, sr.wt_cam_reduce(W_cam, t, p),
+                               rtol=1e-12, atol=1e-12)
+
+
+def test_cam_walk_matches_pallas(jprob):
+    """The walk in f32, at the kernel's V for a float32 W, against the JAX
+    `wt_cam_reduce` over the same camera-sorted W (interpret mode)."""
+    jp, tp, ops = jprob
+    perm = np.asarray(jp.cam_perm)
+    W_cam = ops["W"][:, perm]
+    t = ops["op"]
+    ref = pallas_schur.wt_cam_reduce(
+        pad_rows(jnp.asarray(W_cam), 32),
+        gather_k_minor(pad_rows(jnp.asarray(t).T, 8), jp.pnt_idx[perm]),
+        jp.cam_idx[perm], jp.cam_starts, jp.ncams, interpret=True)
+    plan = plans.build_cam_col_plan(tp, cols=64)
+    got, _ = cam_walk(cam_products(torch.from_numpy(W_cam),
+                                   torch.from_numpy(t), tp), plan, 4, 8)
+    close32(got, np.asarray(ref))
+
+
+# ------------------------------------------------------- K1: both passes
+def block_sum(rows, threads):
+    """A block's fixed-order sum of ``rows`` (m, d): thread i sums rows i,
+    i + threads, ... in order, then the threads' sums are added in order
+    (the kernel's last step is a tree; the order is fixed either way)."""
+    parts = [rows[i::threads].sum(0) for i in range(threads)]
+    return torch.stack(parts).sum(0)
+
+
+def k1_walks(problem, dtype, point_rows=4, chunk=8, threads=4):
+    """K1's two passes in torch ops (csrc/assemble.cu): the rows' chain;
+    the point pass's walk over its point ranges (blocks of ``point_rows``
+    rows, chunks of ``chunk``) of each row's [Jp'Jp upper (6) | Jp'r (3)];
+    the camera pass, a block of ``threads`` threads per camera over its
+    rows in cam_perm order, of [Jc'Jc upper (45) | Jc'r (9) | r'r / 2]; the
+    objective the camera totals summed in camera order. -> (W_t, hp12,
+    hc90, obj)."""
+    p = problem
+    cams, points = p.cams.to(dtype), p.points.to(dtype)
+    r, Jc, Jp = linearize(cams[p.cam_idx.long()], points[p.pnt_idx.long()],
+                          p.pt2d.to(dtype), p.w.to(dtype))
+    W_t = torch.einsum("nia,nib->abn", Jc, Jp).reshape(27, -1)
+    up3 = [(b, e) for b in range(3) for e in range(b, 3)]
+    y = torch.stack([(Jp[:, :, b] * Jp[:, :, e]).sum(1) for b, e in up3]
+                    + [(Jp[:, :, b] * r).sum(1) for b in range(3)], dim=1)
+    s, written = point_walk(y, p, plans.build_point_blocks(p, point_rows),
+                            chunk)
+    assert written == [1] * p.npnts
+    sym3 = [[0, 1, 2], [1, 3, 4], [2, 4, 5]]
+    hp12 = torch.cat([s[:, [sym3[a][b] for a in range(3) for b in range(3)]],
+                      s[:, 6:9]], dim=1)
+    up9 = [(a, d) for a in range(9) for d in range(a, 9)]
+    rows = torch.stack([(Jc[:, :, a] * Jc[:, :, d]).sum(1) for a, d in up9]
+                       + [(Jc[:, :, a] * r).sum(1) for a in range(9)]
+                       + [0.5 * (r * r).sum(1)], dim=1)
+    perm, cs = p.cam_perm.long(), p.cam_starts.tolist()
+    tot = torch.stack([block_sum(rows[perm[cs[c]:cs[c + 1]]], threads)
+                       for c in range(p.ncams)])
+    tri = {ad: k for k, ad in enumerate(up9)}
+    H = tot[:, [tri[min(a, d), max(a, d)] for a in range(9)
+                for d in range(9)]]
+    return W_t, hp12, torch.cat([H, tot[:, 45:54]], dim=1), tot[:, 54].sum()
+
+
+@pytest.mark.parametrize("case", ["random", "empty_cameras", "ragged_tail",
+                                  "one_tile_and_many", "one_camera"])
+def test_k1_walks_match_plain(case):
+    """K1's two passes (the point pass over its plan) give the plain
+    twin's W, [Hpp | g_p], [Hcc | g_c] and objective, in f64."""
+    p = CASES[case]()
+    got = k1_walks(p, torch.float64)
+    want = fa._assemble_plain(p, p.cams.double(), p.points.double())
+    for g, w in zip(got, want):
+        torch.testing.assert_close(g, w, rtol=1e-12, atol=1e-12)
+
+
+def test_k1_walks_match_pallas(jprob):
+    """K1's two passes in f32, at the kernel's point ranges, chunk and
+    block, against the JAX `assemble_scatter` (interpret mode), with
+    `tests/test_torch_kernels.py`'s tolerance."""
+    jp, tp, _ = jprob
+    old = (pallas_schur.PALLAS_MODE, pallas_schur.INTERPRET,
+           pallas_schur.CAM_SCATTER)
+    try:
+        pallas_schur.set_mode(True)
+        pallas_schur.INTERPRET = True
+        pallas_schur.CAM_SCATTER = True
+        ref = jax_assemble(jp, with_jr=False, kminor=True)
+    finally:
+        (pallas_schur.PALLAS_MODE, pallas_schur.INTERPRET,
+         pallas_schur.CAM_SCATTER) = old
+    W_t, hp12, hc90, obj = k1_walks(tp, torch.float32,
+                                    point_rows=plans.POINT_BLOCK_ROWS,
+                                    chunk=1280, threads=256)
+
+    def close(got, want):
+        got, want = np.asarray(got), np.asarray(want)
+        np.testing.assert_allclose(
+            got, want, rtol=1e-4, atol=max(1e-3, 1e-5 * np.abs(want).max()))
+    close(W_t, np.asarray(ref.W_t)[:27])
+    close(hp12[:, :9].reshape(-1), ref.Hpp_f)
+    close(hp12[:, 9:].reshape(-1), ref.g_p_f)
+    close(hc90[:, :81].reshape(-1), ref.Hcc_f)
+    close(hc90[:, 81:].reshape(-1), ref.g_c_f)
+    assert float(obj) == pytest.approx(float(ref.obj), rel=1e-5)
