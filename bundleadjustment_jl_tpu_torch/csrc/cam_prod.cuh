@@ -1,12 +1,12 @@
 // Device code shared by K2 (cam_reduce.cu), K3's camera pass (matvec.cu)
 // and K6's camera products (seg_prod_reduce.cu): per-camera sums of a
 // per-row product, in two designs that differ in where a camera's rows
-// lie. K5's camera direction (seg_block_reduce.cu) takes its W op product
-// and run-sum pass.
+// lie. K5's camera direction (seg_block_reduce.cu) and K6's W C W' column
+// ranges (seg_prod_reduce.cu) take their products and run-sum pass.
 //
-// Camera-sorted copy (K6: JR_cam_t, W_cam_t), ba_launch_cam_prod: one
-// block per camera strides over its columns j in [cam_starts[c],
-// cam_starts[c+1]) (coalesced), then a fixed-order block sum.
+// Camera-sorted copy (K6 cam90: JR_cam_t), ba_launch_cam_prod: one block
+// per camera strides over its columns j in [cam_starts[c], cam_starts[c+1])
+// (coalesced), then a fixed-order block sum.
 //
 // Point-sorted rows read through cam_perm (K2, K3: JR_t, W_t),
 // ba_launch_cam_tiles, plan `ops/plans.py:TilePlan`: the counterpart of
@@ -232,29 +232,23 @@ __host__ __device__ constexpr int ba_d_out() {
   return (Prod::SYM ? 81 : 0) + (Prod::K - Prod::SYM);
 }
 
-// Camera-sorted copy: one block per camera over its columns.
+// Camera-sorted copy: one block per camera over its columns (a product
+// without per-point operands).
 template <class Prod, class S>
 __global__ void __launch_bounds__(BA_BLOCK) ba_cam_prod_kernel(
-    BaRows<S> in, const int* __restrict__ cam_perm,
-    const int* __restrict__ cam_starts, float* __restrict__ out) {
+    BaRows<S> in, const int* __restrict__ cam_starts,
+    float* __restrict__ out) {
   constexpr int K = Prod::K;
+  static_assert(Prod::NA + Prod::NB == 0, "no per-point operands");
   const int c = blockIdx.x;
   float acc[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) acc[k] = 0.f;
   const int end = cam_starts[c + 1];
-  for (int j = cam_starts[c] + threadIdx.x; j < end; j += BA_BLOCK) {
-    const float* a = nullptr;
-    const float* b = nullptr;
-    if constexpr (Prod::NA + Prod::NB > 0) {
-      const size_t p = in.pnt_idx[cam_perm[j]];
-      a = in.a + Prod::NA * p;
-      b = in.b + Prod::NB * p;
-    }
+  for (int j = cam_starts[c] + threadIdx.x; j < end; j += BA_BLOCK)
     Prod::apply(
         acc, [&](int e) { return ba_ldw(in.x, Prod::plane(e) * in.n + j); },
-        a, b);
-  }
+        nullptr, nullptr);
   __shared__ float tot[K];
   ba_block_sum<K>(acc, tot);
   __syncthreads();
@@ -402,13 +396,12 @@ __global__ void __launch_bounds__(BA_BLOCK) ba_run_sum_kernel(
 
 // Launch on ``stream``; 0 or the CUDA error of the launch.
 template <class Prod, class S>
-int ba_launch_cam_prod(const BaRows<S>& in, const int* cam_perm,
-                       const int* cam_starts, int ncams, float* out,
-                       void* stream) {
+int ba_launch_cam_prod(const BaRows<S>& in, const int* cam_starts, int ncams,
+                       float* out, void* stream) {
   if (ncams > 0) {
     ba_cam_prod_kernel<Prod, S>
         <<<ncams, BA_BLOCK, 0, static_cast<cudaStream_t>(stream)>>>(
-            in, cam_perm, cam_starts, out);
+            in, cam_starts, out);
     BA_RETURN_IF_LAUNCH_FAILED();
   }
   return 0;

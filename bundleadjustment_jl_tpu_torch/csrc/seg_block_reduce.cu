@@ -59,129 +59,11 @@
 // indices; ~54 FMA a row: the bytes. The camera direction reaches ~0.8 of
 // it with a float W at Final-4585 and ~0.45 with a 2-byte W, which takes
 // about the float W's time there (PERF.md, K5 camera: not W's bytes).
-#include <cstdint>
-
+#include "cam_cols.cuh"
 #include "cam_prod.cuh"
 #include "wtv_point.cuh"
 
-// Bytes of each plane one thread of the camera direction loads: its
-// columns, V = BA_CAM_LOAD_BYTES / sizeof(storage), 2 float or 4 bf16 / f16
-// columns (16 B a plane measured slower with a 2-byte W: PERF.md, K5 camera).
-constexpr int BA_CAM_LOAD_BYTES = 8;
-// CAM_BLOCK_COLS (ops/plans.py) must be a multiple of BA_CAM_COL_ALIGN,
-// so every thread's columns start aligned in each plane, and at most
-// BA_CAM_COLS_MAX (the range's run bounds are staged in shared memory).
-// The kernel refuses other plans.
-constexpr int BA_CAM_COL_ALIGN = 8;
-constexpr int BA_CAM_COLS_MAX = 8192;
-
-// The plan as ops/_cuda.py:CamColPlanC passes it (ops/plans.py:CamColPlan).
-struct BaCamColPlan {
-  const int* cam_pnt;           // (n,) pnt_idx[cam_perm]
-  const int* run_bounds;        // (nruns+1,) each run's columns
-  const int* range_run_starts;  // (nranges+1,) each range's runs
-  const int* cam_run_starts;    // (ncams+1,) each camera's runs
-  int nranges;
-  int cols;                     // C of the plan
-};
-
 namespace {
-
-// Columns a thread takes from a W stored as S, and the 32-bit words of one
-// plane's load.
-template <class S>
-__host__ __device__ constexpr int ba_cam_v() {
-  return BA_CAM_LOAD_BYTES / (int)sizeof(S);
-}
-constexpr int BA_CAM_WORDS = BA_CAM_LOAD_BYTES / 4;
-
-// The raw bits of W's element i.
-__device__ __forceinline__ unsigned ba_bits(const float* p, long long i) {
-  return __float_as_uint(p[i]);
-}
-template <class S>
-__device__ __forceinline__ unsigned ba_bits(const S* p, long long i) {
-  return reinterpret_cast<const unsigned short*>(p)[i];
-}
-
-// A thread's V columns of one plane starting at p, as BA_CAM_WORDS (2)
-// words: one aligned 8 B load, or (``vec`` false) one element at a time,
-// the nv columns it has and zeros for the rest.
-template <class S>
-__device__ __forceinline__ void ba_ld_plane(const S* p, bool vec, int nv,
-                                            unsigned (&w)[BA_CAM_WORDS]) {
-  constexpr int V = ba_cam_v<S>();
-  static_assert(BA_CAM_WORDS == 2, "one uint2 a plane");
-  if (vec) {
-    const uint2 q = __ldg(reinterpret_cast<const uint2*>(p));
-    w[0] = q.x; w[1] = q.y;
-    return;
-  }
-  constexpr int PER = V / BA_CAM_WORDS;   // elements a word
-#pragma unroll
-  for (int i = 0; i < BA_CAM_WORDS; ++i) {
-    w[i] = 0u;
-#pragma unroll
-    for (int h = 0; h < PER; ++h) {
-      const int k = i * PER + h;
-      if (k < nv) w[i] |= ba_bits(p, k) << (16 * h);
-    }
-  }
-}
-
-// The V floats of a plane's words.
-__device__ __forceinline__ void ba_unpack(const float*,
-                                          const unsigned (&w)[BA_CAM_WORDS],
-                                          float (&o)[BA_CAM_WORDS]) {
-#pragma unroll
-  for (int i = 0; i < BA_CAM_WORDS; ++i) o[i] = __uint_as_float(w[i]);
-}
-// bf16 -> float is exact: the bits, shifted 16.
-__device__ __forceinline__ void ba_unpack(const __nv_bfloat16*,
-                                          const unsigned (&w)[BA_CAM_WORDS],
-                                          float (&o)[2 * BA_CAM_WORDS]) {
-#pragma unroll
-  for (int i = 0; i < BA_CAM_WORDS; ++i) {
-    o[2 * i] = __uint_as_float(w[i] << 16);
-    o[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void ba_unpack(const __half*,
-                                          const unsigned (&w)[BA_CAM_WORDS],
-                                          float (&o)[2 * BA_CAM_WORDS]) {
-#pragma unroll
-  for (int i = 0; i < BA_CAM_WORDS; ++i) {
-    o[2 * i] = __half2float(__ushort_as_half((unsigned short)(w[i] & 0xffffu)));
-    o[2 * i + 1] = __half2float(__ushort_as_half((unsigned short)(w[i] >> 16)));
-  }
-}
-
-// pk[k] = cam[l0 + k] for the thread's columns l0 + k < len (0 past it):
-// one 16 B (or 8 B) load when they are whole and aligned (``vec``).
-template <int V>
-__device__ __forceinline__ void ba_ld_points(const int* cam, int l0, int len,
-                                             bool vec, int (&pk)[V]) {
-  const int nv = max(0, min(V, len - l0));
-  if (vec && nv == V) {
-#pragma unroll
-    for (int i = 0; i < (V + 3) / 4; ++i) {
-      int q[4];
-      if constexpr (V >= 4) {
-        const int4 v4 = __ldg(reinterpret_cast<const int4*>(cam + l0) + i);
-        q[0] = v4.x; q[1] = v4.y; q[2] = v4.z; q[3] = v4.w;
-      } else {
-        const int2 v2 = __ldg(reinterpret_cast<const int2*>(cam + l0));
-        q[0] = v2.x; q[1] = v2.y; q[2] = q[3] = 0;
-      }
-#pragma unroll
-      for (int h = 0; h < 4; ++h)
-        if (4 * i + h < V) pk[4 * i + h] = q[h];
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < V; ++k) pk[k] = k < nv ? cam[l0 + k] : 0;
-  }
-}
 
 // Segmented sum operator on (head seen, 9 sums): (f1, v1) + (f2, v2) =
 // (f1 | f2, f2 ? v2 : v1 + v2).
@@ -217,12 +99,9 @@ __global__ void __launch_bounds__(BA_BLOCK) ba_wt_cam_range_kernel(
   if (threadIdx.x == 0) sbound[nr] = len;
   if (threadIdx.x < 9) carry[threadIdx.x] = 0.f;
   __syncthreads();
-  // Vector loads of W's planes (V values) and of cam_pnt: aligned plane
-  // starts, and every thread's first column a multiple of V (c0, s0 and l0
-  // are).
-  const bool vec = n % V == 0 &&
-                   reinterpret_cast<uintptr_t>(W) % BA_CAM_LOAD_BYTES == 0 &&
-                   (reinterpret_cast<uintptr_t>(plan.cam_pnt) & 15) == 0;
+  // Vector loads of W's planes (V values) and of cam_pnt (c0, s0 and l0
+  // are multiples of V).
+  const bool vec = ba_cam_vec<BA_CAM_LOAD_BYTES>(W, n, plan.cam_pnt);
 
   // The points of the thread's columns in the first chunk; each chunk then
   // loads the next chunk's, so a chunk's t gathers wait only on its own W
@@ -350,9 +229,7 @@ template <class S>
 int ba_launch_wt_cam(const S* W, long long n, const float* t,
                      const BaCamColPlan& plan, int ncams, float* partial,
                      float* out, void* stream) {
-  if (plan.cols <= 0 || plan.cols % BA_CAM_COL_ALIGN != 0 ||
-      plan.cols > BA_CAM_COLS_MAX)
-    return static_cast<int>(cudaErrorInvalidValue);
+  if (const int rc = ba_check_cam_cols(plan)) return rc;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (plan.nranges > 0) {
     ba_wt_cam_range_kernel<S>

@@ -1,16 +1,17 @@
-"""Device time of each CUDA kernel that K1 (the assembly) and K5's camera
-direction launch, by kernel name, on one card.
+"""Device time of each CUDA kernel that K1 (the assembly), K5's camera
+direction, K6's W C W' and K8 launch, by kernel name, on one card.
 
     python -m bundleadjustment_jl_tpu_torch.kernel_profile
 
 At synthetic Dubrovnik-356 and Final-4585 (``bench.make_problem``): K1 with
-W in float32, and K5's camera direction over the camera-sorted W in
-float32, bfloat16 and float16, each called :data:`REPS` times under
-``torch.profiler`` after a warm-up; prints one JSON line per problem and
-call with the device ms per call of each kernel it launched (the trace's
-kernel events, ``route_profile.kernel_breakdown``) and the card's name and
-power limit. A wrapper's passes are separate kernels, so this times them
-apart: K1's point pass and its camera pass.
+W in float32; K5's camera direction and K6's W C W' over the camera-sorted
+W, and K8 writing it, in float32, bfloat16 and float16; each called
+:data:`REPS` times under ``torch.profiler`` after a warm-up. Prints one
+JSON line per problem with, per call, the device ms per call of each
+kernel it launched (the trace's kernel events,
+``route_profile.kernel_breakdown``), and the card's name and power limit.
+A wrapper's passes are separate kernels, so this times them apart: K1's
+point pass and its camera pass, the range and run-sum passes.
 
 To compare two trees, run it from the root of each checkout and compare
 the JSON lines; it uses only the wrappers' public calls, so a copy of this
@@ -35,7 +36,10 @@ REPS = 10
 def device_ms(fn, tag: str, reps: int = REPS) -> dict:
     """``{kernel name: device ms per call}`` of ``fn()`` over ``reps``
     calls under ``torch.profiler``, after two unprofiled calls; the trace
-    goes to the git-ignored kernel build directory as ``<tag>.json``."""
+    goes to the git-ignored kernel build directory as ``<tag>.json``. The
+    trace can miss a kernel's events (often the window's first launch: 9
+    of 10 recorded), so a kernel's time a call is its mean over the
+    launches recorded times its launches a call, ceil(recorded / reps)."""
     from torch.profiler import ProfilerActivity, profile
     bench.require_card()
     for _ in range(2):
@@ -50,13 +54,15 @@ def device_ms(fn, tag: str, reps: int = REPS) -> dict:
     out.mkdir(parents=True, exist_ok=True)
     path = out / f"{tag}.json"
     prof.export_chrome_trace(str(path))
-    return {name: k["ms"] / reps
+    return {name: k["ms"] / k["launches"] * -(-k["launches"] // reps)
             for name, k in kernel_breakdown(path)["kernels"].items()}
 
 
 def main() -> int:
     from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
+    from bundleadjustment_jl_tpu_torch.ops import linearize as lz
     from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
+    from bundleadjustment_jl_tpu_torch.ops.normal import inv3x3_damped_flat
     from bundleadjustment_jl_tpu_torch.solver.lm_jit import narrow_w
     bench.require_card()
     card = bench.card()["nvidia_smi"]
@@ -69,15 +75,26 @@ def main() -> int:
                     f"{name}_assemble")}
         gen = torch.Generator(device="cuda").manual_seed(0)
         t = torch.randn((p.npnts, 3), generator=gen, device="cuda")
+        hp12 = sr.jtj_pnt_reduce(lz.linearize_w_kminor(p, p.cams, p.points)[0],
+                                 p)
+        hpp_inv = inv3x3_damped_flat(hp12[:, :9].reshape(-1),
+                                     1e-3 * float(hp12[:, :9:4].max()))
         perm = p.cam_perm.long()
         for dt in (torch.float32, torch.bfloat16, torch.float16):
+            tag = str(dt)[6:]
             W_cam = narrow_w(W, dt)[:, perm].contiguous()
-            line[f"seg_block_camera@{str(dt)[6:]}"] = device_ms(
+            line[f"seg_block_camera@{tag}"] = device_ms(
                 lambda: sr.wt_cam_reduce(W_cam, t, p),
-                f"{name}_seg_block_camera_{str(dt)[6:]}")
+                f"{name}_seg_block_camera_{tag}")
+            line[f"seg_prod_wcw81@{tag}"] = device_ms(
+                lambda: sr.wcw_cam_reduce(W_cam, p, hpp_inv),
+                f"{name}_seg_prod_wcw81_{tag}")
             del W_cam
+            line[f"linearize_w_only@{tag}"] = device_ms(
+                lambda: lz.linearize_w_only(p, p.cams, p.points, dt),
+                f"{name}_linearize_w_only_{tag}")
         print(json.dumps(line), flush=True)
-        del p, W
+        del p, W, hp12, hpp_inv
     return 0
 
 

@@ -164,9 +164,9 @@ class TilePlanC(ctypes.Structure):
 
 
 class CamColPlanC(ctypes.Structure):
-    """K5 camera direction's plan as its C entry point takes it
-    (``csrc/seg_block_reduce.cu`` ``BaCamColPlan``), by pointer: the device
-    arrays of :class:`ops.plans.CamColPlan`."""
+    """The column plan as the C entry points of K5's camera direction and
+    K6's W C W' take it (``csrc/cam_cols.cuh`` ``BaCamColPlan``), by
+    pointer: the device arrays of :class:`ops.plans.CamColPlan`."""
     _fields_ = [("cam_pnt", _P), ("run_bounds", _P),
                 ("range_run_starts", _P), ("cam_run_starts", _P),
                 ("nranges", _I), ("cols", _I)]
@@ -186,10 +186,10 @@ _SIGNATURES = {
     + [_P] * 4,
     "ba_objective": [_P] * 6 + [_I, _I, _I, _I64, _P, _P, _P],
     "ba_linearize_rows": [_P] * 6 + [_I64, _P, _P, _I, _P],
-    "ba_linearize_w_only": [_P] * 7 + [_I64, _P, _I, _P],
+    "ba_linearize_w_only": [_P] * 6 + [_I64, _P, _I, _P],
     "ba_jtj_pnt_reduce": [_P, _P, _I, _I64, _P, _P],
-    "ba_jtj_cam_reduce": [_P, _P, _P, _I, _I64, _P, _P],
-    "ba_wcw_cam_reduce": [_P, _I] + [_P] * 4 + [_I, _I64, _P, _P],
+    "ba_jtj_cam_reduce": [_P, _P, _I, _I64, _P, _P],
+    "ba_wcw_cam_reduce": [_P, _I, _P, _COLS, _I, _I64] + [_P] * 3,
     "ba_wtv_point_reduce": [_P, _I] + [_P] * 5 + [_I, _P, _P, _F, _I64, _P,
                                                    _P],
     "ba_wt_cam_reduce": [_P, _I, _P, _COLS, _I, _I64] + [_P] * 3,
@@ -227,7 +227,7 @@ def tile_plan_arg(plan) -> ctypes._Pointer:
 
 
 def cam_col_plan_arg(plan) -> ctypes._Pointer:
-    """:class:`ops.plans.CamColPlan` as the C entry point takes it."""
+    """:class:`ops.plans.CamColPlan` as the C entry points take it."""
     return ctypes.pointer(CamColPlanC(
         ptr(plan.cam_pnt), ptr(plan.run_bounds), ptr(plan.range_run_starts),
         ptr(plan.cam_run_starts), plan.nranges, plan.cols))

@@ -19,7 +19,9 @@ package's ``JR_t[:26]`` and ``W_t[:27]``:
 
 :func:`linearize_w_only` gives ``W_cam_t`` = ``W_t[:, cam_perm]`` by
 re-running the chain on the rows in camera order, as the JAX package does
-for the huge-n route with camera scatter off (``normal.py:385-442``).
+for the huge-n route with camera scatter off (``normal.py:385-442``); its
+kernel reads the row data from their camera-order copies
+(:func:`ops.plans.cam_row_plan`, built once per problem).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ from __future__ import annotations
 import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
-from bundleadjustment_jl_tpu_torch.ops import _cuda
+from bundleadjustment_jl_tpu_torch.ops import _cuda, plans
 from bundleadjustment_jl_tpu_torch.ops.chain import linearize
 
 # Row offsets of Jp and the residual in JR_t (Jc starts at row 0).
@@ -85,10 +87,10 @@ def linearize_w_only(problem: BAProblem, cams: torch.Tensor,
     W_cam_t = torch.empty((27, n), dtype=w_dtype or torch.float32,
                           device=cams.device)
     code = _cuda.w_code(W_cam_t, "W_cam_t", (27, n))
-    p = problem
+    rows = plans.cam_row_plan(problem)
     rc = _cuda.lib().ba_linearize_w_only(
-        _cuda.ptr(cams), _cuda.ptr(points), _cuda.ptr(p.pt2d), _cuda.ptr(p.w),
-        _cuda.ptr(p.cam_idx), _cuda.ptr(p.pnt_idx), _cuda.ptr(p.cam_perm), n,
+        _cuda.ptr(cams), _cuda.ptr(points), _cuda.ptr(rows.pt2d),
+        _cuda.ptr(rows.w), _cuda.ptr(rows.cam), _cuda.ptr(rows.pnt), n,
         _cuda.ptr(W_cam_t), code, _cuda.stream())
     _cuda.check(rc, "ba_linearize_w_only")
     _cuda.launched("linearize_w_only", W_cam_t)

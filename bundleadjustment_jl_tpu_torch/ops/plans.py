@@ -1,14 +1,19 @@
 """Launch plans of the row-reduction kernels: K2's camera direction over the
 point-sorted rows (``csrc/cam_prod.cuh``, read through ``cam_perm``), K5's
-point direction and K1's point pass (``csrc/wtv_point.cuh``), and K5's
-camera direction over the camera-sorted copy of W
-(``csrc/seg_block_reduce.cu``).
+point direction and K1's point pass (``csrc/wtv_point.cuh``), K5's camera
+direction and K6's W C W' over the camera-sorted copy of W
+(``csrc/seg_block_reduce.cu``, ``csrc/seg_prod_reduce.cu``); and K8's
+camera-order copies of the row data (``csrc/linearize.cu``).
 
-A plan depends only on the problem's index arrays (``cam_idx``,
-``pnt_idx``, ``cam_perm``, ``pnt_starts``), so it is built once per
-problem, with torch ops on the problem's device, at the first kernel call
-that needs it, and kept on the problem (``BAProblem.plans``); the LM loop
-never rebuilds it.
+The index plans depend only on the problem's index arrays (``cam_idx``,
+``pnt_idx``, ``cam_perm``, ``pnt_starts``). K8's :class:`CamRowPlan`
+copies float data too (``pt2d``, ``w``), so it is kept under a key that
+holds their dtype: ``astype`` and ``with_state`` keep the index arrays and
+share the plan dict, and ``with_state`` keeps ``pt2d`` and ``w``, but an
+``astype`` copy in another dtype builds its own row plan. Each plan is
+built once per problem, with torch ops on the problem's device, at the
+first kernel call that needs it, and kept on the problem
+(``BAProblem.plans``); the LM loop never rebuilds it.
 
 K2, :class:`TilePlan`. The point-sorted rows are cut into tiles of
 :data:`TILE_ROWS` rows. A *run* is a maximal stretch of ``cam_perm`` with
@@ -27,15 +32,20 @@ of the plan is coalesced.
 K5's point direction, :func:`point_blocks`: the points cut into ranges of
 about :data:`POINT_BLOCK_ROWS` rows each, one block per range.
 
-K5's camera direction, :class:`CamColPlan` (``csrc/seg_block_reduce.cu``),
-over the camera-sorted copy ``W_cam_t`` (column ``j`` the row
-``cam_perm[j]``): the columns are cut into ranges of
-:data:`CAM_BLOCK_COLS` columns, one block per range. A *run* is a maximal
-stretch of columns with one camera and one range; columns are in camera
-order, so run ids in column order are in camera order too. Pass 1 sums each
-run's columns into ``partial[run]``, pass 2 each camera's runs
+K5's camera direction and K6's W C W', :class:`CamColPlan`, over the
+camera-sorted copy ``W_cam_t`` (column ``j`` the row ``cam_perm[j]``): the
+columns are cut into ranges of :data:`CAM_BLOCK_COLS` (K5, a block a range)
+or :data:`WCW_BLOCK_COLS` (K6) columns. A *run* is a maximal stretch of
+columns with one camera and one range; columns are in camera order, so run
+ids in column order are in camera order too. Pass 1 sums each run's
+columns into ``partial[run]``, pass 2 each camera's runs
 ``[cam_run_starts[c], cam_run_starts[c+1])`` in run order. ``cam_pnt`` =
-``pnt_idx[cam_perm]`` gives each column's point with one coalesced read.
+``pnt_idx[cam_perm]`` (:func:`cam_pnt`, one array for every plan that
+reads it) gives each column's point with one coalesced read.
+
+K8, :class:`CamRowPlan`: the row data in camera order, so that K8 reads
+every per-row field coalesced; 16 B a row on top of ``cam_pnt`` (148 MB at
+Final-4585's 9,272,320 rows).
 """
 
 from __future__ import annotations
@@ -59,6 +69,11 @@ POINT_BLOCK_ROWS = 1024
 # measurement (`python -m bundleadjustment_jl_tpu_torch.tile_sweep --sweep
 # cam_cols`: within 6% of the best at Dubrovnik-356 and Final-4585, PERF.md).
 CAM_BLOCK_COLS = 2048
+# Columns of a K6 W C W' range (csrc/seg_prod_reduce.cu: a warp a range);
+# the same rules as CAM_BLOCK_COLS. Chosen by measurement
+# (`python -m bundleadjustment_jl_tpu_torch.tile_sweep --sweep wcw`,
+# PERF.md).
+WCW_BLOCK_COLS = 512
 
 
 class TilePlan(NamedTuple):
@@ -98,6 +113,15 @@ class CamColPlan(NamedTuple):
     @property
     def nranges(self) -> int:
         return self.range_run_starts.shape[0] - 1
+
+
+class CamRowPlan(NamedTuple):
+    """K8's row data in camera order (on the problem's device; ``pt2d``
+    and ``w`` in the problem's float dtype, the indices int32)."""
+    pt2d: torch.Tensor              # (n, 2) pt2d[cam_perm]
+    w: torch.Tensor                 # (n,) w[cam_perm]
+    cam: torch.Tensor               # (n,) cam_idx[cam_perm]
+    pnt: torch.Tensor               # (n,) pnt_idx[cam_perm], cam_pnt
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -155,9 +179,10 @@ def build_point_blocks(problem, rows: int = POINT_BLOCK_ROWS) -> torch.Tensor:
 
 
 def build_cam_col_plan(problem, cols: int = CAM_BLOCK_COLS) -> CamColPlan:
-    """K5 camera direction's plan for ``problem`` with ranges of ``cols``
-    columns (uncached; :func:`cam_col_plan` keeps it on the problem).
-    Raises ValueError unless ``cam_perm`` lists the cameras in order."""
+    """The column plan of ``problem`` with ranges of ``cols`` columns
+    (uncached; :func:`cam_col_plan` and :func:`wcw_col_plan` keep theirs
+    on the problem). Raises ValueError unless ``cam_perm`` lists the
+    cameras in order."""
     perm = problem.cam_perm.long()
     n, dev = perm.shape[0], perm.device
     cam = problem.cam_idx.long()[perm]
@@ -169,12 +194,21 @@ def build_cam_col_plan(problem, cols: int = CAM_BLOCK_COLS) -> CamColPlan:
     starts = torch.nonzero(new).flatten()
     nranges = -(-n // cols)
     return CamColPlan(
-        cols, _i32(problem.pnt_idx.long()[perm]),
+        cols, cam_pnt(problem),
         _i32(torch.cat([starts, starts.new_tensor([n])])),
         _i32(torch.searchsorted(rng[starts],
                                 torch.arange(nranges + 1, device=dev))),
         _i32(torch.searchsorted(cam[starts], torch.arange(
             problem.ncams + 1, device=dev))))
+
+
+def build_cam_row_plan(problem) -> CamRowPlan:
+    """K8's camera-order copies of ``problem``'s row data (uncached;
+    :func:`cam_row_plan` keeps them on the problem)."""
+    perm = problem.cam_perm.long()
+    return CamRowPlan(problem.pt2d[perm].contiguous(),
+                      problem.w[perm].contiguous(),
+                      _by_camera(problem, "cam_idx"), cam_pnt(problem))
 
 
 def tile_plan(problem) -> TilePlan:
@@ -192,9 +226,43 @@ def point_blocks(problem) -> torch.Tensor:
     return problem.plans["point_blocks"]
 
 
+def _by_camera(problem, field: str) -> torch.Tensor:
+    """(n,) int32 index array ``field`` in camera order (``[cam_perm]``),
+    built at the first call."""
+    key = ("by_camera", field)
+    if key not in problem.plans:
+        problem.plans[key] = _i32(
+            getattr(problem, field).long()[problem.cam_perm.long()])
+    return problem.plans[key]
+
+
+def cam_pnt(problem) -> torch.Tensor:
+    """(n,) int32 ``pnt_idx[cam_perm]``: each camera-sorted column's
+    point, one array for every plan that reads it."""
+    return _by_camera(problem, "pnt_idx")
+
+
 def cam_col_plan(problem) -> CamColPlan:
     """K5 camera direction's plan of ``problem``, built at the first call."""
     if "cam_cols" not in problem.plans:
         problem.plans["cam_cols"] = build_cam_col_plan(problem,
                                                        CAM_BLOCK_COLS)
     return problem.plans["cam_cols"]
+
+
+def wcw_col_plan(problem) -> CamColPlan:
+    """K6 W C W's column plan of ``problem``, built at the first call."""
+    if "wcw_cols" not in problem.plans:
+        problem.plans["wcw_cols"] = build_cam_col_plan(problem,
+                                                       WCW_BLOCK_COLS)
+    return problem.plans["wcw_cols"]
+
+
+def cam_row_plan(problem) -> CamRowPlan:
+    """K8's camera-order rows of ``problem``, built at the first call and
+    kept under the dtype of ``pt2d``: a copy of the problem in another
+    dtype (``astype``) never reads them."""
+    key = ("cam_rows", problem.pt2d.dtype)
+    if key not in problem.plans:
+        problem.plans[key] = build_cam_row_plan(problem)
+    return problem.plans[key]

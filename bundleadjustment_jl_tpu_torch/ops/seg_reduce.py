@@ -11,8 +11,9 @@ Point segments run over the point-sorted rows (``pnt_starts``; K5's point
 direction in blocks of point ranges, :func:`ops.plans.point_blocks`); camera
 segments over the camera-sorted copies ``JR_cam_t = JR_t[:, cam_perm]`` /
 ``W_cam_t = W_t[:, cam_perm]`` (``cam_starts``), whose column ``j`` is the
-row ``cam_perm[j]`` (K5's camera direction in column ranges with per-run
-partial sums, :func:`ops.plans.cam_col_plan`, a (nruns, 9) scratch buffer
+row ``cam_perm[j]`` (K5's camera direction and K6's W C W' in column
+ranges with per-run partial sums, :func:`ops.plans.cam_col_plan` and
+:func:`ops.plans.wcw_col_plan`, a (nruns, 9) or (nruns, 45) scratch buffer
 per call). ``JR_t`` is the (26, n) layout of `ops/linearize.py`,
 ``W_t`` the (27, n) one of `ops/fused_schur.py`, stored as float32,
 bfloat16 or float16 (the kernels read that type and widen at the load; the
@@ -117,8 +118,8 @@ def jtj_cam_reduce(JR_cam_t: torch.Tensor,
     _cuda.require_problem(problem)
     out = _out(JR_cam_t, (nc, 90))
     rc = _cuda.lib().ba_jtj_cam_reduce(
-        _cuda.ptr(JR_cam_t), _cuda.ptr(problem.cam_perm),
-        _cuda.ptr(problem.cam_starts), nc, n, _cuda.ptr(out), _cuda.stream())
+        _cuda.ptr(JR_cam_t), _cuda.ptr(problem.cam_starts), nc, n,
+        _cuda.ptr(out), _cuda.stream())
     _cuda.check(rc, "ba_jtj_cam_reduce")
     _cuda.launched("seg_prod_cam90")
     return out
@@ -140,12 +141,13 @@ def wcw_cam_reduce(W_cam_t: torch.Tensor, problem: BAProblem,
     code = _cuda.w_code(W_cam_t, "W_cam_t", (27, n))
     _cuda.require(hpp_inv_f, "hpp_inv_f", torch.float32, (npt * 9,))
     _cuda.require_problem(problem)
+    plan = plans.wcw_col_plan(problem)
+    partial = _out(W_cam_t, (plan.nruns, 45))
     out = _out(W_cam_t, (nc, 81))
-    p = problem
     rc = _cuda.lib().ba_wcw_cam_reduce(
-        _cuda.ptr(W_cam_t), code, _cuda.ptr(p.pnt_idx), _cuda.ptr(p.cam_perm),
-        _cuda.ptr(p.cam_starts), _cuda.ptr(hpp_inv_f), nc, n, _cuda.ptr(out),
-        _cuda.stream())
+        _cuda.ptr(W_cam_t), code, _cuda.ptr(hpp_inv_f),
+        _cuda.cam_col_plan_arg(plan), nc, n, _cuda.ptr(partial),
+        _cuda.ptr(out), _cuda.stream())
     _cuda.check(rc, "ba_wcw_cam_reduce")
     _cuda.launched("seg_prod_wcw81", W_cam_t)
     return out

@@ -1,28 +1,35 @@
 """Time K2's tiled camera reduce and K3 at several tile sizes, and K5's
-camera direction at several column ranges, on one card: the measurements
-behind ``csrc/cam_prod.cuh:BA_TILE_ROWS`` and
-``ops/plans.py:CAM_BLOCK_COLS``.
+camera direction and K6's W C W' at several column ranges, on one card:
+the measurements behind ``csrc/cam_prod.cuh:BA_TILE_ROWS``,
+``ops/plans.py:CAM_BLOCK_COLS``, and ``ops/plans.py:WCW_BLOCK_COLS`` with
+``csrc/seg_prod_reduce.cu:BA_WCW_COLS``.
 
-    python -m bundleadjustment_jl_tpu_torch.tile_sweep [--sweep tiles|cam_cols]
+    python -m bundleadjustment_jl_tpu_torch.tile_sweep \
+        [--sweep tiles|cam_cols|wcw]
 
-Without ``--sweep`` both run. Column ranges (``cam_cols``): for each C
-of :data:`COLS_ORDER` (2048 first and last, for the spread)
-``plans.CAM_BLOCK_COLS = C`` and the problem's K5 plan rebuilt (the kernel
-takes C at run time), then K5's camera direction timed over the
-camera-sorted W in float32, bfloat16 and float16 at synthetic
-Dubrovnik-356 and Final-4585, as below. Tile sizes (``tiles``):
+Without ``--sweep`` all run. A constant of the CUDA sources is swept by
+building a copy of ``csrc/`` with that constant changed under the
+git-ignored ``_build/tile_sweep/`` and loading it in place of the
+package's kernels (``ops/_cuda.py``'s ``CSRC`` and ``BUILD_DIR`` pointed at
+the copy); a plan size is swept by setting it in ``ops/plans.py`` and
+dropping the problem's plan (the kernels take it at run time). The
+package's sources are not changed. Times: CUDA events, L2 flushed before
+each launch (``utils/timing.timed``), at synthetic Dubrovnik-356 and
+Final-4585; each sweep's first setting comes again last, to show the
+run-to-run spread.
 
-For each tile size R of :data:`ORDER` (1024 first and last, to show the
-run-to-run spread), a copy of ``csrc/`` with ``BA_TILE_ROWS = R`` is built
-under the git-ignored ``_build/tile_sweep/`` and loaded in place of the
-package's kernels (``ops/_cuda.py``'s ``CSRC`` and ``BUILD_DIR`` pointed
-at the copy), with ``ops/plans.py:TILE_ROWS = R`` and the problems' plans
-dropped. Then, at synthetic Dubrovnik-356 and Final-4585: the plan's build
-time and run count, and the time of K2's four forms and K3 (CUDA events,
-L2 flushed before each launch: ``utils/timing.timed``), W in float32 and
-bfloat16. Prints one line per (problem, R, form) and, last, all of it as
-one JSON object. The package's sources are not changed. A run that finds
-no card raises.
+- ``cam_cols``: K5's camera direction over the camera-sorted W in
+  float32, bfloat16 and float16 at each C of :data:`COLS_ORDER`.
+- ``tiles``: for each tile size R of :data:`ORDER`, ``BA_TILE_ROWS = R``
+  and ``TILE_ROWS = R``: the plan's build time and run count, and the time
+  of K2's four forms and K3, W in float32 and bfloat16.
+- ``wcw``: K6's W C W' over the camera-sorted W in float32, bfloat16 and
+  float16, at each (``BA_WCW_COLS``, ``WCW_BLOCK_COLS``) of
+  :data:`WCW_ORDER`, also at the card tests' ``many_cameras`` and
+  ``empty_cameras_ragged`` shapes (:data:`EDGE_SHAPES`).
+
+Prints one line per (problem, setting, form) and, last, all of it as one
+JSON object. A run that finds no card raises.
 """
 
 from __future__ import annotations
@@ -32,33 +39,68 @@ import re
 import shutil
 import time
 
+import numpy as np
 import torch
 
 from bundleadjustment_jl_tpu_torch import bench
 
 ORDER = (1024, 256, 512, 1024)
 COLS_ORDER = (2048, 1024, 4096, 8192, 2048)
+# (BA_WCW_COLS, WCW_BLOCK_COLS): columns a lane, columns a range
+WCW_ORDER = ((2, 512), (2, 256), (2, 1024), (2, 2048), (4, 512), (2, 512))
 REPS = 10
+W_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
-def use_tile_rows(rows: int) -> None:
-    """Build and load the kernels with ``BA_TILE_ROWS = rows``."""
-    from bundleadjustment_jl_tpu_torch.ops import _cuda, plans
-    root = _cuda._PKG / "_build" / "tile_sweep" / f"R{rows}"
+def use_constant(source: str, name: str, value: int) -> None:
+    """Build and load the kernels with ``constexpr int <name> = value;`` in
+    ``csrc/<source>``, the other sources as the package has them."""
+    from bundleadjustment_jl_tpu_torch.ops import _cuda
+    root = _cuda._PKG / "_build" / "tile_sweep" / f"{name}{value}"
     src = root / "csrc"
     if not src.exists():
         shutil.copytree(_cuda._PKG / "csrc", src)
-        head = src / "cam_prod.cuh"
-        text, count = re.subn(r"constexpr int BA_TILE_ROWS = \d+;",
-                              f"constexpr int BA_TILE_ROWS = {rows};",
+        head = src / source
+        text, count = re.subn(rf"constexpr int {name} = \d+;",
+                              f"constexpr int {name} = {value};",
                               head.read_text())
         if count != 1:
-            raise RuntimeError("BA_TILE_ROWS not found in cam_prod.cuh")
+            raise RuntimeError(f"{name} not found in {source}")
         head.write_text(text)
     _cuda.CSRC, _cuda.BUILD_DIR = src, root / "_build"
     _cuda.lib.cache_clear()
     _cuda.lib()
+
+
+def use_tile_rows(rows: int) -> None:
+    """Build and load the kernels with ``BA_TILE_ROWS = rows``."""
+    from bundleadjustment_jl_tpu_torch.ops import plans
+    use_constant("cam_prod.cuh", "BA_TILE_ROWS", rows)
     plans.TILE_ROWS = rows
+
+
+def edge_problem(case: str):
+    """The card tests' ``many_cameras`` (700 cameras of a few rows each,
+    more than a K2 tile has rows) and ``empty_cameras_ragged`` (cameras
+    without rows, 1203 rows) shapes (``tests/test_torch_cuda.py``), f32 on
+    the card, from seed 7."""
+    from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
+    rng = np.random.default_rng(7)
+    if case == "many_cameras":
+        ncams, npnts, pad = 700, 400, 512
+        pnt = np.repeat(np.arange(npnts), 5)
+        cam = rng.integers(0, ncams, size=pnt.size)
+    else:
+        ncams, npnts, pad = 50, 401, 1
+        pnt = np.repeat(np.arange(npnts), 3)
+        cam = rng.integers(10, ncams, size=pnt.size)
+    return BAProblem.from_arrays(
+        rng.standard_normal((ncams, 9)), rng.standard_normal((npnts, 3)),
+        cam, pnt, rng.standard_normal((pnt.size, 2)), dtype=torch.float32,
+        pad_obs_to=pad, device="cuda")
+
+
+EDGE_SHAPES = ("many_cameras", "empty_cameras_ragged")
 
 
 def sweep() -> dict:
@@ -167,14 +209,82 @@ def sweep_cam_cols() -> dict:
     return out
 
 
+def wcw_operands(p):
+    """Camera-sorted W in each of :data:`W_DTYPES` and a damped Hpp_inv
+    for K6's W C W' on ``p``: the problem's own at its state for the
+    synthetic problems, random ones (from seed 8) at the edge shapes."""
+    from bundleadjustment_jl_tpu_torch.ops import linearize as lz
+    from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
+    from bundleadjustment_jl_tpu_torch.ops.normal import inv3x3_damped_flat
+    from bundleadjustment_jl_tpu_torch.solver.lm_jit import narrow_w
+    if p.nobs_pad > 1 << 16:
+        JR_t, W = lz.linearize_w_kminor(p, p.cams, p.points)
+        hp12 = sr.jtj_pnt_reduce(JR_t, p)
+        hpp = inv3x3_damped_flat(hp12[:, :9].reshape(-1),
+                                 1e-3 * float(hp12[:, :9:4].max()))
+    else:
+        gen = torch.Generator(device="cuda").manual_seed(8)
+        W = torch.randn((27, p.nobs_pad), generator=gen, device="cuda")
+        A = torch.randn((p.npnts, 3, 3), generator=gen, device="cuda")
+        hpp = (A @ A.transpose(1, 2) + torch.eye(3, device="cuda")).reshape(
+            -1).contiguous()
+    perm = p.cam_perm.long()
+    return ({str(dt)[6:]: narrow_w(W, dt)[:, perm].contiguous()
+             for dt in W_DTYPES}, hpp)
+
+
+def sweep_wcw() -> dict:
+    """K6's W C W' at each (columns a lane, columns a range) of
+    :data:`WCW_ORDER`."""
+    bench.require_card()
+    from bundleadjustment_jl_tpu_torch.ops import plans
+    from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
+    from bundleadjustment_jl_tpu_torch.utils.timing import timed
+
+    default = plans.WCW_BLOCK_COLS
+    out = {"device": bench.card(), "lines": []}
+    problems = {name: bench.make_problem(name, 0)
+                for name in ("dubrovnik356", "final4585")}
+    problems.update({name: edge_problem(name) for name in EDGE_SHAPES})
+    ops = {name: wcw_operands(p) for name, p in problems.items()}
+    try:
+        for lane_cols, cols in WCW_ORDER:
+            use_constant("seg_prod_reduce.cu", "BA_WCW_COLS", lane_cols)
+            plans.WCW_BLOCK_COLS = cols
+            for name, p in problems.items():
+                p.plans.pop("wcw_cols", None)
+                plan = plans.wcw_col_plan(p)
+                Ws, hpp = ops[name]
+                for dt, Wc in Ws.items():
+                    ms = timed(sr.wcw_cam_reduce, (Wc, p, hpp), reps=REPS,
+                               flush_l2=True).ms
+                    bound = bench.bound_ms("seg_prod_wcw81", p,
+                                           Wc.element_size())[0]
+                    line = {"problem": name, "lane_cols": lane_cols,
+                            "cols": cols,
+                            "form": f"seg_prod_wcw81@{dt}", "ms": ms,
+                            "bound_ms": bound, "nruns": plan.nruns,
+                            "nranges": plan.nranges}
+                    out["lines"].append(line)
+                    print(f"{name:20s} V {lane_cols} C {cols:5d} "
+                          f"{line['form']:24s} {ms:9.4f} ms  bound "
+                          f"{bound:.4f} ({bound / ms:.3f})  runs "
+                          f"{plan.nruns}", flush=True)
+    finally:
+        plans.WCW_BLOCK_COLS = default
+    return out
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--sweep", choices=("tiles", "cam_cols"))
+    ap.add_argument("--sweep", choices=("tiles", "cam_cols", "wcw"))
     which = ap.parse_args().sweep
     outs = {}
     if which in (None, "cam_cols"):
         outs["cam_cols"] = sweep_cam_cols()
+    if which in (None, "wcw"):
+        outs["wcw"] = sweep_wcw()
     if which in (None, "tiles"):
         outs["tiles"] = sweep()
     card = next(iter(outs.values()))["device"]["nvidia_smi"]

@@ -8,8 +8,8 @@ CUDA card.
    ``nvcc`` per source, in parallel) and prints the build time and the
    compiler's register report.
 2. Builds each launch plan (``ops/plans.py``: K2's tiles, K5's point
-   ranges, K5's camera-direction column ranges) once more and prints its
-   build time, then checks each kernel
+   ranges, K5's and K6's column ranges, K8's camera-order rows) once more
+   from scratch and prints its build time, then checks each kernel
    against its plain PyTorch version on the card, at the shapes of
    synthetic LadyBug-49 and Dubrovnik-356 (as ``bench.py`` builds them),
    and times both in turns (plain, kernel, kernel, plain): K1-K4 of the
@@ -50,7 +50,7 @@ CUDA card.
    the H100's published 3.35 TB/s.
 6. Every kernel that reads or writes W with W stored in bfloat16 and in
    float16 (``facto_dtype``), against its plain version at LadyBug-49 and
-   Dubrovnik-356 shapes (all but K7 and K6 at Final-4585's too), timed in
+   Dubrovnik-356 shapes (all but K7 at Final-4585's too), timed in
    turns: the
    readers to the tolerances of phase 2 (both sides widen the same stored
    W), the writers' W to those tolerances plus one ulp of the storage
@@ -161,11 +161,12 @@ KERNELS = {
 }
 # The forms that read their rows through a launch plan (`ops/plans.py`:
 # K2's four, K5's both directions, K3 = K5 point + K2 W op, K1's point
-# pass = K5's point walk): a second launch must give bit-identical output
-# (fixed-order sums, no atomics).
+# pass = K5's point walk, K6's W C W', K8): a second launch must give
+# bit-identical output (fixed-order sums, no atomics).
 REPEAT_CHECKED = ("cam_reduce", "cam_reduce_w_op", "cam_reduce_wcw81",
                   "cam_reduce_cam90", "seg_block_point", "matvec",
-                  "assemble", "seg_block_camera")
+                  "assemble", "seg_block_camera", "seg_prod_wcw81",
+                  "linearize_w_only")
 # counter -> its row of the kernel table
 KERNEL_OF = {c: k for k, (_, _, counters, _) in KERNELS.items()
              for c in counters}
@@ -402,11 +403,16 @@ def checker(name, problem, errs, timings, facts):
 
 
 def plan_times(name, problem, facts):
-    """Build each plan of ``problem`` twice more (``ops/plans.py``,
-    uncached) and record the second build's time (the first loads torch's
-    sort kernels in a fresh process): K2's tiles under the K2 and K3 rows,
-    K5's point ranges under the K5 and K3 rows, K5's column ranges under
-    the K5 row. (K1 reads the point ranges.)"""
+    """Build each plan of ``problem`` twice more from scratch
+    (``ops/plans.py``, on a copy of the problem with no plans, so shared
+    pieces such as ``cam_pnt`` are built too) and record the second
+    build's time (the first loads torch's sort kernels in a fresh
+    process): K2's tiles under the K2 and K3 rows, K5's point ranges under
+    the K5 and K3 rows, K5's column ranges under the K5 row, K6's under
+    the K6 row, K8's camera-order rows under the K8 row. (K1 reads the
+    point ranges.)"""
+    import dataclasses
+
     import torch
     from bundleadjustment_jl_tpu_torch.ops import plans
     for label, build, rows in (
@@ -414,16 +420,26 @@ def plan_times(name, problem, facts):
             ("point_blocks", plans.build_point_blocks,
              ("seg_block_reduce", "matvec")),
             ("cam_col_plan", plans.build_cam_col_plan,
-             ("seg_block_reduce",))):
-        build(problem)
+             ("seg_block_reduce",)),
+            ("wcw_col_plan", lambda p: plans.build_cam_col_plan(
+                p, plans.WCW_BLOCK_COLS), ("seg_prod_reduce",)),
+            ("cam_row_plan", plans.build_cam_row_plan,
+             ("linearize_w_only",))):
+        build(dataclasses.replace(problem, plans={}))
         torch.cuda.synchronize()
+        fresh = dataclasses.replace(problem, plans={})
         t0 = time.perf_counter()
-        plan = build(problem)
+        plan = build(fresh)
         torch.cuda.synchronize()
         ms = 1e3 * (time.perf_counter() - t0)
-        size = (f"{plan.shape[0] - 1} blocks" if label == "point_blocks"
-                else f"{plan.nruns} runs, {plan.nruns / problem.nobs_pad:.3f}"
-                f" a row")
+        if label == "point_blocks":
+            size = f"{plan.shape[0] - 1} blocks"
+        elif label == "cam_row_plan":
+            nbytes = sum(t.numel() * t.element_size() for t in plan)
+            size = f"{nbytes / 1e6:.1f} MB"
+        else:
+            size = (f"{plan.nruns} runs, {plan.nruns / problem.nobs_pad:.3f}"
+                    f" a row")
         print(f"  plan {label:12s} {name}: {ms:.2f} ms ({size})")
         for k in rows:
             facts.setdefault(k, {}).setdefault("plan_build_ms", {})[
@@ -567,7 +583,7 @@ def check_probe(errs, timings, probe):
 def check_narrow(name, problem, errs, timings, facts, final=False):
     """Phase 6 for one problem: every kernel that reads or writes W, with W
     in bfloat16 and in float16, against its plain version (``final``:
-    all but K7 and K6, the writers and readers of route C alone), timed in
+    all but K7, which writes W for route C alone), timed in
     turns, five launches a window as
     phase 2 times the float32 forms at this size (two at Final-4585, where
     each launch takes milliseconds and the plain versions are slow); the
@@ -648,10 +664,9 @@ def check_narrow(name, problem, errs, timings, facts, final=False):
         check("seg_block_camera",
               lambda: sr.wt_cam_reduce(W_cam, t, problem),
               lambda: sr._wt_cam_plain(W_cam, t, problem))
-        if not final:
-            check("seg_prod_wcw81",
-                  lambda: sr.wcw_cam_reduce(W_cam, problem, hpp_inv),
-                  lambda: sr._wcw_cam_plain(W_cam, problem, hpp_inv))
+        check("seg_prod_wcw81",
+              lambda: sr.wcw_cam_reduce(W_cam, problem, hpp_inv),
+              lambda: sr._wcw_cam_plain(W_cam, problem, hpp_inv))
         del W_cam
         del W
     for k in sorted(k for k in timings if "@" in k and name in timings[k]):

@@ -456,7 +456,8 @@ def k1_state(p):
 
 def edge_operands(p, dtype):
     """Random W (stored in ``dtype``), JR, an SPD Hpp_inv, point and
-    camera vectors for :func:`edge_problem`'s problem."""
+    camera vectors for :func:`edge_problem`'s problem, and a state
+    (:func:`k1_state`)."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     n, npt = p.nobs_pad, p.npnts
 
@@ -467,18 +468,40 @@ def edge_operands(p, dtype):
                 else rand(27, n), JR=rand(26, n),
                 hpp_inv=(A @ A.transpose(1, 2) + torch.eye(3, device="cuda"))
                 .reshape(-1).contiguous(), t=rand(npt, 3),
-                gp=rand(npt * 3), v=rand(p.ncams, 9))
+                gp=rand(npt * 3), v=rand(p.ncams, 9), state=k1_state(p))
+
+
+# The forms of redesigned_calls that write W (compared by close_stored).
+W_WRITER_FORMS = ("linearize_w_only",)
+
+
+def close_stored(got, want):
+    """A writer's W against its plain version's, both in the storage
+    dtype: one ulp of it plus 1e-6 of the largest entry (the two float32 W
+    differ there before rounding)."""
+    assert got.dtype == want.dtype
+    ref32 = want.float()
+    torch.testing.assert_close(got.float(), ref32,
+                               rtol=torch.finfo(got.dtype).eps,
+                               atol=1e-6 * float(ref32.abs().max()))
 
 
 def redesigned_calls(p, o):
     """K2's four forms, K5's point direction in its three forms and its
-    camera direction, and K3 in its two, each as (kernel call, plain
+    camera direction, K3 in its two, K6's W C W' and K8 (writing W in the
+    dtype of ``o["W"]`` at ``o["state"]``), each as (kernel call, plain
     call)."""
     W, hp, t, gp, v = o["W"], o["hpp_inv"], o["t"], o["gp"], o["v"]
     W_cam = W[:, p.cam_perm.long()].contiguous()
+    cams, points = o["state"]
     calls = {
         "seg_block_camera": (lambda: sr.wt_cam_reduce(W_cam, t, p),
                              lambda: sr._wt_cam_plain(W_cam, t, p)),
+        "seg_prod_wcw81": (lambda: sr.wcw_cam_reduce(W_cam, p, hp),
+                           lambda: sr._wcw_cam_plain(W_cam, p, hp)),
+        "linearize_w_only": (
+            lambda: lz.linearize_w_only(p, cams, points, W.dtype),
+            lambda: lz._linearize_w_only_plain(p, cams, points, W.dtype)),
         "cam_reduce_w_op": (lambda: fs.cam_reduce_w_op(W, p, t),
                             lambda: fs._cam_reduce_w_op_plain(W, p, t)),
         "cam_reduce_wcw81": (lambda: fs.cam_reduce_wcw(W, p, hp),
@@ -513,11 +536,12 @@ def redesigned_calls(p, o):
                                   "empty_cameras_ragged"])
 def test_redesigned_kernels_at_edge_shapes_on_card(case, dtype):
     """K2's tiled camera reduce (each form), K5's point ranges (each form)
-    and column ranges, K3, and K1 writing W in ``dtype`` against their
-    plain versions at :func:`edge_problem`'s shapes, W in ``dtype``; a
-    second launch gives bit-identical output (fixed-order sums, no
-    atomics). K1's W to one ulp of ``dtype`` plus 1e-6 of its largest
-    entry (the two float32 W differ there before rounding)."""
+    and column ranges, K3, K6's W C W' column ranges, and K8 and K1
+    writing W in ``dtype`` against their plain versions at
+    :func:`edge_problem`'s shapes, W in ``dtype``; a second launch gives
+    bit-identical output (fixed-order sums, no atomics). The writers' W to
+    one ulp of ``dtype`` plus 1e-6 of its largest entry
+    (:func:`close_stored`)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     p = edge_problem(case)
@@ -528,18 +552,15 @@ def test_redesigned_kernels_at_edge_shapes_on_card(case, dtype):
         pairs = (zip(got, want, again) if isinstance(got, tuple)
                  else [(got, want, again)])
         for g, w, a in pairs:
-            close(g, w)
+            (close_stored if key in W_WRITER_FORMS else close)(g, w)
             assert torch.equal(g, a), key
-    cams, points = k1_state(p)
+    cams, points = o["state"]
     got = fa.assemble_scatter(p, cams, points, dtype)
     again = fa.assemble_scatter(p, cams, points, dtype)
     want = fa._assemble_plain(p, cams, points, dtype)
     assert all(torch.equal(g, a) for g, a in zip(got, again))
     assert got[0].dtype == want[0].dtype == dtype
-    ref32 = want[0].float()
-    torch.testing.assert_close(got[0].float(), ref32,
-                               rtol=torch.finfo(dtype).eps,
-                               atol=1e-6 * float(ref32.abs().max()))
+    close_stored(got[0], want[0])
     for g, w in zip(got[1:], want[1:]):
         close(g.reshape(-1), w.reshape(-1), afrac=1e-5)
     if case == "long_point":

@@ -1,17 +1,18 @@
 """The launch plans of the row-reduction kernels
 (`bundleadjustment_jl_tpu_torch/ops/plans.py`), on the CPU: K2's camera
 direction (tiles), K5's point direction and K1's point pass (point
-ranges), K5's camera direction (column ranges); and K1's camera pass, a
-block per camera.
+ranges), K5's camera direction and K6's W C W' (column ranges), K8's
+camera-order row copies; and K1's camera pass, a block per camera.
 
 The CUDA kernels (``csrc/cam_prod.cuh``, ``csrc/wtv_point.cuh``,
-``csrc/seg_block_reduce.cu``, ``csrc/assemble.cu``) run only on a card;
-here each plan is checked for the properties the kernels rely on, and the
-kernels' walks are written out in torch ops over the plan (the same reads,
-in the same roles) and held to the JAX package's kernels
-(`cam_scatter_reduce`, `wt_cam_reduce`, `assemble_scatter`; Pallas
-interpret mode, as its own tests run them) and to the port's plain twins.
-Small tiles, ranges and chunks, so every edge is hit.
+``csrc/seg_block_reduce.cu``, ``csrc/seg_prod_reduce.cu``,
+``csrc/linearize.cu``, ``csrc/assemble.cu``) run only on a card; here each
+plan is checked for the properties the kernels rely on, and the kernels'
+walks are written out in torch ops over the plan (the same reads, in the
+same roles) and held to the JAX package's kernels (`cam_scatter_reduce`,
+`wt_cam_reduce`, `wcw_cam_reduce`, `linearize_w_only`, `assemble_scatter`;
+Pallas interpret mode, as its own tests run them) and to the port's plain
+twins. Small tiles, ranges and chunks, so every edge is hit.
 
 Tolerances: f32 against the JAX kernel, rtol 1e-4 with atol 1e-5 of the
 largest entry (f32 sums in another order; K1 against the JAX assembly:
@@ -30,13 +31,14 @@ import pytest
 import torch
 
 from bundleadjustment_jl_tpu.io.synthetic import synthetic_bal as jax_synthetic
-from bundleadjustment_jl_tpu.ops import pallas_schur
+from bundleadjustment_jl_tpu.ops import pallas_linearize, pallas_schur
 from bundleadjustment_jl_tpu.ops.normal import assemble_blocks as jax_assemble
 from bundleadjustment_jl_tpu.ops.pallas_schur import (
     cam_scatter_reduce, gather_k_minor, pad_rows, tile_bounds)
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
 from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
+from bundleadjustment_jl_tpu_torch.ops import linearize as lz
 from bundleadjustment_jl_tpu_torch.ops import plans
 from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
 from bundleadjustment_jl_tpu_torch.ops.chain import linearize
@@ -196,13 +198,16 @@ def test_plan_sizes_match_the_kernels():
     for name, source in (("BA_PNT_ROWS_PER_THREAD", "wtv_point.cuh"),
                          ("BA_ASM_ROWS_PER_THREAD", "assemble.cu")):
         assert constant(name, source) * block >= plans.POINT_BLOCK_ROWS + 256
-    align = constant("BA_CAM_COL_ALIGN", "seg_block_reduce.cu")
+    align = constant("BA_CAM_COL_ALIGN", "cam_cols.cuh")
     # a thread's columns: BA_CAM_LOAD_BYTES of a 2-byte W at most
-    assert align % (constant("BA_CAM_LOAD_BYTES", "seg_block_reduce.cu")
-                    // 2) == 0
-    assert align % 4 == 0 and plans.CAM_BLOCK_COLS % align == 0
-    assert plans.CAM_BLOCK_COLS <= constant("BA_CAM_COLS_MAX",
-                                            "seg_block_reduce.cu")
+    assert align % (constant("BA_CAM_LOAD_BYTES", "cam_cols.cuh") // 2) == 0
+    for cols in (plans.CAM_BLOCK_COLS, plans.WCW_BLOCK_COLS):
+        assert align % 4 == 0 and cols % align == 0
+        assert cols <= constant("BA_CAM_COLS_MAX", "cam_cols.cuh")
+    # K6 W C W': columns a lane, whole words of a 2-byte W's planes and a
+    # divisor of the column alignment
+    lane_cols = constant("BA_WCW_COLS", "seg_prod_reduce.cu")
+    assert lane_cols in (2, 4) and align % lane_cols == 0
 
 
 # ------------------------------------------------------- K2: two passes
@@ -589,6 +594,162 @@ def test_cam_walk_matches_pallas(jprob):
     got, _ = cam_walk(cam_products(torch.from_numpy(W_cam),
                                    torch.from_numpy(t), tp), plan, 4, 8)
     close32(got, np.asarray(ref))
+
+
+# ------------------------------------------------ K6 W C W': column ranges
+def wcw_walk(y, plan, V, lanes=32):
+    """K6 W C W's pass 1 and 2 (csrc/seg_prod_reduce.cu) in torch ops over
+    per-column sums ``y`` (n, K), camera order: a warp of ``lanes`` lanes
+    per range, each lane ``V`` consecutive columns of a chunk; the open
+    run's sums kept per lane from chunk to chunk (each lane adds its
+    columns in the run); when the run ends, the lanes' sums added and
+    written to ``partial[run]``, and the next run opened (in the same
+    chunk, or at the next chunk's start); pass 2 sums each camera's runs
+    in order. Returns the camera sums and how often each run was
+    written."""
+    n, C, chunk = y.shape[0], plan.cols, lanes * V
+    bounds, rrs = plan.run_bounds.tolist(), plan.range_run_starts.tolist()
+    partial = torch.zeros((plan.nruns, y.shape[1]), dtype=y.dtype)
+    written = [0] * plan.nruns
+    for b in range(plan.nranges):
+        c0, r0 = b * C, rrs[b]
+        length = min(C, n - c0)
+        acc = torch.zeros((lanes, y.shape[1]), dtype=y.dtype)
+        r, lo, hi = 0, 0, bounds[r0 + 1] - c0
+        for s0 in range(0, length, chunk):
+            s1 = min(s0 + chunk, length)
+            cols = torch.arange(s0, s1)
+            while True:
+                mine = (cols >= lo) & (cols < hi)
+                acc.index_add_(0, (cols[mine] - s0) // V, y[c0 + cols[mine]])
+                if hi > s1:
+                    break
+                partial[r0 + r] = acc.sum(0)
+                written[r0 + r] += 1
+                acc.zero_()
+                if hi == length:
+                    break
+                chunk_ends = hi == s1
+                r, lo, hi = r + 1, hi, bounds[r0 + r + 2] - c0
+                if chunk_ends:
+                    break
+    crs = plan.cam_run_starts.long()
+    cam_of_run = torch.repeat_interleave(torch.arange(crs.shape[0] - 1),
+                                         crs[1:] - crs[:-1])
+    out = torch.zeros((crs.shape[0] - 1, y.shape[1]), dtype=y.dtype)
+    return out.index_add_(0, cam_of_run, partial), written
+
+
+def spd_blocks(rng, npnts):
+    """(npnts * 9,) symmetric positive definite 3x3 blocks, an Hpp_inv."""
+    A = rng.standard_normal((npnts, 3, 3))
+    return torch.from_numpy((A @ A.transpose(0, 2, 1)
+                             + np.eye(3)).reshape(-1))
+
+
+@pytest.mark.parametrize("case", CAM_CASES)
+@pytest.mark.parametrize("V, lanes", [(1, 4), (2, 2), (4, 2), (2, 32)])
+def test_wcw_walk_matches_plain(case, V, lanes):
+    """K6 W C W's walk over 16-column ranges (chunks of 4 or 8 columns, so
+    runs cross chunks and lanes, or of 64, one chunk a range) writes every
+    run once and gives the plain twin's sums, in f64; a camera without rows
+    gets exact zeros."""
+    p = CAM_CASES[case]()
+    rng = np.random.default_rng(7)
+    W_cam = torch.from_numpy(rng.standard_normal((27, p.nobs_pad)))
+    hpp = spd_blocks(rng, p.npnts)
+    plan = plans.build_cam_col_plan(p, cols=16)
+    got, written = wcw_walk(sr.wcw_rows(W_cam, hpp, plan.cam_pnt.long()),
+                            plan, V, lanes)
+    assert written == [1] * plan.nruns
+    want = sr.wcw_cam_reduce(W_cam, p, hpp)
+    torch.testing.assert_close(got, want, rtol=1e-12, atol=1e-12)
+    empty = p.cam_starts[1:] == p.cam_starts[:-1]
+    assert not got[empty].any() and not want[empty].any()
+    if case == "empty_cameras":
+        assert torch.nonzero(empty).flatten().tolist() == [0, 3, 5]
+
+
+def test_wcw_walk_matches_pallas(jprob):
+    """The walk in f32, at the kernel's column range and columns a lane,
+    against the JAX `wcw_cam_reduce` over the same camera-sorted W and
+    Hpp_inv (interpret mode)."""
+    jp, tp, ops = jprob
+    perm = np.asarray(jp.cam_perm)
+    W_cam = ops["W"][:, perm]
+    ref = pallas_schur.wcw_cam_reduce(
+        pad_rows(jnp.asarray(W_cam), 32),
+        pallas_schur.hpp_inv_sym6_t(jnp.asarray(ops["C"]), jp.pnt_idx[perm]),
+        jp.cam_idx[perm], jp.cam_starts, jp.ncams, interpret=True)
+    plan = plans.build_cam_col_plan(tp, cols=plans.WCW_BLOCK_COLS)
+    got, written = wcw_walk(sr.wcw_rows(torch.from_numpy(W_cam),
+                                        torch.from_numpy(ops["C"]),
+                                        plan.cam_pnt.long()), plan,
+                            constant("BA_WCW_COLS", "seg_prod_reduce.cu"))
+    assert written == [1] * plan.nruns
+    close32(got, np.asarray(ref))
+
+
+# --------------------------------------------- K8: camera-order row copies
+@pytest.mark.parametrize("case", CAM_CASES)
+def test_cam_row_plan_copies_the_rows(case):
+    """K8's plan holds pt2d, w, cam_idx and pnt_idx in camera order (the
+    last the column plans' cam_pnt, one array), contiguous, in the
+    problem's dtypes."""
+    p = CAM_CASES[case]()
+    rows = plans.cam_row_plan(p)
+    perm = p.cam_perm.long()
+    for got, want in ((rows.pt2d, p.pt2d[perm]), (rows.w, p.w[perm]),
+                      (rows.cam, p.cam_idx[perm]), (rows.pnt,
+                                                    p.pnt_idx[perm])):
+        assert got.dtype == want.dtype and got.is_contiguous()
+        assert torch.equal(got, want)
+    assert rows.pnt is plans.cam_col_plan(p).cam_pnt \
+        is plans.wcw_col_plan(p).cam_pnt
+    assert plans.cam_row_plan(p) is rows
+
+
+@pytest.mark.parametrize("first", ["original", "copy"])
+def test_cam_row_plan_is_kept_per_dtype(first):
+    """``with_state`` keeps pt2d and w and shares the row plan; an
+    ``astype`` copy in another dtype builds its own from its own arrays,
+    whichever of the two asks first, and never reads the other's; both
+    share the index plans."""
+    p = CAM_CASES["random"]()
+    q = p.astype(torch.float64)
+    built = {}
+    for name in ((first, "copy" if first == "original" else "original")):
+        built[name] = plans.cam_row_plan(p if name == "original" else q)
+    rows, rows64 = built["original"], built["copy"]
+    assert rows.pt2d.dtype == torch.float32
+    assert rows64.pt2d.dtype == rows64.w.dtype == torch.float64
+    assert rows64.pt2d.data_ptr() != rows.pt2d.data_ptr()
+    perm = p.cam_perm.long()
+    assert torch.equal(rows64.pt2d, q.pt2d[perm])
+    assert torch.equal(rows64.w, q.w[perm])
+    assert rows64.cam is rows.cam and rows64.pnt is rows.pnt
+    moved = p.with_state(p.cams + 1.0, p.points)
+    assert plans.cam_row_plan(moved) is rows
+    assert plans.cam_row_plan(q.with_state(q.cams, q.points)) is rows64
+
+
+def test_k8_reads_match_pallas(jprob):
+    """K8's reads in torch ops: the chain at cams[cam], points[pnt],
+    pt2d and w of the plan's camera-order rows, W = Jc' Jp, in f32,
+    against the JAX `linearize_w_only` on its own camera-sorted packed
+    operands (interpret mode), and against the plain twin."""
+    jp, tp, _ = jprob
+    perm = jp.cam_perm
+    ref = pallas_linearize.linearize_w_only(pallas_linearize.pack_operands(
+        jp.cams, jp.points, jp.cam_idx[perm], jp.pnt_idx[perm],
+        jp.pt2d[perm], jp.w[perm]), interpret=True)
+    rows = plans.cam_row_plan(tp)
+    _, Jc, Jp = linearize(tp.cams[rows.cam.long()],
+                          tp.points[rows.pnt.long()], rows.pt2d, rows.w)
+    got = torch.einsum("nia,nib->abn", Jc, Jp).reshape(27, -1)
+    close32(got, np.asarray(ref)[:27])
+    torch.testing.assert_close(got, lz._linearize_w_only_plain(
+        tp, tp.cams, tp.points), rtol=0, atol=0)
 
 
 # ------------------------------------------------------- K1: both passes
