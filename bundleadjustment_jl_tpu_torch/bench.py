@@ -89,13 +89,14 @@ def shape(name: str):
 
 
 def kernel_bytes(name: str, problem, w_itemsize: int = 4, *,
-                 nsmall: int = 0) -> int:
+                 nsmall: int = 0, scales: int = 1) -> int:
     """The least bytes one launch of kernel form ``name`` (an
     ``ops/_cuda.py:LAUNCHES`` key) moves on ``problem``: each input it
     needs read once, each output written once, W at ``w_itemsize`` bytes a
     value; scratch and re-reads are not counted. ``stream_probe`` reads
     (32 + ``nsmall``) rows of ``problem.nobs_pad``; ``objective`` evaluates
-    one trial state, as a solve without a line search does."""
+    ``scales`` trial states (1: a solve without a line search; 1 +
+    ``ls_max`` with one): the rows once, each state and output once."""
     n, nc, npt = problem.nobs_pad, problem.ncams, problem.npnts
     f = i = 4
     idx = i * n                                   # one (n,) index array
@@ -109,7 +110,7 @@ def kernel_bytes(name: str, problem, w_itemsize: int = 4, *,
         + 12 * npt * f + 90 * nc * f + f,
         "linearize": state + rows + 26 * n * f + W,
         "linearize_w_only": state + rows + idx + W,
-        "objective": state + f + rows,
+        "objective": scales * (state + f) + rows,
         "cam_reduce": W + 2 * idx + cam_starts + hpp_inv + vec_p
         + 90 * nc * f,
         "cam_reduce_w_op": W + 2 * idx + cam_starts + vec_p + vec_c,
@@ -127,13 +128,15 @@ def kernel_bytes(name: str, problem, w_itemsize: int = 4, *,
     return table[name]
 
 
-def kernel_flops(name: str, problem, *, nsmall: int = 0) -> int:
+def kernel_flops(name: str, problem, *, nsmall: int = 0,
+                 scales: int = 1) -> int:
     """Floating-point operations of one launch of ``name`` on ``problem``
-    (:data:`FLOPS_PER_ROW` a row; one add a value for the probe)."""
+    (:data:`FLOPS_PER_ROW` a row, a row and scale for ``objective``; one
+    add a value for the probe)."""
     n = problem.nobs_pad
     if name == "stream_probe":
         return (32 + nsmall) * n
-    return FLOPS_PER_ROW[name] * n
+    return FLOPS_PER_ROW[name] * n * (scales if name == "objective" else 1)
 
 
 def bound_ms(name: str, problem, w_itemsize: int = 4, **kw):

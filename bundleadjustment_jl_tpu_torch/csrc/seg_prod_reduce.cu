@@ -14,8 +14,12 @@
 // JR is (26, n) structure-of-arrays: rows 0-17 Jc (9 i + a), 18-23 Jp
 // (18 + 3 i + b), 24-25 r; W is (27, n), row 3 a + b.
 //
-// Design. Point segments hold a few rows (~6 at Dubrovnik-356), so one
-// thread per point walks its contiguous rows and sums in registers.
+// Design.
+//
+// jtj_pnt: one block per ~1024-row point range (plan
+// `ops/plans.py:point_blocks`), a thread a row, each point's rows summed
+// in row order by its owner thread: K5's point walk (wtv_point.cuh), see
+// ba_jtj_pnt_kernel below.
 //
 // jtj_cam: one block per camera strides over its columns (coalesced),
 // keeps the 45 upper-triangle sums of the symmetric 9x9 plus 9 for Jc'r in
@@ -50,12 +54,21 @@
 // No atomics: deterministic, a camera without rows gives exact zeros. The
 // TPU kernel's sequential grid and VMEM accumulator have no counterpart.
 //
-// Bound: each product reads its rows once: 32 B a row for jtj_pnt, 80 B
+// Bound: each product reads its rows once: 32 B a row for jtj_pnt (and
+// writes 48 B a point), 80 B
 // for jtj_cam, 108 B of W (54 B stored as bf16 / f16, w_store.cuh) plus a
 // gathered 24 B of Hpp_inv and a 4 B cam_pnt for wcw_cam (147 MB of f32 W
 // at Dubrovnik-356); ~170 FMA a row for the 9x9 products.
 #include "cam_cols.cuh"
 #include "cam_prod.cuh"
+#include "wtv_point.cuh"
+
+// Rows a thread of jtj_pnt's point walk takes in one chunk, as K1's point
+// pass (assemble.cu): a chunk of 1280 rows holds a ~1024-row point range
+// and most last points in one pass, and its nine values a row fit in 46 KB
+// of static shared memory (wtv_point.cuh asserts it). Swept by `python -m
+// bundleadjustment_jl_tpu_torch.tile_sweep --sweep pnt12` (PERF.md).
+constexpr int BA_PNT12_ROWS_PER_THREAD = 5;
 
 // Columns a lane of the W C W' pass takes: BA_WCW_COLS * sizeof(storage)
 // bytes of each plane of W (8 B of a float W, 4 B of a bf16 / f16 one).
@@ -259,46 +272,58 @@ int ba_launch_wcw_cam(const S* W, long long n, const float* hpp,
   return 0;
 }
 
-__global__ void ba_jtj_pnt_kernel(const float* __restrict__ JR,
-                                  const int* __restrict__ pnt_starts,
-                                  int npnts, long long n,
-                                  float* __restrict__ out) {
-  const int p = blockIdx.x * blockDim.x + threadIdx.x;
-  if (p >= npnts) return;
-  float h[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};  // (00, 01, 02, 11, 12, 22)
-  float g[3] = {0.f, 0.f, 0.f};
-  const int end = pnt_starts[p + 1];
-  for (int row = pnt_starts[p]; row < end; ++row) {
-    float Jp[6];
+// jtj_pnt: K5's point walk (wtv_point.cuh ba_point_walk, plan
+// `ops/plans.py:point_blocks`), as K1's point pass takes it. A thread per
+// point read rows 6-7 apart in each lane, ~24 sectors a warp load for 32
+// floats, and lanes waited for the warp's longest point (PERF.md, K6
+// pnt12). Now a thread per row loads the row's Jp (6) and r (2), lanes on
+// neighbouring rows, and puts its [Jp'Jp upper (00, 01, 02, 11, 12, 22) |
+// Jp'r] in shared memory; each point's owner thread sums its rows in row
+// order and writes the symmetric 9 and the 3 (out must be 16 B aligned).
+__global__ void __launch_bounds__(BA_BLOCK) ba_jtj_pnt_kernel(
+    const float* __restrict__ JR, const int* __restrict__ pnt_idx,
+    const int* __restrict__ pnt_starts, const int* __restrict__ block_pnts,
+    long long n, float* __restrict__ out) {
+  ba_point_walk<9, BA_PNT12_ROWS_PER_THREAD>(
+      pnt_idx, pnt_starts, block_pnts,
+      [&](int row, float (&y)[9]) {
+        float Jp[6];
 #pragma unroll
-    for (int k = 0; k < 6; ++k) Jp[k] = JR[(18 + k) * n + row];
-    const float r0 = JR[24 * n + row], r1 = JR[25 * n + row];
-    int q = 0;
+        for (int k = 0; k < 6; ++k) Jp[k] = __ldg(JR + (18 + k) * n + row);
+        const float r0 = __ldg(JR + 24 * n + row);
+        const float r1 = __ldg(JR + 25 * n + row);
+        int q = 0;
 #pragma unroll
-    for (int b = 0; b < 3; ++b) {
+        for (int b = 0; b < 3; ++b) {
 #pragma unroll
-      for (int e = b; e < 3; ++e)
-        h[q++] += Jp[b] * Jp[e] + Jp[3 + b] * Jp[3 + e];
-      g[b] += Jp[b] * r0 + Jp[3 + b] * r1;
-    }
-  }
-  float* o = out + 12 * (size_t)p;
-  o[0] = h[0]; o[1] = h[1]; o[2] = h[2];
-  o[3] = h[1]; o[4] = h[3]; o[5] = h[4];
-  o[6] = h[2]; o[7] = h[4]; o[8] = h[5];
-  o[9] = g[0]; o[10] = g[1]; o[11] = g[2];
+          for (int e = b; e < 3; ++e)
+            y[q++] = Jp[b] * Jp[e] + Jp[3 + b] * Jp[3 + e];
+          y[6 + b] = Jp[b] * r0 + Jp[3 + b] * r1;
+        }
+      },
+      [&](int p, float (&s)[9]) {
+        // 48 B a point, 16 B aligned: three 16 B stores (twelve 4 B ones,
+        // a quarter as many store instructions, measured ~8% slower at
+        // Final-4585: PERF.md, K6 pnt12).
+        float4* o = reinterpret_cast<float4*>(out + 12 * (size_t)p);
+        o[0] = make_float4(s[0], s[1], s[2], s[1]);
+        o[1] = make_float4(s[3], s[4], s[2], s[4]);
+        o[2] = make_float4(s[5], s[6], s[7], s[8]);
+      });
 }
 
 }  // namespace
 
-// JR (26, n) point-sorted; out (npnts, 12).
-extern "C" int ba_jtj_pnt_reduce(const float* JR, const int* pnt_starts,
-                                 int npnts, long long n, float* out,
-                                 void* stream) {
+// JR (26, n) point-sorted; block_pnts (nblocks+1,) point ranges; out
+// (npnts, 12).
+extern "C" int ba_jtj_pnt_reduce(const float* JR, const int* pnt_idx,
+                                 const int* pnt_starts,
+                                 const int* block_pnts, int nblocks,
+                                 long long n, float* out, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (npnts > 0) {
-    ba_jtj_pnt_kernel<<<(npnts + BA_BLOCK - 1) / BA_BLOCK, BA_BLOCK, 0, s>>>(
-        JR, pnt_starts, npnts, n, out);
+  if (nblocks > 0) {
+    ba_jtj_pnt_kernel<<<nblocks, BA_BLOCK, 0, s>>>(JR, pnt_idx, pnt_starts,
+                                                   block_pnts, n, out);
     BA_RETURN_IF_LAUNCH_FAILED();
   }
   return 0;

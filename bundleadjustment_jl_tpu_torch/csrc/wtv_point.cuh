@@ -1,6 +1,7 @@
 // Device code shared by K5's point direction (seg_block_reduce.cu), K3's
-// point pass (matvec.cu) and K1's point pass (assemble.cu, through
-// ba_point_walk): each point's segment of the point-sorted rows, reduced
+// point pass (matvec.cu), and K1's point pass (assemble.cu) and K6's point
+// product (seg_prod_reduce.cu) through ba_point_walk: each point's segment
+// of the point-sorted rows, reduced
 // and, for K5 and K3, optionally folded with its damped inverse block,
 //
 //   s   = sum_{k in p} W_k' v[cam_k]  (+ add_p)
@@ -72,8 +73,8 @@ __device__ __forceinline__ void ba_point_out(
 // r's D values (one thread per row: lanes on neighbouring rows); out(p, s)
 // writes point p from the sum of its rows' values, taken in row order by
 // the point's owner thread, the point running past a chunk carrying its sum
-// to the next. K5's point direction (D = 3) and K1's point pass (D = 9)
-// walk so; every thread of the block must call it.
+// to the next. K5's point direction (D = 3), K1's point pass and K6's
+// point product (D = 9) walk so; every thread of the block must call it.
 template <int D, int RPT, class Row, class Out>
 __device__ __forceinline__ void ba_point_walk(
     const int* __restrict__ pnt_idx, const int* __restrict__ pnt_starts,

@@ -1,17 +1,21 @@
-"""Device time of each CUDA kernel that K1 (the assembly), K5's camera
-direction, K6's W C W' and K8 launch, by kernel name, on one card.
+"""Device time of each CUDA kernel that K1 (the assembly), K4 (the trial
+objectives), K5's camera direction, K6's point product and W C W', and K8
+launch, by kernel name, on one card.
 
     python -m bundleadjustment_jl_tpu_torch.kernel_profile
 
 At synthetic Dubrovnik-356 and Final-4585 (``bench.make_problem``): K1 with
-W in float32; K5's camera direction and K6's W C W' over the camera-sorted
-W, and K8 writing it, in float32, bfloat16 and float16; each called
+W in float32; K4 at S = 1 and S = 5 trial states (:data:`SCALES`: a solve
+without and with its line search, ``ls_max`` 4); K6's point product over
+K7's JR; K5's camera direction and K6's W C W' over the camera-sorted W,
+and K8 writing it, in float32, bfloat16 and float16; each called
 :data:`REPS` times under ``torch.profiler`` after a warm-up. Prints one
 JSON line per problem with, per call, the device ms per call of each
 kernel it launched (the trace's kernel events,
 ``route_profile.kernel_breakdown``), and the card's name and power limit.
 A wrapper's passes are separate kernels, so this times them apart: K1's
-point pass and its camera pass, the range and run-sum passes.
+point pass and its camera pass, K4's row pass and sums, the range and
+run-sum passes.
 
 To compare two trees, run it from the root of each checkout and compare
 the JSON lines; it uses only the wrappers' public calls, so a copy of this
@@ -31,6 +35,11 @@ from bundleadjustment_jl_tpu_torch.ops import _cuda
 from bundleadjustment_jl_tpu_torch.route_profile import kernel_breakdown
 
 REPS = 10
+# Profiled windows a call may take: a trace can hold no kernel event at all
+# (seen once in a sweep on an H100), and then the window is taken again.
+TRACE_TRIES = 3
+# K4's trial states a call: the solver's scales 1, 1/2, ... (lm_jit).
+SCALES = (1, 5)
 
 
 def device_ms(fn, tag: str, reps: int = REPS) -> dict:
@@ -39,23 +48,45 @@ def device_ms(fn, tag: str, reps: int = REPS) -> dict:
     goes to the git-ignored kernel build directory as ``<tag>.json``. The
     trace can miss a kernel's events (often the window's first launch: 9
     of 10 recorded), so a kernel's time a call is its mean over the
-    launches recorded times its launches a call, ceil(recorded / reps)."""
+    launches recorded times its launches a call, ceil(recorded / reps).
+    A window whose trace holds no kernel event is taken again, up to
+    :data:`TRACE_TRIES` windows."""
     from torch.profiler import ProfilerActivity, profile
     bench.require_card()
     for _ in range(2):
         fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     out = _cuda.BUILD_DIR / "kernel_profile"
     out.mkdir(parents=True, exist_ok=True)
     path = out / f"{tag}.json"
-    prof.export_chrome_trace(str(path))
+    for attempt in range(TRACE_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(str(path))
+        try:
+            kernels = kernel_breakdown(path)["kernels"]
+            break
+        except ValueError:      # the trace holds no kernel event
+            if attempt == TRACE_TRIES - 1:
+                raise
     return {name: k["ms"] / k["launches"] * -(-k["launches"] // reps)
-            for name, k in kernel_breakdown(path)["kernels"].items()}
+            for name, k in kernels.items()}
+
+
+def trial_states(cams, points, S: int, seed: int = 0):
+    """``(cams_all, pts_all)``: the state ``(cams, points)`` plus scales
+    1, 1/2, ... of a random step (1e-3 a coordinate, from ``seed``), as
+    the solver forms its S trial states."""
+    dev = cams.device
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    dc = 1e-3 * torch.randn(cams.shape, generator=gen, device=dev)
+    dpt = 1e-3 * torch.randn(points.shape, generator=gen, device=dev)
+    sc = 0.5 ** torch.arange(S, dtype=cams.dtype, device=dev)
+    return ((cams[None] + sc[:, None, None] * dc[None]).contiguous(),
+            (points[None] + sc[:, None, None] * dpt[None]).contiguous())
 
 
 def main() -> int:
@@ -73,12 +104,21 @@ def main() -> int:
                 "assemble@float32": device_ms(
                     lambda: fa.assemble_scatter(p, p.cams, p.points),
                     f"{name}_assemble")}
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        t = torch.randn((p.npnts, 3), generator=gen, device="cuda")
-        hp12 = sr.jtj_pnt_reduce(lz.linearize_w_kminor(p, p.cams, p.points)[0],
-                                 p)
+        for S in SCALES:
+            cams_all, pts_all = trial_states(p.cams, p.points, S)
+            line[f"objective@S{S}"] = device_ms(
+                lambda: fa.objective_scatter(p, cams_all, pts_all),
+                f"{name}_objective_S{S}")
+            del cams_all, pts_all
+        JR_t = lz.linearize_w_kminor(p, p.cams, p.points)[0]
+        line["seg_prod_pnt12"] = device_ms(
+            lambda: sr.jtj_pnt_reduce(JR_t, p), f"{name}_seg_prod_pnt12")
+        hp12 = sr.jtj_pnt_reduce(JR_t, p)
+        del JR_t
         hpp_inv = inv3x3_damped_flat(hp12[:, :9].reshape(-1),
                                      1e-3 * float(hp12[:, :9:4].max()))
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        t = torch.randn((p.npnts, 3), generator=gen, device="cuda")
         perm = p.cam_perm.long()
         for dt in (torch.float32, torch.bfloat16, torch.float16):
             tag = str(dt)[6:]

@@ -187,7 +187,7 @@ _SIGNATURES = {
     "ba_objective": [_P] * 6 + [_I, _I, _I, _I64, _P, _P, _P],
     "ba_linearize_rows": [_P] * 6 + [_I64, _P, _P, _I, _P],
     "ba_linearize_w_only": [_P] * 6 + [_I64, _P, _I, _P],
-    "ba_jtj_pnt_reduce": [_P, _P, _I, _I64, _P, _P],
+    "ba_jtj_pnt_reduce": [_P] * 4 + [_I, _I64, _P, _P],
     "ba_jtj_cam_reduce": [_P, _P, _I, _I64, _P, _P],
     "ba_wcw_cam_reduce": [_P, _I, _P, _COLS, _I, _I64] + [_P] * 3,
     "ba_wtv_point_reduce": [_P, _I] + [_P] * 5 + [_I, _P, _P, _F, _I64, _P,

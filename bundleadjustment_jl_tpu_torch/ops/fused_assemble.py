@@ -10,7 +10,8 @@ kernels against on the card.
 
 K1 runs two passes (``csrc/assemble.cu``): the point pass in K5's point
 ranges (:func:`ops.plans.point_blocks`), the camera pass a block per camera
-over ``cam_perm``.
+over ``cam_perm``. K4 runs a block per row block and trial state, then
+a block per state for its sums.
 
 W travels as structure-of-arrays ``W_t`` (27, nobs_pad), row ``3a+b``
 holding ``W[a, b]`` of ``W_k = Jc_k' Jp_k`` — the JAX package's
@@ -82,7 +83,9 @@ def _assemble_plain(problem: BAProblem, cams, points, w_dtype=None):
 def objective_scatter(problem: BAProblem, cams_all: torch.Tensor,
                       pts_all: torch.Tensor) -> torch.Tensor:
     """Trial objectives ``(S,)``: 0.5 ||r||^2 at ``cams_all[s]``
-    (S, ncams, 9) and ``pts_all[s]`` (S, npnts, 3), all S in one pass."""
+    (S, ncams, 9) and ``pts_all[s]`` (S, npnts, 3), all S in one call
+    (``csrc/objective.cu``: each row's residual from its camera's nine
+    parameters, block sums a scale, then each scale's sums)."""
     if not cams_all.is_cuda:
         return _objective_plain(problem, cams_all, pts_all)
     S = cams_all.shape[0]
@@ -90,6 +93,9 @@ def objective_scatter(problem: BAProblem, cams_all: torch.Tensor,
     _cuda.require(cams_all, "cams_all", torch.float32, (S, nc, 9))
     _cuda.require(pts_all, "pts_all", torch.float32, (S, npt, 3))
     _cuda.require_problem(problem)
+    if problem.pt2d.data_ptr() % 8:
+        raise ValueError("pt2d: the kernel reads each row as one float2 "
+                         "and needs it 8-byte aligned")
     so = _cuda.lib()
     dev = cams_all.device
     partials = torch.empty((S, so.ba_objective_blocks(n)),

@@ -7,8 +7,9 @@ the hand-written kernels (``csrc/seg_prod_reduce.cu``,
 ``csrc/seg_block_reduce.cu``), CPU tensors take the plain PyTorch version
 beside each wrapper (same signature), CUDA float64 raises.
 
-Point segments run over the point-sorted rows (``pnt_starts``; K5's point
-direction in blocks of point ranges, :func:`ops.plans.point_blocks`); camera
+Point segments run over the point-sorted rows (``pnt_starts``; K6's point
+product and K5's point direction in blocks of point ranges,
+:func:`ops.plans.point_blocks`); camera
 segments over the camera-sorted copies ``JR_cam_t = JR_t[:, cam_perm]`` /
 ``W_cam_t = W_t[:, cam_perm]`` (``cam_starts``), whose column ``j`` is the
 row ``cam_perm[j]`` (K5's camera direction and K6's W C W' in column
@@ -82,16 +83,19 @@ def seg_sum(rows: torch.Tensor, ids: torch.Tensor, nseg: int) -> torch.Tensor:
 # ---------------------------------------------------------------- K6
 def jtj_pnt_reduce(JR_t: torch.Tensor, problem: BAProblem) -> torch.Tensor:
     """Per-point ``[Hpp (9) | g_p (3)]`` = sums of ``[Jp'Jp | Jp'r]`` over
-    the point-sorted rows -> (npnts, 12)."""
+    the point-sorted rows -> (npnts, 12), in K5's point ranges
+    (:func:`ops.plans.point_blocks`)."""
     if not JR_t.is_cuda:
         return _jtj_pnt_plain(JR_t, problem)
     n, npt = problem.nobs_pad, problem.npnts
     _cuda.require(JR_t, "JR_t", torch.float32, (26, n))
     _cuda.require_problem(problem)
     out = _out(JR_t, (npt, 12))
+    p, blocks = problem, plans.point_blocks(problem)
     rc = _cuda.lib().ba_jtj_pnt_reduce(
-        _cuda.ptr(JR_t), _cuda.ptr(problem.pnt_starts), npt, n,
-        _cuda.ptr(out), _cuda.stream())
+        _cuda.ptr(JR_t), _cuda.ptr(p.pnt_idx), _cuda.ptr(p.pnt_starts),
+        _cuda.ptr(blocks), blocks.shape[0] - 1, n, _cuda.ptr(out),
+        _cuda.stream())
     _cuda.check(rc, "ba_jtj_pnt_reduce")
     _cuda.launched("seg_prod_pnt12")
     return out

@@ -1,11 +1,14 @@
-"""Time K2's tiled camera reduce and K3 at several tile sizes, and K5's
-camera direction and K6's W C W' at several column ranges, on one card:
-the measurements behind ``csrc/cam_prod.cuh:BA_TILE_ROWS``,
-``ops/plans.py:CAM_BLOCK_COLS``, and ``ops/plans.py:WCW_BLOCK_COLS`` with
-``csrc/seg_prod_reduce.cu:BA_WCW_COLS``.
+"""Time K2's tiled camera reduce and K3 at several tile sizes, K5's
+camera direction and K6's W C W' at several column ranges, K4 at several
+row blocks and K6's point product at several chunks, on one card: the
+measurements behind ``csrc/cam_prod.cuh:BA_TILE_ROWS``,
+``ops/plans.py:CAM_BLOCK_COLS``, ``ops/plans.py:WCW_BLOCK_COLS`` with
+``csrc/seg_prod_reduce.cu:BA_WCW_COLS``,
+``csrc/objective.cu:BA_OBJ_ROWS`` and
+``csrc/seg_prod_reduce.cu:BA_PNT12_ROWS_PER_THREAD``.
 
     python -m bundleadjustment_jl_tpu_torch.tile_sweep \
-        [--sweep tiles|cam_cols|wcw]
+        [--sweep tiles|cam_cols|wcw|objective|pnt12]
 
 Without ``--sweep`` all run. A constant of the CUDA sources is swept by
 building a copy of ``csrc/`` with that constant changed under the
@@ -27,6 +30,15 @@ run-to-run spread.
   float16, at each (``BA_WCW_COLS``, ``WCW_BLOCK_COLS``) of
   :data:`WCW_ORDER`, also at the card tests' ``many_cameras`` and
   ``empty_cameras_ragged`` shapes (:data:`EDGE_SHAPES`).
+- ``objective``: K4 at S = 1 and 5 trial states at each
+  ``BA_OBJ_ROWS`` of :data:`OBJ_ORDER` (``csrc/objective.cu``).
+- ``pnt12``: K6's point product at each ``BA_PNT12_ROWS_PER_THREAD`` of
+  :data:`PNT12_ORDER` (``csrc/seg_prod_reduce.cu``).
+
+The last two time the card alone: each kernel's device ms under
+``torch.profiler`` (``kernel_profile.device_ms``), summed over the
+wrapper's kernels; K4 takes ~0.1 ms, about a wrapper's host work, which
+the CUDA-event window would hold.
 
 Prints one line per (problem, setting, form) and, last, all of it as one
 JSON object. A run that finds no card raises.
@@ -48,6 +60,10 @@ ORDER = (1024, 256, 512, 1024)
 COLS_ORDER = (2048, 1024, 4096, 8192, 2048)
 # (BA_WCW_COLS, WCW_BLOCK_COLS): columns a lane, columns a range
 WCW_ORDER = ((2, 512), (2, 256), (2, 1024), (2, 2048), (4, 512), (2, 512))
+# BA_OBJ_ROWS: K4's rows a block
+OBJ_ORDER = (1024, 256, 512, 2048, 4096, 1024)
+# BA_PNT12_ROWS_PER_THREAD: K6 pnt12's chunk, 256 threads of this many rows
+PNT12_ORDER = (5, 4, 3, 5)
 REPS = 10
 W_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
@@ -275,10 +291,74 @@ def sweep_wcw() -> dict:
     return out
 
 
+def sweep_device_ms(source: str, name: str, order, forms) -> dict:
+    """For each value of ``order`` of ``source``'s constant ``name``, the
+    device ms a call of each form of ``forms(problems)`` (``{(problem,
+    form): (fn, bound ms)}``), by kernel (``kernel_profile.device_ms``)
+    and summed, at synthetic Dubrovnik-356 and Final-4585."""
+    bench.require_card()
+    from bundleadjustment_jl_tpu_torch.kernel_profile import device_ms
+
+    out = {"device": bench.card(), "lines": []}
+    calls = forms({name: bench.make_problem(name, 0)
+                   for name in ("dubrovnik356", "final4585")})
+    for value in order:
+        use_constant(source, name, value)
+        for (prob, form), (fn, bound) in calls.items():
+            by_name = device_ms(fn, f"sweep_{prob}_{form}")
+            ms = sum(by_name.values())
+            out["lines"].append({"problem": prob, name: value, "form": form,
+                                 "ms": ms, "bound_ms": bound,
+                                 "kernels": by_name})
+            print(f"{prob:13s} {name} {value:5d} {form:16s} {ms:9.4f} ms  "
+                  f"bound {bound:.4f} ({bound / ms:.3f})  "
+                  f"{[round(v, 4) for v in by_name.values()]}", flush=True)
+    return out
+
+
+def sweep_objective() -> dict:
+    """K4 at S = 1 and 5 (``kernel_profile.SCALES``) at each setting of
+    :data:`OBJ_ORDER`."""
+    from bundleadjustment_jl_tpu_torch.kernel_profile import (
+        SCALES, trial_states)
+    from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
+
+    def forms(problems):
+        calls = {}
+        for name, p in problems.items():
+            for S in SCALES:
+                cams_all, pts_all = trial_states(p.cams, p.points, S)
+                calls[name, f"objective@S{S}"] = (
+                    lambda p=p, c=cams_all, x=pts_all:
+                    fa.objective_scatter(p, c, x),
+                    bench.bound_ms("objective", p, scales=S)[0])
+        return calls
+    return sweep_device_ms("objective.cu", "BA_OBJ_ROWS", OBJ_ORDER, forms)
+
+
+def sweep_pnt12() -> dict:
+    """K6's point product over K7's JR at each rows a thread of its point
+    walk's chunk (``BA_PNT12_ROWS_PER_THREAD``) of :data:`PNT12_ORDER`."""
+    from bundleadjustment_jl_tpu_torch.ops import linearize as lz
+    from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
+
+    def forms(problems):
+        calls = {}
+        for name, p in problems.items():
+            JR_t = lz.linearize_w_kminor(p, p.cams, p.points)[0]
+            calls[name, "seg_prod_pnt12"] = (
+                lambda p=p, JR_t=JR_t: sr.jtj_pnt_reduce(JR_t, p),
+                bench.bound_ms("seg_prod_pnt12", p)[0])
+        return calls
+    return sweep_device_ms("seg_prod_reduce.cu", "BA_PNT12_ROWS_PER_THREAD",
+                           PNT12_ORDER, forms)
+
+
 def main() -> None:
     import argparse
     ap = argparse.ArgumentParser()
-    ap.add_argument("--sweep", choices=("tiles", "cam_cols", "wcw"))
+    ap.add_argument("--sweep", choices=("tiles", "cam_cols", "wcw",
+                                        "objective", "pnt12"))
     which = ap.parse_args().sweep
     outs = {}
     if which in (None, "cam_cols"):
@@ -287,6 +367,10 @@ def main() -> None:
         outs["wcw"] = sweep_wcw()
     if which in (None, "tiles"):
         outs["tiles"] = sweep()
+    if which in (None, "objective"):
+        outs["objective"] = sweep_objective()
+    if which in (None, "pnt12"):
+        outs["pnt12"] = sweep_pnt12()
     card = next(iter(outs.values()))["device"]["nvidia_smi"]
     print(f"card: {card}")
     print(json.dumps(outs))

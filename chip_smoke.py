@@ -13,12 +13,14 @@ CUDA card.
    against its plain PyTorch version on the card, at the shapes of
    synthetic LadyBug-49 and Dubrovnik-356 (as ``bench.py`` builds them),
    and times both in turns (plain, kernel, kernel, plain): K1-K4 of the
-   fused camera-scatter route, K7, K6 and K5 of the camera-sorted route,
-   then K2's other three products and K8 of the Final-scale routes (and
-   K8 against K7's W in camera order). The forms that read through a plan
-   (REPEAT_CHECKED) launch twice and must give bit-identical outputs. K1's
-   point pass and camera pass are timed apart (``torch.profiler``, by
-   kernel: ``kernel_profile.device_ms``). Then phase 6 for the problem.
+   fused camera-scatter route (K4 at 1, 3, 5 and 9 trial states, timed at
+   1 and 5, each beside its bound), K7, K6 and K5 of the camera-sorted
+   route, then K2's other three products and K8 of the Final-scale routes
+   (and K8 against K7's W in camera order). The forms that read through a
+   plan, and K4 (REPEAT_CHECKED), launch twice and must give bit-identical
+   outputs. K1's point pass and camera pass, and K4's row blocks and
+   sums, are timed apart (``torch.profiler``, by kernel:
+   ``kernel_profile.device_ms``). Then phase 6 for the problem.
 3. Solves both problems with ``levenberg_marquardt_jit`` and
    ``bench.py``'s options (``bench.SOLVE_OPTS`` of the port) on each
    kernel route (``normal.CAM_SCATTER``
@@ -161,12 +163,18 @@ KERNELS = {
 }
 # The forms that read their rows through a launch plan (`ops/plans.py`:
 # K2's four, K5's both directions, K3 = K5 point + K2 W op, K1's point
-# pass = K5's point walk, K6's W C W', K8): a second launch must give
-# bit-identical output (fixed-order sums, no atomics).
+# pass and K6's point product = K5's point walk, K6's W C W', K8) and K4's
+# fixed row blocks: a second launch must give bit-identical output
+# (fixed-order sums, no atomics).
 REPEAT_CHECKED = ("cam_reduce", "cam_reduce_w_op", "cam_reduce_wcw81",
                   "cam_reduce_cam90", "seg_block_point", "matvec",
                   "assemble", "seg_block_camera", "seg_prod_wcw81",
-                  "linearize_w_only")
+                  "linearize_w_only", "seg_prod_pnt12", "objective")
+# K4's trial states checked against its plain version (1: a solve without
+# the line search; 5 = 1 + ls_max: with it; 3 and 9: other counts) and
+# those timed.
+OBJECTIVE_SCALES = (1, 3, 5, 9)
+OBJECTIVE_TIMED = (1, 5)
 # counter -> its row of the kernel table
 KERNEL_OF = {c: k for k, (_, _, counters, _) in KERNELS.items()
              for c in counters}
@@ -342,22 +350,52 @@ def check_kernels(name, problem, errs, timings, facts):
           lambda: fs.matvec_cam_scatter(W_t, v, problem, hpp_inv),
           lambda: fs._matvec_plain(W_t, v, problem, hpp_inv, None, 1.0)[0])
 
-    dc = 1e-3 * torch.randn(cams.shape, generator=gen, device="cuda")
-    dpt = 1e-3 * torch.randn(points.shape, generator=gen, device="cuda")
-    scales = torch.tensor([1.0, 0.5, 0.25], device="cuda")
-    cams_all = (cams[None] + scales[:, None, None] * dc[None]).contiguous()
-    pts_all = (points[None] + scales[:, None, None] * dpt[None]).contiguous()
-    got = fa.objective_scatter(problem, cams_all, pts_all)
-    torch.cuda.synchronize()
-    compare("objective", got, fa._objective_plain(problem, cams_all, pts_all),
-            errs)
-    timings.setdefault("objective", {})[name] = time_pair(
-        lambda: fa.objective_scatter(problem, cams_all[:1], pts_all[:1]),
-        lambda: fa._objective_plain(problem, cams_all[:1], pts_all[:1]),
-        reps)
+    check_objective(name, problem, errs, timings, facts, reps)
     for k in ("assemble", "cam_reduce", "matvec", "objective"):
         kms, pms = timings[k][name]
         print(f"  time {k:10s} kernel {kms:.4f} ms  plain {pms:.4f} ms")
+
+
+def check_objective(name, problem, errs, timings, facts, reps):
+    """K4 at OBJECTIVE_SCALES trial states (scales 1, 1/2, ...: S = 5 is
+    a solve's line search) against its plain version, each launched twice (bit-identical); timed
+    at S = 1 (the kernel table's row: a solve without the line search) and
+    S = 5 (``facts``), each beside its bound, and its passes by kernel
+    (``kernel_profile.device_ms``)."""
+    import torch
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.kernel_profile import (
+        device_ms, trial_states)
+    from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
+
+    row = facts.setdefault("objective", {})
+    for S in OBJECTIVE_SCALES:
+        cams_all, pts_all = trial_states(problem.cams, problem.points,
+                                         S)
+
+        def kernel():
+            return fa.objective_scatter(problem, cams_all, pts_all)
+
+        def plain():
+            return fa._objective_plain(problem, cams_all, pts_all)
+        got = kernel()
+        torch.cuda.synchronize()
+        check_repeat("objective", f"{name}@S{S}", kernel, got, facts)
+        compare("objective", got, plain(), errs)
+        if S not in OBJECTIVE_TIMED:
+            continue
+        kms, pms = time_pair(kernel, plain, reps)
+        bound = bench.bound_ms("objective", problem, scales=S)[0]
+        if S == 1:
+            timings.setdefault("objective", {})[name] = (kms, pms)
+        row.setdefault(f"S{S}", {})[name] = {
+            "ms": kms, "plain_ms": pms, "bound_ms": bound,
+            "share_of_bound": bound / kms}
+        passes = device_ms(kernel, f"{name}_objective_S{S}")
+        row.setdefault("pass_ms", {})[f"{name}@S{S}"] = passes
+        print(f"  K4 S = {S}: kernel {kms:.4f} ms  plain {pms:.4f} ms  "
+              f"bound {bound:.4f} ms ({bound / kms:.3f} of it); passes "
+              f"(device ms a call): {json.dumps(passes)}")
 
 
 def outputs(x):

@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
+from bundleadjustment_jl_tpu_torch.kernel_profile import trial_states
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.ops import _cuda
 from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
@@ -258,6 +259,30 @@ def test_solve_on_card_runs_every_kernel(card_problem, monkeypatch, route):
 
 
 @pytest.mark.cuda
+def test_linesearch_solve_on_card_matches_the_plain_route(card_problem,
+                                                          monkeypatch):
+    """A route-A solve with the line search (S = 1 + ls_max = 5 trial
+    states a K4 launch) launches K4 once per iteration and makes the plain
+    route's decisions: the same status, iterations within one."""
+    for k, v in normal.FORCE_ROUTE["fused"].items():
+        monkeypatch.setattr(normal, k, v)
+    opts = dict(max_iters=30, lam0_mode="diag", linesearch=True)
+    _cuda.reset_launches()
+    res = levenberg_marquardt_jit(card_problem, **opts)
+    it = res.iterations
+    expect = dict.fromkeys(_cuda.LAUNCHES, 0)
+    expect.update(lm_jit.expected_launches("fused", it, res.naccepts,
+                                           int(res.hist_cg[:it].sum())))
+    assert dict(_cuda.LAUNCHES) == expect
+    monkeypatch.setattr(normal, "PALLAS_MODE", False)
+    _cuda.reset_launches()
+    plain = levenberg_marquardt_jit(card_problem, **opts)
+    assert not any(_cuda.LAUNCHES.values())
+    assert res.status_name() == plain.status_name()
+    assert abs(res.iterations - plain.iterations) <= 1
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("route", ROUTES)
 def test_f32_solve_at_any_padding_runs_the_kernels(monkeypatch, route):
     """A float32 problem padded to 8 rows (its row count no multiple of
@@ -403,14 +428,15 @@ def test_facto_solve_on_card_runs_every_kernel(card_problem, monkeypatch,
 
 
 def edge_problem(case):
-    """Shapes at the edges of K2's and K1's tiles, K5's and K1's point
-    ranges and K5's camera-direction column ranges (on the card): one
-    camera holding every real row; more cameras (700) than a K2 tile has
-    rows (512), each of a few rows; a point with more rows (2000) than a K5
-    chunk (1536), and a padding tail (to 8192 rows) longer than one, on the
-    last point; a camera with more rows (~9000) than several column ranges
-    (2048); cameras without rows, and a row count (1203) no multiple of 4
-    (the scalar paths of the 16 B loads)."""
+    """Shapes at the edges of K2's and K1's tiles, K5's, K6 pnt12's and
+    K1's point ranges, K5's camera-direction column ranges and K4's row
+    blocks (on the card): one camera holding every real row; more cameras
+    (700) than a K2 tile has rows (512), each of a few rows; a point with
+    more rows (2000) than a K5 chunk (1536), points without rows, and a
+    padding tail (to 8192 rows) longer than one, on the last point; a
+    camera with more rows (~9000) than several column ranges (2048);
+    cameras without rows, and a row count (1203) no multiple of 4 (the
+    scalar paths of the 16 B loads)."""
     rng = np.random.default_rng(7)
     pad = 512
     if case == "one_camera":
@@ -432,8 +458,9 @@ def edge_problem(case):
         cam = rng.integers(10, ncams, size=pnt.size)
     else:
         ncams, npnts, pad = 50, 200, 8192
+        seen = np.arange(1, npnts)
         pnt = np.concatenate([np.zeros(2000, int),
-                              np.repeat(np.arange(1, npnts), 3)])
+                              np.repeat(seen[seen % 7 != 0], 3)])
         cam = rng.integers(0, ncams, size=pnt.size)
     return BAProblem.from_arrays(
         rng.standard_normal((ncams, 9)), rng.standard_normal((npnts, 3)),
@@ -489,8 +516,9 @@ def close_stored(got, want):
 def redesigned_calls(p, o):
     """K2's four forms, K5's point direction in its three forms and its
     camera direction, K3 in its two, K6's W C W' and K8 (writing W in the
-    dtype of ``o["W"]`` at ``o["state"]``), each as (kernel call, plain
-    call)."""
+    dtype of ``o["W"]`` at ``o["state"]``), and, with a float32 W, K2's
+    cam90, K6's point product and K4 at 1, 5 and 9 trial states, each as
+    (kernel call, plain call)."""
     W, hp, t, gp, v = o["W"], o["hpp_inv"], o["t"], o["gp"], o["v"]
     W_cam = W[:, p.cam_perm.long()].contiguous()
     cams, points = o["state"]
@@ -525,6 +553,13 @@ def redesigned_calls(p, o):
         calls["cam_reduce_cam90"] = (
             lambda: fs.cam_reduce_cam90(o["JR"], p),
             lambda: fs._cam_reduce_cam90_plain(o["JR"], p))
+        calls["seg_prod_pnt12"] = (lambda: sr.jtj_pnt_reduce(o["JR"], p),
+                                   lambda: sr._jtj_pnt_plain(o["JR"], p))
+        for S in (1, 5, 9):
+            c, x = trial_states(cams, points, S, seed=10)
+            calls[f"objective_S{S}"] = (
+                lambda c=c, x=x: fa.objective_scatter(p, c, x),
+                lambda c=c, x=x: fa._objective_plain(p, c, x))
     return calls
 
 
@@ -538,10 +573,11 @@ def test_redesigned_kernels_at_edge_shapes_on_card(case, dtype):
     """K2's tiled camera reduce (each form), K5's point ranges (each form)
     and column ranges, K3, K6's W C W' column ranges, and K8 and K1
     writing W in ``dtype`` against their plain versions at
-    :func:`edge_problem`'s shapes, W in ``dtype``; a second launch gives
-    bit-identical output (fixed-order sums, no atomics). The writers' W to
-    one ulp of ``dtype`` plus 1e-6 of its largest entry
-    (:func:`close_stored`)."""
+    :func:`edge_problem`'s shapes, W in ``dtype``; with a float32 W also
+    K6's point product in point ranges and K4 at S = 1, 5 and 9 trial
+    states; a second launch gives bit-identical output (fixed-order sums,
+    no atomics). The writers' W to one ulp of ``dtype`` plus 1e-6 of its
+    largest entry (:func:`close_stored`)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA card")
     p = edge_problem(case)
@@ -566,6 +602,7 @@ def test_redesigned_kernels_at_edge_shapes_on_card(case, dtype):
     if case == "long_point":
         seg = p.pnt_starts[1:] - p.pnt_starts[:-1]
         assert int(seg[0]) == 2000 and int(seg[-1]) > 1536
+        assert int((seg == 0).sum()) == 28
     if case == "many_cameras":
         assert p.ncams > plans.TILE_ROWS
     if case == "long_camera":

@@ -368,6 +368,12 @@ DUB = types.SimpleNamespace(nobs_pad=1_360_384, ncams=356, npnts=226_730)
      + 226_730 * 12 * 4),
     # (32 + 2) rows of n floats in, 32 floats out
     ("stream_probe", 4, dict(nsmall=2), 34 * 1_360_384 * 4 + 32 * 4),
+    # pt2d, w, cam_idx, pnt_idx once; per scale the cameras, the points and
+    # the objective
+    ("objective", 4, {}, 5 * 1_360_384 * 4
+     + (356 * 9 + 226_730 * 3) * 4 + 4),
+    ("objective", 4, dict(scales=5), 5 * 1_360_384 * 4
+     + 5 * ((356 * 9 + 226_730 * 3) * 4 + 4)),
 ])
 def test_kernel_bytes_counted_by_hand(name, w_itemsize, kw, want):
     assert bench.kernel_bytes(name, DUB, w_itemsize, **kw) == want

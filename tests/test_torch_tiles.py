@@ -1,18 +1,20 @@
 """The launch plans of the row-reduction kernels
 (`bundleadjustment_jl_tpu_torch/ops/plans.py`), on the CPU: K2's camera
-direction (tiles), K5's point direction and K1's point pass (point
-ranges), K5's camera direction and K6's W C W' (column ranges), K8's
-camera-order row copies; and K1's camera pass, a block per camera.
+direction (tiles), K5's point direction, K6's point product and K1's point
+pass (point ranges), K5's camera direction and K6's W C W' (column
+ranges), K8's camera-order row copies; K1's camera pass, a block per
+camera; and K4's blocks of rows a scale.
 
 The CUDA kernels (``csrc/cam_prod.cuh``, ``csrc/wtv_point.cuh``,
 ``csrc/seg_block_reduce.cu``, ``csrc/seg_prod_reduce.cu``,
-``csrc/linearize.cu``, ``csrc/assemble.cu``) run only on a card; here each
-plan is checked for the properties the kernels rely on, and the kernels'
-walks are written out in torch ops over the plan (the same reads, in the
-same roles) and held to the JAX package's kernels (`cam_scatter_reduce`,
-`wt_cam_reduce`, `wcw_cam_reduce`, `linearize_w_only`, `assemble_scatter`;
-Pallas interpret mode, as its own tests run them) and to the port's plain
-twins. Small tiles, ranges and chunks, so every edge is hit.
+``csrc/linearize.cu``, ``csrc/assemble.cu``, ``csrc/objective.cu``) run
+only on a card; here each plan is checked for the properties the kernels
+rely on, and the kernels' walks are written out in torch ops over the plan
+(the same reads, in the same roles) and held to the JAX package's kernels
+(`cam_scatter_reduce`, `wt_cam_reduce`, `wcw_cam_reduce`, `jtj_pnt_reduce`,
+`linearize_w_only`, `assemble_scatter`, `objective_scatter`; Pallas
+interpret mode, as its own tests run them) and to the port's plain twins.
+Small tiles, ranges and chunks, so every edge is hit.
 
 Tolerances: f32 against the JAX kernel, rtol 1e-4 with atol 1e-5 of the
 largest entry (f32 sums in another order; K1 against the JAX assembly:
@@ -22,6 +24,7 @@ sums in another order); f64 against the JAX kernel's f32 output, the f32
 tolerance.
 """
 
+import dataclasses
 import re
 from pathlib import Path
 
@@ -31,11 +34,13 @@ import pytest
 import torch
 
 from bundleadjustment_jl_tpu.io.synthetic import synthetic_bal as jax_synthetic
-from bundleadjustment_jl_tpu.ops import pallas_linearize, pallas_schur
+from bundleadjustment_jl_tpu.ops import (
+    pallas_assemble, pallas_linearize, pallas_schur)
 from bundleadjustment_jl_tpu.ops.normal import assemble_blocks as jax_assemble
 from bundleadjustment_jl_tpu.ops.pallas_schur import (
     cam_scatter_reduce, gather_k_minor, pad_rows, tile_bounds)
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
+from bundleadjustment_jl_tpu_torch.ops import chain
 from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
 from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
 from bundleadjustment_jl_tpu_torch.ops import linearize as lz
@@ -192,11 +197,13 @@ def test_plan_sizes_match_the_kernels():
     (the kernel refuses another); K5's chunk and K1's point chunk, which
     hold a block of POINT_BLOCK_ROWS rows with room for its last point;
     K5's camera range, a multiple of the columns a thread takes and at
-    most the kernel's largest (it refuses others)."""
+    most the kernel's largest (it refuses others); K6 pnt12's chunk, as
+    K1's; K4's row blocks, whole rows a thread."""
     assert constant("BA_TILE_ROWS", "cam_prod.cuh") == plans.TILE_ROWS
     block = constant("BA_BLOCK", "chain.cuh")
     for name, source in (("BA_PNT_ROWS_PER_THREAD", "wtv_point.cuh"),
-                         ("BA_ASM_ROWS_PER_THREAD", "assemble.cu")):
+                         ("BA_ASM_ROWS_PER_THREAD", "assemble.cu"),
+                         ("BA_PNT12_ROWS_PER_THREAD", "seg_prod_reduce.cu")):
         assert constant(name, source) * block >= plans.POINT_BLOCK_ROWS + 256
     align = constant("BA_CAM_COL_ALIGN", "cam_cols.cuh")
     # a thread's columns: BA_CAM_LOAD_BYTES of a 2-byte W at most
@@ -208,6 +215,7 @@ def test_plan_sizes_match_the_kernels():
     # divisor of the column alignment
     lane_cols = constant("BA_WCW_COLS", "seg_prod_reduce.cu")
     assert lane_cols in (2, 4) and align % lane_cols == 0
+    assert constant("BA_OBJ_ROWS", "objective.cu") % block == 0
 
 
 # ------------------------------------------------------- K2: two passes
@@ -432,6 +440,180 @@ def test_point_walk_matches_plain(case, chunk, form):
     s = kw.get("sign", 1.0) * s
     torch.testing.assert_close(s, sr.wtv_point_reduce(W, v, p, **kw),
                                rtol=1e-12, atol=1e-12)
+
+
+# ------------------------------------- K6 pnt12: the point walk over JR
+UP3 = [(b, e) for b in range(3) for e in range(b, 3)]
+SYM3 = [0, 1, 2, 1, 3, 4, 2, 4, 5]     # 3x3 entry -> its UP3 slot
+
+
+def pnt12_rows(JR):
+    """Each row's nine values in csrc/seg_prod_reduce.cu ba_jtj_pnt_kernel:
+    [Jp'Jp upper (00, 01, 02, 11, 12, 22) | Jp'r] of a (26, n) JR ->
+    (n, 9)."""
+    Jp, r = JR[18:24], JR[24:26]
+    return torch.stack([Jp[b] * Jp[e] + Jp[3 + b] * Jp[3 + e] for b, e in UP3]
+                       + [Jp[b] * r[0] + Jp[3 + b] * r[1] for b in range(3)],
+                       dim=1)
+
+
+def hp12_of(s):
+    """A point's nine sums -> its (12,) output: the symmetric 9, then the
+    3 (the owner thread's store)."""
+    return torch.cat([s[:, SYM3], s[:, 6:9]], dim=1)
+
+
+@pytest.mark.parametrize("case", K5_CASES)
+@pytest.mark.parametrize("chunk", [8, 64])
+def test_point_walk_pnt12_matches_plain(case, chunk):
+    """K6 pnt12's walk over K5's plan (blocks of 4 rows, chunks of 8 or 64
+    rows: points cross chunks, points without rows) writes every point once
+    and gives the plain twin's [Hpp | g_p], in f64."""
+    p = K5_CASES[case]()
+    JR = torch.from_numpy(np.random.default_rng(8).standard_normal(
+        (26, p.nobs_pad)))
+    s, written = point_walk(pnt12_rows(JR), p,
+                            plans.build_point_blocks(p, rows=4), chunk)
+    assert written == [1] * p.npnts
+    want = sr.jtj_pnt_reduce(JR, p)
+    torch.testing.assert_close(hp12_of(s), want, rtol=1e-12, atol=1e-12)
+    empty = p.pnt_starts[1:] == p.pnt_starts[:-1]
+    assert not want[empty].any()
+    if case == "long_and_empty":
+        assert bool(empty.any())
+
+
+def test_point_walk_pnt12_matches_pallas(jprob):
+    """The walk in f32 at the kernel's point ranges and chunk, against the
+    JAX `jtj_pnt_reduce` (`seg_prod_reduce` with `_prod_pnt12`, interpret
+    mode) over the same JR."""
+    jp, tp, ops = jprob
+    ref = pallas_schur.jtj_pnt_reduce(pad_rows(jnp.asarray(ops["JR"]), 32),
+                                      jp.pnt_idx, jp.pnt_starts, jp.npnts,
+                                      interpret=True)
+    chunk = 256 * constant("BA_PNT12_ROWS_PER_THREAD", "seg_prod_reduce.cu")
+    s, written = point_walk(pnt12_rows(torch.from_numpy(ops["JR"])), tp,
+                            plans.build_point_blocks(tp), chunk)
+    assert written == [1] * tp.npnts
+    close32(hp12_of(s), np.asarray(ref))
+
+
+# ------------------------------------------- K4: blocks of rows a scale
+def k4_row_pass(problem, cams_all, pts_all, rows, threads):
+    """csrc/objective.cu's passes in torch ops: a block per ``rows`` rows
+    and scale, each of its ``threads`` threads adding its rows' 1/2 |r|^2
+    in turn (each row through `ops/chain.py:project_residual` at
+    ``cams_all[s]``, ``pts_all[s]``); each block's sum in a fixed order
+    written to partials[s * nblocks + b]; pass 2 adds a scale's partials
+    in order. Returns (S,) objectives and how often each partial was
+    written."""
+    S, n = cams_all.shape[0], problem.nobs_pad
+    ci, pi = problem.cam_idx.long(), problem.pnt_idx.long()
+    nb = -(-n // rows)
+    partials = torch.zeros(S * nb, dtype=cams_all.dtype)
+    written = [0] * (S * nb)
+    for s in range(S):
+        res = chain.project_residual(cams_all[s][ci], pts_all[s][pi],
+                                     problem.pt2d, problem.w)
+        val = 0.5 * (res[:, 0] * res[:, 0] + res[:, 1] * res[:, 1])
+        for b in range(nb):
+            lo, hi = b * rows, min((b + 1) * rows, n)
+            partials[s * nb + b] = block_sum(val[lo:hi, None], threads)[0]
+            written[s * nb + b] += 1
+    out = torch.stack([partials[s * nb:(s + 1) * nb].sum() for s in range(S)])
+    return out, written
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+def test_k4_row_pass_at_edge_rows(dtype):
+    """K4's passes over rows at the chain's edges, at two scales: cameras
+    with theta = 0 and theta^2 <= 1e-24 (the Taylor branch), a row on its
+    camera's plane (z = 0) and a row of weight 0, both adding 0. Held to
+    the plain twin: rel 1e-12 in f64, 1e-6 in f32 (sums in another
+    order)."""
+    p = random_problem(9, ncams=6, npnts=30, obs=3).astype(dtype)
+    rng = np.random.default_rng(2)
+    cams = torch.from_numpy(np.concatenate([
+        0.1 * rng.standard_normal((6, 3)), rng.standard_normal((6, 2)),
+        rng.standard_normal((6, 1)) - 10.0, [[1e-3, -1e-4, 500.0]] * 6],
+        axis=1)).to(dtype)
+    cams[0, 0:3] = 0.0
+    cams[1, 0:3] = torch.tensor([1e-13, -2e-13, 0.0], dtype=dtype)
+    points = p.points.clone()
+    ci, pi = p.cam_idx.long(), p.pnt_idx.long()
+    on_plane = int(torch.nonzero(ci[:p.nobs] == 0)[0])
+    points[pi[on_plane], 2] = -cams[0, 5]      # theta = 0: RX = X, z = 0
+    unweighted = int(torch.nonzero(ci[:p.nobs] == 1)[0])
+    w = p.w.clone()
+    w[unweighted] = 0.0
+    p = dataclasses.replace(p, w=w)
+    step = 1e-2 * torch.from_numpy(rng.standard_normal((6, 9))).to(dtype)
+    step[:2, 0:3] = 0.0
+    cams_all = torch.stack([cams, cams + 0.5 * step])
+    pts_all = torch.stack([points, points])
+    res = chain.project_residual(cams[ci], points[pi], p.pt2d, w)
+    assert bool(torch.isfinite(res).all())
+    assert not res[on_plane].any() and not res[unweighted].any()
+    assert bool(res[:p.nobs].ne(0).any(1).sum() >= p.nobs - 2)
+    got, written = k4_row_pass(p, cams_all, pts_all, 24, 4)
+    assert written == [1] * (2 * -(-p.nobs_pad // 24))
+    assert bool(torch.isfinite(got).all())
+    torch.testing.assert_close(
+        got, fa.objective_scatter(p, cams_all, pts_all),
+        rtol=1e-12 if dtype == torch.float64 else 1e-6, atol=0.0)
+
+
+def k4_states(problem, S, dtype, seed=9):
+    """S trial states at scales 1, 1/2, ... of a random step, made with
+    numpy in ``dtype`` as `tests/test_torch_kernels.py` makes them:
+    (cams_all, pts_all, dp, scales)."""
+    nd = np.float32 if dtype == torch.float32 else np.float64
+    rng = np.random.default_rng(seed)
+    dc = (rng.standard_normal(problem.cams.shape) * 1e-2).astype(nd)
+    dp = (rng.standard_normal(problem.points.shape) * 1e-2).astype(nd)
+    sc = (0.5 ** np.arange(S)).astype(nd)
+    cams, pts = (x.numpy().astype(nd) for x in (problem.cams, problem.points))
+    return (torch.from_numpy(cams[None] + sc[:, None, None] * dc[None]),
+            torch.from_numpy(pts[None] + sc[:, None, None] * dp[None]), dp,
+            sc)
+
+
+@pytest.mark.parametrize("S", [1, 5, 9])
+@pytest.mark.parametrize("rows, threads", [(24, 4), (64, 8)])
+def test_k4_row_pass_matches_plain(jprob, S, rows, threads):
+    """K4's passes over blocks that end mid-problem (1280 rows in blocks
+    of 24 or 64) write every partial once and give the plain twin's
+    objectives, in f64."""
+    _, tp, _ = jprob
+    p = tp.astype(torch.float64)
+    assert p.nobs_pad % 24 != 0 and p.nobs < p.nobs_pad
+    cams_all, pts_all, _, _ = k4_states(p, S, torch.float64)
+    got, written = k4_row_pass(p, cams_all, pts_all, rows, threads)
+    assert written == [1] * (S * -(-p.nobs_pad // rows))
+    torch.testing.assert_close(
+        got, fa.objective_scatter(p, cams_all, pts_all), rtol=1e-12,
+        atol=0.0)
+
+
+def test_k4_row_pass_matches_pallas(jprob):
+    """K4's passes in f32 at the kernel's rows a block and S = 5,
+    against the JAX `objective_scatter` (interpret mode), with
+    `tests/test_torch_kernels.py`'s tolerance."""
+    jp, tp, _ = jprob
+    cams_all, pts_all, dp, scales = k4_states(tp, 5, torch.float32)
+    C = pallas_schur._chunk_rows(jp.nobs_pad)
+    width = -(-(jp.npnts + C + 256) // 128) * 128
+    ref = pallas_assemble.objective_scatter(
+        pallas_assemble.pack_pw(jp),
+        pallas_assemble.stack_trial_points(jp.points, jnp.asarray(dp),
+                                           jnp.asarray(scales), width),
+        jnp.asarray(cams_all.numpy()),
+        pallas_assemble.trial_point_offsets(jp.pnt_idx, jp.nobs_pad, width,
+                                            C), interpret=True)
+    got, _ = k4_row_pass(tp, cams_all, pts_all,
+                         constant("BA_OBJ_ROWS", "objective.cu"), 256)
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-5)
 
 
 # ------------------------------------------------ K5 camera: column ranges
