@@ -169,6 +169,9 @@ class GNBlocks(NamedTuple):
     # The stage table of the solve (`solve_stages`), through which
     # `ops/schur.py` calls its kernels or their plain twins.
     stages: Stages = KERNELS
+    # (26, nobs_pad) K7's Jc | Jp | r (`ops/linearize.py`), kept only when
+    # assembled ``with_jr`` (the CGLS solver, `ops/cgls.py`); else None.
+    JR_t: torch.Tensor | None = None
 
     @property
     def g_c(self):
@@ -186,7 +189,8 @@ class GNBlocks(NamedTuple):
 def assemble_blocks(problem: BAProblem, cams=None, points=None, *,
                     route: str = "fused",
                     w_dtype: torch.dtype | None = None,
-                    stages: Stages | None = None) -> GNBlocks:
+                    stages: Stages | None = None,
+                    with_jr: bool = False) -> GNBlocks:
     """Linearize at (cams, points) and assemble the blocks on ``route``
     (one of :data:`ROUTES`), as `_assemble_kminor` of the JAX package does,
     W written in ``w_dtype`` (default: the working dtype; bfloat16 with
@@ -203,9 +207,15 @@ def assemble_blocks(problem: BAProblem, cams=None, points=None, *,
       dtype). ``"scatter_split"``: K2 sums ``[Hcc | g_c]`` over the
       point-sorted ``JR_t`` and there is no ``W_cam_t``. ``"sorted_relin"``:
       the same, plus ``W_cam_t`` from K8.
+
+    ``with_jr`` keeps K7's ``JR_t`` in the blocks (the CGLS solver's J and
+    r). K1 writes no JR, so on ``"fused"`` it assembles as
+    ``"scatter_split"`` and the blocks carry that route.
     """
     if route not in ROUTES:
         raise ValueError(f"unknown kernel route {route!r}; one of {ROUTES}")
+    if with_jr and route == "fused":
+        route = "scatter_split"
     cams = problem.cams if cams is None else cams
     points = problem.points if points is None else points
     st = KERNELS if stages is None else stages
@@ -230,7 +240,7 @@ def assemble_blocks(problem: BAProblem, cams=None, points=None, *,
                     Hcc_f=hc90[:, :81].reshape(-1),
                     Hpp_f=hp12[:, :9].reshape(-1),
                     obj=obj, W_t=W_t, W_cam_t=W_cam_t, route=route,
-                    stages=st)
+                    stages=st, JR_t=JR_t if with_jr else None)
 
 
 def gradient_norm(blocks: GNBlocks) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""Block-Jacobi preconditioned conjugate gradient on the reduced camera
-system (PyTorch port of `bundleadjustment_jl_tpu/ops/pcg.py`).
+"""Block-Jacobi preconditioned conjugate gradient and the power-series
+solve on the reduced camera system (PyTorch port of
+`bundleadjustment_jl_tpu/ops/pcg.py`).
 
 PyTorch runs eagerly, so the CG loop is a Python loop over device
 tensors. Each step makes exactly one host read: the continue flag
@@ -96,6 +97,30 @@ def pcg(matvec: Callable, b: torch.Tensor, precond: Callable, rtol,
         it += 1
     return PCGResult(x=x, iters=it,
                      rel_res=torch.sqrt(_dot(r, r)) / bnorm_safe)
+
+
+def power_series(matvec: Callable, b: torch.Tensor, m_apply: Callable,
+                 m_solve: Callable, rtol, max_terms: int = 50) -> PCGResult:
+    """Power-series (preconditioned Richardson) solve of ``S x = b``, the
+    JAX package's ``power_series`` ("Power Bundle Adjustment",
+    arXiv:2204.12834): with ``S = M - N`` (M the damped block-diagonal
+    camera part), iterate ``x <- M^{-1} (b + M x - S x)`` from ``x =
+    M^{-1} b``, one ``matvec`` a term, until ``||b - S x|| <= rtol
+    ||b||`` (the residual of the iterate before the term's update) or
+    ``max_terms`` terms. ``m_apply(x) = M x``, ``m_solve(y) = M^{-1} y``.
+    One host read a term (the continue flag), as ``pcg`` makes."""
+    bnorm = torch.sqrt(_dot(b, b))
+    bnorm_safe = torch.where(bnorm == 0.0, torch.ones_like(bnorm), bnorm)
+    tol = rtol * bnorm_safe
+    x = m_solve(b)
+    res = torch.full_like(bnorm, float("inf"))
+    it = 0
+    while it < max_terms and bool(res > tol):
+        Sx = matvec(x)
+        res = torch.sqrt(torch.sum((b - Sx) ** 2))
+        x = m_solve(b + m_apply(x) - Sx)
+        it += 1
+    return PCGResult(x=x, iters=it, rel_res=res / bnorm_safe)
 
 
 def forcing_rtol(grad_norm, floor=1e-10, cap=1e-2):

@@ -234,3 +234,97 @@ def back_substitute_quad(problem: BAProblem, blocks: GNBlocks,
         with_dp=True)
     dp = _unhat(sys, dp)
     return dp, _quad(blocks, dc, dp, cross_cam)
+
+
+# ---------------------------------------------------------------- dense
+# Cap on the dense path's device bytes (:func:`dense_schur_bytes`). The
+# JAX package's 6 GiB was set for a TPU's HBM; the H100 holds 80 GB. The
+# two (3 npnts, 9 ncams) targets are the dense path's only large
+# allocations; beside them a solve keeps the problem, its W and its plans
+# (under 1 GB at Dubrovnik-356) and the caching allocator's free blocks.
+# Half the card leaves that room: 40 GiB admits Dubrovnik-356 (~18.7 GB
+# by the estimate) and refuses the BAL problems above it (Trafalgar-257:
+# ~0.3 TB), before any allocation.
+DENSE_MAX_BYTES = 40 << 30
+
+
+def dense_schur_bytes(ncams: int, npnts: int, nobs: int,
+                      itemsize: int = 4) -> int:
+    """Estimated peak device bytes of :func:`solve_dense`: the two
+    targets, S and its factor, and the scatter operands (the flat int64
+    index, ``index_put_``'s sorted copy and permutation of it, the W and
+    Y values of every row), at ``itemsize`` bytes a value."""
+    mats = 2 * (3 * npnts) * (9 * ncams) * itemsize
+    s = 2 * (9 * ncams) ** 2 * itemsize
+    upd = 27 * nobs * (3 * 8 + 2 * itemsize)
+    return mats + s + upd
+
+
+def check_dense_feasible(ncams: int, npnts: int, nobs: int,
+                         itemsize: int = 4) -> None:
+    """Raise ``MemoryError`` when :func:`dense_schur_bytes` exceeds
+    :data:`DENSE_MAX_BYTES`."""
+    b = dense_schur_bytes(ncams, npnts, nobs, itemsize)
+    if b > DENSE_MAX_BYTES:
+        raise MemoryError(
+            f"dense Schur refused: ~{b / 2**30:.1f} GiB at ncams={ncams} "
+            f"npnts={npnts} nobs={nobs} exceeds DENSE_MAX_BYTES="
+            f"{DENSE_MAX_BYTES / 2**30:.1f} GiB")
+
+
+def _dense_dtype(W_t: torch.Tensor) -> torch.dtype:
+    """The dense path's compute dtype: float32 for a 2-byte W."""
+    return torch.float32 if W_t.element_size() < 4 else W_t.dtype
+
+
+def assemble_dense_schur(sys: SchurSystem) -> torch.Tensor:
+    """S as a dense (9 ncams, 9 ncams) matrix, ``blockdiag(Hcc_l) - Y' U``
+    with ``U[3 p + b, 9 c + a] = W_k[a, b]`` and ``Y`` alike over ``Y_k =
+    W_k Hpp_inv[p]``, for the row ``k`` of point ``p`` and camera ``c``.
+    Each row's 27 entries go to their places in one ``index_put_``
+    (accumulate) a target (a point and camera pair has one row, the
+    padding rows add zeros), then one matmul contracts the two. A 2-byte
+    W is widened to float32 (a float16 W holds ``s W`` and the system's
+    ``Hpp_inv`` is hatted by ``1 / s^2``, so ``Y' U`` is exact), and S
+    comes back rounded to W's storage dtype, as in the JAX package."""
+    problem = sys.problem
+    nc, npt = problem.ncams, problem.npnts
+    cdt = _dense_dtype(sys.W_t)
+    dev = sys.W_t.device
+    W = sys.W_t.to(cdt).T.reshape(-1, 9, 3)
+    pnt, cam = problem.pnt_idx.long(), problem.cam_idx.long()
+    Y = torch.einsum("kab,kbc->kac", W,
+                     sys.Hpp_inv_f.to(cdt).reshape(-1, 3, 3)[pnt])
+    a = torch.arange(9, device=dev)[None, :, None]
+    b = torch.arange(3, device=dev)[None, None, :]
+    flat = ((3 * pnt[:, None, None] + b) * (9 * nc)
+            + 9 * cam[:, None, None] + a).reshape(-1)
+
+    def target(vals):
+        out = torch.zeros(3 * npt * 9 * nc, dtype=cdt, device=dev)
+        out.index_put_((flat,), vals.reshape(-1), accumulate=True)
+        return out.reshape(3 * npt, 9 * nc)
+
+    S = -(target(Y).T @ target(W))
+    ar = torch.arange(nc, device=dev)
+    S.view(nc, 9, nc, 9)[ar, :, ar, :] += sys.Hcc_l.to(cdt)
+    return S.to(sys.W_t.dtype)
+
+
+def solve_dense(sys: SchurSystem) -> torch.Tensor:
+    """Direct Cholesky solve of the dense reduced system -> ``dc`` (ncams,
+    9) in the working dtype. A 2-byte S is factored in float32 and ``dc``
+    rounded to its dtype, as in the JAX package. An S that is not
+    positive definite gives a NaN ``dc`` (no exception, no host read; the
+    JAX package's ``cho_factor`` gives NaN there), which the LM drivers
+    reject. Refuses, before any allocation, a system above
+    :data:`DENSE_MAX_BYTES`."""
+    problem = sys.problem
+    cdt = _dense_dtype(sys.W_t)
+    check_dense_feasible(problem.ncams, problem.npnts, problem.nobs_pad,
+                         torch.finfo(cdt).bits // 8)
+    S = assemble_dense_schur(sys)
+    L, info = torch.linalg.cholesky_ex(S.to(cdt))
+    dc = torch.cholesky_solve(sys.b_f.to(cdt)[:, None], L).reshape(-1, 9)
+    dc = torch.where(info == 0, dc, torch.full_like(dc, float("nan")))
+    return dc.to(S.dtype).to(sys.b_f.dtype)

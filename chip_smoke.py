@@ -66,10 +66,22 @@ CUDA card.
    its status, iterations within one), then Final-4585 with bfloat16 W on
    B1 and B2 (three timed solves each, no plain-route solve, for the time
    limit; the two routes agree on status and on iterations within one).
-8. The bench leg (``python -m bundleadjustment_jl_tpu_torch.bench``): its
+8. The drivers and step solvers (``check_chunked``, ``check_solvers``):
+   at Dubrovnik-356 on route A, ``levenberg_marquardt_jit_chunked`` with
+   ``chunk_iters=3`` bit-identical to the one-shot solve (and its
+   launches checked), a run stopped after one chunk with a checkpoint and
+   resumed bit-identical to it, ``max_time=0`` stopping with status
+   ``max_time``; then each case of SOLVER_CASES — the host-stepped driver
+   (``levenberg_marquardt``) with PCG on routes A and C, held to phase
+   3's one-shot decisions (``host_status``); the power series (routes A
+   and C), CGLS and dense steps through both drivers, dense at LadyBug-49
+   too — a warm-up and three timed solves (dense at Dubrovnik-356: one),
+   launches checked as in 3, a solved status and the rmse on the anchor;
+   the median seconds printed beside the card.
+9. The bench leg (``python -m bundleadjustment_jl_tpu_torch.bench``): its
    JSON line, once, with the launches of its run checked (route A's
    kernels and the probe).
-9. Prints the run's wall time, the kernel table as one JSON line (each
+10. Prints the run's wall time, the kernel table as one JSON line (each
    kernel's time beside its least time on the card, ``bench.bound_ms``,
    from this run's shapes, at each problem; the plans' build times and
    the repeat checks under their kernels), the card line, and last
@@ -194,6 +206,26 @@ STORE_MISMATCH_MAX = 1e-3
 # solves'.
 SCHUR_CHECK_ONLY = ("cam_reduce_wcw81",)
 ROUTES = {True: "fused", False: "sorted"}   # normal.CAM_SCATTER -> name
+# Phase 9: the chunked driver's chunk, and the step solvers and drivers
+# solved: (problem, solver, driver, normal.CAM_SCATTER values, timed solves).
+# Each is warmed up once and timed DRIVER_REPEATS times, but dense at
+# Dubrovnik-356 (~14 TFLOP of float32 product an iteration) once, its path
+# warmed by the LadyBug-49 dense solves.
+CHUNK_ITERS = 3
+DRIVER_REPEATS = 3
+SOLVER_CASES = (
+    ("ladybug49", "dense", "jit", (True,), DRIVER_REPEATS),
+    ("ladybug49", "dense", "host", (True,), DRIVER_REPEATS),
+    ("dubrovnik356", "pcg", "host", (True, False), DRIVER_REPEATS),
+    ("dubrovnik356", "power", "jit", (True, False), DRIVER_REPEATS),
+    ("dubrovnik356", "power", "host", (True,), DRIVER_REPEATS),
+    ("dubrovnik356", "cgls", "jit", (True,), DRIVER_REPEATS),
+    ("dubrovnik356", "cgls", "host", (True,), DRIVER_REPEATS),
+    ("dubrovnik356", "dense", "jit", (True,), 1),
+    ("dubrovnik356", "dense", "host", (True,), 1),
+)
+# The reference's "solved" statuses.
+SOLVED = ("first_order", "small_residual", "small_step", "small_obj_change")
 # Each route's metric-name suffix and "route" entry in its solve line.
 ROUTE_TAGS = {"fused": ("", None), "sorted": ("_sorted", "camera_sorted"),
               "scatter_split": ("_scatter_split", "scatter_split"),
@@ -726,17 +758,25 @@ def plain_route():
         normal.PALLAS_MODE = old
 
 
-def check_launches(name, res, counts, w_counts, route, facto):
+def check_launches(name, res, counts, w_counts, route, facto,
+                   solver="pcg"):
     """Each kernel launched as often as the solve's own record implies
-    (``lm_jit.expected_launches``), and none of the other routes'; the W
-    kernels' launches ``w_counts`` (``_cuda.W_LAUNCHES``) with W in the
-    dtypes ``facto`` implies (``lm_jit.expected_w_launches``)."""
+    (``lm_jit.expected_launches`` for its step ``solver``; a host-driver
+    ``LMResult``: ``lm.expected_host_launches``), and none of the other
+    routes'; the W kernels' launches ``w_counts`` (``_cuda.W_LAUNCHES``)
+    with W in the dtypes ``facto`` implies
+    (``lm_jit.expected_w_launches``)."""
+    from bundleadjustment_jl_tpu_torch.solver.lm import (
+        LMResult, expected_host_launches)
     from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
         expected_launches, expected_w_launches)
-    it = res.iterations
     expect = dict.fromkeys(counts, 0)
-    expect.update(expected_launches(route, it, res.naccepts,
-                                    int(res.hist_cg[:it].sum())))
+    if isinstance(res, LMResult):
+        expect.update(expected_host_launches(route, res, solver))
+    else:
+        it = res.iterations
+        expect.update(expected_launches(route, it, res.naccepts,
+                                        int(res.hist_cg[:it].sum()), solver))
     if counts != expect:
         raise AssertionError(f"{name}: launches {counts} != {expect}")
     w_expect = expected_w_launches(counts, facto)
@@ -1020,6 +1060,186 @@ def check_facto_solves(final, launches_total):
                              f"bfloat16")
 
 
+def run_solver(problem, solver, driver):
+    """One solve of ``problem`` with bench.py's options by step ``solver``
+    through the one-shot (``"jit"``) or the host-stepped (``"host"``)
+    driver."""
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.solver import (
+        LMOptions, levenberg_marquardt)
+    from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
+        levenberg_marquardt_jit)
+    if driver == "host":
+        return levenberg_marquardt(problem, LMOptions(solver=solver,
+                                                      **bench.SOLVE_OPTS))
+    use = {} if solver == "pcg" else {f"use_{solver}": True}
+    return levenberg_marquardt_jit(problem, **bench.SOLVE_OPTS, **use)
+
+
+def host_status(res) -> str:
+    """The status the host-stepped driver gives where the one-shot solve
+    ``res`` ended: the same, but for a last step that passed both the
+    first-order and the small objective change tests. The one-shot driver
+    tests first-order first; the host driver tests the objective change
+    right after the accept and first-order only at the next iteration's
+    start (the JAX drivers' order, `solver/lm_jit.py:612-621` and
+    `solver/lm.py:403-407` there), so it says small_obj_change."""
+    from bundleadjustment_jl_tpu_torch import bench
+    status, it = res.status_name(), res.iterations
+    if status != "first_order" or it == 0:
+        return status
+    prev = float(res.hist_obj[it - 1])
+    tol = bench.SOLVE_OPTS["oatol"] + bench.SOLVE_OPTS["ortol"] * abs(prev)
+    return "small_obj_change" if prev - res.objective < tol else status
+
+
+def check_chunked(problem, launches_total):
+    """Phase 9, the chunked driver on route A at Dubrovnik-356: with
+    ``chunk_iters`` = CHUNK_ITERS bit-identical to the one-shot solve
+    (status, iterations, histories, cams, points) with the launches
+    ``lm_jit.expected_launches`` gives; stopped after one chunk with a
+    checkpoint (in a temporary directory under the git-ignored build
+    directory) and resumed, bit-identical to it from the resumed iteration
+    on; ``max_time=0`` stops with status ``max_time`` after 0 iterations.
+    Returns its JSON line."""
+    import tempfile
+
+    import numpy as np
+    import torch
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.ops import _cuda, normal
+    from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
+        levenberg_marquardt_jit_chunked)
+
+    def same(a, b, start=0):
+        n = b.iterations
+        return ((a.status, a.iterations, a.objective) ==
+                (b.status, b.iterations, b.objective)
+                and all(np.array_equal(getattr(a, k)[start:n],
+                                       getattr(b, k)[start:n])
+                        for k in ("hist_obj", "hist_gnorm", "hist_lam",
+                                  "hist_cg"))
+                and torch.equal(a.cams, b.cams)
+                and torch.equal(a.points, b.points))
+
+    opts = dict(bench.SOLVE_OPTS, chunk_iters=CHUNK_ITERS)
+    route = normal.kernel_route(problem)
+    one = run_solver(problem, "pcg", "jit")
+    _cuda.reset_launches()
+    chk = levenberg_marquardt_jit_chunked(problem, **opts)
+    counts = dict(_cuda.LAUNCHES)
+    check_launches("chunked", chk, counts, dict(_cuda.W_LAUNCHES), route,
+                   None)
+    for k, v in counts.items():
+        launches_total[k] += v
+    build = ROOT / PKG / "_build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        part = levenberg_marquardt_jit_chunked(
+            problem, checkpoint_dir=d, stop_after_chunks=1, **opts)
+        resumed = levenberg_marquardt_jit_chunked(
+            problem, checkpoint_dir=d, resume=True, **opts)
+    timed_out = levenberg_marquardt_jit_chunked(problem, max_time=0.0,
+                                                **opts)
+    line = {"metric": "dubrovnik356_chunked", "route": route,
+            "chunk_iters": CHUNK_ITERS, "status": chk.status_name(),
+            "iterations": chk.iterations, "elapsed_time": chk.elapsed_time,
+            "launches": {k: v for k, v in counts.items() if v},
+            "bit_identical_to_one_shot": same(chk, one),
+            "resumed_from": part.iterations,
+            "resume_bit_identical": same(resumed, one, part.iterations),
+            "max_time_0": [timed_out.status_name(), timed_out.iterations]}
+    print(json.dumps(line))
+    if not line["bit_identical_to_one_shot"]:
+        raise AssertionError("chunked solve differs from the one-shot solve")
+    if part.iterations != CHUNK_ITERS or not line["resume_bit_identical"]:
+        raise AssertionError("resumed solve differs from the one-shot solve")
+    if line["max_time_0"] != ["max_time", 0]:
+        raise AssertionError(f"max_time=0 gave {line['max_time_0']}")
+    return line
+
+
+def check_solvers(solves, launches_total, card):
+    """Phase 9, each case of SOLVER_CASES: on each of its routes a warm-up
+    (seed 1; none with one timed solve) and its timed solves, each launch
+    count checked against the solve's own record (``check_launches``);
+    the status solved, the rmse within 1% of the problem's anchor; the
+    host driver's pcg solve makes phase 3's one-shot decisions (status,
+    iterations within one). Prints and returns a JSON line a case and
+    route, the median seconds beside the card, with the peak device
+    memory of its timed solves."""
+    import torch
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.ops import _cuda, normal
+    from bundleadjustment_jl_tpu_torch.solver.lm import LMResult
+
+    built = {}
+    lines = []
+    default = normal.CAM_SCATTER
+    try:
+        for name, solver, driver, scatter, repeats in SOLVER_CASES:
+            if name not in built:
+                built.clear()
+                built[name] = [bench.make_problem(name, seed)
+                               for seed in (0, 1)]
+            problem, warm = built[name]
+            for cs in scatter:
+                normal.CAM_SCATTER = cs
+                route = normal.kernel_route(problem)
+                tag = f"{name}_{driver}_{solver}{ROUTE_TAGS[route][0]}"
+                if repeats > 1:
+                    run_solver(warm, solver, driver)
+                torch.cuda.reset_peak_memory_stats()
+                times = []
+                for _ in range(repeats):
+                    _cuda.reset_launches()
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    res = run_solver(problem, solver, driver)
+                    torch.cuda.synchronize()
+                    times.append(time.perf_counter() - t0)
+                    counts = dict(_cuda.LAUNCHES)
+                    check_launches(tag, res, counts,
+                                   dict(_cuda.W_LAUNCHES), route, None,
+                                   solver)
+                    for k, v in counts.items():
+                        launches_total[k] += v
+                host = isinstance(res, LMResult)
+                status = res.status if host else res.status_name()
+                cg = (sum(r["cg_iters"] for r in res.history) if host
+                      else int(res.hist_cg[:res.iterations].sum()))
+                rmse = (res.objective / problem.nobs) ** 0.5
+                line = {"metric": f"{tag}_synth_lm_solve",
+                        "value": sorted(times)[len(times) // 2],
+                        "unit": "s", "values": times, "card": card,
+                        "status": status, "iterations": res.iterations,
+                        "cg_matvecs": cg, "objective": res.objective,
+                        "rmse_px": rmse, "route": route,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                        "launches": {k: v for k, v in counts.items() if v}}
+                print(json.dumps(line))
+                lines.append(line)
+                if status not in SOLVED or not (
+                        torch.isfinite(res.cams).all()
+                        and torch.isfinite(res.points).all()):
+                    raise AssertionError(f"{tag}: ended {status}")
+                if abs(rmse - RMSE[name]) > 0.01 * RMSE[name]:
+                    raise AssertionError(f"{tag}: rmse {rmse} not within 1% "
+                                         f"of {RMSE[name]}")
+                if solver == "pcg":
+                    ref = solves[name][cs]
+                    want = host_status(ref)
+                    if (status != want
+                            or abs(res.iterations - ref.iterations) > 1):
+                        raise AssertionError(
+                            f"{tag}: {status} / {res.iterations}, the "
+                            f"one-shot solve {ref.status_name()} / "
+                            f"{ref.iterations} (host: {want})")
+    finally:
+        normal.CAM_SCATTER = default
+    return lines
+
+
 def check_bench(launches_total):
     """Phase 8: the bench leg, once; its launches counted from 0 and every
     kernel of its route and the probe launched. Returns its line."""
@@ -1163,6 +1383,9 @@ def main() -> int:
     schur_launches = check_final_schur(FINAL, final, errs)
     check_facto_solves(final, launches)
     del final
+    print("[drivers] chunked, host-stepped; power, dense and CGLS steps")
+    chunked = check_chunked(bench.make_problem("dubrovnik356", 0), launches)
+    drivers = check_solvers(solves, launches, card)
     check_bench(launches)
     for k, v in launches.items():
         if v == 0 and k not in SCHUR_CHECK_ONLY:
@@ -1173,7 +1396,8 @@ def main() -> int:
                                  f"check")
 
     print(f"[wall] {time.perf_counter() - wall0:.1f} s")
-    print(json.dumps({"probe": probe, "f64_solve": f64}))
+    print(json.dumps({"probe": probe, "f64_solve": f64, "chunked": chunked,
+                      "drivers": drivers}))
     print(json.dumps({"kernels": kernel_table(launches, schur_launches, errs,
                                               timings, facts)}))
     print(card)

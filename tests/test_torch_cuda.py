@@ -30,7 +30,7 @@ from bundleadjustment_jl_tpu_torch.ops import linearize as lz
 from bundleadjustment_jl_tpu_torch.ops import normal, plans
 from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
 from bundleadjustment_jl_tpu_torch.ops.normal import ROUTES, inv3x3_damped_flat
-from bundleadjustment_jl_tpu_torch.solver import lm_jit
+from bundleadjustment_jl_tpu_torch.solver import lm, lm_jit
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import levenberg_marquardt_jit
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -610,6 +610,66 @@ def test_redesigned_kernels_at_edge_shapes_on_card(case, dtype):
         assert int(seg[0]) > 4 * plans.CAM_BLOCK_COLS
     if case == "empty_cameras_ragged":
         assert p.nobs_pad % 4 != 0 and int(p.cam_starts[10]) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("solver", ["power", "dense", "cgls"])
+@pytest.mark.parametrize("route", ["fused", "sorted"])
+def test_step_solvers_on_card(card_problem, monkeypatch, route, solver):
+    """Each step solver on routes A and C, through the one-shot and the
+    host-stepped driver: launches as ``lm_jit.expected_launches`` and
+    ``lm.expected_host_launches`` say, a solved status, the objective
+    within 1% of the route's PCG solve."""
+    for k, v in normal.FORCE_ROUTE[route].items():
+        monkeypatch.setattr(normal, k, v)
+    opts = dict(max_iters=30, lam0_mode="diag")
+    pcg = levenberg_marquardt_jit(card_problem, **opts)
+    _cuda.reset_launches()
+    res = levenberg_marquardt_jit(card_problem, **{f"use_{solver}": True},
+                                  **opts)
+    it = res.iterations
+    expect = dict.fromkeys(_cuda.LAUNCHES, 0)
+    expect.update(lm_jit.expected_launches(
+        route, it, res.naccepts, int(res.hist_cg[:it].sum()), solver))
+    assert dict(_cuda.LAUNCHES) == expect
+    assert res.status_name() in ("first_order", "small_residual",
+                                 "small_step", "small_obj_change")
+    assert res.objective == pytest.approx(pcg.objective, rel=1e-2)
+    _cuda.reset_launches()
+    host = lm.levenberg_marquardt(card_problem,
+                                  lm.LMOptions(solver=solver, **opts))
+    expect = dict.fromkeys(_cuda.LAUNCHES, 0)
+    expect.update(lm.expected_host_launches(route, host, solver))
+    assert dict(_cuda.LAUNCHES) == expect
+    assert host.solved() and host.cams.is_cuda
+    assert host.objective == pytest.approx(pcg.objective, rel=1e-2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fused", "sorted"])
+def test_chunked_bit_identical_to_one_shot_on_card(card_problem,
+                                                   monkeypatch, route):
+    """The chunked driver (``chunk_iters=3``) on the card makes the
+    one-shot solve bit for bit (fixed-order kernels, no atomics), with its
+    launches."""
+    for k, v in normal.FORCE_ROUTE[route].items():
+        monkeypatch.setattr(normal, k, v)
+    opts = dict(max_iters=30, lam0_mode="diag")
+    one = levenberg_marquardt_jit(card_problem, **opts)
+    _cuda.reset_launches()
+    chk = lm_jit.levenberg_marquardt_jit_chunked(card_problem, chunk_iters=3,
+                                                 **opts)
+    it = chk.iterations
+    expect = dict.fromkeys(_cuda.LAUNCHES, 0)
+    expect.update(lm_jit.expected_launches(route, it, chk.naccepts,
+                                           int(chk.hist_cg[:it].sum())))
+    assert dict(_cuda.LAUNCHES) == expect
+    assert (chk.status, chk.iterations, chk.objective) == (
+        one.status, one.iterations, one.objective)
+    for k in ("hist_obj", "hist_gnorm", "hist_lam", "hist_cg"):
+        np.testing.assert_array_equal(getattr(chk, k), getattr(one, k))
+    assert torch.equal(chk.cams, one.cams)
+    assert torch.equal(chk.points, one.points)
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])

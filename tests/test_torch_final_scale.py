@@ -49,7 +49,6 @@ from bundleadjustment_jl_tpu_torch.ops.linearize import (
     linearize_w_kminor, linearize_w_only)
 from bundleadjustment_jl_tpu_torch.ops.normal import (
     GNBlocks, assemble_blocks, kernel_route)
-from bundleadjustment_jl_tpu_torch.solver import lm_jit
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import levenberg_marquardt_jit
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -474,20 +473,15 @@ def _queue_a_titles() -> set:
     return set(re.findall(r"^\d+\. \*\*(.+?)\*\*", queue, re.M))
 
 
-@pytest.mark.parametrize("option", [
-    "use_dense", "use_cgls", "use_power", "working_dtype", "chunked"])
+@pytest.mark.parametrize("option", ["working_dtype"])
 def test_unsupported_options_name_a_roadmap_item(option):
     """Each option the port lacks names, by its title, an item that exists
     in ROADMAP.md's queue A."""
     jp, _ = jax_synthetic(**P10)
     tp = to_port(jp)
     call = {
-        "use_dense": lambda: levenberg_marquardt_jit(tp, use_dense=True),
-        "use_cgls": lambda: levenberg_marquardt_jit(tp, use_cgls=True),
-        "use_power": lambda: levenberg_marquardt_jit(tp, use_power=True),
         "working_dtype": lambda: levenberg_marquardt_jit(
             tp, tp.cams.half(), tp.points.half()),
-        "chunked": lambda: lm_jit.levenberg_marquardt_jit_chunked(tp),
     }[option]
     with pytest.raises(NotImplementedError) as err:
         call()

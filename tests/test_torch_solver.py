@@ -22,7 +22,7 @@ from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.ops.pcg import (
     block_jacobi_apply, block_jacobi_inverse, pcg)
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
-    MAX_ITER, levenberg_marquardt_jit, levenberg_marquardt_jit_chunked)
+    MAX_ITER, levenberg_marquardt_jit)
 
 
 def to_port(jp):
@@ -89,20 +89,6 @@ def test_solver_f32_matches_jax_pallas_cam_scatter():
     assert got.iterations == int(ref.iterations)
     robj = float(ref.objective)
     assert abs(got.objective - robj) <= 1e-5 * max(1.0, robj)
-
-
-@pytest.mark.parametrize("option, value", [
-    ("use_dense", True), ("use_cgls", True), ("use_power", True)])
-def test_options_outside_the_slice_raise(option, value):
-    jp, _ = jax_synthetic(**P10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        levenberg_marquardt_jit(to_port(jp), **{option: value})
-
-
-def test_chunked_driver_is_not_ported_yet():
-    jp, _ = jax_synthetic(**P10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        levenberg_marquardt_jit_chunked(to_port(jp), max_time=1.0)
 
 
 def test_block_jacobi_inverse_nan_on_non_spd_block():
