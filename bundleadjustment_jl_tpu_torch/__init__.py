@@ -5,8 +5,10 @@ The JAX package stays the reference; this package mirrors its layout
 Levenberg-Marquardt solver (host-stepped, one-shot and chunked drivers with
 checkpoints; PCG, power-series, dense and CGLS steps) on the JAX package's
 four kernel routes, with W stored in float32, bfloat16 or float16
-(`facto_dtype`), and its
-measurement path (`bench.py`, `mv_sweep.py`). Its kernels, one for each
+(`facto_dtype`) and a bfloat16 or float16 working dtype; the precision
+cascade, problem suites and campaign runner (`benchmark/`), the native BAL
+parser and writer, the CLI (``python -m bundleadjustment_jl_tpu_torch``)
+and its measurement path (`bench.py`, `mv_sweep.py`). Its kernels, one for each
 TPU kernel of the JAX package, are CUDA C++ for Hopper (`csrc/`), built
 with nvcc at first use (`ops/_cuda.py`). Problems are built on the card
 unless the caller asks for the CPU; CUDA tensors run through the kernels,

@@ -9,8 +9,10 @@ File format (https://grail.cs.washington.edu/projects/bal/):
     <npnts x 3 lines>  point coordinates           (one value per line)
 
 Camera parameters are reordered from file order ``(r, t, f, k1, k2)`` to
-the internal order ``(r, t, k1, k2, f)``. Parsing is numpy; ``.bz2``
-files are decompressed with the stdlib.
+the internal order ``(r, t, k1, k2, f)``. :func:`read_bal` parses with the
+native C++ parser (`io/native.py`), or with numpy for a ``.bz2`` file when
+no libbz2 was found to link it with (the stdlib decompresses it then), as
+the JAX reader chooses. :func:`write_bal` is its inverse.
 """
 
 from __future__ import annotations
@@ -22,6 +24,8 @@ import os
 import numpy as np
 import torch
 
+from bundleadjustment_jl_tpu_torch.io.native import (
+    NATIVE_BZ2, parse_bal_native)
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 
 
@@ -53,8 +57,13 @@ def _read_raw(path: str):
 
 def read_bal(path: str, dtype=torch.float64, pad_obs_to: int = 128,
              name: str | None = None, device="cuda") -> BAProblem:
-    """Read a BAL ``.txt`` / ``.txt.bz2`` file into a :class:`BAProblem`."""
-    cam_idx, pnt_idx, pt2d, cams_file, points = _read_raw(path)
+    """Read a BAL ``.txt`` / ``.txt.bz2`` file into a :class:`BAProblem`
+    (``dtype`` a torch dtype or a name, e.g. ``"bfloat16"``)."""
+    if NATIVE_BZ2 or not path.endswith(".bz2"):
+        raw = parse_bal_native(path)
+    else:
+        raw = _read_raw(path)
+    cam_idx, pnt_idx, pt2d, cams_file, points = raw
     # (r, t, f, k1, k2) -> (r, t, k1, k2, f)
     cams = np.concatenate(
         [cams_file[:, 0:6], cams_file[:, 7:9], cams_file[:, 6:7]], axis=1)
@@ -63,6 +72,33 @@ def read_bal(path: str, dtype=torch.float64, pad_obs_to: int = 128,
     return BAProblem.from_arrays(cams, points, cam_idx, pnt_idx, pt2d,
                                  dtype=dtype, pad_obs_to=pad_obs_to,
                                  name=name, device=device)
+
+
+def write_bal(path: str, problem: BAProblem) -> None:
+    """Write a problem in BAL format, ``.bz2``-compressed when ``path``
+    ends so, values as ``%.16e`` (the inverse of :func:`read_bal`; the
+    JAX writer's format)."""
+    n = problem.nobs
+    cams = problem.cams.double().cpu().numpy()
+    # internal (r, t, k1, k2, f) -> file (r, t, f, k1, k2)
+    cams_file = np.concatenate(
+        [cams[:, 0:6], cams[:, 8:9], cams[:, 6:8]], axis=1)
+    points = problem.points.double().cpu().numpy()
+    cam_idx = problem.cam_idx[:n].cpu().numpy()
+    pnt_idx = problem.pnt_idx[:n].cpu().numpy()
+    pt2d = problem.pt2d[:n].double().cpu().numpy()
+    raw = bz2.open(path, "wt") if path.endswith(".bz2") else open(path, "w")
+    with raw as f:
+        f.write(f"{problem.ncams} {problem.npnts} {n}\n")
+        for k in range(n):
+            f.write(f"{cam_idx[k]} {pnt_idx[k]} "
+                    f"{pt2d[k, 0]:.16e} {pt2d[k, 1]:.16e}\n")
+        for c in cams_file:
+            for v in c:
+                f.write(f"{v:.16e}\n")
+        for p in points:
+            for v in p:
+                f.write(f"{v:.16e}\n")
 
 
 # The reference test suite's golden mini-problem: 5 cameras observing one

@@ -28,21 +28,47 @@ from typing import Any, Mapping
 import numpy as np
 import torch
 
-_NP_DTYPES = {torch.float32: np.float32, torch.float64: np.float64}
-
-
-def np_dtype(dtype) -> np.dtype:
-    """numpy dtype for a torch or numpy float dtype."""
-    if isinstance(dtype, torch.dtype):
-        return np.dtype(_NP_DTYPES[dtype])
-    return np.dtype(dtype)
+# The working dtypes by name. numpy has float16 but no bfloat16 (without
+# ml_dtypes, which the card's machine lacks): a bfloat16 problem exists only
+# as torch tensors.
+DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16,
+          "float32": torch.float32, "float64": torch.float64}
+_NP_DTYPES = {torch.float16: np.float16, torch.float32: np.float32,
+              torch.float64: np.float64}
+# Working dtypes narrower than float32, whose vectors the kernels take in
+# float32 (see `ops/normal.py:stages_for`).
+HALF_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def torch_dtype(dtype) -> torch.dtype:
-    """torch dtype for a torch or numpy float dtype."""
+    """torch dtype for a float dtype given as a torch dtype, a name of
+    :data:`DTYPES` or a numpy dtype (a bfloat16 one where ml_dtypes is
+    installed)."""
     if isinstance(dtype, torch.dtype):
+        if dtype not in DTYPES.values():
+            raise TypeError(f"not a float dtype of {tuple(DTYPES)}: {dtype}")
         return dtype
-    return {np.dtype(v): k for k, v in _NP_DTYPES.items()}[np.dtype(dtype)]
+    name = dtype if isinstance(dtype, str) else np.dtype(dtype).name
+    if name not in DTYPES:
+        raise TypeError(f"not a float dtype of {tuple(DTYPES)}: {dtype!r}")
+    return DTYPES[name]
+
+
+def np_dtype(dtype) -> np.dtype:
+    """numpy dtype for a float dtype (:func:`torch_dtype`'s forms); there
+    is none for bfloat16."""
+    dt = torch_dtype(dtype)
+    if dt not in _NP_DTYPES:
+        raise TypeError(f"numpy has no {dt}: keep it as a torch tensor")
+    return np.dtype(_NP_DTYPES[dt])
+
+
+def host_dtype(dtype) -> np.dtype:
+    """The numpy dtype in which the host holds and computes with values of
+    ``dtype``: its own, and float32 for the 2-byte dtypes
+    (:data:`HALF_DTYPES`), whose every value it holds exactly."""
+    dt = torch_dtype(dtype)
+    return np.dtype(np.float32) if dt in HALF_DTYPES else np_dtype(dt)
 
 
 def make_starts(seg_ids, num_segments: int, total: int) -> np.ndarray:
@@ -92,8 +118,10 @@ class BAProblem:
                     dtype=torch.float64, pad_obs_to: int = 128,
                     name: str = "ba", device="cuda") -> "BAProblem":
         """Build a padded, point-sorted problem from host arrays (0-based
-        indices), as `BAProblem.from_arrays` of the JAX package does."""
-        ndt = np_dtype(dtype)
+        indices), as `BAProblem.from_arrays` of the JAX package does. A
+        bfloat16 problem is built from float64 host arrays."""
+        dt = torch_dtype(dtype)
+        ndt = np_dtype(torch.float64 if dt == torch.bfloat16 else dt)
         cams = np.asarray(cams, dtype=ndt).reshape(-1, 9)
         points = np.asarray(points, dtype=ndt).reshape(-1, 3)
         cam_idx = np.asarray(cam_idx, dtype=np.int32).ravel()
@@ -128,7 +156,7 @@ class BAProblem:
             dict(cams=cams, points=points, cam_idx=ci, pnt_idx=pi,
                  pt2d=xy, w=w, pnt_starts=pnt_starts, cam_perm=cam_perm,
                  cam_starts=cam_starts, nobs=nobs, name=name),
-            device=device)
+            device=device, dtype=dt)
 
     @classmethod
     def from_numpy(cls, fields: Mapping[str, Any], device="cuda",
@@ -136,7 +164,8 @@ class BAProblem:
         """A problem from numpy arrays in the sorted, padded layout —
         e.g. ``{k: np.asarray(getattr(jax_problem, k)) for k in
         BAProblem.FIELDS}``. ``cams``/``points`` carry the state. Float
-        fields take ``dtype`` (default: that of ``cams``)."""
+        fields take ``dtype`` (one of :data:`DTYPES`, by name or as a
+        dtype; default: that of ``cams``)."""
         fdt = torch_dtype(dtype if dtype is not None
                           else np.asarray(fields["cams"]).dtype)
 
@@ -192,6 +221,8 @@ class BAProblem:
                                    w=w, plans=self.plans)
 
     def astype(self, dtype) -> "BAProblem":
+        """This problem with its float arrays (the state, ``pt2d`` and
+        ``w``) rounded to ``dtype``, as the JAX ``astype`` rounds them."""
         dt = torch_dtype(dtype)
         return self._with_floats(self.cams.to(dt), self.points.to(dt),
                                  self.pt2d.to(dt), self.w.to(dt))

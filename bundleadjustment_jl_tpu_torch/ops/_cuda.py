@@ -33,6 +33,8 @@ from pathlib import Path
 
 import torch
 
+from bundleadjustment_jl_tpu_torch.ops.plans import rows
+
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -272,10 +274,12 @@ def w_code(t: torch.Tensor, name: str, shape: tuple) -> int:
 
 
 def require_problem(problem) -> None:
-    """Validate the problem arrays every kernel reads."""
+    """Validate the problem arrays every kernel reads: the index arrays and
+    the rows as the kernels get them (`ops/plans.py:rows`)."""
     n, nc, npt = problem.nobs_pad, problem.ncams, problem.npnts
-    require(problem.pt2d, "pt2d", torch.float32, (n, 2))
-    require(problem.w, "w", torch.float32, (n,))
+    pt2d, w = rows(problem)
+    require(pt2d, "pt2d", torch.float32, (n, 2))
+    require(w, "w", torch.float32, (n,))
     for name, size in (("cam_idx", n), ("pnt_idx", n), ("cam_perm", n),
                        ("pnt_starts", npt + 1), ("cam_starts", nc + 1)):
         require(getattr(problem, name), name, torch.int32, (size,))

@@ -41,6 +41,7 @@ def assemble_scatter(problem: BAProblem, cams: torch.Tensor,
     _cuda.require_problem(problem)
     dev = cams.device
     blocks = plans.point_blocks(problem)
+    pt2d, w = plans.rows(problem)
     W_t = torch.empty((27, n), dtype=w_dtype or torch.float32, device=dev)
     code = _cuda.w_code(W_t, "W_t", (27, n))
     hp12 = torch.empty((npt, 12), dtype=torch.float32, device=dev)
@@ -49,7 +50,7 @@ def assemble_scatter(problem: BAProblem, cams: torch.Tensor,
     obj = torch.empty((1,), dtype=torch.float32, device=dev)
     p = problem
     rc = _cuda.lib().ba_assemble(
-        _cuda.ptr(cams), _cuda.ptr(points), _cuda.ptr(p.pt2d), _cuda.ptr(p.w),
+        _cuda.ptr(cams), _cuda.ptr(points), _cuda.ptr(pt2d), _cuda.ptr(w),
         _cuda.ptr(p.cam_idx), _cuda.ptr(p.pnt_idx), _cuda.ptr(p.pnt_starts),
         _cuda.ptr(blocks), blocks.shape[0] - 1, _cuda.ptr(p.cam_perm),
         _cuda.ptr(p.cam_starts), nc, n, _cuda.ptr(W_t), code,
@@ -66,7 +67,7 @@ def _assemble_plain(problem: BAProblem, cams, points, w_dtype=None):
     rounded to ``w_dtype`` at the end."""
     ci = problem.cam_idx.long()
     pi = problem.pnt_idx.long()
-    r, Jc, Jp = linearize(cams[ci], points[pi], problem.pt2d, problem.w)
+    r, Jc, Jp = linearize(cams[ci], points[pi], *plans.rows(problem))
     W_t = torch.einsum("nia,nib->abn", Jc, Jp).reshape(27, -1)
     hp = torch.cat([torch.einsum("nib,nie->nbe", Jp, Jp).reshape(-1, 9),
                     torch.einsum("nib,ni->nb", Jp, r)], dim=1)
@@ -93,7 +94,8 @@ def objective_scatter(problem: BAProblem, cams_all: torch.Tensor,
     _cuda.require(cams_all, "cams_all", torch.float32, (S, nc, 9))
     _cuda.require(pts_all, "pts_all", torch.float32, (S, npt, 3))
     _cuda.require_problem(problem)
-    if problem.pt2d.data_ptr() % 8:
+    pt2d, w = plans.rows(problem)
+    if pt2d.data_ptr() % 8:
         raise ValueError("pt2d: the kernel reads each row as one float2 "
                          "and needs it 8-byte aligned")
     so = _cuda.lib()
@@ -103,8 +105,8 @@ def objective_scatter(problem: BAProblem, cams_all: torch.Tensor,
     out = torch.empty((S,), dtype=torch.float32, device=dev)
     p = problem
     rc = so.ba_objective(
-        _cuda.ptr(cams_all), _cuda.ptr(pts_all), _cuda.ptr(p.pt2d),
-        _cuda.ptr(p.w), _cuda.ptr(p.cam_idx), _cuda.ptr(p.pnt_idx), S, nc,
+        _cuda.ptr(cams_all), _cuda.ptr(pts_all), _cuda.ptr(pt2d),
+        _cuda.ptr(w), _cuda.ptr(p.cam_idx), _cuda.ptr(p.pnt_idx), S, nc,
         npt, n, _cuda.ptr(partials), _cuda.ptr(out), _cuda.stream())
     _cuda.check(rc, "ba_objective")
     _cuda.launched("objective")
@@ -116,8 +118,9 @@ def _objective_plain(problem: BAProblem, cams_all, pts_all):
     chain per scale."""
     ci = problem.cam_idx.long()
     pi = problem.pnt_idx.long()
+    pt2d, w = plans.rows(problem)
     out = []
     for cams, points in zip(cams_all, pts_all):
-        r = project_residual(cams[ci], points[pi], problem.pt2d, problem.w)
+        r = project_residual(cams[ci], points[pi], pt2d, w)
         out.append(0.5 * torch.sum(r * r))
     return torch.stack(out)

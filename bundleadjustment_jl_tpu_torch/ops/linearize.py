@@ -52,8 +52,9 @@ def linearize_w_kminor(problem: BAProblem, cams: torch.Tensor,
                       device=cams.device)
     code = _cuda.w_code(W_t, "W_t", (27, n))
     p = problem
+    pt2d, w = plans.rows(problem)
     rc = _cuda.lib().ba_linearize_rows(
-        _cuda.ptr(cams), _cuda.ptr(points), _cuda.ptr(p.pt2d), _cuda.ptr(p.w),
+        _cuda.ptr(cams), _cuda.ptr(points), _cuda.ptr(pt2d), _cuda.ptr(w),
         _cuda.ptr(p.cam_idx), _cuda.ptr(p.pnt_idx), n, _cuda.ptr(JR_t),
         _cuda.ptr(W_t), code, _cuda.stream())
     _cuda.check(rc, "ba_linearize_rows")
@@ -66,8 +67,8 @@ def _linearize_plain(problem: BAProblem, cams, points, w_dtype=None):
     gathered rows (the JAX package's XLA linearization), W rounded to
     ``w_dtype`` at the end."""
     r, Jc, Jp = linearize(cams[problem.cam_idx.long()],
-                          points[problem.pnt_idx.long()], problem.pt2d,
-                          problem.w)
+                          points[problem.pnt_idx.long()],
+                          *plans.rows(problem))
     JR_t = torch.cat([Jc.reshape(-1, 18), Jp.reshape(-1, 6), r], dim=1).T
     W_t = torch.einsum("nia,nib->abn", Jc, Jp).reshape(27, -1)
     return JR_t.contiguous(), W_t.to(w_dtype or W_t.dtype).contiguous()
@@ -101,8 +102,9 @@ def _linearize_w_only_plain(problem: BAProblem, cams, points, w_dtype=None):
     """Plain version of :func:`linearize_w_only`: the batched chain on the
     rows gathered in camera order, W rounded to ``w_dtype`` at the end."""
     perm = problem.cam_perm.long()
+    pt2d, w = plans.rows(problem)
     _, Jc, Jp = linearize(cams[problem.cam_idx.long()[perm]],
                           points[problem.pnt_idx.long()[perm]],
-                          problem.pt2d[perm], problem.w[perm])
+                          pt2d[perm], w[perm])
     W = torch.einsum("nia,nib->abn", Jc, Jp).reshape(27, -1)
     return W.to(w_dtype or W.dtype).contiguous()

@@ -5,6 +5,14 @@ parts of `bundleadjustment_jl_tpu/ops/normal.py` the kernel routes use).
     Hpp: 3x3 point blocks, Hcp: one 9x3 block W_k per observation.
 
 Damping is Levenberg's ``lambda I``.
+
+A solve may run in a 2-byte working dtype (bfloat16 or float16, the low
+stages of `benchmark/precision.py:precision_cascade`). The kernels take
+float32 vectors, as the JAX package's Pallas kernels do: the solve's stage
+table (:func:`solve_stages`) widens each stage's vector operands to float32
+and rounds its results back to the working dtype, and W is written in the
+working dtype (its ``out_dtype = w_dtype or dt``). Their plain twins get
+the same operands, so on the card both make the same decisions.
 """
 
 from __future__ import annotations
@@ -13,7 +21,8 @@ from typing import Callable, NamedTuple
 
 import torch
 
-from bundleadjustment_jl_tpu_torch.models.problem import BAProblem, torch_dtype
+from bundleadjustment_jl_tpu_torch.models.problem import (
+    HALF_DTYPES, BAProblem, torch_dtype)
 from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
 from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
 from bundleadjustment_jl_tpu_torch.ops import linearize as lz
@@ -100,11 +109,54 @@ PLAIN = Stages(
 # on (default here, as bench.py measures) or the plain route everywhere.
 PALLAS_MODE = True
 
+# The outputs (by position) that a 2-byte working dtype's table hands on
+# unrounded: W in its storage dtype, and K7's float32 JR, which the next
+# stages read.
+_UNROUNDED = {"assemble_scatter": (0,), "linearize_w_kminor": (0, 1),
+              "linearize_w_only": (0,)}
+
+
+def _widen(x):
+    if isinstance(x, torch.Tensor) and x.dtype in HALF_DTYPES:
+        return x.float()
+    return x
+
+
+def _half_stage(fn: Callable, dt: torch.dtype, keep: tuple) -> Callable:
+    """``fn`` as a solve in the 2-byte working dtype ``dt`` calls it:
+    every tensor operand but the first (W, JR or none) widened to float32,
+    and every result but those at the positions ``keep`` rounded to
+    ``dt``, as the JAX package casts around its kernels."""
+    def stage(first, *args, **kwargs):
+        out = fn(first, *map(_widen, args),
+                 **{k: _widen(v) for k, v in kwargs.items()})
+        if isinstance(out, torch.Tensor):
+            return out if keep else out.to(dt)
+        return tuple(o if i in keep else o.to(dt) for i, o in enumerate(out))
+    stage.__name__ = getattr(fn, "__name__", "stage")
+    return stage
+
+
+class _HalfStages(Stages):
+    """A table whose stages :func:`_half_stage` wrapped."""
+    __slots__ = ()
+
+
+def stages_for(table: Stages, dtype) -> Stages:
+    """``table`` as a solve in working dtype ``dtype`` calls it: as it is,
+    or for a 2-byte dtype each stage through :func:`_half_stage` (once)."""
+    dt = torch_dtype(dtype)
+    if dt not in HALF_DTYPES or isinstance(table, _HalfStages):
+        return table
+    return _HalfStages(*(_half_stage(f, dt, _UNROUNDED.get(name, ()))
+                         for name, f in zip(Stages._fields, table)))
+
 
 def solve_stages(dtype) -> Stages:
     """The stage table of a solve in working dtype ``dtype``, read once per
     solve by `solver/lm_jit.py`: :data:`PLAIN` for float64 or with
-    :data:`PALLAS_MODE` off, else :data:`KERNELS`.
+    :data:`PALLAS_MODE` off, else :data:`KERNELS`; for a 2-byte dtype
+    through :func:`stages_for`.
 
     The kernels accumulate in float32 and have no float64 form; the JAX
     package keeps its XLA path for float64 (`pallas_schur.problem_ok`), and
@@ -117,9 +169,9 @@ def solve_stages(dtype) -> Stages:
     segment sums are ``index_add_``, atomics on CUDA: an f64 solve on the
     card makes the CPU f64 solve's decisions (status, iterations) with its
     objective within rel 1e-9, not bit for bit."""
-    if PALLAS_MODE and torch_dtype(dtype) != torch.float64:
-        return KERNELS
-    return PLAIN
+    table = (KERNELS if PALLAS_MODE and torch_dtype(dtype) != torch.float64
+             else PLAIN)
+    return stages_for(table, dtype)
 
 
 def kernel_route(problem: BAProblem) -> str:
@@ -211,6 +263,11 @@ def assemble_blocks(problem: BAProblem, cams=None, points=None, *,
     ``with_jr`` keeps K7's ``JR_t`` in the blocks (the CGLS solver's J and
     r). K1 writes no JR, so on ``"fused"`` it assembles as
     ``"scatter_split"`` and the blocks carry that route.
+
+    In a 2-byte working dtype W is written in the working dtype when
+    ``w_dtype`` is None; the table (:func:`stages_for`) widens the stages'
+    operands, and the sums, the objective and ``JR_t`` come back rounded
+    to it.
     """
     if route not in ROUTES:
         raise ValueError(f"unknown kernel route {route!r}; one of {ROUTES}")
@@ -218,7 +275,10 @@ def assemble_blocks(problem: BAProblem, cams=None, points=None, *,
         route = "scatter_split"
     cams = problem.cams if cams is None else cams
     points = problem.points if points is None else points
-    st = KERNELS if stages is None else stages
+    dt = cams.dtype
+    st = stages_for(KERNELS if stages is None else stages, dt)
+    if dt in HALF_DTYPES:
+        w_dtype = w_dtype or dt
     if route == "fused":
         W_t, hp12, hc90, obj = st.assemble_scatter(problem, cams, points,
                                                    w_dtype)
@@ -239,8 +299,8 @@ def assemble_blocks(problem: BAProblem, cams=None, points=None, *,
                     g_p_f=hp12[:, 9:12].reshape(-1),
                     Hcc_f=hc90[:, :81].reshape(-1),
                     Hpp_f=hp12[:, :9].reshape(-1),
-                    obj=obj, W_t=W_t, W_cam_t=W_cam_t, route=route,
-                    stages=st, JR_t=JR_t if with_jr else None)
+                    obj=obj.to(dt), W_t=W_t, W_cam_t=W_cam_t, route=route,
+                    stages=st, JR_t=JR_t.to(dt) if with_jr else None)
 
 
 def gradient_norm(blocks: GNBlocks) -> torch.Tensor:
@@ -253,7 +313,11 @@ def inv3x3_damped_flat(Hpp_f: torch.Tensor, lam) -> torch.Tensor:
     """Adjugate inverse of ``Hpp + lam I`` on flat (P*9,) blocks
     (row-major ``3a+b``). Where ``det`` is not finite or not above
     ``8 tiny`` the block falls back to the inverse of its clamped
-    diagonal, so the step stays finite and LM's reject logic takes over."""
+    diagonal, so the step stays finite and LM's reject logic takes over.
+    A 2-byte dtype computes in float32 and rounds the inverse back, as in
+    the JAX package (its determinant products underflow there)."""
+    if Hpp_f.dtype in HALF_DTYPES:
+        return inv3x3_damped_flat(Hpp_f.float(), lam).to(Hpp_f.dtype)
     M = Hpp_f.reshape(-1, 9)
     tiny8 = torch.finfo(Hpp_f.dtype).tiny * 8.0
     a, b, c = M[:, 0] + lam, M[:, 1], M[:, 2]

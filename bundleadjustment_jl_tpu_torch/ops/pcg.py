@@ -14,6 +14,8 @@ from typing import Callable, NamedTuple
 import numpy as np
 import torch
 
+from bundleadjustment_jl_tpu_torch.models.problem import HALF_DTYPES
+
 # Consecutive CG steps without a 4% best-residual improvement after which
 # `pcg` stops when `stagnation_window > 0` (the JAX package's default).
 STAGNATION_WINDOW = 8
@@ -29,7 +31,11 @@ def block_jacobi_inverse(blocks: torch.Tensor) -> torch.Tensor:
     """Explicit batched inverse of the SPD preconditioner blocks
     (ncams, 9, 9), through a Cholesky factor. A block that is not
     numerically SPD yields NaN, as JAX's Cholesky does — the NaN step is
-    then rejected by the LM driver instead of stopping the solve."""
+    then rejected by the LM driver instead of stopping the solve. A 2-byte
+    dtype is factored in float32 and the inverse stays float32, as in the
+    JAX package."""
+    if blocks.dtype in HALF_DTYPES:
+        blocks = blocks.float()
     L, info = torch.linalg.cholesky_ex(blocks)
     L = torch.where((info == 0)[:, None, None], L,
                     torch.full_like(L, float("nan")))
@@ -40,8 +46,9 @@ def block_jacobi_inverse(blocks: torch.Tensor) -> torch.Tensor:
 
 
 def block_jacobi_apply(Minv: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``M^{-1} v`` for ``v`` (ncams, 9)."""
-    return torch.einsum("cab,cb->ca", Minv, v)
+    """``M^{-1} v`` for ``v`` (ncams, 9), in ``Minv``'s dtype and rounded
+    to ``v``'s."""
+    return torch.einsum("cab,cb->ca", Minv, v.to(Minv.dtype)).to(v.dtype)
 
 
 def _dot(u, v):

@@ -46,6 +46,11 @@ reads it) gives each column's point with one coalesced read.
 K8, :class:`CamRowPlan`: the row data in camera order, so that K8 reads
 every per-row field coalesced; 16 B a row on top of ``cam_pnt`` (148 MB at
 Final-4585's 9,272,320 rows).
+
+:func:`rows`: the row data (``pt2d``, ``w``) in float32, which every kernel
+that reads them takes. A problem in a 2-byte dtype (``astype("bfloat16")``)
+holds them rounded to that dtype; their float32 copies are kept, like the
+row plan, under a key that holds the problem's dtype.
 """
 
 from __future__ import annotations
@@ -53,6 +58,8 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+
+from bundleadjustment_jl_tpu_torch.models.problem import HALF_DTYPES
 
 # Rows of a K2 tile: csrc/cam_prod.cuh:BA_TILE_ROWS (the kernel refuses a
 # plan of another size). Chosen by measurement (see there).
@@ -206,9 +213,22 @@ def build_cam_row_plan(problem) -> CamRowPlan:
     """K8's camera-order copies of ``problem``'s row data (uncached;
     :func:`cam_row_plan` keeps them on the problem)."""
     perm = problem.cam_perm.long()
-    return CamRowPlan(problem.pt2d[perm].contiguous(),
-                      problem.w[perm].contiguous(),
+    pt2d, w = rows(problem)
+    return CamRowPlan(pt2d[perm].contiguous(), w[perm].contiguous(),
                       _by_camera(problem, "cam_idx"), cam_pnt(problem))
+
+
+def rows(problem) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(pt2d, w)`` as the kernels read them: the problem's own, or for a
+    problem in a 2-byte dtype their float32 copies (the rounded values,
+    widened exactly), built at the first call and kept under that dtype."""
+    if problem.pt2d.dtype not in HALF_DTYPES:
+        return problem.pt2d, problem.w
+    key = ("rows", problem.pt2d.dtype)
+    if key not in problem.plans:
+        problem.plans[key] = (problem.pt2d.float().contiguous(),
+                              problem.w.float().contiguous())
+    return problem.plans[key]
 
 
 def tile_plan(problem) -> TilePlan:

@@ -39,6 +39,11 @@ cross term takes ``dp / s``. Where the JAX package rounds a per-row operand
 to bfloat16 beside a bfloat16 W, so does the port, in the same places
 (:func:`_cam_dir_reduce`, :func:`_point_dir_operand`), so both make the
 same decisions.
+
+In a 2-byte working dtype (`ops/normal.py`) the vectors here carry that
+dtype; the solve's stage table (`normal.stages_for`) widens them to
+float32 for each stage and rounds its result back to the working dtype, as
+the JAX package casts around its kernels.
 """
 
 from __future__ import annotations

@@ -14,7 +14,10 @@ Unlike the JAX host driver, which assembles with XLA, it runs the port's
 kernel routes: the route (`ops/normal.py:kernel_route`) and the stage
 table (`ops/normal.py:solve_stages`) are picked once per call, so a float32
 ``pcg`` solve on the card runs K1-K4 on route A; each trial objective is
-one K4 launch with one trial state and one host read.
+one K4 launch with one trial state and one host read. A 2-byte working
+dtype (bfloat16 or float16) runs as in the one-shot driver: the stages get
+float32 vectors and round their results back (`ops/normal.py`), W is
+stored in the working dtype, and the tolerances come from its eps.
 """
 
 from __future__ import annotations
@@ -26,7 +29,8 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
-from bundleadjustment_jl_tpu_torch.models.problem import BAProblem, torch_dtype
+from bundleadjustment_jl_tpu_torch.models.problem import (
+    HALF_DTYPES, BAProblem, torch_dtype)
 from bundleadjustment_jl_tpu_torch.ops.normal import (
     assemble_blocks, gradient_norm, kernel_route, solve_stages)
 from bundleadjustment_jl_tpu_torch.ops.pcg import forcing_rtol
@@ -152,7 +156,8 @@ def levenberg_marquardt(problem: BAProblem,
         raise ValueError(f"unknown solver {opts.solver!r}")
     if opts.solver == "dense":
         check_dense_feasible(problem.ncams, problem.npnts, problem.nobs_pad,
-                             problem.cams.element_size())
+                             4 if problem.dtype in HALF_DTYPES
+                             else problem.cams.element_size())
     # Full-precision f32 products on the card (no TF32), as in lm_jit.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")

@@ -13,7 +13,15 @@ Cholesky of S (``use_dense``) or CGLS on J (``use_cgls``).
 PyTorch runs eagerly, so the loop is Python. The solver state (cameras,
 points, the linearized blocks, W) stays on the device; the scalar
 decisions run on the host in the working dtype (numpy float32/float64
-scalars, so the rounding matches the JAX driver's device arithmetic).
+scalars, so the rounding matches the JAX driver's device arithmetic). A
+2-byte working dtype (bfloat16 or float16, the low stages of
+`benchmark/precision.py`) has no numpy scalar on every machine (numpy has
+no bfloat16): its host scalars are float32, and each value the solve
+carries from one step to the next (lambda, nu, the tolerances, the CG
+tolerance, gtol) is rounded to the working dtype where it is made, as the
+JAX driver's carry rounds it; the values read from the device are in the
+working dtype already. In between, the host computes in float32, as XLA
+computes a fused chain of bfloat16 operations.
 Host reads per LM iteration: one flag per CG step (`ops/pcg.py`; a power
 term and a CGLS step alike), one packed block (trial objectives, g'd,
 ||J d||^2, ||d||, ||x||) at the accept decision, and — after an accepted
@@ -26,9 +34,9 @@ chunked one in chunks with host checks between them, which read nothing
 from the device (the scalars are on the host already).
 
 ``facto_dtype`` (bfloat16 or float16) stores the per-observation W blocks
-in that dtype, as the JAX solver does (:func:`maybe_cast_facto`); with it
-come the narrow-storage CG floor, the CG stagnation stop and the
-predicted-reduction stop.
+in that dtype, as the JAX solver does (:func:`maybe_cast_facto`); a 2-byte
+working dtype stores W in itself. With either come the narrow CG floor, the
+CG stagnation stop and the predicted-reduction stop.
 """
 
 from __future__ import annotations
@@ -42,7 +50,8 @@ from typing import Callable, NamedTuple, Optional
 import numpy as np
 import torch
 
-from bundleadjustment_jl_tpu_torch.models.problem import BAProblem, np_dtype
+from bundleadjustment_jl_tpu_torch.models.problem import (
+    HALF_DTYPES, BAProblem, host_dtype, torch_dtype)
 from bundleadjustment_jl_tpu_torch.ops._cuda import (
     W_DTYPES, W_READERS, W_WRITERS)
 from bundleadjustment_jl_tpu_torch.ops.cgls import cgls_solve, j_matvec
@@ -132,15 +141,18 @@ def expected_launches(route: str, iterations: int, naccepts: int, cg: int,
     return expect
 
 
-def expected_w_launches(launches: dict, facto_dtype) -> dict:
+def expected_w_launches(launches: dict, facto_dtype,
+                        work_dtype: torch.dtype = torch.float32) -> dict:
     """The W storage of a solve's launches (`ops/_cuda.py:W_LAUNCHES`),
-    from its kernel launches (``_cuda.LAUNCHES``) and its ``facto_dtype``:
-    the writers write W in :func:`w_assemble_dtype` (float32 when it gives
-    None), the readers read it in ``facto_dtype`` (float32 when None)."""
+    from its kernel launches (``_cuda.LAUNCHES``), its ``facto_dtype`` and
+    its working dtype: the writers write W in :func:`w_assemble_dtype`, the
+    readers read it in ``facto_dtype``; where that is None, in a 2-byte
+    working dtype, else in float32."""
+    plain = work_dtype if work_dtype in HALF_DTYPES else torch.float32
     out = dict.fromkeys(W_DTYPES, 0)
-    out[w_assemble_dtype(facto_dtype) or torch.float32] += sum(
+    out[w_assemble_dtype(facto_dtype) or plain] += sum(
         launches[k] for k in W_WRITERS)
-    out[facto_dtype or torch.float32] += sum(launches[k] for k in W_READERS)
+    out[facto_dtype or plain] += sum(launches[k] for k in W_READERS)
     return out
 
 
@@ -258,11 +270,19 @@ class LMJitResult(NamedTuple):
         return int(self.iterations) + self.neval_jac
 
 
-def _unsupported(option: str, item: str):
-    """Raise for an option of the JAX driver that the port lacks; ``item``
-    is the title of its entry in ROADMAP.md's queue A."""
-    raise NotImplementedError(
-        f"{option} is not ported yet (ROADMAP.md, queue A: {item})")
+def _host_scalar(dtype: torch.dtype) -> Callable:
+    """A value (a Python float or a numpy scalar) as the host holds it in
+    working dtype ``dtype``: a numpy scalar of that dtype, or for a 2-byte
+    one a numpy float32 rounded to it (through float32, as the JAX
+    package's numpy conversion rounds)."""
+    ft = host_dtype(dtype).type
+    if dtype not in HALF_DTYPES:
+        return ft
+
+    def rnd(x):
+        return ft(torch.tensor(float(ft(x)), dtype=torch.float32)
+                  .to(dtype).item())
+    return rnd
 
 
 def _ipow(x, y: int):
@@ -331,8 +351,8 @@ def solve_step(problem: BAProblem, blocks: GNBlocks, lam, rtol,
 @dataclasses.dataclass
 class _Setup:
     """What a solve fixes at entry: the problem, its route and stage table,
-    the step solver, W's storage and the resolved options (numpy scalars in
-    the working dtype)."""
+    the step solver, W's storage and the resolved options (host scalars of
+    the working dtype, made by ``rnd``: :func:`_host_scalar`)."""
     problem: BAProblem
     route: str
     stages: object
@@ -341,6 +361,7 @@ class _Setup:
     w_dtype: Optional[torch.dtype]
     narrow: bool
     ft: type
+    rnd: Callable
     tol: dict
     lam0: Optional[float]
     lam0_mode: str
@@ -388,48 +409,53 @@ def _setup(problem: BAProblem, cams, points, *, max_iters, lam0,
     if facto_dtype is not None and facto_dtype not in FACTO_DTYPES:
         raise TypeError(f"facto_dtype: one of {FACTO_DTYPES}, got "
                         f"{facto_dtype!r}")
-    if cams.dtype not in (torch.float32, torch.float64):
-        _unsupported(f"working dtype {cams.dtype}",
-                     "Precision cascade and an f64 anchor")
+    dt = cams.dtype
     # The JAX driver's branch order: CGLS, then power, then dense.
     solver = ("cgls" if use_cgls else "power" if use_power
               else "dense" if use_dense else "pcg")
     if solver == "dense":
+        # A 2-byte W (stored narrow or in a 2-byte working dtype) is
+        # factored in float32 (`ops/schur.py:_dense_dtype`).
         check_dense_feasible(problem.ncams, problem.npnts, problem.nobs_pad,
                              4 if facto_dtype is not None
-                             else cams.element_size())
-    # "Narrow" W storage (below 4 bytes; the JAX solver's `facto_narrow`,
-    # whose other case, a half-precision working dtype, raises above): only
-    # then the CG floor, the CG stagnation stop and the predicted-reduction
-    # stop. float32 storage keeps the reference's stopping semantics.
-    narrow = facto_dtype is not None and facto_dtype.itemsize < 4
-    ft = np_dtype(cams.dtype).type
-    eps = np.finfo(ft).eps
+                             or dt in HALF_DTYPES else cams.element_size())
+    # "Narrow" (the JAX solver's `facto_narrow`): W stored below 4 bytes,
+    # or a working dtype below 4 bytes. Only then the CG floor (in eps of
+    # the storage dtype, else of the working dtype), the CG stagnation stop
+    # and the predicted-reduction stop; float32 storage keeps the
+    # reference's stopping semantics.
+    narrow = ((facto_dtype is not None and facto_dtype.itemsize < 4)
+              or dt.itemsize < 4)
+    ft = host_dtype(dt).type
+    rnd = _host_scalar(dt)
+    eps = ft(torch.finfo(dt).eps)
     cbrt, sqrt_eps = eps ** (1.0 / 3.0), np.sqrt(eps)
 
     def pick(v, d):
-        return ft(d if v is None else v)
+        return rnd(d if v is None else v)
 
     tol = dict(atol=pick(atol, sqrt_eps), rtol=pick(rtol, cbrt),
                restol=pick(restol, cbrt), satol=pick(satol, sqrt_eps),
                srtol=pick(srtol, sqrt_eps), oatol=pick(oatol, sqrt_eps),
-               ortol=pick(ortol, cbrt), nu_d=ft(nu_d), nu_m=ft(nu_m),
-               lam_min=ft(lam_min), accept_ratio=ft(accept_ratio),
-               good_ratio=ft(good_ratio))
+               ortol=pick(ortol, cbrt), nu_d=rnd(nu_d), nu_m=rnd(nu_m),
+               lam_min=rnd(lam_min), accept_ratio=rnd(accept_ratio),
+               good_ratio=rnd(good_ratio))
     scales_np = np.asarray(
         [1.0] + ([0.5 ** j for j in range(1, ls_max + 1)]
                  if linesearch else []), dtype=ft)
+    floor_dtype = facto_dtype if facto_dtype is not None else dt
     return _Setup(
         problem=problem, route=kernel_route(problem),
-        stages=solve_stages(cams.dtype), solver=solver,
+        stages=solve_stages(dt), solver=solver,
         facto_dtype=facto_dtype, w_dtype=w_assemble_dtype(facto_dtype),
-        narrow=narrow, ft=ft, tol=tol, lam0=lam0, lam0_mode=lam0_mode,
+        narrow=narrow, ft=ft, rnd=rnd, tol=tol, lam0=lam0,
+        lam0_mode=lam0_mode,
         nielsen=lam_strategy == "nielsen", pcg_rtol=pcg_rtol,
         pcg_max_iters=pcg_max_iters, pcg_warm=pcg_warm,
-        cg_floor=(ft(CG_FLOOR_MULT * float(torch.finfo(facto_dtype).eps))
+        cg_floor=(rnd(CG_FLOOR_MULT * float(torch.finfo(floor_dtype).eps))
                   if narrow else None),
         stagnation=STAGNATION_WINDOW if narrow else 0, scales_np=scales_np,
-        scales=torch.as_tensor(scales_np, device=cams.device),
+        scales=torch.as_tensor(scales_np, device=cams.device).to(dt),
         n_halvings=ls_max if linesearch else 0, max_iters=max_iters)
 
 
@@ -449,28 +475,29 @@ def _lm_init(cfg: _Setup, cams, points) -> _State:
     # the JAX package's Precision.HIGHEST pins.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    ft = cfg.ft
+    ft, rnd = cfg.ft, cfg.rnd
     blocks, obj, gnorm = _linearize(cfg, cams, points)
     init = [obj, gnorm]
     if cfg.lam0_mode == "diag":
         init.append(torch.maximum(
             torch.max(blocks.Hcc_f.reshape(-1, 81)[:, ::10]),
             torch.max(blocks.Hpp_f.reshape(-1, 9)[:, ::4])))
-    init = torch.stack(init).cpu().numpy()
+    init = torch.stack(init).to(torch_dtype(ft)).cpu().numpy()
     obj, gnorm = ft(init[0]), ft(init[1])
     with np.errstate(all="ignore"):
         if cfg.lam0_mode == "diag":
-            lam = ft(1e-3) * ft(init[2])
+            lam = rnd(rnd(1e-3) * ft(init[2]))
         else:
-            lam = np.maximum(ft(30.0),
-                             ft(1e10) / np.maximum(gnorm, ft(1e-300)))
+            lam = rnd(np.maximum(ft(30.0), rnd(1e10)
+                                 / np.maximum(gnorm, rnd(1e-300))))
     if cfg.lam0 is not None:
-        lam = ft(cfg.lam0)
+        lam = rnd(cfg.lam0)
     n = cfg.max_iters
     return _State(
         cams=cams, points=points, blocks=blocks, obj=obj, gnorm=gnorm,
         lam=lam, nu=ft(2.0),
-        gtol=cfg.tol["atol"] + cfg.tol["rtol"] * gnorm,  # fixed at entry
+        # fixed at entry
+        gtol=rnd(cfg.tol["atol"] + cfg.tol["rtol"] * gnorm),
         dc_carry=torch.zeros_like(cams), hist_obj=np.zeros((n,), ft),
         hist_gnorm=np.zeros((n,), ft), hist_lam=np.zeros((n,), ft),
         hist_cg=np.zeros((n,), np.int32))
@@ -479,14 +506,14 @@ def _lm_init(cfg: _Setup, cams, points) -> _State:
 def _lm_run(cfg: _Setup, st: _State, it_max: int) -> None:
     """Run LM iterations on ``st`` until its status is not RUNNING or
     ``st.it == it_max``."""
-    problem, ft, t = cfg.problem, cfg.ft, cfg.tol
+    problem, ft, rnd, t = cfg.problem, cfg.ft, cfg.rnd, cfg.tol
     scales_np, scales = cfg.scales_np, cfg.scales
     while st.it < it_max and st.status == RUNNING:
         cams, points, blocks = st.cams, st.points, st.blocks
         obj, gnorm, lam, nu = st.obj, st.gnorm, st.lam, st.nu
         with np.errstate(all="ignore"):
-            rtol_cg = (forcing_rtol(gnorm) if cfg.pcg_rtol is None
-                       else ft(cfg.pcg_rtol))
+            rtol_cg = (rnd(forcing_rtol(gnorm)) if cfg.pcg_rtol is None
+                       else rnd(cfg.pcg_rtol))
             if cfg.cg_floor is not None:
                 rtol_cg = np.maximum(rtol_cg, cfg.cg_floor)
         dc, dp, Jd2, cg_iters = solve_step(
@@ -501,15 +528,18 @@ def _lm_run(cfg: _Setup, st: _State, it_max: int) -> None:
             problem, cams[None] + scales[:, None, None] * dc[None],
             points[None] + scales[:, None, None] * dp[None])
         packed = torch.cat([objs_t, torch.stack([gd, Jd2, dnorm_t, xnorm])])
-        packed = packed.cpu().numpy()
+        packed = packed.to(torch_dtype(ft)).cpu().numpy()
         objs = packed[:-4]
         gd, Jd2, dnorm, xnorm = (ft(v) for v in packed[-4:])
 
         with np.errstate(all="ignore"):
             # A NaN step (Cholesky of a near-indefinite system at small
             # lambda) is a rejection; only a NaN at lambda > 1e20 is fatal.
+            # Constants round to the working dtype, as the JAX driver's
+            # weakly typed ones do: in float16, 1e20 is inf and no NaN step
+            # is fatal.
             nan_step = not np.isfinite(dnorm)
-            fatal_nan = nan_step and lam > ft(1e20)
+            fatal_nan = nan_step and lam > rnd(1e20)
             small_step = (not nan_step) and dnorm < t["satol"] \
                 + t["srtol"] * xnorm
 
@@ -525,7 +555,7 @@ def _lm_run(cfg: _Setup, st: _State, it_max: int) -> None:
             rho = ared / pred if pred > 0 else ft(-np.inf)
             q = ft(2.0) * rho - ft(1.0)
             nl_acc = np.maximum(
-                lam * np.maximum(ft(1.0 / 3.0), ft(1.0) - q * (q * q)),
+                lam * np.maximum(rnd(1.0 / 3.0), ft(1.0) - q * (q * q)),
                 t["lam_min"])
             nl_rej = lam * nu
             nu_d = t["nu_d"]
@@ -533,8 +563,8 @@ def _lm_run(cfg: _Setup, st: _State, it_max: int) -> None:
                 lam / nu_d / (nu_d if ared >= t["good_ratio"] * pred
                               else ft(1.0)), t["lam_min"])
             dnorm_safe = dnorm if np.isfinite(dnorm) else ft(np.inf)
-            ref_rej = (np.maximum(lam, ft(1.0) / np.maximum(dnorm_safe,
-                                                             ft(1e-300)))
+            ref_rej = (np.maximum(lam, ft(1.0) / np.maximum(
+                dnorm_safe, rnd(1e-300)))
                        * _ipow(t["nu_m"], cfg.n_halvings + 1))
             if cfg.nielsen:
                 lam_new = nl_acc if accept else nl_rej
@@ -542,6 +572,7 @@ def _lm_run(cfg: _Setup, st: _State, it_max: int) -> None:
             else:
                 lam_new = ref_acc if accept else ref_rej
                 nu_new = nu
+            lam_new, nu_new = rnd(lam_new), rnd(nu_new)
 
         it = st.it
         st.hist_obj[it], st.hist_gnorm[it], st.hist_lam[it] = obj, gnorm, lam
@@ -550,7 +581,7 @@ def _lm_run(cfg: _Setup, st: _State, it_max: int) -> None:
             st.cams = cams + float(s_sel) * dc
             st.points = points + float(s_sel) * dp
             st.blocks, obj_t, gnorm_t = _linearize(cfg, st.cams, st.points)
-            new = torch.stack([obj_t, gnorm_t]).cpu()
+            new = torch.stack([obj_t, gnorm_t]).to(torch_dtype(ft)).cpu()
             obj_n, gnorm_n = (ft(v) for v in new.numpy())
             st.naccepts += 1
         else:
@@ -566,7 +597,7 @@ def _lm_run(cfg: _Setup, st: _State, it_max: int) -> None:
                 # rejections).
                 small_obj = small_obj or bool(
                     pred > 0 and pred < obj_tol
-                    and gnorm < ft(1e3) * st.gtol)
+                    and gnorm < rnd(1e3) * st.gtol)
             rnorm_n = np.sqrt(ft(2.0) * obj_n)
         if fatal_nan:
             st.status = EXCEPTION
@@ -682,7 +713,7 @@ def levenberg_marquardt_jit_chunked(
     points = problem.points if points is None else points
     cfg = _setup(problem, cams, points, max_iters=max_iters,
                  **{**_OPTIONS, **options})
-    ft = cfg.ft
+    rnd = cfg.rnd
 
     ckpt, restored = None, None
     if checkpoint_dir is not None:
@@ -699,10 +730,10 @@ def levenberg_marquardt_jit_chunked(
     t0 = time.perf_counter()
     st = _lm_init(cfg, cams, points)
     if restored is not None:
-        st.lam, st.it = ft(restored["lam"]), int(restored["iteration"])
+        st.lam, st.it = rnd(restored["lam"]), int(restored["iteration"])
         gtol = restored["meta"].get("gtol")
         if gtol is not None:
-            st.gtol = ft(gtol)
+            st.gtol = rnd(gtol)
 
     final_status = None
     nchunk = 0

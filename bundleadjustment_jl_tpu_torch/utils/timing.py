@@ -15,7 +15,7 @@ that finds no card raises: it never falls back to the CPU.
 
 from __future__ import annotations
 
-from typing import Callable, NamedTuple
+from typing import Any, Callable, NamedTuple
 
 import torch
 
@@ -67,3 +67,23 @@ def timed(fn: Callable, args: tuple = (), *, reps: int = 20,
         ms -= window(False) / reps
     return Timing(ms=ms, gbs=None if nbytes is None
                   else nbytes / (ms * 1e-3) / 1e9)
+
+
+def _tensors(tree: Any):
+    if isinstance(tree, torch.Tensor):
+        yield tree
+    elif isinstance(tree, dict):
+        for v in tree.values():
+            yield from _tensors(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _tensors(v)
+
+
+def sync(tree: Any) -> None:
+    """Wait for the work that makes the CUDA tensors in ``tree`` (a tensor,
+    or lists, tuples, named tuples and dicts of them): one
+    ``torch.cuda.synchronize`` per card they lie on. CPU tensors are ready
+    when they are returned."""
+    for dev in {t.device for t in _tensors(tree) if t.is_cuda}:
+        torch.cuda.synchronize(dev)

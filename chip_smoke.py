@@ -78,10 +78,26 @@ CUDA card.
    too — a warm-up and three timed solves (dense at Dubrovnik-356: one),
    launches checked as in 3, a solved status and the rmse on the anchor;
    the median seconds printed beside the card.
-9. The bench leg (``python -m bundleadjustment_jl_tpu_torch.bench``): its
+9. The precision cascade and the surface (``check_cascade`` and after):
+   ``precision_cascade`` with stages ``("bfloat16", "float32")`` at
+   Dubrovnik-356 on routes A and C (a warm-up, three timed cascades, one
+   on the plain route): each stage's launches checked against its record
+   (the bfloat16 stage runs the route's kernels with W in bfloat16), the
+   bfloat16 stage within the CASCADE_ITERS / CASCADE_REL bar of the plain
+   route's decisions, the float32 stage within ``agree`` and on the rmse
+   anchor; the cascade with a float64 stage once (that stage on the plain
+   route, no launch); ``facto_solve`` with bfloat16 and float16 W (half
+   the W bytes, phase 7's decisions); the float64 anchor record (the
+   float32 solve's objective gap to a float64 solve at LadyBug-49,
+   Dubrovnik-356 and Final-4585); the native BAL parser built into the
+   package's ``_build/`` and held to the numpy reader on the fixture; the
+   CLI as processes (the fixture with ``--save``, LadyBug-49 in bfloat16
+   and through the host driver); the campaign runner over the synthetic
+   suite up to 50,000 observations and its Markdown table.
+10. The bench leg (``python -m bundleadjustment_jl_tpu_torch.bench``): its
    JSON line, once, with the launches of its run checked (route A's
    kernels and the probe).
-10. Prints the run's wall time, the kernel table as one JSON line (each
+11. Prints the run's wall time, the kernel table as one JSON line (each
    kernel's time beside its least time on the card, ``bench.bound_ms``,
    from this run's shapes, at each problem; the plans' build times and
    the repeat checks under their kernels), the card line, and last
@@ -97,6 +113,7 @@ from __future__ import annotations
 import contextlib
 import json
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -206,7 +223,7 @@ STORE_MISMATCH_MAX = 1e-3
 # solves'.
 SCHUR_CHECK_ONLY = ("cam_reduce_wcw81",)
 ROUTES = {True: "fused", False: "sorted"}   # normal.CAM_SCATTER -> name
-# Phase 9: the chunked driver's chunk, and the step solvers and drivers
+# Phase 8: the chunked driver's chunk, and the step solvers and drivers
 # solved: (problem, solver, driver, normal.CAM_SCATTER values, timed solves).
 # Each is warmed up once and timed DRIVER_REPEATS times, but dense at
 # Dubrovnik-356 (~14 TFLOP of float32 product an iteration) once, its path
@@ -224,6 +241,22 @@ SOLVER_CASES = (
     ("dubrovnik356", "dense", "jit", (True,), 1),
     ("dubrovnik356", "dense", "host", (True,), 1),
 )
+# Phase 9: the precision cascade's stages, timed solves of each (after a
+# warm-up; the median kept), and the bar a bfloat16 stage of the kernel
+# route is held to against the plain route's: the JAX package's own spread
+# between its two XLA precision settings (status, iterations within
+# CASCADE_ITERS, objective within CASCADE_REL).
+CASCADE = ("bfloat16", "float32")
+POLISH = ("bfloat16", "float32", "float64")
+CASCADE_REPEATS = 3
+CASCADE_ITERS, CASCADE_REL = 2, 0.05
+# The CLI's --json keys (the JAX CLI's), the parser's fixture and the
+# LadyBug-49 problem as the CLI's synthetic: spec builds it.
+CLI_KEYS = {"problem", "status", "objective", "rmse_px", "iterations",
+            "elapsed_s", "dual_feas", "solver", "driver", "dtype", "backend"}
+FIXTURE = "tests/fixtures/problem-24-800-pre.txt.bz2"
+LADYBUG_SPEC = ("synthetic:ncams=49,npnts=7776,obs_per_pnt=4,noise_px=1.0,"
+                "perturb=0.02,seed=0,pad_obs_to=512")
 # The reference's "solved" statuses.
 SOLVED = ("first_order", "small_residual", "small_step", "small_obj_change")
 # Each route's metric-name suffix and "route" entry in its solve line.
@@ -759,13 +792,14 @@ def plain_route():
 
 
 def check_launches(name, res, counts, w_counts, route, facto,
-                   solver="pcg"):
+                   solver="pcg", work=None):
     """Each kernel launched as often as the solve's own record implies
     (``lm_jit.expected_launches`` for its step ``solver``; a host-driver
     ``LMResult``: ``lm.expected_host_launches``), and none of the other
     routes'; the W kernels' launches ``w_counts`` (``_cuda.W_LAUNCHES``)
-    with W in the dtypes ``facto`` implies
-    (``lm_jit.expected_w_launches``)."""
+    with W in the dtypes ``facto`` and the working dtype ``work`` (None:
+    float32) imply (``lm_jit.expected_w_launches``)."""
+    import torch
     from bundleadjustment_jl_tpu_torch.solver.lm import (
         LMResult, expected_host_launches)
     from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
@@ -779,7 +813,7 @@ def check_launches(name, res, counts, w_counts, route, facto,
                                         int(res.hist_cg[:it].sum()), solver))
     if counts != expect:
         raise AssertionError(f"{name}: launches {counts} != {expect}")
-    w_expect = expected_w_launches(counts, facto)
+    w_expect = expected_w_launches(counts, facto, work or torch.float32)
     if w_counts != w_expect:
         raise AssertionError(f"{name}: W launches by storage dtype "
                              f"{w_counts} != {w_expect}")
@@ -964,14 +998,17 @@ def check_f64_solve(f32_res):
     if abs(rmse - RMSE[name]) > 0.01 * RMSE[name]:
         raise AssertionError(f"{name}: float64 rmse {rmse} not within 1% of "
                              f"{RMSE[name]}")
-    return {"value": secs, "rel_gap_f32_f64": gap}
+    return {"value": secs, "rel_gap_f32_f64": gap, "objective": res.objective,
+            "f32_objective": f32_res.objective}
 
 
 def check_final_solves(problem, launches_total):
-    """Phase 4: Final-4585 on B1 and B2, which must agree."""
+    """Phase 4: Final-4585 on B1 and B2, which must agree; returns
+    ``{route: its solve}``."""
     res = final_routes(problem, launches_total)
     if not agree(res["sorted_relin"], res["scatter_split"]):
         raise AssertionError(f"{FINAL}: routes B1 and B2 disagree")
+    return res
 
 
 def check_final_schur(name, problem, errs):
@@ -1022,7 +1059,8 @@ def check_facto_solves(final, launches_total):
     """Phase 7: ``facto_dtype`` solves. Dubrovnik-356 with bfloat16 and
     float16 W on routes A and C, each held to the JAX package's record
     (FACTO_RECORD: its status, iterations within one), then Final-4585 with
-    bfloat16 W on B1 and B2. The two routes of a problem must agree."""
+    bfloat16 W on B1 and B2. The two routes of a problem must agree.
+    Returns ``{dtype name: its Dubrovnik-356 solve on route A}``."""
     import torch
     from bundleadjustment_jl_tpu_torch import bench
     from bundleadjustment_jl_tpu_torch.ops import normal
@@ -1030,6 +1068,7 @@ def check_facto_solves(final, launches_total):
     name = "dubrovnik356"
     built = {seed: bench.make_problem(name, seed) for seed in (0, 1)}
     default = normal.CAM_SCATTER
+    route_a = {}
     try:
         for dt in NARROW:
             status, iters = FACTO_RECORD[dt]
@@ -1050,6 +1089,7 @@ def check_facto_solves(final, launches_total):
             if not agree_decisions(res[True], res[False]):
                 raise AssertionError(f"{name}: routes A and C disagree with "
                                      f"W in {dt}")
+            route_a[dt] = res[True]
     finally:
         normal.CAM_SCATTER = default
     del built
@@ -1058,6 +1098,7 @@ def check_facto_solves(final, launches_total):
     if not agree_decisions(res["scatter_split"], res["sorted_relin"]):
         raise AssertionError(f"{FINAL}: routes B1 and B2 disagree with W in "
                              f"bfloat16")
+    return route_a
 
 
 def run_solver(problem, solver, driver):
@@ -1094,7 +1135,7 @@ def host_status(res) -> str:
 
 
 def check_chunked(problem, launches_total):
-    """Phase 9, the chunked driver on route A at Dubrovnik-356: with
+    """Phase 8, the chunked driver on route A at Dubrovnik-356: with
     ``chunk_iters`` = CHUNK_ITERS bit-identical to the one-shot solve
     (status, iterations, histories, cams, points) with the launches
     ``lm_jit.expected_launches`` gives; stopped after one chunk with a
@@ -1160,7 +1201,7 @@ def check_chunked(problem, launches_total):
 
 
 def check_solvers(solves, launches_total, card):
-    """Phase 9, each case of SOLVER_CASES: on each of its routes a warm-up
+    """Phase 8, each case of SOLVER_CASES: on each of its routes a warm-up
     (seed 1; none with one timed solve) and its timed solves, each launch
     count checked against the solve's own record (``check_launches``);
     the status solved, the rmse within 1% of the problem's anchor; the
@@ -1239,9 +1280,404 @@ def check_solvers(solves, launches_total, card):
         normal.CAM_SCATTER = default
     return lines
 
+@contextlib.contextmanager
+def recorded_solves(calls):
+    """Each one-shot solve `benchmark/precision.py` makes, recorded in
+    ``calls`` as ``(result, launches, W launches, working dtype)``, its
+    launches counted from 0 (``_cuda.LAUNCHES`` and ``W_LAUNCHES`` are
+    reset before it and read after it)."""
+    from bundleadjustment_jl_tpu_torch.benchmark import precision
+    from bundleadjustment_jl_tpu_torch.ops import _cuda
+    solve = precision.levenberg_marquardt_jit
+
+    def recording(problem, **kwargs):
+        _cuda.reset_launches()
+        res = solve(problem, **kwargs)
+        calls.append((res, dict(_cuda.LAUNCHES), dict(_cuda.W_LAUNCHES),
+                      problem.dtype))
+        return res
+
+    precision.levenberg_marquardt_jit = recording
+    try:
+        yield
+    finally:
+        precision.levenberg_marquardt_jit = solve
+
+
+def stage_line(tag, row, call, problem, card, **extra):
+    """The JSON line of one cascade stage (a row of ``precision_cascade``
+    and its recorded solve)."""
+    res, counts, w_counts, _ = call
+    line = {"metric": tag, "stage": row["stage"], "status": row["status"],
+            "iterations": row["iterations"],
+            "cg_matvecs": int(res.hist_cg[:res.iterations].sum()),
+            "objective": row["objective"],
+            "rmse_px": (row["objective"] / problem.nobs) ** 0.5,
+            "dual_feas": row["dual_feas"], "facto_bytes": row["facto_bytes"],
+            "launches": {k: v for k, v in counts.items() if v},
+            "w_launches": {str(k)[6:]: v for k, v in w_counts.items() if v},
+            "card": card}
+    line.update(extra)
+    return line
+
+
+def check_cascade(problem, warm, launches_total, card):
+    """Phase 9: ``precision_cascade`` with stages CASCADE at Dubrovnik-356
+    (bench.py's float32 problem and options) on route A (the default) and
+    route C: a warm-up (seed 1), CASCADE_REPEATS timed cascades (each
+    stage's seconds: the median of its ``elapsed_s``, which ends at a host
+    read of the objective) and one on the plain route. Each stage's
+    launches are checked against its own record (``check_launches``: the
+    bfloat16 stage runs the route's kernels with W written and read in
+    bfloat16), the plain cascade launches nothing, the bfloat16 stage
+    makes the plain route's decisions to the CASCADE_ITERS /
+    CASCADE_REL bar, the float32 stage to ``agree``'s, and its rmse lands
+    on the anchor. ``problem`` and ``warm``: Dubrovnik-356 from seeds 0
+    and 1. Returns the lines."""
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.benchmark.precision import (
+        precision_cascade)
+    from bundleadjustment_jl_tpu_torch.ops import normal
+
+    name = "dubrovnik356"
+    lines = []
+    default = normal.CAM_SCATTER
+    try:
+        for cs in ROUTES:
+            normal.CAM_SCATTER = cs
+            route = normal.kernel_route(problem)
+            precision_cascade(warm, CASCADE, **bench.SOLVE_OPTS)
+            runs = []
+            for _ in range(CASCADE_REPEATS):
+                calls = []
+                with recorded_solves(calls):
+                    rows = precision_cascade(problem, CASCADE,
+                                             **bench.SOLVE_OPTS)
+                runs.append((rows, calls))
+                for i, stage in enumerate(CASCADE):
+                    res, counts, w_counts, dt = calls[i]
+                    check_launches(f"{name} cascade {stage} ({route})", res,
+                                   counts, w_counts, route, None, work=dt)
+                    for k, v in counts.items():
+                        launches_total[k] += v
+            plain_calls = []
+            with plain_route(), recorded_solves(plain_calls):
+                plain = precision_cascade(problem, CASCADE,
+                                          **bench.SOLVE_OPTS)
+            rows, calls = runs[-1]
+            for i, stage in enumerate(CASCADE):
+                secs = sorted(r[i]["elapsed_s"] for r, _ in runs)
+                tag = f"{name}_cascade_{stage}{ROUTE_TAGS[route][0]}"
+                line = stage_line(
+                    tag, rows[i], calls[i], problem, card, route=route,
+                    value=secs[len(secs) // 2], unit="s", values=secs,
+                    plain_status=plain[i]["status"],
+                    plain_iterations=plain[i]["iterations"],
+                    plain_objective=plain[i]["objective"],
+                    plain_value=plain[i]["elapsed_s"])
+                print(json.dumps(line))
+                lines.append(line)
+                res, plain_res = calls[i][0], plain_calls[i][0]
+                if any(plain_calls[i][1].values()):
+                    raise AssertionError(f"{tag}: the plain route launched "
+                                         f"{plain_calls[i][1]}")
+                if stage == "bfloat16":
+                    ok = (res.status == plain_res.status
+                          and abs(res.iterations - plain_res.iterations)
+                          <= CASCADE_ITERS
+                          and abs(res.objective - plain_res.objective)
+                          <= CASCADE_REL * plain_res.objective)
+                else:
+                    ok = agree(res, plain_res)
+                    rmse = line["rmse_px"]
+                    if abs(rmse - RMSE[name]) > 0.01 * RMSE[name]:
+                        raise AssertionError(f"{tag}: rmse {rmse} not "
+                                             f"within 1% of {RMSE[name]}")
+                if not ok:
+                    raise AssertionError(f"{tag}: kernel route {line} and "
+                                         f"plain route disagree")
+                if res.status_name() == "exception":
+                    raise AssertionError(f"{tag}: ended in an exception")
+    finally:
+        normal.CAM_SCATTER = default
+    return lines
+
+
+def check_polish(problem, launches_total, card):
+    """Phase 9: the cascade POLISH once at Dubrovnik-356 on route A; its
+    bfloat16 and float32 stages' launches checked as in ``check_cascade``,
+    its float64 stage on the plain route with no launch, its rmse on the
+    anchor. Returns the lines."""
+    import torch
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.benchmark.precision import (
+        precision_cascade)
+    from bundleadjustment_jl_tpu_torch.ops import normal
+
+    name = "dubrovnik356"
+    route = normal.kernel_route(problem)
+    calls = []
+    with recorded_solves(calls):
+        rows = precision_cascade(problem, POLISH, **bench.SOLVE_OPTS)
+    lines = []
+    for i, stage in enumerate(POLISH):
+        res, counts, w_counts, dt = calls[i]
+        tag = f"{name}_polish_{stage}"
+        if dt == torch.float64:
+            if any(counts.values()) or normal.solve_stages(dt) is not \
+                    normal.PLAIN:
+                raise AssertionError(f"{tag}: launched {counts}")
+        else:
+            check_launches(tag, res, counts, w_counts, route, None, work=dt)
+            for k, v in counts.items():
+                launches_total[k] += v
+        line = stage_line(tag, rows[i], calls[i], problem, card,
+                          route="plain" if dt == torch.float64 else route,
+                          value=rows[i]["elapsed_s"], unit="s")
+        print(json.dumps(line))
+        lines.append(line)
+    rmse = lines[-1]["rmse_px"]
+    if rows[-1]["status"] not in SOLVED or abs(rmse - RMSE[name]) > \
+            0.01 * RMSE[name] or rows[-1]["cams"].dtype != torch.float64:
+        raise AssertionError(f"{name}: the float64 polish ended "
+                             f"{rows[-1]['status']}, rmse {rmse}")
+    return lines
+
+
+def check_facto_module(problem, facto_ref, launches_total, card):
+    """Phase 9: ``facto_solve`` at Dubrovnik-356 (route A) with W in
+    bfloat16 and float16: its W bytes half the float32 W's, its status and
+    iterations those of phase 7's route-A solve with the same W (the
+    kernels sum in a fixed order, so the same solve), its launches checked.
+    Returns the rows."""
+    import torch
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.benchmark.precision import facto_solve
+    from bundleadjustment_jl_tpu_torch.ops import normal
+
+    name = "dubrovnik356"
+    route = normal.kernel_route(problem)
+    out = []
+    for dt in NARROW:
+        calls = []
+        with recorded_solves(calls):
+            row = facto_solve(problem, dt, **bench.SOLVE_OPTS)
+        res, counts, w_counts, _ = calls[0]
+        check_launches(f"{name} facto_solve {dt}", res, counts, w_counts,
+                       route, getattr(torch, dt))
+        for k, v in counts.items():
+            launches_total[k] += v
+        ref = facto_ref[dt]
+        row = dict(row, card=card, route=route,
+                   launches={k: v for k, v in counts.items() if v},
+                   phase7=[ref.status_name(), ref.iterations])
+        print(json.dumps(row))
+        out.append(row)
+        if row["facto_bytes"] * 2 != row["facto_bytes_full"]:
+            raise AssertionError(f"facto_solve {dt}: W bytes {row}")
+        if (row["status"], row["iterations"]) != (ref.status_name(),
+                                                  ref.iterations):
+            raise AssertionError(f"facto_solve {dt}: {row['status']} / "
+                                 f"{row['iterations']}, phase 7's route-A "
+                                 f"solve {ref.status_name()} / "
+                                 f"{ref.iterations}")
+    return out
+
+
+def make_f64(name):
+    """``(problem, build s)``: problem ``name`` as the default constructor
+    builds it (float64, on the card) from bench.py's seed 0 and options."""
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
+    t0 = time.perf_counter()
+    problem = synthetic_bal(**bench.PROBLEMS[name], noise_px=1.0,
+                            perturb=2e-2, seed=0, pad_obs_to=512)[0]
+    return problem, time.perf_counter() - t0
+
+
+def check_f64_anchors(solves, dub_f64, final_f32, final64, card):
+    """Phase 9: the float64 anchor record, |obj_f32 - obj_f64| / obj_f64
+    at LadyBug-49, Dubrovnik-356 (phase 3's float64 solve) and Final-4585
+    (``final64``: ``make_f64(FINAL)``): the float32 solve of the default
+    route (phases 3 and 4) against one float64 solve of the problem the
+    default constructor builds from the same seed (on the card, the plain
+    route: no launch). Returns the record."""
+    import torch
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.ops import _cuda
+
+    record = {"dubrovnik356": dict(route="fused", f32=dub_f64["f32_objective"],
+                                   f64=dub_f64["objective"],
+                                   f64_s=dub_f64["value"])}
+    for name, f32_res, route, built in (
+            ("ladybug49", solves["ladybug49"][True], "fused",
+             make_f64("ladybug49")),
+            (FINAL, final_f32["scatter_split"], "scatter_split", final64)):
+        problem, build_s = built
+        if problem.dtype != torch.float64 or not problem.cams.is_cuda:
+            raise AssertionError(f"{name}: built {problem.dtype}")
+        _cuda.reset_launches()
+        secs, res = bench.timed_solve(problem)
+        counts = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+        if counts or res.status_name() not in SOLVED:
+            raise AssertionError(f"{name}: the float64 solve ended "
+                                 f"{res.status_name()}, launched {counts}")
+        record[name] = dict(route=route, f32=f32_res.objective,
+                            f64=res.objective, f64_s=secs, build_s=build_s,
+                            f64_status=res.status_name(),
+                            f64_iterations=res.iterations)
+        del problem, res, built
+    for name, r in record.items():
+        r["rel_gap"] = abs(r["f32"] - r["f64"]) / r["f64"]
+    print(json.dumps({"metric": "f64_anchor", "record": record,
+                      "card": card}))
+    return record
+
+
+def run_cli(args):
+    """``python -m bundleadjustment_jl_tpu_torch`` with ``args`` from the
+    checkout's root, as a process of its own (started, not waited for)."""
+    import subprocess
+    return subprocess.Popen([sys.executable, "-m", PKG, *args], cwd=ROOT,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def check_parser(card):
+    """Phase 9: the native parser's ``.so`` built from
+    ``csrc/bal_parser.cpp`` into the package's ``_build/``, the fixture
+    parsed by it and by the numpy reader: the arrays identical."""
+    import numpy as np
+    from bundleadjustment_jl_tpu_torch.io import bal, native
+
+    t0 = time.perf_counter()
+    so = native.build()
+    native.lib()
+    build_s = time.perf_counter() - t0
+    if so.parent != ROOT / PKG / "_build":
+        raise AssertionError(f"the parser was built at {so}")
+    fixture = str(ROOT / FIXTURE)
+    t0 = time.perf_counter()
+    a = native.parse_bal_native(fixture)
+    native_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    b = bal._read_raw(fixture)
+    numpy_s = time.perf_counter() - t0
+    same = all(x.dtype == y.dtype and np.array_equal(x, y)
+               for x, y in zip(a, b))
+    print(json.dumps({"metric": "bal_parser", "so": str(so),
+                      "build_s": build_s, "native_s": native_s,
+                      "numpy_s": numpy_s, "identical": same,
+                      "libbz2": native.NATIVE_BZ2, "card": card}))
+    if not same:
+        raise AssertionError("the native and numpy parsers disagree")
+
+
+def start_cli(tmp):
+    """Phase 9: the CLI as processes on the card, all started at once:
+    the fixture with ``--json`` and ``--save`` (into the directory
+    ``tmp``), and LadyBug-49 (``synthetic:``) with ``--dtype bf16`` and
+    with ``--driver host``. Returns what ``check_cli`` reads."""
+    saved = str(Path(tmp) / "refined.txt.bz2")
+    cases = {"fixture": [FIXTURE, "--json", "--save", saved],
+             "ladybug49_bf16": [LADYBUG_SPEC, "--dtype", "bf16", "--json"],
+             "ladybug49_host": [LADYBUG_SPEC, "--driver", "host", "--json"]}
+    return dict(saved=saved, cases=cases, t0=time.perf_counter(),
+                procs={k: run_cli(v) for k, v in cases.items()})
+
+
+def check_cli(started, card):
+    """Phase 9: the processes of ``start_cli``, waited for. Each prints the
+    JSON stats keys of the JAX CLI with ``backend`` cuda; the fixture and
+    the host solves end solved; the saved solution reads back with the
+    printed objective. Returns the lines."""
+    import torch
+    from bundleadjustment_jl_tpu_torch.io import bal
+    from bundleadjustment_jl_tpu_torch.ops.fused_assemble import (
+        _objective_plain)
+
+    cases, saved = started["cases"], started["saved"]
+    outs = {k: p.communicate(timeout=600) + (p.returncode,)
+            for k, p in started["procs"].items()}
+    wall = time.perf_counter() - started["t0"]
+    lines = []
+    for k, (out, err, rc) in outs.items():
+        if not out.strip():
+            raise AssertionError(f"cli {k}: rc {rc}, no output:\n{err}")
+        stats = json.loads(out.strip().splitlines()[-1])
+        line = {"metric": f"cli_{k}", "args": cases[k], "rc": rc,
+                "stats": stats, "card": card}
+        print(json.dumps(line))
+        lines.append(line)
+        solved = stats["status"] in SOLVED
+        if set(stats) != CLI_KEYS or stats["backend"] != "cuda" or \
+                rc != (0 if solved else 1):
+            raise AssertionError(f"cli {k}: {line}\n{err}")
+        if stats["status"] == "exception" or (
+                k != "ladybug49_bf16" and not solved):
+            raise AssertionError(f"cli {k}: ended {stats['status']}")
+    if lines[1]["stats"]["dtype"] != "bf16":
+        raise AssertionError("cli: --dtype bf16 not taken")
+    back = bal.read_bal(saved, dtype=torch.float64, device="cuda")
+    obj = float(_objective_plain(back, back.cams[None],
+                                 back.points[None])[0])
+    ref = lines[0]["stats"]["objective"]
+    print(json.dumps({"metric": "cli_saved_readback", "objective": obj,
+                      "printed_objective": ref, "processes_wall_s": wall,
+                      "card": card}))
+    if abs(obj - ref) > 1e-4 * ref:
+        raise AssertionError(f"cli --save: read back objective {obj}, "
+                             f"printed {ref}")
+    return lines
+
+
+def check_runner(launches_total, card):
+    """Phase 9: ``run_campaign`` with the one-shot (chunked, which times
+    itself) and the host-stepped PCG solvers over
+    ``synthetic_suite(max_nobs=50_000)`` in float32 on the card
+    (LadyBug-49 and LadyBug-73, route A), its Markdown table and the time
+    profile (no plot: ``out_path`` None). Every run solved, route A's
+    kernels launched. Returns the rows."""
+    import torch
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.benchmark import problems, runner
+    from bundleadjustment_jl_tpu_torch.ops import _cuda
+    from bundleadjustment_jl_tpu_torch.solver import (
+        LMOptions, levenberg_marquardt)
+    from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
+        levenberg_marquardt_jit_chunked)
+
+    solvers = {
+        "jit_pcg": lambda p: levenberg_marquardt_jit_chunked(
+            p, **bench.SOLVE_OPTS),
+        "host_pcg": lambda p: levenberg_marquardt(
+            p, LMOptions(solver="pcg", **bench.SOLVE_OPTS)),
+    }
+    _cuda.reset_launches()
+    rows = runner.run_campaign(
+        solvers, problems.synthetic_suite(max_nobs=50_000,
+                                          dtype=torch.float32),
+        logger=lambda s: None)
+    counts = dict(_cuda.LAUNCHES)
+    for k, v in counts.items():
+        launches_total[k] += v
+    print(runner.markdown_table(rows))
+    taus, profile = runner.performance_profile(rows)
+    print(json.dumps({"metric": "campaign", "rows": rows, "card": card,
+                      "profile_at_tau_1": {k: float(v[0])
+                                           for k, v in profile.items()},
+                      "launches": {k: v for k, v in counts.items() if v}}))
+    if len(rows) != 4 or any(r["status"] not in SOLVED for r in rows):
+        raise AssertionError(f"campaign: {[r['status'] for r in rows]}")
+    missing = [k for k in ("assemble", "cam_reduce", "matvec", "objective")
+               if counts[k] == 0]
+    if missing:
+        raise AssertionError(f"campaign: kernels {missing} never launched")
+    return rows
+
 
 def check_bench(launches_total):
-    """Phase 8: the bench leg, once; its launches counted from 0 and every
+    """Phase 10: the bench leg, once; its launches counted from 0 and every
     kernel of its route and the probe launched. Returns its line."""
     from bundleadjustment_jl_tpu_torch import bench
     from bundleadjustment_jl_tpu_torch.ops import _cuda
@@ -1379,13 +1815,46 @@ def main() -> int:
     check_sorted_kernels(FINAL, final, errs, timings, facts)
     check_split_kernels(FINAL, final, errs, timings, facts)
     check_narrow(FINAL, final, errs, timings, facts, final=True)
-    check_final_solves(final, launches)
+    final_f32 = check_final_solves(final, launches)
     schur_launches = check_final_schur(FINAL, final, errs)
-    check_facto_solves(final, launches)
+    facto_ref = check_facto_solves(final, launches)
     del final
     print("[drivers] chunked, host-stepped; power, dense and CGLS steps")
     chunked = check_chunked(bench.make_problem("dubrovnik356", 0), launches)
     drivers = check_solvers(solves, launches, card)
+    print("[precision] cascade, float64 polish, facto_solve, f64 anchors")
+    steps = {}
+
+    def step(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        steps[name] = time.perf_counter() - t
+        return out
+    dub = [bench.make_problem("dubrovnik356", seed) for seed in (0, 1)]
+    precision = {
+        "cascade": step("cascade", check_cascade, *dub, launches, card),
+        "polish": step("polish", check_polish, dub[0], launches, card),
+        "facto_solve": step("facto_solve", check_facto_module, dub[0],
+                            facto_ref, launches, card)}
+    del dub
+    print("[surface] BAL parser, CLI, campaign runner")
+    step("parser", check_parser, card)
+    with tempfile.TemporaryDirectory(dir=ROOT / PKG / "_build") as tmp:
+        # The CLI processes run while this one builds Final-4585 in
+        # float64 (host work), and end before its float64 solve.
+        started = start_cli(tmp)
+        try:
+            final64 = step("final64_build", make_f64, FINAL)
+            surface = {"cli": step("cli_wait", check_cli, started, card)}
+        finally:
+            for proc in started["procs"].values():
+                if proc.poll() is None:
+                    proc.kill()
+    precision["f64_anchor"] = step("f64_anchor", check_f64_anchors, solves,
+                                   f64, final_f32, final64, card)
+    del final64
+    surface["campaign"] = step("campaign", check_runner, launches, card)
+    print(json.dumps({"phase9_s": steps}))
     check_bench(launches)
     for k, v in launches.items():
         if v == 0 and k not in SCHUR_CHECK_ONLY:
@@ -1397,7 +1866,9 @@ def main() -> int:
 
     print(f"[wall] {time.perf_counter() - wall0:.1f} s")
     print(json.dumps({"probe": probe, "f64_solve": f64, "chunked": chunked,
-                      "drivers": drivers}))
+                      "drivers": drivers,
+                      "f64_anchor": precision["f64_anchor"],
+                      "cli": [ln["stats"] for ln in surface["cli"]]}))
     print(json.dumps({"kernels": kernel_table(launches, schur_launches, errs,
                                               timings, facts)}))
     print(card)

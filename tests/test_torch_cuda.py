@@ -672,6 +672,58 @@ def test_chunked_bit_identical_to_one_shot_on_card(card_problem,
     assert torch.equal(chk.points, one.points)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fused", "sorted"])
+def test_bf16_working_dtype_on_card_runs_the_kernels(card_problem,
+                                                     monkeypatch, route):
+    """A solve in a bfloat16 working dtype (the cascade's low stage, its
+    tolerances) launches the route's kernels with W written and read in
+    bfloat16, and makes the plain route's decisions to the cascade's bar
+    (the JAX package's spread between its two XLA precision settings: the
+    same status, iterations within 2, objective within 5%)."""
+    from bundleadjustment_jl_tpu_torch.benchmark.precision import (
+        LOW_STAGE_TOLS)
+    for k, v in normal.FORCE_ROUTE[route].items():
+        monkeypatch.setattr(normal, k, v)
+    p = card_problem.astype("bfloat16")
+    opts = dict(max_iters=40, lam0_mode="diag", **LOW_STAGE_TOLS)
+    _cuda.reset_launches()
+    res = levenberg_marquardt_jit(p, **opts)
+    it = res.iterations
+    expect = dict.fromkeys(_cuda.LAUNCHES, 0)
+    expect.update(lm_jit.expected_launches(route, it, res.naccepts,
+                                           int(res.hist_cg[:it].sum())))
+    assert dict(_cuda.LAUNCHES) == expect
+    w_expect = lm_jit.expected_w_launches(expect, None, torch.bfloat16)
+    assert dict(_cuda.W_LAUNCHES) == w_expect and w_expect[
+        torch.bfloat16] > 0
+    assert res.cams.dtype == torch.bfloat16 and res.cams.is_cuda
+    monkeypatch.setattr(normal, "PALLAS_MODE", False)
+    _cuda.reset_launches()
+    plain = levenberg_marquardt_jit(p, **opts)
+    assert not any(_cuda.LAUNCHES.values())
+    assert res.status_name() == plain.status_name() != "exception"
+    assert abs(res.iterations - plain.iterations) <= 2
+    assert res.objective == pytest.approx(plain.objective, rel=0.05)
+
+
+@pytest.mark.cuda
+def test_native_parser_builds_into_the_package_build_dir():
+    """The BAL parser's .so is built from the shared csrc/bal_parser.cpp
+    into the package's _build/ and parses the fixture as the numpy reader
+    does."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from bundleadjustment_jl_tpu_torch.io import bal, native
+    so = native.build()
+    assert so.parent == ROOT / "bundleadjustment_jl_tpu_torch" / "_build"
+    assert native.SOURCE == ROOT / "csrc" / "bal_parser.cpp"
+    fixture = str(ROOT / "tests" / "fixtures" / "problem-24-800-pre.txt.bz2")
+    for a, b in zip(native.parse_bal_native(fixture), bal._read_raw(fixture)):
+        np.testing.assert_array_equal(a, b)
+    assert bal.read_bal(fixture).cams.is_cuda
+
+
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])
 def test_chip_smoke_refuses_without_a_card(tmp_path, alone):
     """Without CUDA, or without the checkout beside it, chip_smoke.py exits

@@ -473,18 +473,15 @@ def _queue_a_titles() -> set:
     return set(re.findall(r"^\d+\. \*\*(.+?)\*\*", queue, re.M))
 
 
-@pytest.mark.parametrize("option", ["working_dtype"])
+@pytest.mark.parametrize("option", ["driver_spmd", "mesh", "multihost"])
 def test_unsupported_options_name_a_roadmap_item(option):
-    """Each option the port lacks names, by its title, an item that exists
-    in ROADMAP.md's queue A."""
-    jp, _ = jax_synthetic(**P10)
-    tp = to_port(jp)
-    call = {
-        "working_dtype": lambda: levenberg_marquardt_jit(
-            tp, tp.cams.half(), tp.points.half()),
-    }[option]
+    """Each option the port lacks (the CLI's multi-device options) names, by
+    its title, an item that exists in ROADMAP.md's queue A."""
+    from bundleadjustment_jl_tpu_torch.cli import main
+    args = {"driver_spmd": ["--driver", "spmd"], "mesh": ["--mesh", "4"],
+            "multihost": ["--multihost"]}[option]
     with pytest.raises(NotImplementedError) as err:
-        call()
+        main(["synthetic:ncams=5,npnts=40", "--device", "cpu", *args])
     title = re.search(r"\(ROADMAP\.md, queue A: (.+)\)$", str(err.value))
     assert title is not None, str(err.value)
     assert title.group(1) in _queue_a_titles()

@@ -179,7 +179,9 @@ def test_import_never_loads_jax():
     assert loaded == "False"
     # the measurement path's modules are among those imported
     for mod in ("bench", "mv_sweep", "tile_sweep", "kernel_profile",
-                "utils.timing", "ops.stream_probe", "ops.plans"):
+                "utils.timing", "ops.stream_probe", "ops.plans", "cli",
+                "benchmark.precision", "benchmark.runner", "io.native",
+                "ops.jacobian", "utils.profiling"):
         assert f"bundleadjustment_jl_tpu_torch.{mod}" in names.split(), mod
 
 
