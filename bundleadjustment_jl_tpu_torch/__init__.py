@@ -16,6 +16,8 @@ CPU tensors through their plain PyTorch versions. It imports torch and
 numpy, never jax.
 """
 
+__version__ = "0.1.0"
+
 from bundleadjustment_jl_tpu_torch.io import load_fixture, read_bal, synthetic_bal  # noqa: F401
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem  # noqa: F401
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import (  # noqa: F401

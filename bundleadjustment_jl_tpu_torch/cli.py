@@ -6,26 +6,36 @@ Usage:
     python -m bundleadjustment_jl_tpu_torch <problem.txt[.bz2]> [options]
     python -m bundleadjustment_jl_tpu_torch synthetic:ncams=49,npnts=7776 [...]
 
-It runs on the card (``--device cuda``, the default) unless ``--device
-cpu`` asks for the CPU. The working dtype defaults to float32 on the card
-and float64 on the CPU, as the JAX CLI picks it by backend; ``--dtype
-bf16`` solves in bfloat16. ``--pallas`` / ``--no-pallas`` and
-``--cam-scatter`` / ``--no-cam-scatter`` set `ops/normal.py`'s
-``PALLAS_MODE`` and ``CAM_SCATTER`` (both on by default: the kernels, on
-the camera-scatter routes). The multi-device options (``--driver spmd``,
-``--mesh``, ``--multihost``) are not ported yet and raise.
+It runs on the card (``--device cuda``, the default; ``--platform`` is
+the JAX CLI's name for it) unless ``--device cpu`` asks for the CPU. The
+working dtype defaults to float32 on the card and float64 on the CPU, as
+the JAX CLI picks it by backend; ``--dtype bf16`` solves in bfloat16.
+``--pallas`` / ``--no-pallas`` and ``--cam-scatter`` / ``--no-cam-scatter``
+set `ops/normal.py`'s ``PALLAS_MODE`` and ``CAM_SCATTER`` (both on by
+default: the kernels, on the camera-scatter routes).
+
+``--driver spmd`` runs the multi-process driver (`solver/lm_spmd.py`), a
+rank a process and a device (NCCL on cards, gloo on the CPU). Under
+``torchrun`` (or with ``--multihost``) the process group comes from the
+environment (``init_process_group("env://")``); without it the CLI makes
+a one-rank group on a localhost store. ``--mesh N`` must then equal the
+world size. With any other driver ``--mesh`` is the JAX package's GSPMD
+mesh, which is not ported, and raises. Under spmd rank 0 prints the stats
+and writes ``--save``.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 import time
+from datetime import timedelta
 
-# The multi-device options and the title of their item in ROADMAP.md's
-# queue A.
-MULTI_GPU_ITEM = "Multi-GPU, last: the target is one H100"
+# How long a collective of the spmd driver's process group may wait for
+# the other ranks before it raises (init_process_group's timeout).
+SPMD_TIMEOUT_S = 300
 DTYPES = {"f32": "float32", "f64": "float64", "bf16": "bfloat16"}
 FACTO_DTYPES = {"bf16": "bfloat16", "f16": "float16"}
 SOLVED = ("first_order", "small_residual", "small_step", "small_obj_change")
@@ -56,8 +66,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--driver", choices=["host", "jit", "chunked", "spmd"],
                    default="jit",
                    help="host-stepped loop (rich logging), the one-shot "
-                        "driver, or the chunked one (max-time and "
-                        "checkpoints); spmd is not ported yet")
+                        "driver, the chunked one (max-time and "
+                        "checkpoints), or the multi-process one (a rank a "
+                        "device; PCG steps; chunked with a checkpoint "
+                        "directory)")
     p.add_argument("--chunk-iters", type=int, default=25,
                    help="iterations per chunk (chunked driver)")
     p.add_argument("--checkpoint-dir", default=None,
@@ -71,8 +83,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--dtype", choices=sorted(DTYPES), default=None,
                    help="working precision (default: f32 on cuda, f64 on "
                         "cpu)")
-    p.add_argument("--device", choices=["cuda", "cpu"], default="cuda",
-                   help="where the problem and the solve live")
+    p.add_argument("--device", "--platform", choices=["cuda", "cpu"],
+                   default="cuda",
+                   help="where the problem and the solve live (--platform: "
+                        "the JAX CLI's name)")
     p.add_argument("--max-iters", type=int, default=200)
     p.add_argument("--max-time", type=float, default=3600.0,
                    help="host and chunked drivers")
@@ -83,7 +97,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fixed PCG tolerance (default: adaptive forcing)")
     p.add_argument("--lam0", type=float, default=None)
     p.add_argument("--mesh", type=int, default=None, metavar="N",
-                   help="shard over N devices (not ported yet)")
+                   help="with --driver spmd: the rank count, which must "
+                        "equal the world size (the JAX GSPMD mesh of the "
+                        "other drivers is not ported)")
     p.add_argument("--pallas", action=argparse.BooleanOptionalAction,
                    default=normal.PALLAS_MODE,
                    help="the CUDA kernels (default) or the plain route")
@@ -92,7 +108,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="camera sums over the point-sorted rows (routes A, "
                         "B1; default) or over camera-sorted copies (C, B2)")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-process solve (not ported yet)")
+                   help="with --driver spmd: the process group from the "
+                        "environment (MASTER_ADDR, MASTER_PORT, RANK, "
+                        "WORLD_SIZE)")
     p.add_argument("--verbose", "-v", action="store_true")
     p.add_argument("--json", action="store_true",
                    help="emit one JSON line instead of the stats block")
@@ -101,30 +119,79 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _multi_gpu(option: str):
-    raise NotImplementedError(
-        f"{option} is not ported yet (ROADMAP.md, queue A: {MULTI_GPU_ITEM})")
+def _check_multi_device(args) -> None:
+    """Refuse the multi-device options outside the spmd driver, and the
+    step solvers it lacks."""
+    if args.mesh and args.driver != "spmd":
+        raise NotImplementedError(
+            f"--mesh with --driver {args.driver} is the JAX package's GSPMD "
+            f"mesh (parallel/mesh.py), which the port does not port; "
+            f"--driver spmd --mesh N runs N ranks")
+    if args.multihost and args.driver != "spmd":
+        raise ValueError("--multihost starts the spmd driver's process "
+                         "group: add --driver spmd")
+    if args.driver == "spmd" and args.solver != "pcg":
+        raise ValueError(f"--driver spmd takes PCG steps only, not "
+                         f"--solver {args.solver}")
+
+
+def _spmd_group(args) -> bool:
+    """Start the spmd driver's process group unless one is running: from
+    the environment under ``--multihost`` or ``torchrun`` (WORLD_SIZE
+    set), else one rank on a localhost store. True when it started one
+    (which :func:`main` destroys at its end)."""
+    import torch.distributed as dist
+    if dist.is_initialized():
+        return False
+    backend = "nccl" if args.device == "cuda" else "gloo"
+    timeout = timedelta(seconds=SPMD_TIMEOUT_S)
+    if args.multihost or "WORLD_SIZE" in os.environ:
+        dist.init_process_group(backend, init_method="env://",
+                                timeout=timeout)
+    else:
+        store = dist.TCPStore("localhost", 0, 1, True, timeout=timeout)
+        dist.init_process_group(backend, store=store, rank=0,
+                                world_size=1, timeout=timeout)
+    return True
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    if args.driver == "spmd":
-        _multi_gpu("--driver spmd")
-    if args.mesh:
-        _multi_gpu("--mesh")
-    if args.multihost:
-        _multi_gpu("--multihost")
+    _check_multi_device(args)
 
+    import torch
+    import torch.distributed as dist
+
+    if args.device == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("--device cuda: no CUDA device is available "
+                           "(ask for the CPU with --device cpu)")
+    own_group = False
+    if args.driver == "spmd":
+        if args.device == "cuda":
+            torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
+        own_group = _spmd_group(args)
+    try:
+        return _run(args)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _run(args) -> int:
     import numpy as np
     import torch
+    import torch.distributed as dist
 
     from bundleadjustment_jl_tpu_torch.io.bal import read_bal, write_bal
     from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
     from bundleadjustment_jl_tpu_torch.ops import normal
 
-    if args.device == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("--device cuda: no CUDA device is available "
-                           "(ask for the CPU with --device cpu)")
+    world, rank = 1, 0
+    if args.driver == "spmd":
+        world, rank = dist.get_world_size(), dist.get_rank()
+        if args.mesh and args.mesh != world:
+            raise ValueError(f"--mesh {args.mesh} must equal the world size "
+                             f"{world} of the spmd driver's process group")
     dtype_name = args.dtype or ("f64" if args.device == "cpu" else "f32")
     dtype = DTYPES[dtype_name]
     normal.PALLAS_MODE = args.pallas
@@ -173,12 +240,28 @@ def main(argv=None) -> int:
                 problem, chunk_iters=args.chunk_iters,
                 max_time=args.max_time, checkpoint_dir=args.checkpoint_dir,
                 resume=args.resume, **kw)
+        elif args.driver == "spmd":
+            from bundleadjustment_jl_tpu_torch.parallel.spmd import (
+                shard_problem_kminor)
+            from bundleadjustment_jl_tpu_torch.solver.lm_spmd import (
+                levenberg_marquardt_spmd, levenberg_marquardt_spmd_chunked)
+            for k in ("use_dense", "use_cgls", "use_power"):
+                kw.pop(k)
+            sp = shard_problem_kminor(problem, world)
+            if args.checkpoint_dir or args.resume:
+                res = levenberg_marquardt_spmd_chunked(
+                    sp, chunk_iters=args.chunk_iters,
+                    max_time=args.max_time,
+                    checkpoint_dir=args.checkpoint_dir, resume=args.resume,
+                    **kw)
+            else:
+                res = levenberg_marquardt_spmd(sp, **kw)
         else:
             res = levenberg_marquardt_jit(problem, **kw)
         status = STATUS_NAMES[int(res.status)]
         obj, iters = float(res.objective), int(res.iterations)
         dual = float(res.dual_feas)
-        if args.verbose:
+        if args.verbose and rank == 0:
             print(f"{'iter':>5} {'obj':>14} {'|J.r|':>11} {'lambda':>9} "
                   f"{'cg':>4}")
             for i in range(iters):
@@ -195,16 +278,18 @@ def main(argv=None) -> int:
         "dual_feas": dual, "solver": args.solver, "driver": args.driver,
         "dtype": dtype_name, "backend": args.device,
     }
-    if args.json:
+    if args.driver == "spmd":
+        stats["ranks"] = world
+    if rank == 0 and args.json:
         print(json.dumps(stats))
-    else:
+    elif rank == 0:
         print(f"status:      {status}")
         print(f"objective:   {obj:.6e}   (rmse {rmse:.4f} px)")
         print(f"dual_feas:   {dual:.4e}")
         print(f"iterations:  {iters}")
         print(f"elapsed:     {elapsed:.2f} s")
 
-    if args.save:
+    if args.save and rank == 0:
         write_bal(args.save, problem.with_state(res.cams, res.points))
         if args.verbose:
             print(f"# wrote {args.save}")

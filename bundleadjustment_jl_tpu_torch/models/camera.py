@@ -50,11 +50,17 @@ def distortion_factor(p, k1, k2):
     return 1.0 + k1 * n2 + k2 * n2 * n2
 
 
+def project_p1(cam: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
+    """First projection stage, the camera-frame point ``P1 = R(r) X + t``
+    (..., 3) of ``X`` (..., 3) by ``cam`` (..., 9)."""
+    return rodrigues_rotate(cam[..., 0:3], X) + cam[..., 3:6]
+
+
 def project_valid(cam: torch.Tensor, X: torch.Tensor):
     """Projection of ``X`` (..., 3) by ``cam`` (..., 9) -> ``(proj (..., 2),
     valid (...,))``; a point on the camera plane (z == 0) projects to 0
     and is flagged invalid."""
-    p1 = rodrigues_rotate(cam[..., 0:3], X) + cam[..., 3:6]
+    p1 = project_p1(cam, X)
     z = p1[..., 2]
     valid = z != 0.0
     z_safe = torch.where(valid, z, torch.ones_like(z))

@@ -27,6 +27,7 @@ from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
 from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
 from bundleadjustment_jl_tpu_torch.ops import linearize as lz
 from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
+from bundleadjustment_jl_tpu_torch.ops import spmdctx
 
 # The kernel routes (`kernel_route` below picks one per solve):
 #   "fused"         A: K1 assembly; K2 + K3 read W through cam_perm.
@@ -142,14 +143,65 @@ class _HalfStages(Stages):
     __slots__ = ()
 
 
+# The outputs (by position) of each stage that are sums over rows into
+# camera space, or into a scalar: in a multi-process solve
+# (`ops/spmdctx.py`) they are per-rank partials, which the spmd table
+# all-reduces. The other outputs (W, JR, the point sums) stay local.
+_ROW_SUMS = {"assemble_scatter": (2, 3), "jtj_cam_reduce": (0,),
+             "cam_reduce_cam90": (0,), "cam_reduce_wcw_rhs": (0,),
+             "matvec_cam_scatter": (0,), "cam_reduce_w_op": (0,),
+             "cam_reduce_wcw": (0,), "wcw_cam_reduce": (0,),
+             "wt_cam_reduce": (0,), "objective_scatter": (0,)}
+
+
+def _spmd_stage(fn: Callable, sums: tuple) -> Callable:
+    """``fn`` with the outputs at the positions ``sums`` (a lone tensor is
+    position 0) all-reduced by `spmdctx.psum`; ``fn`` itself when ``sums``
+    is empty."""
+    if not sums:
+        return fn
+
+    def stage(*args, **kwargs):
+        out = fn(*args, **kwargs)
+        if isinstance(out, torch.Tensor):
+            return spmdctx.psum(out)
+        return tuple(spmdctx.psum(o) if i in sums else o
+                     for i, o in enumerate(out))
+    stage.__name__ = getattr(fn, "__name__", "stage")
+    return stage
+
+
+class _SpmdStages(Stages):
+    """A table whose stages :func:`_spmd_stage` wrapped."""
+    __slots__ = ()
+
+
+class _HalfSpmdStages(_HalfStages, _SpmdStages):
+    """A table of both wrappings: the all-reduce inside, on the float32
+    outputs, and the 2-byte rounding outside."""
+    __slots__ = ()
+
+
 def stages_for(table: Stages, dtype) -> Stages:
-    """``table`` as a solve in working dtype ``dtype`` calls it: as it is,
-    or for a 2-byte dtype each stage through :func:`_half_stage` (once)."""
+    """``table`` as a solve in working dtype ``dtype`` calls it: in a
+    multi-process solve (`spmdctx.GROUP` set) each stage that sums rows
+    into camera space all-reduces its float32 outputs (:data:`_ROW_SUMS`,
+    the hooks of the JAX package at the same stages); then for a 2-byte
+    dtype each stage through :func:`_half_stage`. Each wrapping is made
+    once: a table that has it is taken as it is."""
     dt = torch_dtype(dtype)
+    if spmdctx.GROUP is not None and not isinstance(table, _SpmdStages):
+        if isinstance(table, _HalfStages):
+            raise ValueError("a 2-byte stage table made outside the "
+                             "multi-process solve: it has no all-reduce "
+                             "on its float32 outputs")
+        table = _SpmdStages(*(_spmd_stage(f, _ROW_SUMS.get(name, ()))
+                              for name, f in zip(Stages._fields, table)))
     if dt not in HALF_DTYPES or isinstance(table, _HalfStages):
         return table
-    return _HalfStages(*(_half_stage(f, dt, _UNROUNDED.get(name, ()))
-                         for name, f in zip(Stages._fields, table)))
+    cls = _HalfSpmdStages if isinstance(table, _SpmdStages) else _HalfStages
+    return cls(*(_half_stage(f, dt, _UNROUNDED.get(name, ()))
+                 for name, f in zip(Stages._fields, table)))
 
 
 def solve_stages(dtype) -> Stages:
@@ -168,7 +220,8 @@ def solve_stages(dtype) -> Stages:
     float32 solve on the card runs the kernels or raises. The plain twins'
     segment sums are ``index_add_``, atomics on CUDA: an f64 solve on the
     card makes the CPU f64 solve's decisions (status, iterations) with its
-    objective within rel 1e-9, not bit for bit."""
+    objective within rel 1e-9, not bit for bit. In a multi-process solve
+    the table carries the all-reduces of :func:`stages_for`."""
     table = (KERNELS if PALLAS_MODE and torch_dtype(dtype) != torch.float64
              else PLAIN)
     return stages_for(table, dtype)
@@ -285,7 +338,7 @@ def assemble_blocks(problem: BAProblem, cams=None, points=None, *,
         W_cam_t = None
     else:
         JR_t, W_t = st.linearize_w_kminor(problem, cams, points, w_dtype)
-        obj = 0.5 * torch.sum(JR_t[lz.R0:lz.R0 + 2] ** 2)
+        obj = spmdctx.psum(0.5 * torch.sum(JR_t[lz.R0:lz.R0 + 2] ** 2))
         if route == "sorted":
             perm = problem.cam_perm.long()
             hc90 = st.jtj_cam_reduce(JR_t[:, perm], problem)
@@ -304,9 +357,10 @@ def assemble_blocks(problem: BAProblem, cams=None, points=None, *,
 
 
 def gradient_norm(blocks: GNBlocks) -> torch.Tensor:
-    """||J'r|| over the full variable vector."""
+    """||J'r|| over the full variable vector; in a multi-process solve
+    only the point part (``g_p`` is local) is summed over the ranks."""
     return torch.sqrt(torch.sum(blocks.g_c_f ** 2)
-                      + torch.sum(blocks.g_p_f ** 2))
+                      + spmdctx.psum(torch.sum(blocks.g_p_f ** 2)))
 
 
 def inv3x3_damped_flat(Hpp_f: torch.Tensor, lam) -> torch.Tensor:
@@ -348,6 +402,13 @@ def inv3x3_damped_flat(Hpp_f: torch.Tensor, lam) -> torch.Tensor:
             zip((A, B, C, D, E, F, G, H, I),
                 (da, z, z, z, de, z, z, z, di))]
     return torch.stack(cols, dim=-1).reshape(-1)
+
+
+def inv3x3(M: torch.Tensor) -> torch.Tensor:
+    """Adjugate inverse of 3x3 blocks ``M`` (..., 3, 3), with the fallback
+    of :func:`inv3x3_damped_flat` (undamped) where a block's determinant
+    is not finite or not above ``8 tiny``."""
+    return inv3x3_damped_flat(M.reshape(-1), 0.0).reshape(M.shape)
 
 
 def damp(H: torch.Tensor, lam) -> torch.Tensor:

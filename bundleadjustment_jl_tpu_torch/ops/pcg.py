@@ -27,20 +27,36 @@ class PCGResult(NamedTuple):
     rel_res: torch.Tensor  # () final ||S x - b|| / ||b||
 
 
-def block_jacobi_inverse(blocks: torch.Tensor) -> torch.Tensor:
-    """Explicit batched inverse of the SPD preconditioner blocks
-    (ncams, 9, 9), through a Cholesky factor. A block that is not
-    numerically SPD yields NaN, as JAX's Cholesky does — the NaN step is
-    then rejected by the LM driver instead of stopping the solve. A 2-byte
-    dtype is factored in float32 and the inverse stays float32, as in the
-    JAX package."""
+def block_cholesky(blocks: torch.Tensor) -> torch.Tensor:
+    """Batched lower Cholesky factors of SPD blocks (ncams, 9, 9). A block
+    that is not numerically SPD gives NaN in its lower triangle, as JAX's
+    Cholesky does. A 2-byte dtype is factored in float32 and the factors
+    stay float32, as in the JAX package."""
     if blocks.dtype in HALF_DTYPES:
         blocks = blocks.float()
     L, info = torch.linalg.cholesky_ex(blocks)
-    L = torch.where((info == 0)[:, None, None], L,
-                    torch.full_like(L, float("nan")))
-    eye = torch.eye(blocks.shape[-1], dtype=blocks.dtype,
-                    device=blocks.device).expand_as(L)
+    return torch.where((info == 0)[:, None, None], L,
+                       torch.full_like(L, float("nan")).tril())
+
+
+def block_cho_solve(L: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``M^{-1} v`` for ``v`` (ncams, 9) by the factors of
+    :func:`block_cholesky` (two triangular solves, in ``L``'s dtype),
+    rounded to ``v``'s dtype."""
+    y = torch.linalg.solve_triangular(L, v.to(L.dtype)[..., None],
+                                      upper=False)
+    z = torch.linalg.solve_triangular(L.transpose(-1, -2), y, upper=True)
+    return z[..., 0].to(v.dtype)
+
+
+def block_jacobi_inverse(blocks: torch.Tensor) -> torch.Tensor:
+    """Explicit batched inverse of the SPD preconditioner blocks
+    (ncams, 9, 9), through :func:`block_cholesky`: a block that is not
+    numerically SPD yields NaN, and the NaN step is then rejected by the
+    LM driver instead of stopping the solve. The inverse of a 2-byte
+    dtype's blocks is float32."""
+    L = block_cholesky(blocks)
+    eye = torch.eye(L.shape[-1], dtype=L.dtype, device=L.device).expand_as(L)
     y = torch.linalg.solve_triangular(L, eye, upper=False)
     return torch.einsum("cka,ckb->cab", y, y)
 

@@ -44,6 +44,11 @@ In a 2-byte working dtype (`ops/normal.py`) the vectors here carry that
 dtype; the solve's stage table (`normal.stages_for`) widens them to
 float32 for each stage and rounds its result back to the working dtype, as
 the JAX package casts around its kernels.
+
+In a multi-process solve (`ops/spmdctx.py`) the same table all-reduces
+each camera-direction sum (the reduced right-hand side's correction, the
+matvec's camera pass, the W C W' diagonal, the quadratic form's cross
+term); the point term of the quadratic form is summed here.
 """
 
 from __future__ import annotations
@@ -53,7 +58,7 @@ from typing import NamedTuple
 import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
-from bundleadjustment_jl_tpu_torch.ops import normal
+from bundleadjustment_jl_tpu_torch.ops import normal, spmdctx
 from bundleadjustment_jl_tpu_torch.ops.normal import (
     KERNELS, GNBlocks, Stages, damp, inv3x3_damped_flat)
 
@@ -208,9 +213,11 @@ def back_substitute(sys: SchurSystem, dc: torch.Tensor) -> torch.Tensor:
 
 def _quad(blocks: GNBlocks, dc, dp, cross_cam) -> torch.Tensor:
     """``||J d||^2 = dc' Hcc dc + 2 dc . cross_cam + dp' Hpp dp`` with
-    ``cross_cam = segsum_cam(W_k dp[pnt_k])`` (ncams, 9)."""
+    ``cross_cam = segsum_cam(W_k dp[pnt_k])`` (ncams, 9), all-reduced by
+    the stage that made it; in a multi-process solve the point term is
+    summed over the ranks."""
     t_c = torch.sum(dc * torch.einsum("cab,cb->ca", blocks.Hcc, dc))
-    t_p = torch.sum(dp * _hpp_dot(blocks.Hpp_f, dp))
+    t_p = spmdctx.psum(torch.sum(dp * _hpp_dot(blocks.Hpp_f, dp)))
     return t_c + 2.0 * torch.sum(cross_cam * dc) + t_p
 
 
@@ -222,6 +229,16 @@ def quad_form(problem: BAProblem, blocks: GNBlocks, dc: torch.Tensor,
     return _quad(blocks, dc, dp,
                  _cam_dir_reduce(problem, blocks.W_t, blocks.W_cam_t, dp_h,
                                  blocks.stages))
+
+
+def predicted_reduction(problem: BAProblem, blocks: GNBlocks,
+                        dc: torch.Tensor, dp: torch.Tensor) -> torch.Tensor:
+    """The Gauss-Newton predicted decrease ``obj - 0.5 ||J d + r||^2 =
+    -(g' d) - 0.5 ||J d||^2``, ``||J d||^2`` by :func:`quad_form` from the
+    assembled blocks (on every route)."""
+    gd = torch.sum(blocks.g_c * dc) + spmdctx.psum(
+        torch.sum(blocks.g_p * dp))
+    return -gd - 0.5 * quad_form(problem, blocks, dc, dp)
 
 
 def back_substitute_quad(problem: BAProblem, blocks: GNBlocks,

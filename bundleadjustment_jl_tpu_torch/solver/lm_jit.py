@@ -31,7 +31,12 @@ As in the JAX package, the solve is an init (:func:`_lm_init`: the first
 linearization and the state) and a run until a status or an iteration
 bound (:func:`_lm_run`); the one-shot driver runs to ``max_iters``, the
 chunked one in chunks with host checks between them, which read nothing
-from the device (the scalars are on the host already).
+from the device (the scalars are on the host already). The multi-process
+driver (`solver/lm_spmd.py`) runs the same init and run on each rank's
+shard: every point-space value the loop reads (the point parts of g'd,
+||d||, ||x||, ||J'r|| and ||J d||^2, max Hpp for lambda_0, max|W| for a
+float16 W) goes through `ops/spmdctx.py`, so every rank reads the same
+scalars and makes the same decisions.
 
 ``facto_dtype`` (bfloat16 or float16) stores the per-observation W blocks
 in that dtype, as the JAX solver does (:func:`maybe_cast_facto`); a 2-byte
@@ -52,6 +57,7 @@ import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import (
     HALF_DTYPES, BAProblem, host_dtype, torch_dtype)
+from bundleadjustment_jl_tpu_torch.ops import spmdctx
 from bundleadjustment_jl_tpu_torch.ops._cuda import (
     W_DTYPES, W_READERS, W_WRITERS)
 from bundleadjustment_jl_tpu_torch.ops.cgls import cgls_solve, j_matvec
@@ -179,9 +185,10 @@ def w_assemble_dtype(facto_dtype: torch.dtype | None):
 def f16_scale(W_t: torch.Tensor) -> torch.Tensor:
     """The range scale of a float16 W (the JAX solver's, after the
     reference's `normalize_F16!`): the power of two that puts max|W| near
-    2^14, a 0-d float32 tensor on W's device (no host read)."""
+    2^14, a 0-d float32 tensor on W's device (no host read); in a
+    multi-process solve max|W| over every rank's rows."""
     lo, hi = torch.aminmax(W_t)
-    wmax = torch.maximum(-lo, hi).float()
+    wmax = spmdctx.pmax(torch.maximum(-lo, hi).float())
     safe = torch.where(torch.isfinite(wmax) & (wmax > 0), wmax,
                        torch.ones_like(wmax))
     return torch.exp2(torch.floor(torch.log2(16384.0 / safe)))
@@ -402,10 +409,10 @@ def _setup(problem: BAProblem, cams, points, *, max_iters, lam0,
            lam0_mode, atol, rtol, restol, satol, srtol, oatol, ortol, nu_d,
            nu_m, accept_ratio, good_ratio, lam_min, lam_strategy, pcg_rtol,
            pcg_max_iters, use_dense, use_cgls, use_power, linesearch,
-           ls_max, facto_dtype, pcg_warm) -> _Setup:
+           ls_max, facto_dtype, pcg_warm, route=None) -> _Setup:
     """Check the options and resolve them (``None`` tolerances to the
-    reference defaults in the working dtype); pick the route and the stage
-    table once."""
+    reference defaults in the working dtype); pick the route (``route``,
+    else `kernel_route` of ``problem``) and the stage table once."""
     if facto_dtype is not None and facto_dtype not in FACTO_DTYPES:
         raise TypeError(f"facto_dtype: one of {FACTO_DTYPES}, got "
                         f"{facto_dtype!r}")
@@ -445,7 +452,7 @@ def _setup(problem: BAProblem, cams, points, *, max_iters, lam0,
                  if linesearch else []), dtype=ft)
     floor_dtype = facto_dtype if facto_dtype is not None else dt
     return _Setup(
-        problem=problem, route=kernel_route(problem),
+        problem=problem, route=route or kernel_route(problem),
         stages=solve_stages(dt), solver=solver,
         facto_dtype=facto_dtype, w_dtype=w_assemble_dtype(facto_dtype),
         narrow=narrow, ft=ft, rnd=rnd, tol=tol, lam0=lam0,
@@ -481,7 +488,7 @@ def _lm_init(cfg: _Setup, cams, points) -> _State:
     if cfg.lam0_mode == "diag":
         init.append(torch.maximum(
             torch.max(blocks.Hcc_f.reshape(-1, 81)[:, ::10]),
-            torch.max(blocks.Hpp_f.reshape(-1, 9)[:, ::4])))
+            spmdctx.pmax(torch.max(blocks.Hpp_f.reshape(-1, 9)[:, ::4]))))
     init = torch.stack(init).to(torch_dtype(ft)).cpu().numpy()
     obj, gnorm = ft(init[0]), ft(init[1])
     with np.errstate(all="ignore"):
@@ -521,9 +528,14 @@ def _lm_run(cfg: _Setup, st: _State, it_max: int) -> None:
             x0=st.dc_carry if cfg.pcg_warm else None,
             stagnation_window=cfg.stagnation)
 
-        gd = torch.sum(blocks.g_c * dc) + torch.sum(blocks.g_p * dp)
-        dnorm_t = torch.sqrt(torch.sum(dc * dc) + torch.sum(dp * dp))
-        xnorm = torch.sqrt(torch.sum(cams ** 2) + torch.sum(points ** 2))
+        # The point parts of g'd, ||d||^2 and ||x||^2 (one all-reduce in a
+        # multi-process solve; the camera parts are replicated).
+        pnt = spmdctx.psum(torch.stack([torch.sum(blocks.g_p * dp),
+                                        torch.sum(dp * dp),
+                                        torch.sum(points ** 2)]))
+        gd = torch.sum(blocks.g_c * dc) + pnt[0]
+        dnorm_t = torch.sqrt(torch.sum(dc * dc) + pnt[1])
+        xnorm = torch.sqrt(torch.sum(cams ** 2) + pnt[2])
         objs_t = cfg.stages.objective_scatter(
             problem, cams[None] + scales[:, None, None] * dc[None],
             points[None] + scales[:, None, None] * dp[None])

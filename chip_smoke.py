@@ -94,10 +94,21 @@ CUDA card.
    CLI as processes (the fixture with ``--save``, LadyBug-49 in bfloat16
    and through the host driver); the campaign runner over the synthetic
    suite up to 50,000 observations and its Markdown table.
-10. The bench leg (``python -m bundleadjustment_jl_tpu_torch.bench``): its
+10. The multi-process driver (``check_spmd``): an NCCL process group of
+   one rank on the card (a localhost store), ``levenberg_marquardt_spmd``
+   on a one-shard ``shard_problem_kminor`` at Dubrovnik-356 (route A) and
+   Final-4585 (route B1, by the default gates; phase 4's problem) with
+   ``bench.py``'s options: a warm-up of both drivers, then SPMD_REPEATS
+   solves of each in turns, each spmd solve's launches checked as in 3,
+   and each bit-identical to the one-shot solve (status, iterations,
+   histories, objective, cams, points); the median seconds of both beside
+   the card. At Dubrovnik-356 the chunked spmd driver too: bit-identical
+   with its launches, and a run of one chunk with a checkpoint resumed
+   bit-identical from its iteration on.
+11. The bench leg (``python -m bundleadjustment_jl_tpu_torch.bench``): its
    JSON line, once, with the launches of its run checked (route A's
    kernels and the probe).
-11. Prints the run's wall time, the kernel table as one JSON line (each
+12. Prints the run's wall time, the kernel table as one JSON line (each
    kernel's time beside its least time on the card, ``bench.bound_ms``,
    from this run's shapes, at each problem; the plans' build times and
    the repeat checks under their kernels), the card line, and last
@@ -259,6 +270,10 @@ LADYBUG_SPEC = ("synthetic:ncams=49,npnts=7776,obs_per_pnt=4,noise_px=1.0,"
                 "perturb=0.02,seed=0,pad_obs_to=512")
 # The reference's "solved" statuses.
 SOLVED = ("first_order", "small_residual", "small_step", "small_obj_change")
+# Phase 10: timed solves of each driver (after a warm-up), in turns, and how
+# long a collective of the one-rank NCCL group may wait before it raises.
+SPMD_REPEATS = 3
+SPMD_TIMEOUT_S = 120
 # Each route's metric-name suffix and "route" entry in its solve line.
 ROUTE_TAGS = {"fused": ("", None), "sorted": ("_sorted", "camera_sorted"),
               "scatter_split": ("_scatter_split", "scatter_split"),
@@ -1200,6 +1215,151 @@ def check_chunked(problem, launches_total):
     return line
 
 
+def same_solve(a, b, start=0) -> bool:
+    """``a`` bit-identical to ``b``: status, iterations, objective, cams,
+    points, and every history row from ``start`` on."""
+    import numpy as np
+    import torch
+    n = b.iterations
+    return ((a.status, a.iterations, a.objective) ==
+            (b.status, b.iterations, b.objective)
+            and all(np.array_equal(getattr(a, k)[start:n],
+                                   getattr(b, k)[start:n])
+                    for k in ("hist_obj", "hist_gnorm", "hist_lam",
+                              "hist_cg"))
+            and torch.equal(a.cams, b.cams)
+            and torch.equal(a.points, b.points))
+
+
+def spmd_lines(name, problem, group, launches_total, card):
+    """Phase 10 for one problem: the spmd and one-shot solves timed in
+    turns, each spmd solve's launches checked, each bit-identical to the
+    one-shot solve; returns (its JSON line, the shards, the last
+    one-shot solve)."""
+    import torch
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.ops import _cuda, normal
+    from bundleadjustment_jl_tpu_torch.parallel.spmd import (
+        shard_problem_kminor)
+    from bundleadjustment_jl_tpu_torch.solver.lm_spmd import (
+        levenberg_marquardt_spmd)
+
+    route = normal.kernel_route(problem)
+    t0 = time.perf_counter()
+    sp = shard_problem_kminor(problem, 1)
+    shard_s = time.perf_counter() - t0
+
+    def spmd():
+        return levenberg_marquardt_spmd(sp, group, **bench.SOLVE_OPTS)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, out
+
+    t0 = time.perf_counter()
+    spmd()                                          # warm-up: the shard
+    first_s = time.perf_counter() - t0
+    bench.solve_cfg(problem)                        # warm-up
+    one_t, spmd_t = [], []
+    for i in range(SPMD_REPEATS):
+        for which in (("one", "spmd") if i % 2 == 0 else ("spmd", "one")):
+            if which == "one":
+                secs, one = timed(lambda: bench.solve_cfg(problem))
+                one_t.append(secs)
+                continue
+            _cuda.reset_launches()
+            secs, res = timed(spmd)
+            counts = dict(_cuda.LAUNCHES)
+            check_launches(f"{name} spmd", res, counts,
+                           dict(_cuda.W_LAUNCHES), route, None)
+            for k, v in counts.items():
+                launches_total[k] += v
+            spmd_t.append(secs)
+        if not same_solve(res, one):
+            raise AssertionError(f"{name}: the spmd solve differs from the "
+                                 f"one-shot solve ({route})")
+    it = res.iterations
+    line = {"metric": f"{name}_spmd", "route": route, "ranks": 1,
+            "backend": "nccl", "value": sorted(spmd_t)[len(spmd_t) // 2],
+            "unit": "s", "values": spmd_t,
+            "one_shot_value": sorted(one_t)[len(one_t) // 2],
+            "one_shot_values": one_t, "shard_s": shard_s,
+            "first_spmd_s": first_s, "status": res.status_name(),
+            "iterations": it, "cg_matvecs": int(res.hist_cg[:it].sum()),
+            "objective": res.objective, "bit_identical_to_one_shot": True,
+            "launches": {k: v for k, v in counts.items() if v},
+            "card": card}
+    return line, sp, one
+
+
+def check_spmd(final, launches_total, card):
+    """Phase 10: ``levenberg_marquardt_spmd`` on an NCCL group of one rank
+    at Dubrovnik-356 and ``final`` (Final-4585), against the one-shot
+    driver (``spmd_lines``), and the chunked spmd driver with a checkpoint
+    and its resume at Dubrovnik-356. Returns the JSON lines it prints."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.ops import _cuda, normal
+    from bundleadjustment_jl_tpu_torch.solver.lm_spmd import (
+        levenberg_marquardt_spmd_chunked)
+
+    timeout = timedelta(seconds=SPMD_TIMEOUT_S)
+    dist.init_process_group(
+        "nccl", store=dist.TCPStore("localhost", 0, 1, True, timeout=timeout),
+        rank=0, world_size=1, timeout=timeout)
+    try:
+        group = dist.group.WORLD
+        if dist.get_backend(group) != "nccl":
+            raise AssertionError(f"the group's backend is "
+                                 f"{dist.get_backend(group)}, not nccl")
+        dub = bench.make_problem("dubrovnik356", 0)
+        line, sp, one = spmd_lines("dubrovnik356", dub, group,
+                                   launches_total, card)
+        opts = dict(bench.SOLVE_OPTS, chunk_iters=CHUNK_ITERS)
+        route = normal.kernel_route(dub)
+        _cuda.reset_launches()
+        chk = levenberg_marquardt_spmd_chunked(sp, group, **opts)
+        counts = dict(_cuda.LAUNCHES)
+        check_launches("spmd chunked", chk, counts, dict(_cuda.W_LAUNCHES),
+                       route, None)
+        for k, v in counts.items():
+            launches_total[k] += v
+        build = ROOT / PKG / "_build"
+        build.mkdir(exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=build) as d:
+            part = levenberg_marquardt_spmd_chunked(
+                sp, group, checkpoint_dir=d,
+                **dict(opts, max_iters=CHUNK_ITERS))
+            resumed = levenberg_marquardt_spmd_chunked(
+                sp, group, checkpoint_dir=d, resume=True, **opts)
+        line.update({"chunked_bit_identical": same_solve(chk, one),
+                     "resumed_from": part.iterations,
+                     "resume_bit_identical": same_solve(resumed, one,
+                                                        part.iterations)})
+        print(json.dumps(line))
+        if not line["chunked_bit_identical"]:
+            raise AssertionError("the chunked spmd solve differs from the "
+                                 "one-shot solve")
+        if part.iterations != CHUNK_ITERS or not line["resume_bit_identical"]:
+            raise AssertionError("the resumed spmd solve differs from the "
+                                 "one-shot solve")
+        del dub, sp
+        if normal.kernel_route(final) != "scatter_split":
+            raise AssertionError(f"{FINAL}: the default gates pick "
+                                 f"{normal.kernel_route(final)}, not B1")
+        final_line = spmd_lines(FINAL, final, group, launches_total,
+                                card)[0]
+        print(json.dumps(final_line))
+    finally:
+        dist.destroy_process_group()
+    return [line, final_line]
+
+
 def check_solvers(solves, launches_total, card):
     """Phase 8, each case of SOLVER_CASES: on each of its routes a warm-up
     (seed 1; none with one timed solve) and its timed solves, each launch
@@ -1818,7 +1978,6 @@ def main() -> int:
     final_f32 = check_final_solves(final, launches)
     schur_launches = check_final_schur(FINAL, final, errs)
     facto_ref = check_facto_solves(final, launches)
-    del final
     print("[drivers] chunked, host-stepped; power, dense and CGLS steps")
     chunked = check_chunked(bench.make_problem("dubrovnik356", 0), launches)
     drivers = check_solvers(solves, launches, card)
@@ -1855,6 +2014,11 @@ def main() -> int:
     del final64
     surface["campaign"] = step("campaign", check_runner, launches, card)
     print(json.dumps({"phase9_s": steps}))
+    print("[spmd] NCCL, one rank: one-shot and chunked against lm_jit")
+    t0 = time.perf_counter()
+    spmd = check_spmd(final, launches, card)
+    del final
+    print(json.dumps({"phase10_s": time.perf_counter() - t0}))
     check_bench(launches)
     for k, v in launches.items():
         if v == 0 and k not in SCHUR_CHECK_ONLY:
@@ -1866,7 +2030,7 @@ def main() -> int:
 
     print(f"[wall] {time.perf_counter() - wall0:.1f} s")
     print(json.dumps({"probe": probe, "f64_solve": f64, "chunked": chunked,
-                      "drivers": drivers,
+                      "drivers": drivers, "spmd": spmd,
                       "f64_anchor": precision["f64_anchor"],
                       "cli": [ln["stats"] for ln in surface["cli"]]}))
     print(json.dumps({"kernels": kernel_table(launches, schur_launches, errs,

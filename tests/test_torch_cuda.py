@@ -724,6 +724,47 @@ def test_native_parser_builds_into_the_package_build_dir():
     assert bal.read_bal(fixture).cams.is_cuda
 
 
+@pytest.mark.cuda
+def test_spmd_one_nccl_rank_bit_identical_to_one_shot_on_card():
+    """The spmd driver on an NCCL group of one rank at the Dubrovnik-356
+    shape (route A) makes the one-shot solve bit for bit (an all-reduce
+    over one rank is the identity), with the one-shot's launches."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.parallel import shard_problem_kminor
+    from bundleadjustment_jl_tpu_torch.solver import levenberg_marquardt_spmd
+
+    problem = bench.make_problem("dubrovnik356", 0)
+    one = levenberg_marquardt_jit(problem, **bench.SOLVE_OPTS)
+    sp = shard_problem_kminor(problem, 1)
+    timeout = timedelta(seconds=60)
+    dist.init_process_group(
+        "nccl", store=dist.TCPStore("localhost", 0, 1, True, timeout=timeout),
+        rank=0, world_size=1, timeout=timeout)
+    try:
+        _cuda.reset_launches()
+        res = levenberg_marquardt_spmd(sp, **bench.SOLVE_OPTS)
+        counts = dict(_cuda.LAUNCHES)
+    finally:
+        dist.destroy_process_group()
+    it = res.iterations
+    expect = dict.fromkeys(_cuda.LAUNCHES, 0)
+    expect.update(lm_jit.expected_launches("fused", it, res.naccepts,
+                                           int(res.hist_cg[:it].sum())))
+    assert counts == expect
+    assert (res.status, res.iterations, res.objective, res.naccepts) == (
+        one.status, one.iterations, one.objective, one.naccepts)
+    for k in ("hist_obj", "hist_gnorm", "hist_lam", "hist_cg"):
+        np.testing.assert_array_equal(getattr(res, k), getattr(one, k))
+    assert torch.equal(res.cams, one.cams)
+    assert torch.equal(res.points, one.points)
+
+
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])
 def test_chip_smoke_refuses_without_a_card(tmp_path, alone):
     """Without CUDA, or without the checkout beside it, chip_smoke.py exits

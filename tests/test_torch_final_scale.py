@@ -24,7 +24,6 @@ CUDA kernels (K2's four products, K8) are checked against on the card.
 
 import contextlib
 import functools
-import re
 import types
 from pathlib import Path
 
@@ -464,24 +463,3 @@ def test_route_keeps_its_call_sites_for_a_whole_solve(monkeypatch, route):
     assert res.iterations == 3 and res.naccepts > 0
     assert {s for s, n in calls.items() if n} == {
         s for s, routes in SITES.items() if route in routes}
-
-
-# ---------------------------------------------------------------- messages
-def _queue_a_titles() -> set:
-    text = (ROOT / "ROADMAP.md").read_text()
-    queue = text[text.index("### A."):text.index("### B.")]
-    return set(re.findall(r"^\d+\. \*\*(.+?)\*\*", queue, re.M))
-
-
-@pytest.mark.parametrize("option", ["driver_spmd", "mesh", "multihost"])
-def test_unsupported_options_name_a_roadmap_item(option):
-    """Each option the port lacks (the CLI's multi-device options) names, by
-    its title, an item that exists in ROADMAP.md's queue A."""
-    from bundleadjustment_jl_tpu_torch.cli import main
-    args = {"driver_spmd": ["--driver", "spmd"], "mesh": ["--mesh", "4"],
-            "multihost": ["--multihost"]}[option]
-    with pytest.raises(NotImplementedError) as err:
-        main(["synthetic:ncams=5,npnts=40", "--device", "cpu", *args])
-    title = re.search(r"\(ROADMAP\.md, queue A: (.+)\)$", str(err.value))
-    assert title is not None, str(err.value)
-    assert title.group(1) in _queue_a_titles()

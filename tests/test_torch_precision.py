@@ -30,8 +30,21 @@ The bars, by stage:
     accepted only when its trial objective is a whole bfloat16 unit
     (0.25) lower. The stage ends when an accepted step fails to lower the
     rounded objective, or when lambda has grown past the predicted-
-    reduction stop. The walk's length follows the rounding of sums made
-    in other orders (the test reads it).
+    reduction stop. The bar of that walk: the walks part at row 2, and
+    the sum that parts them is one point's gradient entry, g_p[7] (point
+    2), after the first step. Its float32 sum over the point's four rows
+    is -22.81192 in the port and -22.81228 in JAX, on either side of the
+    bfloat16 midpoint -22.8125, so it rounds to -22.75 and -22.875. The
+    float32 values differ because the rows' residuals do: the chain's
+    float32 arithmetic (XLA's against torch's) puts a residual of ~0.6 px
+    that is the difference of two ~300 px projections a few float32 ulps
+    apart (up to 2.7e-6 px). The order of the sum is not the cause: the
+    rows' values summed in row order, or as the JAX kernel's three
+    bfloat16 parts, give the same float32 sum. Every other value of that
+    linearization is equal, and the step made with JAX's g_p is JAX's
+    step bit for bit. So the rows 0-1 are equal, row 2's objective is one
+    unit apart (65.5 and 65.0), lambda is equal to row 4, and the walks
+    part from row 5 (:func:`test_bf16_low_stage_walks_part_at_row_2`).
 - **bfloat16 against the JAX XLA path**: its status, and a state at least
   as good (its objective in float64 within 1.05 of the JAX stage's), but
   still on the bfloat16 floor, more than 5% above the float32 stage's
@@ -97,6 +110,7 @@ from bundleadjustment_jl_tpu_torch.benchmark.precision import (
 from bundleadjustment_jl_tpu_torch.io import synthetic_bal
 from bundleadjustment_jl_tpu_torch.models.problem import (
     BAProblem, host_dtype, np_dtype, torch_dtype)
+from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
 from bundleadjustment_jl_tpu_torch.ops import normal
 from bundleadjustment_jl_tpu_torch.ops.schur import (
     back_substitute_quad, reduce_and_diag, schur_matvec)
@@ -162,6 +176,16 @@ for prob, opts in spec["solves"]:
         status=STATUS_NAMES[int(r.status)], iterations=n,
         objective=float(r.objective), hist_obj=f(r.hist_obj[:n]),
         hist_lam=f(r.hist_lam[:n])))
+if "grad_at" in spec:
+    jp, _ = synthetic_bal(**spec["grad_at"]["prob"])
+    p = jp.astype("bfloat16")
+    at = {k: jnp.asarray(np.asarray(spec["grad_at"][k]), jnp.bfloat16)
+          for k in ("cams", "points")}
+    b = assemble_blocks(p, at["cams"].reshape(-1, 9),
+                        at["points"].reshape(-1, 3), with_jr=False,
+                        kminor=True)
+    out["grad_at"] = dict(obj=f(b.obj), g_c=f(b.g_c_f), g_p=f(b.g_p_f),
+                          Hcc=f(b.Hcc_f), Hpp=f(b.Hpp_f))
 if "blocks" in spec:
     jp, _ = synthetic_bal(**spec["blocks"])
     p = jp.astype("bfloat16")
@@ -190,13 +214,28 @@ JAX_PALLAS_RUNS = {
 }
 
 
+def low_state_after_one_step():
+    """The port's bfloat16 state (cams, points) on the low-stage problem
+    after its first step (the JAX walk's too: their rows 0-1 are equal)."""
+    jp, _ = jax_synthetic(**LOW_STAGE)
+    res = levenberg_marquardt_jit(to_port(jp).astype("bfloat16"),
+                                  **{**BF16_OPTS, "max_iters": 1})
+    return res.cams, res.points
+
+
 class _Runs:
-    """The JAX Pallas-route subprocesses, read on first use."""
+    """The JAX Pallas-route subprocesses, read on first use. The "low" run
+    also linearizes at the port's state after the first step."""
 
     def __init__(self):
+        cams, points = low_state_after_one_step()
+        extra = {"low": {"grad_at": dict(
+            prob=LOW_STAGE, cams=cams.double().ravel().tolist(),
+            points=points.double().ravel().tolist())}}
         self.procs = {
             name: subprocess.Popen(
-                [sys.executable, "-c", _JAX_PALLAS, json.dumps(spec)],
+                [sys.executable, "-c", _JAX_PALLAS,
+                 json.dumps({**spec, **extra.get(name, {})})],
                 cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                 text=True, env=dict(os.environ, XLA_FLAGS=flags,
                                     JAX_PLATFORMS="cpu"))
@@ -550,7 +589,8 @@ def test_bf16_stage_makes_jax_pallas_decisions(jax_pallas):
 def test_bf16_stage_pallas_low_stage(jax_pallas):
     """The low-stage problem's bfloat16 stage against the JAX Pallas route:
     status, objective within 5% and the first five decisions; the walk on
-    the floor is not held (module docstring). With XLA's default flags the
+    the floor is held to where it parts
+    (:func:`test_bf16_low_stage_walks_part_at_row_2`). With XLA's default flags the
     JAX run accepts a step whose rounded state has a higher objective than
     the state before it (its final objective above its last history row)
     and stops early."""
@@ -575,3 +615,43 @@ def test_bf16_stage_pallas_low_stage(jax_pallas):
     assert default["objective"] > default["hist_obj"][-1]
     assert not math.isclose(default["objective"], ref["objective"],
                             rel_tol=0.05)
+
+
+def test_bf16_low_stage_walks_part_at_row_2(jax_pallas):
+    """Where and why the low-stage problem's bfloat16 walks part (module
+    docstring): rows 0-1 equal; row 2's objective one bfloat16 unit apart
+    with its lambda equal; lambda equal to row 4 and apart at row 5. The
+    sum: after the first step (the same state in both), the point gradient
+    g_p of the linearization equals JAX's but for one entry, g_p[7], one
+    unit apart, whose float32 sum lies within 1e-3 of the bfloat16
+    midpoint between the two; the rest of that linearization (objective,
+    g_c, Hcc, Hpp) is equal."""
+    ref = jax_pallas["low"]["solves"][0]
+    at = jax_pallas["low"]["grad_at"]
+    jp, _ = jax_synthetic(**LOW_STAGE)
+    p = to_port(jp).astype("bfloat16")
+    got = levenberg_marquardt_jit(p, **BF16_OPTS)
+    obj = got.hist_obj.astype(np.float64)
+    lam = got.hist_lam.astype(np.float64)
+    np.testing.assert_array_equal(obj[:2], ref["hist_obj"][:2])
+    assert _bf16_units(torch.tensor(obj[2:3]), ref["hist_obj"][2:3])[0] == 1
+    np.testing.assert_array_equal(lam[:5], ref["hist_lam"][:5])
+    assert lam[5] != ref["hist_lam"][5]
+
+    cams, points = low_state_after_one_step()
+    b = normal.assemble_blocks(p, cams, points, route="fused",
+                               stages=normal.solve_stages(p.dtype))
+    for name, t in (("obj", b.obj), ("g_c", b.g_c_f), ("Hcc", b.Hcc_f),
+                    ("Hpp", b.Hpp_f)):
+        np.testing.assert_array_equal(t.double().numpy().ravel(), at[name])
+    g_p = b.g_p_f.double().numpy()
+    apart = np.nonzero(g_p != np.asarray(at["g_p"]))[0]
+    assert apart.tolist() == [7]
+    assert _bf16_units(b.g_p_f[7:8], at["g_p"][7:8])[0] == 1
+    # the port's float32 sum before its rounding, and the midpoint
+    f32 = fa._assemble_plain(p, cams.float(), points.float())[1][2, 10]
+    mid = 0.5 * (g_p[7] + at["g_p"][7])
+    print(f"low-stage walks part at row 2: g_p[7] float32 sum "
+          f"{float(f32)!r}, bfloat16 port {g_p[7]} JAX {at['g_p'][7]}, "
+          f"midpoint {mid}")
+    assert abs(float(f32) - mid) < 1e-3

@@ -18,6 +18,7 @@ Bars:
 """
 
 import json
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -40,8 +41,9 @@ from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.ops.chain import linearize
 from bundleadjustment_jl_tpu_torch.ops.jacobian import jacobian_blocks_ad
 from bundleadjustment_jl_tpu_torch.solver import LMOptions, levenberg_marquardt
+from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
-    levenberg_marquardt_jit, levenberg_marquardt_jit_chunked)
+    STATUS_NAMES, levenberg_marquardt_jit, levenberg_marquardt_jit_chunked)
 from bundleadjustment_jl_tpu_torch.utils.profiling import PhaseTimers, trace
 
 FIXTURE = "tests/fixtures/problem-24-800-pre.txt.bz2"
@@ -281,11 +283,117 @@ def test_cli_dtype_defaults_and_half(capsys):
     assert not cli.build_parser().parse_args(["x", "--no-pallas"]).pallas
 
 
-@pytest.mark.parametrize("args", [["--driver", "spmd"], ["--mesh", "2"],
-                                  ["--multihost"]])
-def test_cli_multi_device_options_raise(args):
-    with pytest.raises(NotImplementedError, match="queue A: Multi-GPU"):
-        cli.main(["synthetic:ncams=5,npnts=40", "--device", "cpu", *args])
+# ------------------------------------------------------- multi-device CLI
+SPMD_ARGS = ["synthetic:ncams=5,npnts=40,obs_per_pnt=3,seed=3", "--device",
+             "cpu", "--max-iters", "40", "--json"]
+
+
+def test_cli_spmd_runs_in_a_one_rank_group(capsys):
+    """``--driver spmd`` without torchrun makes a one-rank group (a
+    localhost store), solves as the one-shot driver does, bit for bit,
+    and takes the group down after."""
+    import torch.distributed as dist
+    cli.main([*SPMD_ARGS, "--driver", "jit"])
+    ref = _json_line(capsys)
+    assert cli.main([*SPMD_ARGS, "--driver", "spmd", "--mesh", "1"]) == 0
+    got = _json_line(capsys)
+    assert (got["driver"], got["ranks"]) == ("spmd", 1)
+    for k in ("status", "objective", "iterations", "dual_feas"):
+        assert got[k] == ref[k], k
+    assert not dist.is_initialized()
+
+
+def test_cli_spmd_checkpoints_run_the_chunked_driver(tmp_path, capsys):
+    ck = tmp_path / "ck"
+    cli.main([*SPMD_ARGS, "--driver", "spmd", "--checkpoint-dir", str(ck),
+              "--chunk-iters", "4"])
+    got = _json_line(capsys)
+    assert got["driver"] == "spmd" and list(ck.glob("step-*.npz"))
+    cli.main([*SPMD_ARGS, "--driver", "jit"])
+    assert got["objective"] == _json_line(capsys)["objective"]
+
+
+@pytest.mark.parametrize("args,error,match", [
+    (["--driver", "spmd", "--mesh", "2"], ValueError,
+     "--mesh 2 must equal the world size 1"),
+    (["--mesh", "2"], NotImplementedError, "GSPMD mesh"),
+    (["--driver", "chunked", "--mesh", "4"], NotImplementedError,
+     "with --driver chunked is the JAX package's GSPMD"),
+    (["--driver", "spmd", "--solver", "dense"], ValueError,
+     "PCG steps only"),
+    (["--multihost"], ValueError, "add --driver spmd"),
+], ids=["mesh_not_world", "mesh_without_spmd", "mesh_chunked",
+        "spmd_dense", "multihost_without_spmd"])
+def test_cli_multi_device_refusals(args, error, match):
+    import torch.distributed as dist
+    with pytest.raises(error, match=match):
+        cli.main([*SPMD_ARGS, *args])
+    assert not dist.is_initialized()
+
+
+def test_cli_multihost_reads_the_env(monkeypatch, capsys):
+    import socket
+
+    import torch.distributed as dist
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                     RANK="0", WORLD_SIZE="1").items():
+        monkeypatch.setenv(k, v)
+    assert cli.main([*SPMD_ARGS, "--driver", "spmd", "--multihost"]) == 0
+    assert _json_line(capsys)["ranks"] == 1
+    assert not dist.is_initialized()
+
+
+def test_cli_spmd_under_torchrun_env_two_ranks(tmp_path):
+    """Two CLI processes with torchrun's environment (RANK, WORLD_SIZE,
+    MASTER_ADDR, MASTER_PORT): one gloo group, rank 0 prints the line;
+    the solve makes the one-shot driver's decisions."""
+    import os
+    import socket
+    import subprocess
+    import sys
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    root = str(Path(cli.__file__).resolve().parents[1])
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "bundleadjustment_jl_tpu_torch", *SPMD_ARGS,
+         "--driver", "spmd", "--mesh", "2"], cwd=root,
+        env=dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                 RANK=str(r), LOCAL_RANK=str(r), WORLD_SIZE="2",
+                 OMP_NUM_THREADS="2", PYTHONPATH=root),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r in range(2)]
+    outs = []
+    try:
+        for proc in procs:
+            out, err = proc.communicate(timeout=120)
+            assert proc.returncode == 0, err[-3000:]
+            outs.append(out.strip())
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+    assert outs[1] == ""                            # rank 1 prints nothing
+    got = json.loads(outs[0].splitlines()[-1])
+    assert got["ranks"] == 2
+    args = cli.build_parser().parse_args(SPMD_ARGS)
+    ref = levenberg_marquardt_jit(synthetic_bal(
+        device="cpu", **cli._parse_synthetic(args.problem))[0], max_iters=40)
+    assert got["status"] == STATUS_NAMES[ref.status]
+    assert got["iterations"] == ref.iterations
+    assert got["objective"] == pytest.approx(ref.objective, rel=1e-9)
+
+
+def test_cli_platform_is_the_device_option():
+    """The JAX CLI's ``--platform`` names the port's ``--device``."""
+    parse = cli.build_parser().parse_args
+    assert parse(["x", "--platform", "cpu"]).device == "cpu"
+    assert parse(["x", "--platform", "cuda"]).device == "cuda"
+    assert jax_cli.build_parser().parse_args(
+        ["x", "--platform", "cpu"]).platform == "cpu"
 
 
 # ---------------------------------------------------------------- profiling
