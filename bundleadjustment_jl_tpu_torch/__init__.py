@@ -3,7 +3,8 @@
 The JAX package stays the reference; this package mirrors its layout
 (`models/`, `io/`, `ops/`, `solver/`, `utils/`) and ports the
 Levenberg-Marquardt solver (host-stepped, one-shot and chunked drivers with
-checkpoints; PCG, power-series, dense and CGLS steps) on the JAX package's
+checkpoints; PCG, power-series, dense and CGLS steps; each driver also over
+the ranks of a device mesh, `parallel/mesh.py`) on the JAX package's
 four kernel routes, with W stored in float32, bfloat16 or float16
 (`facto_dtype`) and a bfloat16 or float16 working dtype; the precision
 cascade, problem suites and campaign runner (`benchmark/`), the native BAL

@@ -14,14 +14,17 @@ the JAX CLI picks it by backend; ``--dtype bf16`` solves in bfloat16.
 set `ops/normal.py`'s ``PALLAS_MODE`` and ``CAM_SCATTER`` (both on by
 default: the kernels, on the camera-scatter routes).
 
-``--driver spmd`` runs the multi-process driver (`solver/lm_spmd.py`), a
-rank a process and a device (NCCL on cards, gloo on the CPU). Under
-``torchrun`` (or with ``--multihost``) the process group comes from the
-environment (``init_process_group("env://")``); without it the CLI makes
-a one-rank group on a localhost store. ``--mesh N`` must then equal the
-world size. With any other driver ``--mesh`` is the JAX package's GSPMD
-mesh, which is not ported, and raises. Under spmd rank 0 prints the stats
-and writes ``--save``.
+Over ranks, a rank a process and a device (NCCL on cards, gloo on the
+CPU): ``--mesh N`` with ``--driver host|jit|chunked`` solves the mesh shard
+(`parallel/mesh.py`: ``make_mesh(N)``, ``shard_problem``) with any
+``--solver``; ``--driver spmd`` runs the multi-process driver
+(`solver/lm_spmd.py`, PCG steps only, as in the JAX package). Under
+``torchrun``, or with ``--multihost``, the process group comes from the
+environment (``init_process_group("env://")``; ``--multihost`` without
+``--mesh`` meshes the whole world); otherwise the CLI makes a one-rank
+group on a localhost store. ``--mesh N`` must equal the world size. Rank 0
+prints the stats, in the same form as without ranks (spmd adds
+``ranks``), and writes ``--save``.
 """
 
 from __future__ import annotations
@@ -33,9 +36,9 @@ import sys
 import time
 from datetime import timedelta
 
-# How long a collective of the spmd driver's process group may wait for
+# How long a collective of a solve over ranks may wait for
 # the other ranks before it raises (init_process_group's timeout).
-SPMD_TIMEOUT_S = 300
+GROUP_TIMEOUT_S = 300
 DTYPES = {"f32": "float32", "f64": "float64", "bf16": "bfloat16"}
 FACTO_DTYPES = {"bf16": "bfloat16", "f16": "float16"}
 SOLVED = ("first_order", "small_residual", "small_step", "small_obj_change")
@@ -97,9 +100,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="fixed PCG tolerance (default: adaptive forcing)")
     p.add_argument("--lam0", type=float, default=None)
     p.add_argument("--mesh", type=int, default=None, metavar="N",
-                   help="with --driver spmd: the rank count, which must "
-                        "equal the world size (the JAX GSPMD mesh of the "
-                        "other drivers is not ported)")
+                   help="solve over N ranks, which must equal the world "
+                        "size: the mesh shards of host / jit / chunked "
+                        "(any --solver), or the spmd driver's shards")
     p.add_argument("--pallas", action=argparse.BooleanOptionalAction,
                    default=normal.PALLAS_MODE,
                    help="the CUDA kernels (default) or the plain route")
@@ -108,9 +111,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help="camera sums over the point-sorted rows (routes A, "
                         "B1; default) or over camera-sorted copies (C, B2)")
     p.add_argument("--multihost", action="store_true",
-                   help="with --driver spmd: the process group from the "
-                        "environment (MASTER_ADDR, MASTER_PORT, RANK, "
-                        "WORLD_SIZE)")
+                   help="the process group from the environment "
+                        "(MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE), with "
+                        "any driver; without --mesh the mesh is the world")
     p.add_argument("--verbose", "-v", action="store_true")
     p.add_argument("--json", action="store_true",
                    help="emit one JSON line instead of the stats block")
@@ -119,32 +122,22 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _check_multi_device(args) -> None:
-    """Refuse the multi-device options outside the spmd driver, and the
-    step solvers it lacks."""
-    if args.mesh and args.driver != "spmd":
-        raise NotImplementedError(
-            f"--mesh with --driver {args.driver} is the JAX package's GSPMD "
-            f"mesh (parallel/mesh.py), which the port does not port; "
-            f"--driver spmd --mesh N runs N ranks")
-    if args.multihost and args.driver != "spmd":
-        raise ValueError("--multihost starts the spmd driver's process "
-                         "group: add --driver spmd")
-    if args.driver == "spmd" and args.solver != "pcg":
-        raise ValueError(f"--driver spmd takes PCG steps only, not "
-                         f"--solver {args.solver}")
+def _over_ranks(args) -> bool:
+    """Whether the solve runs over the ranks of a process group: the spmd
+    driver, or a mesh (``--mesh`` or ``--multihost``)."""
+    return args.driver == "spmd" or bool(args.mesh) or args.multihost
 
 
-def _spmd_group(args) -> bool:
-    """Start the spmd driver's process group unless one is running: from
-    the environment under ``--multihost`` or ``torchrun`` (WORLD_SIZE
-    set), else one rank on a localhost store. True when it started one
-    (which :func:`main` destroys at its end)."""
+def _rank_group(args) -> bool:
+    """Start the process group of a solve over ranks unless one is
+    running: from the environment under ``--multihost`` or ``torchrun``
+    (WORLD_SIZE set), else one rank on a localhost store. True when it
+    started one (which :func:`main` destroys at its end)."""
     import torch.distributed as dist
     if dist.is_initialized():
         return False
     backend = "nccl" if args.device == "cuda" else "gloo"
-    timeout = timedelta(seconds=SPMD_TIMEOUT_S)
+    timeout = timedelta(seconds=GROUP_TIMEOUT_S)
     if args.multihost or "WORLD_SIZE" in os.environ:
         dist.init_process_group(backend, init_method="env://",
                                 timeout=timeout)
@@ -157,7 +150,9 @@ def _spmd_group(args) -> bool:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    _check_multi_device(args)
+    if args.driver == "spmd" and args.solver != "pcg":
+        raise ValueError(f"--driver spmd takes PCG steps only, not "
+                         f"--solver {args.solver}")
 
     import torch
     import torch.distributed as dist
@@ -166,10 +161,10 @@ def main(argv=None) -> int:
         raise RuntimeError("--device cuda: no CUDA device is available "
                            "(ask for the CPU with --device cpu)")
     own_group = False
-    if args.driver == "spmd":
+    if _over_ranks(args):
         if args.device == "cuda":
             torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", 0)))
-        own_group = _spmd_group(args)
+        own_group = _rank_group(args)
     try:
         return _run(args)
     finally:
@@ -186,12 +181,16 @@ def _run(args) -> int:
     from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
     from bundleadjustment_jl_tpu_torch.ops import normal
 
-    world, rank = 1, 0
-    if args.driver == "spmd":
+    world, rank, mesh = 1, 0, None
+    if _over_ranks(args):
         world, rank = dist.get_world_size(), dist.get_rank()
+    if args.driver == "spmd":
         if args.mesh and args.mesh != world:
             raise ValueError(f"--mesh {args.mesh} must equal the world size "
                              f"{world} of the spmd driver's process group")
+    elif _over_ranks(args):
+        from bundleadjustment_jl_tpu_torch.parallel.mesh import make_mesh
+        mesh = make_mesh(args.mesh, args.device)
     dtype_name = args.dtype or ("f64" if args.device == "cpu" else "f32")
     dtype = DTYPES[dtype_name]
     normal.PALLAS_MODE = args.pallas
@@ -204,7 +203,7 @@ def _run(args) -> int:
     else:
         problem = read_bal(args.problem, dtype=dtype, device=args.device)
     load_s = time.perf_counter() - t0
-    if args.verbose:
+    if args.verbose and rank == 0:
         print(f"# {problem.name}: ncams={problem.ncams} "
               f"npnts={problem.npnts} nobs={problem.nobs} "
               f"nvar={problem.nvar} nequ={problem.nequ} "
@@ -213,11 +212,15 @@ def _run(args) -> int:
 
     facto_dtype = (getattr(torch, FACTO_DTYPES[args.facto_dtype])
                    if args.facto_dtype else None)
+    solved = problem
+    if mesh is not None:
+        from bundleadjustment_jl_tpu_torch.parallel.mesh import shard_problem
+        solved = shard_problem(problem, mesh)
     t0 = time.perf_counter()
     if args.driver == "host":
         from bundleadjustment_jl_tpu_torch.solver.lm import (
             LMOptions, levenberg_marquardt)
-        res = levenberg_marquardt(problem, LMOptions(
+        res = levenberg_marquardt(solved, LMOptions(
             max_iters=args.max_iters, max_time=args.max_time,
             solver=args.solver, linesearch=args.linesearch,
             pcg_max_iters=args.pcg_max_iters, pcg_rtol=args.pcg_rtol,
@@ -237,7 +240,7 @@ def _run(args) -> int:
                   linesearch=args.linesearch, facto_dtype=facto_dtype)
         if args.driver == "chunked":
             res = levenberg_marquardt_jit_chunked(
-                problem, chunk_iters=args.chunk_iters,
+                solved, chunk_iters=args.chunk_iters,
                 max_time=args.max_time, checkpoint_dir=args.checkpoint_dir,
                 resume=args.resume, **kw)
         elif args.driver == "spmd":
@@ -257,7 +260,7 @@ def _run(args) -> int:
             else:
                 res = levenberg_marquardt_spmd(sp, **kw)
         else:
-            res = levenberg_marquardt_jit(problem, **kw)
+            res = levenberg_marquardt_jit(solved, **kw)
         status = STATUS_NAMES[int(res.status)]
         obj, iters = float(res.objective), int(res.iterations)
         dual = float(res.dual_feas)

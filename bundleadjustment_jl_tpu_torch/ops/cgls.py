@@ -12,6 +12,13 @@ output (`ops/linearize.py`): rows 0-17 Jc (row ``9 i + a``), 18-23 Jp
 torch ops (gathers, per-row products, ``index_add_`` segment sums), as the
 JAX package computes them with XLA; on CUDA ``index_add_`` sums with
 atomics, so a repeat solve on the card may differ in the last bits.
+
+On a mesh shard (`ops/spmdctx.py`) the rows and points are rank-local and
+the cameras replicated: the camera part of ``J' s`` is a per-rank partial
+and is all-reduced, with the point part of ``gamma`` in the same
+all-reduce; the row and point parts of each step's ``denom`` are
+all-reduced together. Two all-reduces a step, and every rank holds the
+same camera iterate and scalars.
 """
 
 from __future__ import annotations
@@ -21,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
+from bundleadjustment_jl_tpu_torch.ops import spmdctx
 from bundleadjustment_jl_tpu_torch.ops.linearize import JP0, R0
 from bundleadjustment_jl_tpu_torch.ops.normal import (
     GNBlocks, damp, inv3x3_damped_flat)
@@ -82,29 +90,38 @@ def cgls_solve(problem: BAProblem, blocks: GNBlocks, lam, rtol,
     Mc_inv = block_jacobi_inverse(damp(blocks.Hcc, lam))
     Pp = inv3x3_damped_flat(blocks.Hpp_f, lam).reshape(-1, 3, 3)
 
-    def precond(vc, vp):
-        return (block_jacobi_apply(Mc_inv, vc),
-                torch.einsum("pab,pb->pa", Pp, vp))
-
-    def dot(ac, ap, bc, bp):
-        return torch.sum(ac * bc) + torch.sum(ap * bp)
+    def gradient(s1, s2c=None, s2p=None):
+        """``v = J' s1 + sqrt(lam) s2``, ``z = M^{-1} v`` and ``gamma = v'
+        z``: the camera partial of ``J' s1`` and the point part of
+        ``gamma`` summed over the ranks in one all-reduce."""
+        vc, vp = _jts(problem, JR_t, s1)
+        if s2p is not None:
+            vp = vp + sqlam * s2p
+        zp = torch.einsum("pab,pb->pa", Pp, vp)
+        red = spmdctx.psum(torch.cat([vc.reshape(-1),
+                                      torch.sum(vp * zp)[None]]))
+        vc = red[:-1].reshape(vc.shape)
+        if s2c is not None:
+            vc = vc + sqlam * s2c
+        zc = block_jacobi_apply(Mc_inv, vc)
+        return zc, zp, torch.sum(vc * zc) + red[-1]
 
     # x0 = 0; s1 = -r; s2 = -sqrt(lam) x = 0
     s1 = -JR_t[R0:R0 + 2]
-    vc, vp = _jts(problem, JR_t, s1)
-    zc, zp = precond(vc, vp)
-    gamma = dot(vc, vp, zc, zp)
+    zc, zp, gamma = gradient(s1)
     gamma0_safe = torch.where(gamma <= 0.0, torch.ones_like(gamma), gamma)
     tol = rtol_t * rtol_t * gamma0_safe
     zero = torch.zeros_like(gamma)
-    xc, xp = torch.zeros_like(vc), torch.zeros_like(vp)
-    s2c, s2p = torch.zeros_like(vc), torch.zeros_like(vp)
+    xc, xp = torch.zeros_like(zc), torch.zeros_like(zp)
+    s2c, s2p = torch.zeros_like(zc), torch.zeros_like(zp)
     pc, pp = zc, zp
     it = 0
     while it < max_iters and bool(gamma > tol):
         q1 = _jd(problem, JR_t, pc, pp)
-        denom = torch.sum(q1 * q1) + lam * (torch.sum(pc ** 2)
-                                            + torch.sum(pp ** 2))
+        # the row and point parts, summed over the ranks together
+        rows_pnts = spmdctx.psum(torch.stack([torch.sum(q1 * q1),
+                                              torch.sum(pp ** 2)]))
+        denom = rows_pnts[0] + lam * (torch.sum(pc ** 2) + rows_pnts[1])
         pos = denom > 0.0
         alpha = torch.where(pos, gamma / torch.where(pos, denom,
                                                      torch.ones_like(denom)),
@@ -114,11 +131,7 @@ def cgls_solve(problem: BAProblem, blocks: GNBlocks, lam, rtol,
         s1 = s1 - alpha * q1
         s2c = s2c - alpha * sqlam * pc
         s2p = s2p - alpha * sqlam * pp
-        vc, vp = _jts(problem, JR_t, s1)
-        vc = vc + sqlam * s2c
-        vp = vp + sqlam * s2p
-        zc, zp = precond(vc, vp)
-        gamma_new = dot(vc, vp, zc, zp)
+        zc, zp, gamma_new = gradient(s1, s2c, s2p)
         beta = torch.where(gamma > 0.0, gamma_new / gamma, zero)
         pc = zc + beta * pc
         pp = zp + beta * pp

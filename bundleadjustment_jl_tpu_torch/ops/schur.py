@@ -308,7 +308,9 @@ def assemble_dense_schur(sys: SchurSystem) -> torch.Tensor:
     padding rows add zeros), then one matmul contracts the two. A 2-byte
     W is widened to float32 (a float16 W holds ``s W`` and the system's
     ``Hpp_inv`` is hatted by ``1 / s^2``, so ``Y' U`` is exact), and S
-    comes back rounded to W's storage dtype, as in the JAX package."""
+    comes back rounded to W's storage dtype, as in the JAX package. On a
+    mesh shard the targets hold the rank's points and ``Y' U`` is
+    all-reduced (`ops/spmdctx.py`)."""
     problem = sys.problem
     nc, npt = problem.ncams, problem.npnts
     cdt = _dense_dtype(sys.W_t)
@@ -327,7 +329,10 @@ def assemble_dense_schur(sys: SchurSystem) -> torch.Tensor:
         out.index_put_((flat,), vals.reshape(-1), accumulate=True)
         return out.reshape(3 * npt, 9 * nc)
 
-    S = -(target(Y).T @ target(W))
+    # On a mesh shard Y'U is this rank's points' part: summed over the
+    # ranks in the compute dtype, before Hcc_l and the rounding to W's
+    # storage dtype, so every rank holds the same S.
+    S = -spmdctx.psum(target(Y).T @ target(W))
     ar = torch.arange(nc, device=dev)
     S.view(nc, 9, nc, 9)[ar, :, ar, :] += sys.Hcc_l.to(cdt)
     return S.to(sys.W_t.dtype)
@@ -340,7 +345,8 @@ def solve_dense(sys: SchurSystem) -> torch.Tensor:
     positive definite gives a NaN ``dc`` (no exception, no host read; the
     JAX package's ``cho_factor`` gives NaN there), which the LM drivers
     reject. Refuses, before any allocation, a system above
-    :data:`DENSE_MAX_BYTES`."""
+    :data:`DENSE_MAX_BYTES` (on a mesh shard, the rank's own). Every rank
+    of a mesh factors the same S and gets the same ``dc``."""
     problem = sys.problem
     cdt = _dense_dtype(sys.W_t)
     check_dense_feasible(problem.ncams, problem.npnts, problem.nobs_pad,

@@ -1,10 +1,12 @@
 """The reduction context of a multi-process solve (PyTorch port of
 `bundleadjustment_jl_tpu/ops/spmdctx.py`).
 
-In the spmd driver (`solver/lm_spmd.py`) every rank runs the whole LM loop
-on a contiguous, point-aligned shard of the rows (`parallel/spmd.py`); the
-cameras are replicated. A sum over rows is then a per-rank partial, and
-the camera-space sums all-reduce over the ranks' process group:
+In a solve over ranks (a mesh shard, `parallel/mesh.py`, through any
+driver of `solver/lm_jit.py` or `solver/lm.py`; the spmd driver of
+`solver/lm_spmd.py`) every rank runs the whole LM loop on a contiguous,
+point-aligned shard of the rows (`parallel/spmd.py`); the cameras are
+replicated. A sum over rows is then a per-rank partial, and the
+camera-space sums all-reduce over the ranks' process group:
 
 - the camera-space stage outputs ([Hcc | g_c], the reduced right-hand
   side's correction, the Schur matvec's camera pass, the W C W' diagonal)
@@ -13,11 +15,13 @@ the camera-space sums all-reduce over the ranks' process group:
   float32 output before a 2-byte working dtype rounds it;
 - point-space values (Hpp, g_p, dp, W, the rows) stay local;
 - a scalar that mixes both (||J'r||, g'd, ||d||, ||x||, the quadratic
-  form) sums only its point part here; the camera part is computed alike
-  on every rank.
+  form, the CGLS step's gamma and denominator) sums only its point and
+  row parts here; the camera part is computed alike on every rank;
+- the dense step's ``Y' U`` and CGLS's ``J' s`` camera part are per-rank
+  partials, summed here.
 
-:data:`GROUP` is that process group, set by the spmd driver for the
-length of a solve (:func:`using`). None (every other path) means one
+:data:`GROUP` is that process group, set by the drivers for the length of
+a solve on a mesh shard (:func:`using`). None (every other path) means one
 device: each hook returns its input.
 """
 

@@ -5,10 +5,15 @@
 A greedy balanced partition (LPT bin packing on per-camera observation
 counts) assigns each camera to one of ``n_parts`` parts, and
 :func:`partition_stats` reports the parts' balance and how many extra
-parts each point is seen from. The JAX package's `partition_problem`,
-which reorders the rows for its GSPMD mesh (`parallel/mesh.py`), is not
-ported: the port's multi-process solve shards the point-sorted rows
-(`parallel/spmd.py`).
+parts each point is seen from.
+
+The JAX package's `partition_problem` is left out. It reorders the rows
+into camera groups, each group one equal chunk of the GSPMD mesh, and
+records the new order in the problem's ``pnt_perm``. The port's problem
+has no ``pnt_perm``: its rows are always point-sorted, which its kernels
+need (each point's rows contiguous), and its mesh shards are point-aligned
+ranges of those rows (`parallel/mesh.py`, `parallel/spmd.py`), so a
+camera-grouped order has no shard to serve.
 """
 
 from __future__ import annotations

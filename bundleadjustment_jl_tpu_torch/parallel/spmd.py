@@ -11,12 +11,16 @@ per-rank partials that `ops/spmdctx.py` all-reduces.
 
 Each shard is a local :class:`BAProblem` built by
 ``BAProblem.from_arrays`` with global camera ids and local point ids
-(:meth:`SpmdProblem.local`). Unlike the JAX package, no shard is padded to
-a common row count (a multiple of 128 there: a Pallas lane rule; the
-port's kernels take any padding): each shard holds its own rows, and the
-global problem's padding rows stay at the end of the last shard, so a
-one-shard problem is the problem itself. The points are padded to a common
-count only where the ranks gather them (:meth:`SpmdProblem.global_points`).
+(:meth:`SpmdProblem.local`); a rank solves it as a :class:`MeshShard`
+(:meth:`SpmdProblem.rank_shard`), which carries the process group, the
+rank and the :class:`SpmdProblem` (the global sizes and point bounds), and
+which every driver takes as it takes a problem. Unlike the JAX package, no
+shard is padded to a common row count (a multiple of 128 there: a Pallas
+lane rule; the port's kernels take any padding): each shard holds its own
+rows, and the global problem's padding rows stay at the end of the last
+shard, so a one-shard problem is the problem itself. The points are padded
+to a common count only where the ranks gather them
+(:meth:`SpmdProblem.global_points`).
 """
 
 from __future__ import annotations
@@ -115,6 +119,33 @@ class SpmdProblem:
             pad_obs_to=max(self.rows(rank), 1),
             name=f"{self.name}/shard{rank}", device=device)
 
+    def rank_shard(self, group: Optional[dist.ProcessGroup] = None,
+                   device=None) -> "MeshShard":
+        """This rank's shard of a solve over ``group`` (default: the world
+        group), on ``device`` (default :meth:`device`): the :meth:`local`
+        problem with the group, its rank and this :class:`SpmdProblem`.
+        Raises unless ``group`` is initialized, has :attr:`ndev` ranks and
+        its backend serves the device (NCCL for a card, gloo for the
+        CPU)."""
+        if not dist.is_available() or not dist.is_initialized():
+            raise RuntimeError("a solve over ranks needs a torch.distributed "
+                               "process group (init_process_group)")
+        group = dist.group.WORLD if group is None else group
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+        if world != self.ndev:
+            raise ValueError(f"SpmdProblem has {self.ndev} shards but the "
+                             f"group has {world} ranks: rebuild it with "
+                             f"shard_problem_kminor(problem, {world})")
+        lp = self.local(rank, device)
+        backend = str(dist.get_backend(group))
+        need = "nccl" if lp.cams.is_cuda else "gloo"
+        if need not in backend:
+            raise ValueError(f"a shard on {lp.cams.device} needs a {need} "
+                             f"group, this one is {backend}")
+        return MeshShard(**{f.name: getattr(lp, f.name)
+                            for f in dataclasses.fields(BAProblem)},
+                         spmd=self, group=group, rank=rank)
+
     def split_points(self, points_global: torch.Tensor,
                      rank: int) -> torch.Tensor:
         """The rows of ``points_global`` (npnts, 3) that shard ``rank``
@@ -149,6 +180,19 @@ class SpmdProblem:
         parts = [torch.empty_like(pad) for _ in range(self.ndev)]
         dist.all_gather(parts, pad, group=group)
         return self.join_points(parts).to(dt)
+
+
+@dataclasses.dataclass
+class MeshShard(BAProblem):
+    """One rank's shard of a problem, which the drivers
+    (`solver/lm_jit.py`, `solver/lm.py`) take as they take a
+    :class:`BAProblem` and solve over ``group``
+    (:meth:`SpmdProblem.rank_shard`). Its arrays are the rank's rows and
+    points (global camera ids, local point ids); ``spmd`` holds the global
+    sizes and every shard's point and row bounds."""
+    spmd: Optional[SpmdProblem] = None
+    group: Optional[dist.ProcessGroup] = None
+    rank: int = 0
 
 
 def shard_problem_kminor(problem: BAProblem, ndev: int) -> SpmdProblem:

@@ -1,5 +1,6 @@
-"""Levenberg-Marquardt drivers: the host-stepped `lm.py`, the one-shot and
-chunked drivers of `lm_jit.py` and their multi-process forms in
+"""Levenberg-Marquardt drivers: the host-stepped `lm.py` and the one-shot
+and chunked drivers of `lm_jit.py`, each of which also solves a mesh
+shard over ranks (`parallel/mesh.py`), and the spmd forms in
 `lm_spmd.py`."""
 
 from bundleadjustment_jl_tpu_torch.solver.lm import (  # noqa: F401

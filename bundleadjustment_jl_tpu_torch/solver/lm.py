@@ -18,6 +18,15 @@ one K4 launch with one trial state and one host read. A 2-byte working
 dtype (bfloat16 or float16) runs as in the one-shot driver: the stages get
 float32 vectors and round their results back (`ops/normal.py`), W is
 stored in the working dtype, and the tolerances come from its eps.
+
+It takes a mesh shard (`parallel/mesh.py:shard_problem`) as the one-shot
+driver does (`solver/lm_jit.py`): every rank runs the loop on its shard
+under `ops/spmdctx.py`'s hooks. The stage table all-reduces the camera
+sums and the trial objectives; every other scalar the host reads (the
+gradient norm, g'd, ||d||, ||x||, the predicted reduction's ||J d||^2,
+lambda_0's max Hpp, the max-time test) has its point part all-reduced, so
+the ranks take the same decisions. Rank 0 logs (``verbose``) and writes
+the checkpoints; the result's points are the global ones on every rank.
 """
 
 from __future__ import annotations
@@ -31,12 +40,14 @@ import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import (
     HALF_DTYPES, BAProblem, torch_dtype)
+from bundleadjustment_jl_tpu_torch.ops import spmdctx
 from bundleadjustment_jl_tpu_torch.ops.normal import (
     assemble_blocks, gradient_norm, kernel_route, solve_stages)
 from bundleadjustment_jl_tpu_torch.ops.pcg import forcing_rtol
 from bundleadjustment_jl_tpu_torch.ops.schur import check_dense_feasible
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
-    SOLVERS, expected_launches, solve_step)
+    SOLVERS, _any_rank, _check_lockstep, _global_points, _local_points,
+    _rank0, _ranks, _whole, expected_launches, solve_step)
 from bundleadjustment_jl_tpu_torch.utils.checkpoint import CheckpointManager
 
 
@@ -147,10 +158,22 @@ def levenberg_marquardt(problem: BAProblem,
                         callback: Optional[Callable] = None) -> LMResult:
     """Solve ``min 0.5 ||r(cams, points)||^2`` by Levenberg-Marquardt,
     host-stepped, with the JAX package's decisions; returns an
-    :class:`LMResult`."""
-    opts = options or LMOptions()
+    :class:`LMResult`. On a mesh shard every rank of its group calls it
+    alike; ``points``, when given, and the result's are the global
+    (npnts, 3) arrays."""
+    with _ranks(problem):
+        res = _solve(problem, options or LMOptions(), cams, points, callback)
+        res.points = _global_points(problem, res.points)
+    return res
+
+
+def _solve(problem: BAProblem, opts: LMOptions, cams, points,
+           callback: Optional[Callable]) -> LMResult:
+    """The body of :func:`levenberg_marquardt`, inside the rank group's
+    hooks on a mesh shard; returns the rank's own points."""
     cams = problem.cams if cams is None else cams
-    points = problem.points if points is None else points
+    points = (problem.points if points is None
+              else _local_points(problem, points))
     tols = opts.resolved_tols(problem.dtype)
     if opts.solver not in SOLVERS:
         raise ValueError(f"unknown solver {opts.solver!r}")
@@ -161,8 +184,11 @@ def levenberg_marquardt(problem: BAProblem,
     # Full-precision f32 products on the card (no TF32), as in lm_jit.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
-    route, stages = kernel_route(problem), solve_stages(problem.dtype)
+    route = kernel_route(_whole(problem))
+    stages = solve_stages(problem.dtype)
+    _check_lockstep(problem, route, opts.solver)
     with_jr = opts.solver == "cgls"
+    verbose = opts.verbose and _rank0(problem)
 
     def linearize(c, p):
         """Blocks at (c, p) and their (obj, gnorm, rnorm), one host read."""
@@ -187,9 +213,9 @@ def levenberg_marquardt(problem: BAProblem,
             if state is not None:
                 cams = torch.as_tensor(state["cams"], dtype=problem.dtype,
                                        device=cams.device)
-                points = torch.as_tensor(state["points"],
-                                         dtype=problem.dtype,
-                                         device=points.device)
+                points = _local_points(problem, torch.as_tensor(
+                    state["points"], dtype=problem.dtype,
+                    device=points.device))
                 resume_lam = state["lam"]
                 it0 = state["iteration"]
 
@@ -207,7 +233,7 @@ def levenberg_marquardt(problem: BAProblem,
     elif opts.lam0_mode == "diag":
         lam = 1e-3 * float(torch.maximum(
             torch.max(blocks.Hcc_f.reshape(-1, 81)[:, ::10]),
-            torch.max(blocks.Hpp_f.reshape(-1, 9)[:, ::4])))
+            spmdctx.pmax(torch.max(blocks.Hpp_f.reshape(-1, 9)[:, ::4]))))
     else:
         lam = max(30.0, 1e10 / max(gnorm, 1e-300))
 
@@ -219,11 +245,11 @@ def levenberg_marquardt(problem: BAProblem,
     it = it0
     nu = 2.0  # Nielsen reject-growth factor
     dc_prev = None  # PCG warm-start carry (opts.pcg_warm)
-    if opts.verbose:
+    if verbose:
         print(_LOG_HEADER)
 
     while it < opts.max_iters:
-        if time.perf_counter() - t0 > opts.max_time:
+        if _any_rank(time.perf_counter() - t0 > opts.max_time, cams.device):
             status = "max_time"
             break
         if gnorm < gtol:
@@ -239,9 +265,14 @@ def levenberg_marquardt(problem: BAProblem,
             problem, blocks, lam, pcg_rtol, opts.solver, opts.pcg_max_iters,
             x0=dc_prev if (opts.pcg_warm and opts.solver == "pcg")
             else None)
-        gd = torch.sum(blocks.g_c * dc) + torch.sum(blocks.g_p * dp)
-        dnorm = torch.sqrt(torch.sum(dc * dc) + torch.sum(dp * dp))
-        xnorm = torch.sqrt(torch.sum(cams ** 2) + torch.sum(points ** 2))
+        # The point parts of g'd, ||d||^2 and ||x||^2 (one all-reduce on a
+        # mesh shard; the camera parts are replicated).
+        pnt = spmdctx.psum(torch.stack([torch.sum(blocks.g_p * dp),
+                                        torch.sum(dp * dp),
+                                        torch.sum(points ** 2)]))
+        gd = torch.sum(blocks.g_c * dc) + pnt[0]
+        dnorm = torch.sqrt(torch.sum(dc * dc) + pnt[1])
+        xnorm = torch.sqrt(torch.sum(cams ** 2) + pnt[2])
         gd, Jd2, dnorm, xnorm = torch.stack(
             [gd, Jd2, dnorm, xnorm]).cpu().tolist()
         if opts.pcg_warm and np.isfinite(dnorm):
@@ -290,7 +321,7 @@ def levenberg_marquardt(problem: BAProblem,
                "dnorm": dnorm * (s if accepted else 1.0), "rho": rho,
                "cg_iters": int(cg_iters), "accepted": accepted}
         history.append(row)
-        if opts.verbose:
+        if verbose:
             print(f"{it:5d} {row['obj']:14.6e} {row['gnorm']:11.4e} "
                   f"{lam:9.2e} {row['dnorm']:9.2e} {rho:9.2e} "
                   f"{row['cg_iters']:4d} "
@@ -313,10 +344,13 @@ def levenberg_marquardt(problem: BAProblem,
                     lam /= opts.nu_d
             lam = max(lam, opts.lam_min)
             it += 1
-            if ckpt_mgr is not None:
-                ckpt_mgr.maybe_save(it, cams, points, lam=lam,
-                                    meta={"objective": obj,
-                                          "problem": problem.name})
+            if ckpt_mgr is not None and ckpt_mgr.due(it):
+                pts = _global_points(problem, points)
+                if _rank0(problem):
+                    ckpt_mgr.maybe_save(
+                        it, cams, pts, lam=lam,
+                        meta={"objective": obj,
+                              "problem": _whole(problem).name})
             if prev_obj - obj < tols["oatol"] + tols["ortol"] * abs(
                     prev_obj):
                 status = "small_obj_change"

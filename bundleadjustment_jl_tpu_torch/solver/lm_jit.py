@@ -31,12 +31,20 @@ As in the JAX package, the solve is an init (:func:`_lm_init`: the first
 linearization and the state) and a run until a status or an iteration
 bound (:func:`_lm_run`); the one-shot driver runs to ``max_iters``, the
 chunked one in chunks with host checks between them, which read nothing
-from the device (the scalars are on the host already). The multi-process
-driver (`solver/lm_spmd.py`) runs the same init and run on each rank's
-shard: every point-space value the loop reads (the point parts of g'd,
-||d||, ||x||, ||J'r|| and ||J d||^2, max Hpp for lambda_0, max|W| for a
-float16 W) goes through `ops/spmdctx.py`, so every rank reads the same
-scalars and makes the same decisions.
+from the device (the scalars are on the host already).
+
+Both drivers take a mesh shard (`parallel/mesh.py:shard_problem`, a
+:class:`MeshShard`) as they take a problem: every rank of its group runs
+the same init and run on its point-aligned shard under `ops/spmdctx.py`'s
+hooks. The stage table all-reduces every camera-space sum; every
+point-space value the loop reads (the point parts of g'd, ||d||, ||x||,
+||J'r|| and ||J d||^2, max Hpp for lambda_0, max|W| for a float16 W, the
+CGLS and dense steps' row and point sums) goes through the hooks too, so
+every rank reads the same scalars and makes the same decisions. The route
+is picked from the global problem and checked across the ranks before the
+first collective (:func:`_check_lockstep`); the result holds the global
+points on every rank; rank 0 writes the checkpoints, of the global
+points, and every rank resumes from them.
 
 ``facto_dtype`` (bfloat16 or float16) stores the per-observation W blocks
 in that dtype, as the JAX solver does (:func:`maybe_cast_facto`); a 2-byte
@@ -46,6 +54,7 @@ CG stagnation stop and the predicted-reduction stop.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import inspect
 import math
@@ -56,19 +65,21 @@ import numpy as np
 import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import (
-    HALF_DTYPES, BAProblem, host_dtype, torch_dtype)
-from bundleadjustment_jl_tpu_torch.ops import spmdctx
+    DTYPES, HALF_DTYPES, BAProblem, host_dtype, torch_dtype)
+from bundleadjustment_jl_tpu_torch.ops import normal, spmdctx
 from bundleadjustment_jl_tpu_torch.ops._cuda import (
     W_DTYPES, W_READERS, W_WRITERS)
 from bundleadjustment_jl_tpu_torch.ops.cgls import cgls_solve, j_matvec
 from bundleadjustment_jl_tpu_torch.ops.normal import (
-    GNBlocks, assemble_blocks, gradient_norm, kernel_route, solve_stages)
+    ROUTES, GNBlocks, assemble_blocks, gradient_norm, kernel_route,
+    solve_stages)
 from bundleadjustment_jl_tpu_torch.ops.pcg import (
     STAGNATION_WINDOW, block_jacobi_apply, block_jacobi_inverse,
     forcing_rtol, pcg, power_series)
 from bundleadjustment_jl_tpu_torch.ops.schur import (
     back_substitute_quad, check_dense_feasible, reduce_and_diag,
     reduce_system, schur_matvec, solve_dense)
+from bundleadjustment_jl_tpu_torch.parallel.spmd import MeshShard
 from bundleadjustment_jl_tpu_torch.utils.checkpoint import CheckpointManager
 
 # The kernel route of a solve is one of `ops/normal.py:ROUTES`, which lists
@@ -322,13 +333,13 @@ def solve_step(problem: BAProblem, blocks: GNBlocks, lam, rtol,
     - these three then ``back_substitute_quad`` for ``dp`` and the
       quadratic form;
     - ``cgls``: CGLS on the blocks' ``JR_t``, ``||J d||^2`` from
-      ``j_matvec``.
+      ``j_matvec`` (its row sum all-reduced on a mesh shard).
     """
     lam = float(lam)
     if solver == "cgls":
         res = cgls_solve(problem, blocks, lam, rtol, max_iters=max_iters)
         Jd = j_matvec(problem, blocks, res.dc, res.dp)
-        return res.dc, res.dp, torch.sum(Jd * Jd), res.iters
+        return res.dc, res.dp, spmdctx.psum(torch.sum(Jd * Jd)), res.iters
     if solver == "pcg":
         sys, Sd = reduce_and_diag(problem, blocks, lam)
         M_inv = block_jacobi_inverse(Sd)
@@ -405,14 +416,80 @@ class _State:
     status: int = RUNNING
 
 
+def _whole(problem: BAProblem):
+    """The global problem's sizes: a mesh shard's :class:`SpmdProblem`,
+    else the problem itself."""
+    return problem.spmd if isinstance(problem, MeshShard) else problem
+
+
+def _ranks(problem: BAProblem):
+    """The context of a solve of ``problem``: its rank group's hooks
+    (`spmdctx.using`) for a mesh shard, else none."""
+    if isinstance(problem, MeshShard):
+        return spmdctx.using(problem.group)
+    return contextlib.nullcontext()
+
+
+def _local_points(problem: BAProblem, points: torch.Tensor) -> torch.Tensor:
+    """A mesh shard's rows of the global (npnts, 3) ``points``; ``points``
+    itself for a problem."""
+    if isinstance(problem, MeshShard):
+        return problem.spmd.split_points(points, problem.rank)
+    return points
+
+
+def _global_points(problem: BAProblem, points: torch.Tensor) -> torch.Tensor:
+    """The global (npnts, 3) points from a mesh shard's (an all-gather:
+    every rank calls it); ``points`` itself for a problem."""
+    if isinstance(problem, MeshShard):
+        return problem.spmd.global_points(points, problem.group)
+    return points
+
+
+def _rank0(problem: BAProblem) -> bool:
+    """Whether this is rank 0 of a mesh shard's group, which writes the
+    checkpoints and logs (true off a mesh)."""
+    return not isinstance(problem, MeshShard) or problem.rank == 0
+
+
+def _any_rank(flag: bool, device) -> bool:
+    """``flag`` or'ed over the ranks of a solve on a mesh shard (a host
+    decision every rank must take alike); ``flag`` itself off a mesh."""
+    if spmdctx.GROUP is None:
+        return flag
+    return bool(spmdctx.pmax(torch.tensor(float(flag), device=device)))
+
+
+def _check_lockstep(problem: BAProblem, route: str, solver: str) -> None:
+    """On a mesh shard, raise on every rank unless every rank took the same
+    route, stage table (kernels or plain twins), working dtype, step
+    solver and camera count: a rank that differed would make other
+    collectives than the rest and hang them. Nothing off a mesh."""
+    if spmdctx.GROUP is None:
+        return
+    dt = problem.cams.dtype
+    code = torch.tensor(
+        [ROUTES.index(route), normal.PALLAS_MODE and dt != torch.float64,
+         list(DTYPES.values()).index(dt), SOLVERS.index(solver),
+         problem.ncams], dtype=torch.float64, device=problem.cams.device)
+    hi, lo = spmdctx.pmax(code), -spmdctx.pmax(-code)
+    if not torch.equal(hi, lo):
+        raise RuntimeError(
+            f"the ranks' solves differ (route, kernels, dtype, solver, "
+            f"cameras): between {lo.tolist()} and {hi.tolist()}")
+
+
 def _setup(problem: BAProblem, cams, points, *, max_iters, lam0,
            lam0_mode, atol, rtol, restol, satol, srtol, oatol, ortol, nu_d,
            nu_m, accept_ratio, good_ratio, lam_min, lam_strategy, pcg_rtol,
            pcg_max_iters, use_dense, use_cgls, use_power, linesearch,
-           ls_max, facto_dtype, pcg_warm, route=None) -> _Setup:
+           ls_max, facto_dtype, pcg_warm) -> _Setup:
     """Check the options and resolve them (``None`` tolerances to the
-    reference defaults in the working dtype); pick the route (``route``,
-    else `kernel_route` of ``problem``) and the stage table once."""
+    reference defaults in the working dtype); pick the route
+    (`kernel_route` of the global problem) and the stage table once. On
+    a mesh shard it runs inside the rank group's hooks (:func:`_ranks`),
+    so the stage table carries the all-reduces; the dense step's memory
+    check judges the rank's own shard."""
     if facto_dtype is not None and facto_dtype not in FACTO_DTYPES:
         raise TypeError(f"facto_dtype: one of {FACTO_DTYPES}, got "
                         f"{facto_dtype!r}")
@@ -452,7 +529,7 @@ def _setup(problem: BAProblem, cams, points, *, max_iters, lam0,
                  if linesearch else []), dtype=ft)
     floor_dtype = facto_dtype if facto_dtype is not None else dt
     return _Setup(
-        problem=problem, route=route or kernel_route(problem),
+        problem=problem, route=kernel_route(_whole(problem)),
         stages=solve_stages(dt), solver=solver,
         facto_dtype=facto_dtype, w_dtype=w_assemble_dtype(facto_dtype),
         narrow=narrow, ft=ft, rnd=rnd, tol=tol, lam0=lam0,
@@ -662,21 +739,30 @@ def levenberg_marquardt_jit(
     the previous camera step. ``use_cgls``, ``use_power`` and
     ``use_dense`` pick the step solver (:func:`solve_step`), in that
     order. ``facto_dtype`` (one of :data:`FACTO_DTYPES`) stores W in that
-    dtype (:func:`maybe_cast_facto`)."""
+    dtype (:func:`maybe_cast_facto`).
+
+    ``problem`` may be a mesh shard (`parallel/mesh.py:shard_problem`):
+    every rank of its group calls the driver alike and gets the same
+    result, its ``points`` the global (npnts, 3) array; ``points``, when
+    given, is the global array too."""
     cams = problem.cams if cams is None else cams
-    points = problem.points if points is None else points
-    cfg = _setup(
-        problem, cams, points, max_iters=max_iters, lam0=lam0,
-        lam0_mode=lam0_mode, atol=atol, rtol=rtol, restol=restol,
-        satol=satol, srtol=srtol, oatol=oatol, ortol=ortol, nu_d=nu_d,
-        nu_m=nu_m, accept_ratio=accept_ratio, good_ratio=good_ratio,
-        lam_min=lam_min, lam_strategy=lam_strategy, pcg_rtol=pcg_rtol,
-        pcg_max_iters=pcg_max_iters, use_dense=use_dense,
-        use_cgls=use_cgls, use_power=use_power, linesearch=linesearch,
-        ls_max=ls_max, facto_dtype=facto_dtype, pcg_warm=pcg_warm)
-    st = _lm_init(cfg, cams, points)
-    _lm_run(cfg, st, max_iters)
-    return _finalize(st)
+    points = (problem.points if points is None
+              else _local_points(problem, points))
+    with _ranks(problem):
+        cfg = _setup(
+            problem, cams, points, max_iters=max_iters, lam0=lam0,
+            lam0_mode=lam0_mode, atol=atol, rtol=rtol, restol=restol,
+            satol=satol, srtol=srtol, oatol=oatol, ortol=ortol, nu_d=nu_d,
+            nu_m=nu_m, accept_ratio=accept_ratio, good_ratio=good_ratio,
+            lam_min=lam_min, lam_strategy=lam_strategy, pcg_rtol=pcg_rtol,
+            pcg_max_iters=pcg_max_iters, use_dense=use_dense,
+            use_cgls=use_cgls, use_power=use_power, linesearch=linesearch,
+            ls_max=ls_max, facto_dtype=facto_dtype, pcg_warm=pcg_warm)
+        _check_lockstep(problem, cfg.route, cfg.solver)
+        st = _lm_init(cfg, cams, points)
+        _lm_run(cfg, st, max_iters)
+        res = _finalize(st)
+        return res._replace(points=_global_points(problem, res.points))
 
 
 # The keywords (and defaults) of levenberg_marquardt_jit that the chunked
@@ -717,54 +803,68 @@ def levenberg_marquardt_jit_chunked(
 
     Without these the chunks make the one-shot solve's decisions, launches
     and host reads: the chunk boundary reads nothing from the device.
-    ``elapsed_time`` holds the wall seconds from entry."""
+    ``elapsed_time`` holds the wall seconds from entry.
+
+    On a mesh shard (as :func:`levenberg_marquardt_jit` takes it) a rank
+    past ``max_time`` stops every rank (the flag is all-reduced), rank 0
+    writes the checkpoints with the global points, every rank resumes from
+    them and takes its own rows, and ``callback`` runs on every rank (its
+    values are replicated)."""
     unknown = sorted(set(options) - set(_OPTIONS))
     if unknown:
         raise TypeError(f"unknown options: {unknown}")
     cams = problem.cams if cams is None else cams
-    points = problem.points if points is None else points
-    cfg = _setup(problem, cams, points, max_iters=max_iters,
-                 **{**_OPTIONS, **options})
-    rnd = cfg.rnd
+    points = (problem.points if points is None
+              else _local_points(problem, points))
+    with _ranks(problem):
+        cfg = _setup(problem, cams, points, max_iters=max_iters,
+                     **{**_OPTIONS, **options})
+        _check_lockstep(problem, cfg.route, cfg.solver)
+        rnd = cfg.rnd
 
-    ckpt, restored = None, None
-    if checkpoint_dir is not None:
-        ckpt = CheckpointManager(checkpoint_dir, every=1)
-        if resume:
-            restored = ckpt.restore_latest()
-            if restored is not None:
-                cams = torch.as_tensor(restored["cams"], dtype=cams.dtype,
-                                       device=cams.device)
-                points = torch.as_tensor(restored["points"],
-                                         dtype=points.dtype,
-                                         device=points.device)
+        ckpt, restored = None, None
+        if checkpoint_dir is not None:
+            ckpt = CheckpointManager(checkpoint_dir, every=1)
+            if resume:
+                restored = ckpt.restore_latest()
+                if restored is not None:
+                    cams = torch.as_tensor(restored["cams"],
+                                           dtype=cams.dtype,
+                                           device=cams.device)
+                    points = _local_points(problem, torch.as_tensor(
+                        restored["points"], dtype=points.dtype,
+                        device=points.device))
 
-    t0 = time.perf_counter()
-    st = _lm_init(cfg, cams, points)
-    if restored is not None:
-        st.lam, st.it = rnd(restored["lam"]), int(restored["iteration"])
-        gtol = restored["meta"].get("gtol")
-        if gtol is not None:
-            st.gtol = rnd(gtol)
+        t0 = time.perf_counter()
+        st = _lm_init(cfg, cams, points)
+        if restored is not None:
+            st.lam, st.it = rnd(restored["lam"]), int(restored["iteration"])
+            gtol = restored["meta"].get("gtol")
+            if gtol is not None:
+                st.gtol = rnd(gtol)
 
-    final_status = None
-    nchunk = 0
-    while st.status == RUNNING and st.it < max_iters:
-        if max_time is not None and time.perf_counter() - t0 > max_time:
-            final_status = MAX_TIME
-            break
-        _lm_run(cfg, st, min(st.it + chunk_iters, max_iters))
-        nchunk += 1
-        if ckpt is not None and nchunk % max(1, checkpoint_every) == 0:
-            ckpt.maybe_save(st.it, st.cams, st.points, lam=float(st.lam),
-                            meta={"objective": float(st.obj),
-                                  "gtol": float(st.gtol),
-                                  "problem": problem.name})
-        if callback is not None:
-            callback({"iter": st.it, "obj": float(st.obj),
-                      "gnorm": float(st.gnorm), "lam": float(st.lam),
-                      "status": STATUS_NAMES[st.status],
-                      "elapsed": time.perf_counter() - t0})
-        if stop_after_chunks is not None and nchunk >= stop_after_chunks:
-            break
-    return _finalize(st, final_status, elapsed=time.perf_counter() - t0)
+        final_status = None
+        nchunk = 0
+        while st.status == RUNNING and st.it < max_iters:
+            if max_time is not None and _any_rank(
+                    time.perf_counter() - t0 > max_time, cams.device):
+                final_status = MAX_TIME
+                break
+            _lm_run(cfg, st, min(st.it + chunk_iters, max_iters))
+            nchunk += 1
+            if ckpt is not None and nchunk % max(1, checkpoint_every) == 0:
+                pts = _global_points(problem, st.points)
+                if _rank0(problem):
+                    ckpt.maybe_save(st.it, st.cams, pts, lam=float(st.lam),
+                                    meta={"objective": float(st.obj),
+                                          "gtol": float(st.gtol),
+                                          "problem": _whole(problem).name})
+            if callback is not None:
+                callback({"iter": st.it, "obj": float(st.obj),
+                          "gnorm": float(st.gnorm), "lam": float(st.lam),
+                          "status": STATUS_NAMES[st.status],
+                          "elapsed": time.perf_counter() - t0})
+            if stop_after_chunks is not None and nchunk >= stop_after_chunks:
+                break
+        res = _finalize(st, final_status, elapsed=time.perf_counter() - t0)
+        return res._replace(points=_global_points(problem, res.points))

@@ -1,25 +1,33 @@
-"""Time the spmd driver (`solver/lm_spmd.py`) against the one-shot driver,
-one rank a card (or a CPU process), and count its all-reduces.
+"""Time the multi-rank solves, one rank a card (or a CPU process), against
+the one-shot driver on one card, and count their all-reduces.
 
     torchrun --nproc-per-node N -m bundleadjustment_jl_tpu_torch.spmd_profile \\
-        [--problems dubrovnik356 final4585] [--repeats 5] [--device cuda]
+        [--problems dubrovnik356@spmd,pcg,cgls,dense final4585@spmd,pcg] \\
+        [--repeats 5] [--device cuda]
 
-Run from the repository root. Each rank builds each problem the way the
-bench leg does (``bench.make_problem``, seed 0; a ``synthetic:k=v,...``
-spec takes the CLI's synthetic problem instead), shards it with
-``shard_problem_kminor`` and solves it with ``bench.py``'s options: a
-warm-up, then ``--repeats`` rounds of a one-shot solve of the whole problem
-on rank 0 (the others wait at a barrier) and an spmd solve on every rank,
-in turns (one-shot first in even rounds), each timed by the host clock
-between barriers after a device synchronize. Then one more spmd solve with
-every all-reduce (`ops/spmdctx.py`) counted and timed alone (a device
-synchronize before and after each, so that solve is slower and is not
-among the timed ones). Rank 0 prints one JSON line a problem: the ranks,
-the route, both drivers' median and every seconds, their decisions, the
-objective's relative gap, whether every rank's cams and points are
-bit-identical (an all-gather), and the all-reduces by size with their
-count, bytes and median microseconds. With ``--device cpu`` the ranks run
-gloo on the CPU.
+Run from the repository root. Each ``--problems`` entry is a problem and,
+after ``@``, its drivers: ``spmd`` is the spmd driver
+(`solver/lm_spmd.py` on ``shard_problem_kminor``), and a step solver
+(``pcg``, ``power``, ``dense``, ``cgls``) is the mesh path
+(`parallel/mesh.py`: ``shard_problem`` of ``make_mesh(N)``) through
+``levenberg_marquardt_jit`` with that step. Each rank builds each problem
+the way the bench leg does (``bench.make_problem``, seed 0; a
+``synthetic:k=v,...`` spec takes the CLI's synthetic problem instead) and
+solves it with ``bench.py``'s options: for each driver a warm-up, then
+``--repeats`` rounds of a one-shot solve of the whole problem with the
+same step on rank 0 (the others wait at a barrier) and the multi-rank
+solve on every rank, in turns (one-shot first in even rounds), each timed
+by the host clock between barriers after a device synchronize. Then one
+more multi-rank solve with every all-reduce (`ops/spmdctx.py`) counted
+and timed alone (a device synchronize before and after each, so that
+solve is slower and is not among the timed ones), its peak device memory
+on each rank read around it (``torch.cuda.max_memory_allocated``; the
+one-shot's around its warm-up on rank 0). Rank 0 prints one JSON line a
+problem and driver: the ranks, the route, both solves' median and every
+seconds, their decisions, the objective's relative gap, whether every
+rank's cams and points are bit-identical (an all-gather), the peak
+memory, and the all-reduces by size with their count, bytes and median
+microseconds. With ``--device cpu`` the ranks run gloo on the CPU.
 """
 
 from __future__ import annotations
@@ -38,12 +46,15 @@ import torch.distributed as dist
 
 from bundleadjustment_jl_tpu_torch import bench
 from bundleadjustment_jl_tpu_torch.ops import normal, spmdctx
+from bundleadjustment_jl_tpu_torch.parallel.mesh import (
+    make_mesh, shard_problem)
 from bundleadjustment_jl_tpu_torch.parallel.spmd import shard_problem_kminor
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
-    STATUS_NAMES, levenberg_marquardt_jit)
+    SOLVERS, STATUS_NAMES, levenberg_marquardt_jit)
 from bundleadjustment_jl_tpu_torch.solver.lm_spmd import (
     levenberg_marquardt_spmd)
 
+PROBLEMS = ["dubrovnik356@spmd,pcg,cgls,dense", "final4585@spmd,pcg"]
 TIMEOUT_S = 300
 
 
@@ -98,31 +109,53 @@ def counted_reduces(fn, device):
     return seen
 
 
-def profile(spec: str, device: str, repeats: int, rank: int, world: int):
-    problem = make(spec, device)
-    route = normal.kernel_route(problem)
-    sp = shard_problem_kminor(problem, world)
+def peak_gb(fn, device) -> float:
+    """``fn()``'s peak device memory in GB (NaN off the card)."""
+    if device != "cuda":
+        fn()
+        return float("nan")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() / 1e9
 
-    def spmd():
-        return levenberg_marquardt_spmd(sp, **bench.SOLVE_OPTS)
+
+def solve(problem, solver: str):
+    """One ``levenberg_marquardt_jit`` solve of ``problem`` (a problem or a
+    mesh shard) with bench.py's options and ``solver`` steps."""
+    use = {} if solver == "pcg" else {f"use_{solver}": True}
+    return levenberg_marquardt_jit(problem, **bench.SOLVE_OPTS, **use)
+
+
+def profile(problem, route: str, driver: str, multi, device: str,
+            repeats: int, rank: int, world: int):
+    """The JSON line of one driver (module docstring) on ``problem``;
+    ``multi()`` is its multi-rank solve. None on the ranks but 0."""
+    solver = "pcg" if driver == "spmd" else driver
 
     def one_shot():
         if rank == 0:
-            return levenberg_marquardt_jit(problem, **bench.SOLVE_OPTS)
+            return solve(problem, solver)
         return None
 
-    first, _ = timed(spmd, device)                   # warm-up: the shard
-    timed(one_shot, device)
-    one_t, spmd_t = [], []
+    first, _ = timed(multi, device)                  # warm-up: the shard
+    one_peak = peak_gb(one_shot, device)             # warm-up
+    dist.barrier()
+    one_t, multi_t = [], []
     for i in range(repeats):
-        for which in (("one", "spmd") if i % 2 == 0 else ("spmd", "one")):
+        for which in (("one", "multi") if i % 2 == 0 else ("multi", "one")):
             if which == "one":
                 secs, one = timed(one_shot, device)
                 one_t.append(secs)
             else:
-                secs, res = timed(spmd, device)
-                spmd_t.append(secs)
-    reduces = counted_reduces(spmd, device)
+                secs, res = timed(multi, device)
+                multi_t.append(secs)
+    box = {}
+    peak = peak_gb(lambda: box.update(
+        reduces=counted_reduces(multi, device)), device)
+    peaks = [None] * world
+    dist.all_gather_object(peaks, peak)
     # every rank's result, bit for bit
     mine = torch.cat([res.cams.reshape(-1), res.points.reshape(-1)])
     parts = [torch.empty_like(mine) for _ in range(world)]
@@ -132,10 +165,10 @@ def profile(spec: str, device: str, repeats: int, rank: int, world: int):
         return None
     it = res.iterations
     return {
-        "problem": spec, "ranks": world, "device": device, "route": route,
-        "nobs_loc": sp.nobs_loc.tolist(),
-        "spmd_s": statistics.median(spmd_t), "spmd_values": spmd_t,
-        "first_spmd_s": first,
+        "problem": problem.name, "driver": driver, "solver": solver,
+        "ranks": world, "device": device, "route": route,
+        "multi_s": statistics.median(multi_t), "multi_values": multi_t,
+        "first_multi_s": first,
         "one_shot_s": statistics.median(one_t), "one_shot_values": one_t,
         "status": STATUS_NAMES[res.status], "iterations": it,
         "cg_matvecs": int(res.hist_cg[:it].sum()),
@@ -145,16 +178,45 @@ def profile(spec: str, device: str, repeats: int, rank: int, world: int):
                      one.objective],
         "rel_gap": abs(res.objective - one.objective) / one.objective,
         "ranks_bit_identical": same,
+        "peak_gb_by_rank": peaks, "one_shot_peak_gb": one_peak,
         "all_reduces": {str(n): {"count": len(us), "bytes": 4 * n * len(us),
                                  "median_us": statistics.median(us)}
-                        for n, us in sorted(reduces.items())},
+                        for n, us in sorted(box["reduces"].items())},
     }
+
+
+def run(entry: str, mesh, device: str, repeats: int, rank: int,
+        world: int):
+    """Profile each driver of ``entry`` (``problem@driver,...``); yields
+    rank 0's lines."""
+    spec, _, names = entry.partition("@")
+    drivers = names.split(",") if names else ["spmd"]
+    unknown = set(drivers) - {"spmd", *SOLVERS}
+    if unknown:
+        raise ValueError(f"{entry}: unknown drivers {sorted(unknown)}; "
+                         f"spmd or a step solver of {SOLVERS}")
+    problem = make(spec, device)
+    route = normal.kernel_route(problem)
+    sp = shard_problem_kminor(problem, world) if "spmd" in drivers else None
+    shard = (shard_problem(problem, mesh)
+             if set(drivers) - {"spmd"} else None)
+    for driver in drivers:
+        if driver == "spmd":
+            def multi():
+                return levenberg_marquardt_spmd(sp, **bench.SOLVE_OPTS)
+        else:
+            def multi(solver=driver):
+                return solve(shard, solver)
+        line = profile(problem, route, driver, multi, device, repeats,
+                       rank, world)
+        if line is not None:
+            yield {**line, "problem": spec}
 
 
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="spmd_profile")
-    p.add_argument("--problems", nargs="+",
-                   default=["dubrovnik356", "final4585"])
+    p.add_argument("--problems", nargs="+", default=PROBLEMS,
+                   help="problem@driver,... (module docstring)")
     p.add_argument("--repeats", type=int, default=5)
     p.add_argument("--device", choices=["cuda", "cpu"], default="cuda")
     args = p.parse_args(argv)
@@ -168,9 +230,10 @@ def main(argv=None) -> int:
     try:
         rank, world = dist.get_rank(), dist.get_world_size()
         card = bench.card()["nvidia_smi"] if args.device == "cuda" else None
-        for spec in args.problems:
-            line = profile(spec, args.device, args.repeats, rank, world)
-            if line is not None:
+        mesh = make_mesh(world, args.device)
+        for entry in args.problems:
+            for line in run(entry, mesh, args.device, args.repeats, rank,
+                            world):
                 print(json.dumps({**line, "card": card}), flush=True)
     finally:
         dist.destroy_process_group()

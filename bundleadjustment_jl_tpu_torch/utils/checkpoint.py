@@ -91,9 +91,13 @@ class CheckpointManager:
         self.keep = max(1, keep)
         os.makedirs(directory, exist_ok=True)
 
+    def due(self, iteration: int) -> bool:
+        """Whether :meth:`maybe_save` writes at ``iteration``."""
+        return iteration % self.every == 0
+
     def maybe_save(self, iteration: int, cams, points, *, lam: float = 0.0,
                    meta: Optional[dict] = None) -> Optional[str]:
-        if iteration % self.every != 0:
+        if not self.due(iteration):
             return None
         path = os.path.join(self.directory, f"step-{iteration}.npz")
         save_checkpoint(path, cams, points, lam=lam, iteration=iteration,

@@ -105,10 +105,24 @@ CUDA card.
    the card. At Dubrovnik-356 the chunked spmd driver too: bit-identical
    with its launches, and a run of one chunk with a checkpoint resumed
    bit-identical from its iteration on.
-11. The bench leg (``python -m bundleadjustment_jl_tpu_torch.bench``): its
+11. The mesh path (``check_mesh``), in phase 10's NCCL group of one rank:
+   ``make_mesh(1)`` on the card and ``shard_problem`` of each problem,
+   then each case of MESH_CASES (Dubrovnik-356 on route A through the
+   one-shot driver with pcg, power and cgls steps, the chunked driver and
+   the host driver with pcg; LadyBug-49 through the one-shot driver with
+   dense steps; Final-4585 on route B1 through the one-shot driver with
+   pcg) with ``bench.py``'s options: a warm-up of the shard and of the
+   problem, then MESH_REPEATS solves of each in turns, each mesh solve's
+   launches checked as in 3 and added to the totals, and each mesh solve
+   bit-identical to the no-mesh solve; the cgls and dense steps sum with
+   atomics on the card (``index_add_``, ``index_put_``), so those two are
+   held to phase 8's bar instead (status, iterations within one,
+   objective rel 1e-4, rmse within 1% of the anchor). The median seconds
+   of both beside the card.
+12. The bench leg (``python -m bundleadjustment_jl_tpu_torch.bench``): its
    JSON line, once, with the launches of its run checked (route A's
    kernels and the probe).
-12. Prints the run's wall time, the kernel table as one JSON line (each
+13. Prints the run's wall time, the kernel table as one JSON line (each
    kernel's time beside its least time on the card, ``bench.bound_ms``,
    from this run's shapes, at each problem; the plans' build times and
    the repeat checks under their kernels), the card line, and last
@@ -274,6 +288,18 @@ SOLVED = ("first_order", "small_residual", "small_step", "small_obj_change")
 # long a collective of the one-rank NCCL group may wait before it raises.
 SPMD_REPEATS = 3
 SPMD_TIMEOUT_S = 120
+# Phase 11: the mesh path's cases (problem, driver, step solver), each
+# timed MESH_REPEATS times in turns with the no-mesh solve after a warm-up;
+# the step solvers whose torch ops sum with atomics on the card
+# (`ops/cgls.py`'s index_add_, `ops/schur.py`'s index_put_), held to phase
+# 8's bar (``agree`` and the rmse anchor) in place of bit-identity.
+MESH_CASES = (
+    ("dubrovnik356", "jit", "pcg"), ("dubrovnik356", "chunked", "pcg"),
+    ("dubrovnik356", "host", "pcg"), ("dubrovnik356", "jit", "power"),
+    ("dubrovnik356", "jit", "cgls"), ("ladybug49", "jit", "dense"),
+    (FINAL, "jit", "pcg"))
+MESH_REPEATS = 3
+ATOMIC_SOLVERS = ("cgls", "dense")
 # Each route's metric-name suffix and "route" entry in its solve line.
 ROUTE_TAGS = {"fused": ("", None), "sorted": ("_sorted", "camera_sorted"),
               "scatter_split": ("_scatter_split", "scatter_split"),
@@ -1117,18 +1143,22 @@ def check_facto_solves(final, launches_total):
 
 
 def run_solver(problem, solver, driver):
-    """One solve of ``problem`` with bench.py's options by step ``solver``
-    through the one-shot (``"jit"``) or the host-stepped (``"host"``)
-    driver."""
+    """One solve of ``problem`` (a problem or a mesh shard) with bench.py's
+    options by step ``solver`` through the one-shot (``"jit"``), the
+    chunked (``"chunked"``, CHUNK_ITERS a chunk) or the host-stepped
+    (``"host"``) driver."""
     from bundleadjustment_jl_tpu_torch import bench
     from bundleadjustment_jl_tpu_torch.solver import (
         LMOptions, levenberg_marquardt)
     from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
-        levenberg_marquardt_jit)
+        levenberg_marquardt_jit, levenberg_marquardt_jit_chunked)
     if driver == "host":
         return levenberg_marquardt(problem, LMOptions(solver=solver,
                                                       **bench.SOLVE_OPTS))
     use = {} if solver == "pcg" else {f"use_{solver}": True}
+    if driver == "chunked":
+        return levenberg_marquardt_jit_chunked(
+            problem, chunk_iters=CHUNK_ITERS, **bench.SOLVE_OPTS, **use)
     return levenberg_marquardt_jit(problem, **bench.SOLVE_OPTS, **use)
 
 
@@ -1295,19 +1325,13 @@ def spmd_lines(name, problem, group, launches_total, card):
     return line, sp, one
 
 
-def check_spmd(final, launches_total, card):
-    """Phase 10: ``levenberg_marquardt_spmd`` on an NCCL group of one rank
-    at Dubrovnik-356 and ``final`` (Final-4585), against the one-shot
-    driver (``spmd_lines``), and the chunked spmd driver with a checkpoint
-    and its resume at Dubrovnik-356. Returns the JSON lines it prints."""
+@contextlib.contextmanager
+def nccl_group():
+    """An NCCL process group of one rank on the card (a localhost store)
+    for phases 10 and 11; destroyed after."""
     from datetime import timedelta
 
     import torch.distributed as dist
-    from bundleadjustment_jl_tpu_torch import bench
-    from bundleadjustment_jl_tpu_torch.ops import _cuda, normal
-    from bundleadjustment_jl_tpu_torch.solver.lm_spmd import (
-        levenberg_marquardt_spmd_chunked)
-
     timeout = timedelta(seconds=SPMD_TIMEOUT_S)
     dist.init_process_group(
         "nccl", store=dist.TCPStore("localhost", 0, 1, True, timeout=timeout),
@@ -1317,47 +1341,161 @@ def check_spmd(final, launches_total, card):
         if dist.get_backend(group) != "nccl":
             raise AssertionError(f"the group's backend is "
                                  f"{dist.get_backend(group)}, not nccl")
-        dub = bench.make_problem("dubrovnik356", 0)
-        line, sp, one = spmd_lines("dubrovnik356", dub, group,
-                                   launches_total, card)
-        opts = dict(bench.SOLVE_OPTS, chunk_iters=CHUNK_ITERS)
-        route = normal.kernel_route(dub)
-        _cuda.reset_launches()
-        chk = levenberg_marquardt_spmd_chunked(sp, group, **opts)
-        counts = dict(_cuda.LAUNCHES)
-        check_launches("spmd chunked", chk, counts, dict(_cuda.W_LAUNCHES),
-                       route, None)
-        for k, v in counts.items():
-            launches_total[k] += v
-        build = ROOT / PKG / "_build"
-        build.mkdir(exist_ok=True)
-        with tempfile.TemporaryDirectory(dir=build) as d:
-            part = levenberg_marquardt_spmd_chunked(
-                sp, group, checkpoint_dir=d,
-                **dict(opts, max_iters=CHUNK_ITERS))
-            resumed = levenberg_marquardt_spmd_chunked(
-                sp, group, checkpoint_dir=d, resume=True, **opts)
-        line.update({"chunked_bit_identical": same_solve(chk, one),
-                     "resumed_from": part.iterations,
-                     "resume_bit_identical": same_solve(resumed, one,
-                                                        part.iterations)})
-        print(json.dumps(line))
-        if not line["chunked_bit_identical"]:
-            raise AssertionError("the chunked spmd solve differs from the "
-                                 "one-shot solve")
-        if part.iterations != CHUNK_ITERS or not line["resume_bit_identical"]:
-            raise AssertionError("the resumed spmd solve differs from the "
-                                 "one-shot solve")
-        del dub, sp
-        if normal.kernel_route(final) != "scatter_split":
-            raise AssertionError(f"{FINAL}: the default gates pick "
-                                 f"{normal.kernel_route(final)}, not B1")
-        final_line = spmd_lines(FINAL, final, group, launches_total,
-                                card)[0]
-        print(json.dumps(final_line))
+        yield group
     finally:
         dist.destroy_process_group()
+
+
+def check_spmd(final, launches_total, card, group):
+    """Phase 10: ``levenberg_marquardt_spmd`` on ``group`` (NCCL, one
+    rank) at Dubrovnik-356 and ``final`` (Final-4585), against the
+    one-shot driver (``spmd_lines``), and the chunked spmd driver with a
+    checkpoint and its resume at Dubrovnik-356. Returns the JSON lines it
+    prints."""
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.ops import _cuda, normal
+    from bundleadjustment_jl_tpu_torch.solver.lm_spmd import (
+        levenberg_marquardt_spmd_chunked)
+
+    dub = bench.make_problem("dubrovnik356", 0)
+    line, sp, one = spmd_lines("dubrovnik356", dub, group,
+                               launches_total, card)
+    opts = dict(bench.SOLVE_OPTS, chunk_iters=CHUNK_ITERS)
+    route = normal.kernel_route(dub)
+    _cuda.reset_launches()
+    chk = levenberg_marquardt_spmd_chunked(sp, group, **opts)
+    counts = dict(_cuda.LAUNCHES)
+    check_launches("spmd chunked", chk, counts, dict(_cuda.W_LAUNCHES),
+                   route, None)
+    for k, v in counts.items():
+        launches_total[k] += v
+    build = ROOT / PKG / "_build"
+    build.mkdir(exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=build) as d:
+        part = levenberg_marquardt_spmd_chunked(
+            sp, group, checkpoint_dir=d,
+            **dict(opts, max_iters=CHUNK_ITERS))
+        resumed = levenberg_marquardt_spmd_chunked(
+            sp, group, checkpoint_dir=d, resume=True, **opts)
+    line.update({"chunked_bit_identical": same_solve(chk, one),
+                 "resumed_from": part.iterations,
+                 "resume_bit_identical": same_solve(resumed, one,
+                                                    part.iterations)})
+    print(json.dumps(line))
+    if not line["chunked_bit_identical"]:
+        raise AssertionError("the chunked spmd solve differs from the "
+                             "one-shot solve")
+    if part.iterations != CHUNK_ITERS or not line["resume_bit_identical"]:
+        raise AssertionError("the resumed spmd solve differs from the "
+                             "one-shot solve")
+    del dub, sp
+    if normal.kernel_route(final) != "scatter_split":
+        raise AssertionError(f"{FINAL}: the default gates pick "
+                             f"{normal.kernel_route(final)}, not B1")
+    final_line = spmd_lines(FINAL, final, group, launches_total,
+                            card)[0]
+    print(json.dumps(final_line))
     return [line, final_line]
+
+
+def same_result(a, b) -> bool:
+    """``a`` bit-identical to ``b``: ``same_solve`` for the one-shot and
+    chunked drivers' results; for the host driver's, the status,
+    iterations, objective, history, cams and points."""
+    import torch
+    from bundleadjustment_jl_tpu_torch.solver.lm import LMResult
+    if not isinstance(a, LMResult):
+        return same_solve(a, b)
+    # the history as JSON text, where a NaN row equals its copy
+    return ((a.status, a.iterations, a.objective, json.dumps(a.history)) ==
+            (b.status, b.iterations, b.objective, json.dumps(b.history))
+            and torch.equal(a.cams, b.cams)
+            and torch.equal(a.points, b.points))
+
+
+def check_mesh(final, launches_total, card):
+    """Phase 11: each case of MESH_CASES on the mesh shard of a one-rank
+    mesh on the card (``make_mesh(1)``, ``shard_problem``; phase 10's
+    NCCL group) against the same call on the problem: a warm-up of each,
+    MESH_REPEATS solves of each in turns, each mesh solve's launches
+    checked (``check_launches``) and added to ``launches_total``, and each
+    mesh solve bit-identical to the no-mesh one (``same_result``), or for
+    ATOMIC_SOLVERS within phase 8's bar of it (``agree``) with the rmse
+    within 1% of the anchor. Returns the JSON lines it prints, a case
+    each."""
+    import torch
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.ops import _cuda, normal
+    from bundleadjustment_jl_tpu_torch.parallel import (
+        make_mesh, shard_problem)
+    from bundleadjustment_jl_tpu_torch.solver.lm import LMResult
+
+    mesh = make_mesh(1)
+    if (mesh.device_type, mesh.size()) != ("cuda", 1):
+        raise AssertionError(f"make_mesh(1) gave {mesh}")
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, out
+
+    lines = []
+    for name in dict.fromkeys(case[0] for case in MESH_CASES):
+        problem = final if name == FINAL else bench.make_problem(name, 0)
+        route = normal.kernel_route(problem)
+        shard_s, shard = timed(lambda: shard_problem(problem, mesh))
+        for _, driver, solver in (c for c in MESH_CASES if c[0] == name):
+            tag = f"{name}_mesh_{driver}_{solver}"
+            first_s = timed(lambda: run_solver(shard, solver, driver))[0]
+            run_solver(problem, solver, driver)              # warm-up
+            one_t, mesh_t = [], []
+            for i in range(MESH_REPEATS):
+                for which in (("one", "mesh") if i % 2 == 0
+                              else ("mesh", "one")):
+                    if which == "one":
+                        secs, one = timed(
+                            lambda: run_solver(problem, solver, driver))
+                        one_t.append(secs)
+                        continue
+                    _cuda.reset_launches()
+                    secs, res = timed(
+                        lambda: run_solver(shard, solver, driver))
+                    counts = dict(_cuda.LAUNCHES)
+                    check_launches(tag, res, counts, dict(_cuda.W_LAUNCHES),
+                                   route, None, solver)
+                    for k, v in counts.items():
+                        launches_total[k] += v
+                    mesh_t.append(secs)
+            host = isinstance(res, LMResult)
+            status = res.status if host else res.status_name()
+            rmse = (res.objective / problem.nobs) ** 0.5
+            line = {"metric": tag, "route": route, "ranks": 1,
+                    "backend": "nccl", "driver": driver, "solver": solver,
+                    "value": sorted(mesh_t)[len(mesh_t) // 2], "unit": "s",
+                    "values": mesh_t,
+                    "no_mesh_value": sorted(one_t)[len(one_t) // 2],
+                    "no_mesh_values": one_t, "shard_s": shard_s,
+                    "first_mesh_s": first_s, "status": status,
+                    "iterations": res.iterations,
+                    "objective": res.objective, "rmse_px": rmse,
+                    "launches": {k: v for k, v in counts.items() if v},
+                    "card": card}
+            if solver in ATOMIC_SOLVERS:
+                line["agrees_with_no_mesh"] = agree(res, one)
+                ok = (line["agrees_with_no_mesh"]
+                      and abs(rmse - RMSE[name]) <= 0.01 * RMSE[name])
+            else:
+                line["bit_identical_to_no_mesh"] = ok = same_result(res, one)
+            print(json.dumps(line))
+            lines.append(line)
+            if status not in SOLVED or not ok:
+                raise AssertionError(f"{tag}: the mesh solve ({status}, "
+                                     f"{res.iterations}, {res.objective}) "
+                                     f"differs from the no-mesh solve")
+        del shard, problem
+    return lines
 
 
 def check_solvers(solves, launches_total, card):
@@ -2014,11 +2152,17 @@ def main() -> int:
     del final64
     surface["campaign"] = step("campaign", check_runner, launches, card)
     print(json.dumps({"phase9_s": steps}))
-    print("[spmd] NCCL, one rank: one-shot and chunked against lm_jit")
-    t0 = time.perf_counter()
-    spmd = check_spmd(final, launches, card)
-    del final
-    print(json.dumps({"phase10_s": time.perf_counter() - t0}))
+    with nccl_group() as group:
+        print("[spmd] NCCL, one rank: one-shot and chunked against lm_jit")
+        t0 = time.perf_counter()
+        spmd = check_spmd(final, launches, card, group)
+        print(json.dumps({"phase10_s": time.perf_counter() - t0}))
+        print("[mesh] make_mesh(1), shard_problem: every driver and step "
+              "solver against the no-mesh solve")
+        t0 = time.perf_counter()
+        mesh = check_mesh(final, launches, card)
+        del final
+        print(json.dumps({"phase11_s": time.perf_counter() - t0}))
     check_bench(launches)
     for k, v in launches.items():
         if v == 0 and k not in SCHUR_CHECK_ONLY:
@@ -2030,7 +2174,7 @@ def main() -> int:
 
     print(f"[wall] {time.perf_counter() - wall0:.1f} s")
     print(json.dumps({"probe": probe, "f64_solve": f64, "chunked": chunked,
-                      "drivers": drivers, "spmd": spmd,
+                      "drivers": drivers, "spmd": spmd, "mesh": mesh,
                       "f64_anchor": precision["f64_anchor"],
                       "cli": [ln["stats"] for ln in surface["cli"]]}))
     print(json.dumps({"kernels": kernel_table(launches, schur_launches, errs,

@@ -182,7 +182,8 @@ def test_import_never_loads_jax():
                 "utils.timing", "ops.stream_probe", "ops.plans", "cli",
                 "benchmark.precision", "benchmark.runner", "io.native",
                 "ops.jacobian", "utils.profiling", "ops.spmdctx",
-                "parallel", "parallel.spmd", "parallel.partition",
+                "parallel", "parallel.mesh", "parallel.spmd",
+                "parallel.partition",
                 "solver.lm_spmd"):
         assert f"bundleadjustment_jl_tpu_torch.{mod}" in names.split(), mod
 

@@ -34,9 +34,6 @@ pcg = importlib.import_module("bundleadjustment_jl_tpu_torch.ops.pcg")
 ROOT = Path(__file__).resolve().parents[1]
 JAX_PKG = "bundleadjustment_jl_tpu"
 PORT_PKG = "bundleadjustment_jl_tpu_torch"
-# The exports the port leaves out: the JAX package's GSPMD mesh
-# (`parallel/mesh.py`), which ROADMAP.md lists as not ported.
-NOT_PORTED = {"parallel": {"make_mesh", "shard_problem", "OBS_AXIS"}}
 DTYPES = {"float64": (jnp.float64, torch.float64, 1e-12),
           "float32": (jnp.float32, torch.float32, 1e-5)}
 PROBLEM = dict(ncams=6, npnts=60, obs_per_pnt=3, seed=5, noise_px=1.0,
@@ -65,12 +62,10 @@ def _jax_packages():
 @pytest.mark.parametrize("sub", _jax_packages(), ids=lambda s: s or "top")
 def test_port_exports_a_superset_of_jax(sub):
     jax_init = ROOT / JAX_PKG / sub / "__init__.py"
-    want = _exports(jax_init) - NOT_PORTED.get(sub, set())
+    want = _exports(jax_init)
     port = importlib.import_module(PORT_PKG + ("." + sub if sub else ""))
     missing = sorted(n for n in want if not hasattr(port, n))
     assert not missing, f"{PORT_PKG}.{sub} lacks {missing}"
-    # the exemptions name real JAX exports
-    assert NOT_PORTED.get(sub, set()) <= _exports(jax_init)
 
 
 def _close(got, ref, rel):

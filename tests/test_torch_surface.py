@@ -316,19 +316,43 @@ def test_cli_spmd_checkpoints_run_the_chunked_driver(tmp_path, capsys):
 @pytest.mark.parametrize("args,error,match", [
     (["--driver", "spmd", "--mesh", "2"], ValueError,
      "--mesh 2 must equal the world size 1"),
-    (["--mesh", "2"], NotImplementedError, "GSPMD mesh"),
-    (["--driver", "chunked", "--mesh", "4"], NotImplementedError,
-     "with --driver chunked is the JAX package's GSPMD"),
+    (["--driver", "jit", "--mesh", "2"], ValueError,
+     "must equal the world size 1"),
     (["--driver", "spmd", "--solver", "dense"], ValueError,
      "PCG steps only"),
-    (["--multihost"], ValueError, "add --driver spmd"),
-], ids=["mesh_not_world", "mesh_without_spmd", "mesh_chunked",
-        "spmd_dense", "multihost_without_spmd"])
+], ids=["mesh_not_world", "jit_mesh_not_world", "spmd_dense"])
 def test_cli_multi_device_refusals(args, error, match):
     import torch.distributed as dist
     with pytest.raises(error, match=match):
         cli.main([*SPMD_ARGS, *args])
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("args", [
+    ["--mesh", "1"], ["--driver", "chunked", "--mesh", "4"],
+    ["--driver", "host", "--mesh", "1"],
+    ["--driver", "host", "--solver", "cgls", "--mesh", "1"],
+    ["--solver", "dense", "--mesh", "1"]],
+    ids=["mesh_without_spmd", "mesh_chunked", "mesh_host", "mesh_host_cgls",
+         "mesh_dense"])
+def test_cli_mesh_runs_like_no_mesh(args, capsys):
+    """``--mesh N`` with the host, one-shot and chunked drivers makes a
+    one-rank group, solves the mesh shard with any step solver and prints
+    the stats of the run without a mesh; ``--mesh`` other than the world
+    size raises (``chunked --mesh 4`` here, at world 1)."""
+    import torch.distributed as dist
+    if args[-1] != "1":
+        with pytest.raises(ValueError, match="must equal the world size 1"):
+            cli.main([*SPMD_ARGS, *args])
+        args = [*args[:-1], "1"]
+    assert cli.main([*SPMD_ARGS, *args]) == 0
+    got = _json_line(capsys)
+    assert not dist.is_initialized()
+    cli.main([*SPMD_ARGS, *args[:-2]])
+    ref = _json_line(capsys)
+    assert got.keys() == ref.keys()
+    for k in ref.keys() - {"elapsed_s"}:
+        assert got[k] == ref[k], k
 
 
 def test_cli_multihost_reads_the_env(monkeypatch, capsys):
@@ -344,6 +368,29 @@ def test_cli_multihost_reads_the_env(monkeypatch, capsys):
     assert cli.main([*SPMD_ARGS, "--driver", "spmd", "--multihost"]) == 0
     assert _json_line(capsys)["ranks"] == 1
     assert not dist.is_initialized()
+
+
+@pytest.mark.parametrize("driver", ["jit", "chunked", "host"])
+def test_cli_multihost_meshes_every_driver(driver, monkeypatch, capsys):
+    """``--multihost`` without ``--mesh`` and without spmd: the group from
+    the environment, the mesh over the world (one rank here), the stats of
+    the run without it."""
+    import socket
+
+    import torch.distributed as dist
+    cli.main([*SPMD_ARGS, "--driver", driver])
+    ref = _json_line(capsys)
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    for k, v in dict(MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                     RANK="0", WORLD_SIZE="1").items():
+        monkeypatch.setenv(k, v)
+    assert cli.main([*SPMD_ARGS, "--driver", driver, "--multihost"]) == 0
+    got = _json_line(capsys)
+    assert not dist.is_initialized()
+    for k in ("status", "objective", "iterations", "dual_feas", "driver"):
+        assert got[k] == ref[k], k
 
 
 def test_cli_spmd_under_torchrun_env_two_ranks(tmp_path):
