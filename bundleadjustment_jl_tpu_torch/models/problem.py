@@ -10,14 +10,18 @@ Structure-of-arrays with padded shapes, exactly the JAX layout:
 - ``pt2d``    (nobs_pad, 2) observed image points
 - ``w``       (nobs_pad,) observation weight; 0 marks padding
 
-Rows are sorted by point id (stable). Padding rows carry the largest ids
-(``ncams-1``, ``npnts-1``) and ``w = 0``, so they fall inside the last
-point's segment and contribute exact zeros. ``pnt_starts`` (npnts+1,)
-delimits the point segments; ``cam_perm`` (nobs_pad,) lists the rows in
-camera order and ``cam_starts`` (ncams+1,) delimits the camera segments of
-that order. The rows are always point-sorted here, so the JAX field
-``pnt_perm`` has no counterpart. ``plans`` holds the kernels' launch plans
-(`ops/plans.py`).
+Every constructor sorts the rows by point id (stable). Padding rows carry
+the largest ids (``ncams-1``, ``npnts-1``) and ``w = 0``, so they fall
+inside the last point's segment and contribute exact zeros. ``pnt_starts``
+(npnts+1,) delimits the point segments; ``cam_perm`` (nobs_pad,) lists the
+rows in camera order and ``cam_starts`` (ncams+1,) delimits the camera
+segments of that order. ``pnt_perm`` (nobs_pad,), None for point-sorted
+rows, lists the rows in point order where they are in another one (the
+camera groups of `parallel/partition.py:partition_problem`); ``pnt_starts``
+then delimits the point segments of that order, as in the JAX package.
+``plans`` holds the kernels' launch plans (`ops/plans.py`), which need
+point-sorted rows: a problem with ``pnt_perm`` solves on the plain route
+(`ops/normal.py:solve_stages`).
 """
 
 from __future__ import annotations
@@ -71,6 +75,14 @@ def host_dtype(dtype) -> np.dtype:
     return np.dtype(np.float32) if dt in HALF_DTYPES else np_dtype(dt)
 
 
+def host_array(x: torch.Tensor) -> np.ndarray:
+    """A tensor on the host as numpy, in a dtype that holds it exactly
+    (float64 for bfloat16, which numpy lacks)."""
+    if x.dtype == torch.bfloat16:
+        x = x.double()
+    return x.detach().cpu().numpy()
+
+
 def make_starts(seg_ids, num_segments: int, total: int) -> np.ndarray:
     """Host-side starts array (nseg+1,) for rows sorted by ``seg_ids``
     (`ops/segsum.py:make_starts` of the JAX package). ``total`` is the
@@ -100,6 +112,9 @@ class BAProblem:
     cam_perm: torch.Tensor    # (nobs_pad,) int32
     cam_starts: torch.Tensor  # (ncams+1,) int32
     name: str = "ba"
+    # (nobs_pad,) int32: the rows in point order, where they are not
+    # point-sorted; None for point-sorted rows.
+    pnt_perm: torch.Tensor | None = None
     # Kernel launch plans built from the index arrays at first use
     # (`ops/plans.py`), kept here so a solve builds each once. `astype` and
     # `with_state` keep the index arrays and share this dict; a problem
@@ -108,9 +123,9 @@ class BAProblem:
                                     compare=False)
 
     # Fields :meth:`from_numpy` reads; each is ``np.asarray`` of the JAX
-    # problem attribute of the same name.
+    # problem attribute of the same name (``pnt_perm`` may be None).
     FIELDS = ("cams", "points", "cam_idx", "pnt_idx", "pt2d", "w",
-              "pnt_starts", "cam_perm", "cam_starts", "nobs")
+              "pnt_starts", "cam_perm", "cam_starts", "pnt_perm", "nobs")
 
     # ----- construction ----------------------------------------------------
     @classmethod
@@ -165,7 +180,8 @@ class BAProblem:
         e.g. ``{k: np.asarray(getattr(jax_problem, k)) for k in
         BAProblem.FIELDS}``. ``cams``/``points`` carry the state. Float
         fields take ``dtype`` (one of :data:`DTYPES`, by name or as a
-        dtype; default: that of ``cams``)."""
+        dtype; default: that of ``cams``). An absent or None ``pnt_perm``
+        means point-sorted rows."""
         fdt = torch_dtype(dtype if dtype is not None
                           else np.asarray(fields["cams"]).dtype)
 
@@ -178,6 +194,7 @@ class BAProblem:
                                 device=device)
 
         name = fields.get("name", "ba")
+        perm = np.asarray(fields.get("pnt_perm"))
         return cls(cams=f("cams").reshape(-1, 9),
                    points=f("points").reshape(-1, 3),
                    cam_idx=i("cam_idx"), pnt_idx=i("pnt_idx"),
@@ -185,7 +202,8 @@ class BAProblem:
                    nobs=int(np.asarray(fields["nobs"])),
                    pnt_starts=i("pnt_starts"), cam_perm=i("cam_perm"),
                    cam_starts=i("cam_starts"),
-                   name=str(np.asarray(name)))
+                   name=str(np.asarray(name)),
+                   pnt_perm=None if perm.dtype == object else i("pnt_perm"))
 
     # ----- sizes ------------------------------------------------------------
     @property

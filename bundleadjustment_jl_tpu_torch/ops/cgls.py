@@ -13,12 +13,15 @@ torch ops (gathers, per-row products, ``index_add_`` segment sums), as the
 JAX package computes them with XLA; on CUDA ``index_add_`` sums with
 atomics, so a repeat solve on the card may differ in the last bits.
 
-On a mesh shard (`ops/spmdctx.py`) the rows and points are rank-local and
-the cameras replicated: the camera part of ``J' s`` is a per-rank partial
-and is all-reduced, with the point part of ``gamma`` in the same
-all-reduce; the row and point parts of each step's ``denom`` are
-all-reduced together. Two all-reduces a step, and every rank holds the
-same camera iterate and scalars.
+On a point-aligned mesh shard (`ops/spmdctx.py`) the rows and points are
+rank-local and the cameras replicated: the camera part of ``J' s`` is a
+per-rank partial and is all-reduced, with the point part of ``gamma`` in
+the same all-reduce; the row and point parts of each step's ``denom`` are
+all-reduced together. On camera groups every point is on every rank and a
+point's rows span ranks: ``J' s`` is all-reduced whole, before the damping
+term and the preconditioner, and only the row part of ``denom``. Two
+all-reduces a step, and every rank holds the same camera iterate and
+scalars (on camera groups, the same point iterate too).
 """
 
 from __future__ import annotations
@@ -93,13 +96,19 @@ def cgls_solve(problem: BAProblem, blocks: GNBlocks, lam, rtol,
     def gradient(s1, s2c=None, s2p=None):
         """``v = J' s1 + sqrt(lam) s2``, ``z = M^{-1} v`` and ``gamma = v'
         z``: the camera partial of ``J' s1`` and the point part of
-        ``gamma`` summed over the ranks in one all-reduce."""
+        ``gamma`` summed over the ranks in one all-reduce (on camera
+        groups, ``J' s1`` whole)."""
         vc, vp = _jts(problem, JR_t, s1)
+        if spmdctx.CAMERA_GROUPS:
+            red = spmdctx.psum(torch.cat([vc.reshape(-1), vp.reshape(-1)]))
+            vc, vp = (red[:vc.numel()].reshape(vc.shape),
+                      red[vc.numel():].reshape(vp.shape))
         if s2p is not None:
             vp = vp + sqlam * s2p
         zp = torch.einsum("pab,pb->pa", Pp, vp)
-        red = spmdctx.psum(torch.cat([vc.reshape(-1),
-                                      torch.sum(vp * zp)[None]]))
+        red = torch.cat([vc.reshape(-1), torch.sum(vp * zp)[None]])
+        if not spmdctx.CAMERA_GROUPS:
+            red = spmdctx.psum(red)
         vc = red[:-1].reshape(vc.shape)
         if s2c is not None:
             vc = vc + sqlam * s2c
@@ -118,9 +127,11 @@ def cgls_solve(problem: BAProblem, blocks: GNBlocks, lam, rtol,
     it = 0
     while it < max_iters and bool(gamma > tol):
         q1 = _jd(problem, JR_t, pc, pp)
-        # the row and point parts, summed over the ranks together
-        rows_pnts = spmdctx.psum(torch.stack([torch.sum(q1 * q1),
-                                              torch.sum(pp ** 2)]))
+        # the row and point parts, summed over the ranks together (the
+        # point part only over the ranks' points)
+        rows_pnts = torch.stack([torch.sum(q1 * q1), torch.sum(pp ** 2)])
+        rows_pnts = (torch.stack([spmdctx.psum(rows_pnts[0]), rows_pnts[1]])
+                     if spmdctx.CAMERA_GROUPS else spmdctx.psum(rows_pnts))
         denom = rows_pnts[0] + lam * (torch.sum(pc ** 2) + rows_pnts[1])
         pos = denom > 0.0
         alpha = torch.where(pos, gamma / torch.where(pos, denom,

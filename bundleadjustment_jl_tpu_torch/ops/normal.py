@@ -176,6 +176,37 @@ class _SpmdStages(Stages):
     __slots__ = ()
 
 
+# Camera-group shards (`spmdctx.CAMERA_GROUPS`): a point's rows span ranks,
+# so the point-space outputs are per-rank partials too, all-reduced like
+# the camera sums.
+_POINT_SUMS = {"assemble_scatter": (1,), "jtj_pnt_reduce": (0,)}
+
+
+def _wtv_point_groups(W_t, v, problem, hpp_inv_f=None, add_f=None,
+                      sign=1.0):
+    """K5's point direction on camera groups: the per-point sums
+    all-reduced before the add and the fold, which every rank then applies
+    alike (its plain twin, otherwise)."""
+    return sr.fold_point(spmdctx.psum(sr.wtv_point_sum(W_t, v, problem)),
+                         hpp_inv_f, add_f, sign)
+
+
+def _matvec_groups(W_t, v, problem, hpp_inv_f, gp_f=None, sign=1.0,
+                   with_dp=False):
+    """K3 on camera groups: the point pass all-reduced before the camera
+    pass reads it (the camera sums are all-reduced by the table)."""
+    t = _wtv_point_groups(W_t, v, problem, hpp_inv_f, gp_f, sign)
+    out = fs._cam_reduce_w_op_plain(W_t, problem, t)
+    return (out, t) if with_dp else out
+
+
+# The plain twins as camera-group shards run them: the two point passes
+# whose sums something reads before they leave the stage take the
+# all-reduce inside.
+GROUPS = PLAIN._replace(wtv_point_reduce=_wtv_point_groups,
+                        matvec_cam_scatter=_matvec_groups)
+
+
 class _HalfSpmdStages(_HalfStages, _SpmdStages):
     """A table of both wrappings: the all-reduce inside, on the float32
     outputs, and the 2-byte rounding outside."""
@@ -186,16 +217,28 @@ def stages_for(table: Stages, dtype) -> Stages:
     """``table`` as a solve in working dtype ``dtype`` calls it: in a
     multi-process solve (`spmdctx.GROUP` set) each stage that sums rows
     into camera space all-reduces its float32 outputs (:data:`_ROW_SUMS`,
-    the hooks of the JAX package at the same stages); then for a 2-byte
-    dtype each stage through :func:`_half_stage`. Each wrapping is made
-    once: a table that has it is taken as it is."""
+    the hooks of the JAX package at the same stages); on camera-group
+    shards (`spmdctx.CAMERA_GROUPS`, the plain route only) the point sums
+    too (:data:`_POINT_SUMS`, and :data:`GROUPS` for the two point passes
+    read inside their stage); then for a 2-byte dtype each stage through
+    :func:`_half_stage`. Each wrapping is made once: a table that has it
+    is taken as it is."""
     dt = torch_dtype(dtype)
     if spmdctx.GROUP is not None and not isinstance(table, _SpmdStages):
         if isinstance(table, _HalfStages):
             raise ValueError("a 2-byte stage table made outside the "
                              "multi-process solve: it has no all-reduce "
                              "on its float32 outputs")
-        table = _SpmdStages(*(_spmd_stage(f, _ROW_SUMS.get(name, ()))
+        sums = _ROW_SUMS
+        if spmdctx.CAMERA_GROUPS:
+            if table is not PLAIN:
+                raise ValueError("camera-group shards solve on the plain "
+                                 "route (solve_stages): the kernels need "
+                                 "point-sorted rows")
+            table = GROUPS
+            sums = {k: _ROW_SUMS.get(k, ()) + _POINT_SUMS.get(k, ())
+                    for k in Stages._fields}
+        table = _SpmdStages(*(_spmd_stage(f, sums.get(name, ()))
                               for name, f in zip(Stages._fields, table)))
     if dt not in HALF_DTYPES or isinstance(table, _HalfStages):
         return table
@@ -204,27 +247,40 @@ def stages_for(table: Stages, dtype) -> Stages:
                  for name, f in zip(Stages._fields, table)))
 
 
-def solve_stages(dtype) -> Stages:
-    """The stage table of a solve in working dtype ``dtype``, read once per
-    solve by `solver/lm_jit.py`: :data:`PLAIN` for float64 or with
-    :data:`PALLAS_MODE` off, else :data:`KERNELS`; for a 2-byte dtype
-    through :func:`stages_for`.
+def plain_route(dtype, problem: BAProblem | None = None) -> bool:
+    """Whether a solve in working dtype ``dtype`` of ``problem`` takes the
+    plain route (:func:`solve_stages`): float64, :data:`PALLAS_MODE` off,
+    or a problem whose rows are not point-sorted (``pnt_perm``)."""
+    return (not PALLAS_MODE or torch_dtype(dtype) == torch.float64
+            or (problem is not None and problem.pnt_perm is not None))
+
+
+def solve_stages(dtype, problem: BAProblem | None = None) -> Stages:
+    """The stage table of a solve of ``problem`` in working dtype
+    ``dtype``, read once per solve by the drivers (`solver/lm_jit.py`,
+    `solver/lm.py`): :data:`PLAIN` where :func:`plain_route` says so, else
+    :data:`KERNELS`; for a 2-byte dtype or a multi-process solve through
+    :func:`stages_for`.
 
     The kernels accumulate in float32 and have no float64 form; the JAX
     package keeps its XLA path for float64 (`pallas_schur.problem_ok`), and
     the plain route is that path, run on whatever device the tensors are on.
     No kernel wrapper is reached there, so a wrapper's refusal of CUDA
-    float64 stands. `problem_ok`'s other tests do not carry over: the
-    port's problems are always point-sorted with ``cam_perm``, and its
-    kernels take any padding (``nobs_pad % 128`` is a TPU lane rule), so a
-    float32 solve on the card runs the kernels or raises. The plain twins'
-    segment sums are ``index_add_``, atomics on CUDA: an f64 solve on the
-    card makes the CPU f64 solve's decisions (status, iterations) with its
-    objective within rel 1e-9, not bit for bit. In a multi-process solve
-    the table carries the all-reduces of :func:`stages_for`."""
-    table = (KERNELS if PALLAS_MODE and torch_dtype(dtype) != torch.float64
-             else PLAIN)
-    return stages_for(table, dtype)
+    float64 stands. The same holds for a problem with ``pnt_perm`` (the
+    camera groups of `parallel/partition.py`), in every dtype: its rows are
+    not point-sorted, which every kernel's plan needs (`ops/plans.py`
+    refuses it), and the JAX package's `layout_ok` / `cam_scatter_ok`
+    send it to XLA alike. Like float64, this is a route, not a fallback.
+    `problem_ok`'s padding test does not carry over: the port's kernels
+    take any padding (``nobs_pad % 128`` is a TPU lane rule), so a
+    point-sorted float32 solve on the card runs the kernels or raises. The
+    plain twins' segment sums are ``index_add_``, atomics on CUDA: an f64
+    solve on the card makes the CPU f64 solve's decisions (status,
+    iterations) with its objective within rel 1e-9, not bit for bit. In a
+    multi-process solve the table carries the all-reduces of
+    :func:`stages_for`."""
+    return stages_for(PLAIN if plain_route(dtype, problem) else KERNELS,
+                      dtype)
 
 
 def kernel_route(problem: BAProblem) -> str:
@@ -358,9 +414,10 @@ def assemble_blocks(problem: BAProblem, cams=None, points=None, *,
 
 def gradient_norm(blocks: GNBlocks) -> torch.Tensor:
     """||J'r|| over the full variable vector; in a multi-process solve
-    only the point part (``g_p`` is local) is summed over the ranks."""
+    only the point part is summed over the ranks' points
+    (`spmdctx.psum_points`)."""
     return torch.sqrt(torch.sum(blocks.g_c_f ** 2)
-                      + spmdctx.psum(torch.sum(blocks.g_p_f ** 2)))
+                      + spmdctx.psum_points(torch.sum(blocks.g_p_f ** 2)))
 
 
 def inv3x3_damped_flat(Hpp_f: torch.Tensor, lam) -> torch.Tensor:

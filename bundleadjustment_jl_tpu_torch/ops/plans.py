@@ -47,6 +47,10 @@ K8, :class:`CamRowPlan`: the row data in camera order, so that K8 reads
 every per-row field coalesced; 16 B a row on top of ``cam_pnt`` (148 MB at
 Final-4585's 9,272,320 rows).
 
+Every plan assumes point-sorted rows: a problem in camera groups (its
+``pnt_perm`` set, `parallel/partition.py`) has none, and each build function
+refuses it; such a problem solves on the plain route.
+
 :func:`rows`: the row data (``pt2d``, ``w``) in float32, which every kernel
 that reads them takes. A problem in a 2-byte dtype (``astype("bfloat16")``)
 holds them rounded to that dtype; their float32 copies are kept, like the
@@ -135,11 +139,24 @@ def _i32(x: torch.Tensor) -> torch.Tensor:
     return x.to(torch.int32).contiguous()
 
 
+def _point_sorted(problem) -> None:
+    """Raise unless ``problem``'s rows are point-sorted, as every plan
+    assumes (runs of a tile, point ranges of rows, columns of
+    ``cam_perm`` in row order): a partitioned problem (``pnt_perm``) has
+    no plan and solves on the plain route (`ops/normal.py:solve_stages`)."""
+    if getattr(problem, "pnt_perm", None) is not None:
+        raise ValueError(f"{problem.name}: rows in camera groups (pnt_perm) "
+                         "have no launch plan; every plan needs point-sorted "
+                         "rows (partitioned problems solve on the plain "
+                         "route)")
+
+
 def build_tile_plan(problem, rows: int = TILE_ROWS) -> TilePlan:
     """K2's plan for ``problem`` with tiles of ``rows`` rows (uncached;
     :func:`tile_plan` keeps it on the problem). Raises ValueError unless
     ``cam_perm`` lists the cameras in order and each camera's rows in
     ascending order (a stable argsort of ``cam_idx``)."""
+    _point_sorted(problem)
     perm = problem.cam_perm.long()
     n, dev = perm.shape[0], perm.device
     cam = problem.cam_idx.long()[perm]
@@ -177,6 +194,7 @@ def build_point_blocks(problem, rows: int = POINT_BLOCK_ROWS) -> torch.Tensor:
     ``[bounds[b], bounds[b+1])``. A block ends at the first point that
     starts at or after each multiple of ``rows``, so it holds at most
     ``rows`` rows plus the rows of its last point."""
+    _point_sorted(problem)
     ps = problem.pnt_starts.long()
     dev, npt = ps.device, problem.npnts
     cuts = torch.searchsorted(ps, rows * torch.arange(
@@ -190,6 +208,7 @@ def build_cam_col_plan(problem, cols: int = CAM_BLOCK_COLS) -> CamColPlan:
     (uncached; :func:`cam_col_plan` and :func:`wcw_col_plan` keep theirs
     on the problem). Raises ValueError unless ``cam_perm`` lists the
     cameras in order."""
+    _point_sorted(problem)
     perm = problem.cam_perm.long()
     n, dev = perm.shape[0], perm.device
     cam = problem.cam_idx.long()[perm]
@@ -212,6 +231,7 @@ def build_cam_col_plan(problem, cols: int = CAM_BLOCK_COLS) -> CamColPlan:
 def build_cam_row_plan(problem) -> CamRowPlan:
     """K8's camera-order copies of ``problem``'s row data (uncached;
     :func:`cam_row_plan` keeps them on the problem)."""
+    _point_sorted(problem)
     perm = problem.cam_perm.long()
     pt2d, w = rows(problem)
     return CamRowPlan(pt2d[perm].contiguous(), w[perm].contiguous(),
@@ -249,6 +269,7 @@ def point_blocks(problem) -> torch.Tensor:
 def _by_camera(problem, field: str) -> torch.Tensor:
     """(n,) int32 index array ``field`` in camera order (``[cam_perm]``),
     built at the first call."""
+    _point_sorted(problem)
     key = ("by_camera", field)
     if key not in problem.plans:
         problem.plans[key] = _i32(

@@ -48,7 +48,8 @@ the JAX package casts around its kernels.
 In a multi-process solve (`ops/spmdctx.py`) the same table all-reduces
 each camera-direction sum (the reduced right-hand side's correction, the
 matvec's camera pass, the W C W' diagonal, the quadratic form's cross
-term); the point term of the quadratic form is summed here.
+term), and on camera-group shards each point-direction sum as well; the
+point term of the quadratic form is summed here over the ranks' points.
 """
 
 from __future__ import annotations
@@ -215,9 +216,9 @@ def _quad(blocks: GNBlocks, dc, dp, cross_cam) -> torch.Tensor:
     """``||J d||^2 = dc' Hcc dc + 2 dc . cross_cam + dp' Hpp dp`` with
     ``cross_cam = segsum_cam(W_k dp[pnt_k])`` (ncams, 9), all-reduced by
     the stage that made it; in a multi-process solve the point term is
-    summed over the ranks."""
+    summed over the ranks' points (`spmdctx.psum_points`)."""
     t_c = torch.sum(dc * torch.einsum("cab,cb->ca", blocks.Hcc, dc))
-    t_p = spmdctx.psum(torch.sum(dp * _hpp_dot(blocks.Hpp_f, dp)))
+    t_p = spmdctx.psum_points(torch.sum(dp * _hpp_dot(blocks.Hpp_f, dp)))
     return t_c + 2.0 * torch.sum(cross_cam * dc) + t_p
 
 
@@ -236,7 +237,7 @@ def predicted_reduction(problem: BAProblem, blocks: GNBlocks,
     """The Gauss-Newton predicted decrease ``obj - 0.5 ||J d + r||^2 =
     -(g' d) - 0.5 ||J d||^2``, ``||J d||^2`` by :func:`quad_form` from the
     assembled blocks (on every route)."""
-    gd = torch.sum(blocks.g_c * dc) + spmdctx.psum(
+    gd = torch.sum(blocks.g_c * dc) + spmdctx.psum_points(
         torch.sum(blocks.g_p * dp))
     return -gd - 0.5 * quad_form(problem, blocks, dc, dp)
 
@@ -309,8 +310,11 @@ def assemble_dense_schur(sys: SchurSystem) -> torch.Tensor:
     W is widened to float32 (a float16 W holds ``s W`` and the system's
     ``Hpp_inv`` is hatted by ``1 / s^2``, so ``Y' U`` is exact), and S
     comes back rounded to W's storage dtype, as in the JAX package. On a
-    mesh shard the targets hold the rank's points and ``Y' U`` is
-    all-reduced (`ops/spmdctx.py`)."""
+    point-aligned mesh shard the targets hold the rank's points and ``Y'
+    U`` is all-reduced; on camera groups a point's rows span ranks, whose
+    cross terms no rank's product holds, so the two targets are
+    all-reduced before the product (2 * 3 npnts * 9 ncams values a step;
+    `ops/spmdctx.py`)."""
     problem = sys.problem
     nc, npt = problem.ncams, problem.npnts
     cdt = _dense_dtype(sys.W_t)
@@ -329,10 +333,15 @@ def assemble_dense_schur(sys: SchurSystem) -> torch.Tensor:
         out.index_put_((flat,), vals.reshape(-1), accumulate=True)
         return out.reshape(3 * npt, 9 * nc)
 
-    # On a mesh shard Y'U is this rank's points' part: summed over the
-    # ranks in the compute dtype, before Hcc_l and the rounding to W's
-    # storage dtype, so every rank holds the same S.
-    S = -spmdctx.psum(target(Y).T @ target(W))
+    # On a point-aligned mesh shard Y'U is this rank's points' part:
+    # summed over the ranks in the compute dtype, before Hcc_l and the
+    # rounding to W's storage dtype, so every rank holds the same S. On
+    # camera groups the targets are summed instead, and every rank forms
+    # the same product.
+    if spmdctx.CAMERA_GROUPS:
+        S = -(spmdctx.psum(target(Y)).T @ spmdctx.psum(target(W)))
+    else:
+        S = -spmdctx.psum(target(Y).T @ target(W))
     ar = torch.arange(nc, device=dev)
     S.view(nc, 9, nc, 9)[ar, :, ar, :] += sys.Hcc_l.to(cdt)
     return S.to(sys.W_t.dtype)

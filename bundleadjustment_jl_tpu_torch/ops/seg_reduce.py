@@ -193,17 +193,29 @@ def wtv_point_reduce(W_t: torch.Tensor, v: torch.Tensor, problem: BAProblem,
     return out
 
 
-def _wtv_point_plain(W_t, v, problem, hpp_inv_f=None, add_f=None,
-                     sign=1.0):
+def wtv_point_sum(W_t, v, problem) -> torch.Tensor:
+    """Per point ``sum_k W_k' v[cam_k]`` -> (npnts, 3), by ``index_add_``
+    (rows in any order)."""
     s = torch.zeros((problem.npnts, 3), dtype=v.dtype, device=v.device)
-    s.index_add_(0, problem.pnt_idx.long(),
-                 torch.einsum("nab,na->nb", w_rows(W_t, v.dtype),
-                              v[problem.cam_idx.long()]))
+    return s.index_add_(0, problem.pnt_idx.long(),
+                        torch.einsum("nab,na->nb", w_rows(W_t, v.dtype),
+                                     v[problem.cam_idx.long()]))
+
+
+def fold_point(s, hpp_inv_f=None, add_f=None, sign=1.0) -> torch.Tensor:
+    """``sign * Hpp_inv (s + add)`` per point, as :func:`wtv_point_reduce`
+    folds its sums ``s`` (npnts, 3)."""
     if add_f is not None:
         s = s + add_f.reshape(-1, 3)
     if hpp_inv_f is not None:
         s = torch.einsum("pab,pb->pa", hpp_inv_f.reshape(-1, 3, 3), s)
     return sign * s
+
+
+def _wtv_point_plain(W_t, v, problem, hpp_inv_f=None, add_f=None,
+                     sign=1.0):
+    return fold_point(wtv_point_sum(W_t, v, problem), hpp_inv_f, add_f,
+                      sign)
 
 
 def wt_cam_reduce(W_cam_t: torch.Tensor, t: torch.Tensor,

@@ -20,6 +20,22 @@ camera-space sums all-reduce over the ranks' process group:
 - the dense step's ``Y' U`` and CGLS's ``J' s`` camera part are per-rank
   partials, summed here.
 
+On camera-group shards of a partitioned problem (:data:`CAMERA_GROUPS`,
+`parallel/spmd.py:GroupProblem`) every rank holds every camera and point
+and a chunk of the rows, so a point's rows span ranks, as on the JAX
+package's GSPMD mesh:
+
+- the point-space stage outputs (Hpp | g_p, the per-point ``sum W' v`` of
+  the Schur matvec, the reduced right-hand side and the
+  back-substitution) are per-rank partials too, all-reduced by the stage
+  table before any per-point fold;
+- so every point-space value is replicated, and the point parts of the
+  mixed scalars are not summed again (:func:`psum_points`,
+  :func:`pmax_points` return their input);
+- the dense step sums its two point-indexed targets before their product
+  (a point's rows on two ranks make cross terms), and CGLS sums ``J' s``
+  whole.
+
 :data:`GROUP` is that process group, set by the drivers for the length of
 a solve on a mesh shard (:func:`using`). None (every other path) means one
 device: each hook returns its input.
@@ -37,6 +53,9 @@ from bundleadjustment_jl_tpu_torch.models.problem import HALF_DTYPES
 
 # The spmd solve's process group; None: one device, every hook a no-op.
 GROUP: Optional[dist.ProcessGroup] = None
+# Whether the solve's shards are camera groups (every point on every rank,
+# its rows over ranks) rather than point-aligned ranges.
+CAMERA_GROUPS = False
 
 
 def _reduce(x: torch.Tensor, op) -> torch.Tensor:
@@ -62,12 +81,28 @@ def pmax(x: torch.Tensor) -> torch.Tensor:
     return _reduce(x, dist.ReduceOp.MAX)
 
 
+def psum_points(x: torch.Tensor) -> torch.Tensor:
+    """The point part of a scalar, summed over the ranks' points: an
+    all-reduce on point-aligned shards (each rank holds its own points),
+    ``x`` itself on camera groups (each holds them all)."""
+    return x if CAMERA_GROUPS else psum(x)
+
+
+def pmax_points(x: torch.Tensor) -> torch.Tensor:
+    """The largest of a point-space value over the ranks' points, as
+    :func:`psum_points` sums it."""
+    return x if CAMERA_GROUPS else pmax(x)
+
+
 @contextlib.contextmanager
-def using(group: dist.ProcessGroup) -> Iterator[None]:
-    """Set :data:`GROUP` to ``group`` for the body; restore it after."""
-    global GROUP
-    prev, GROUP = GROUP, group
+def using(group: dist.ProcessGroup,
+          camera_groups: bool = False) -> Iterator[None]:
+    """Set :data:`GROUP` to ``group`` and :data:`CAMERA_GROUPS` to
+    ``camera_groups`` for the body; restore them after."""
+    global GROUP, CAMERA_GROUPS
+    prev = GROUP, CAMERA_GROUPS
+    GROUP, CAMERA_GROUPS = group, camera_groups
     try:
         yield
     finally:
-        GROUP = prev
+        GROUP, CAMERA_GROUPS = prev

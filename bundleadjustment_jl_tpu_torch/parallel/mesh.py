@@ -19,10 +19,19 @@ point bounds):
   which the drivers switch on for a shard (`solver/lm_jit.py`,
   `solver/lm.py`).
 
+A partitioned problem (`parallel/partition.py:partition_problem`, with
+``pnt_perm``) is sharded as the JAX package shards it: rank ``r`` gets the
+equal row chunk ``r``, its camera group, and every camera and point
+(`parallel/spmd.py:GroupProblem`). A point's rows then span ranks, so the
+hooks all-reduce the point sums as well, and the point parts of the
+scalars are replicated (``layout = "cameras"``). It solves on the plain
+route, as the JAX package solves it on XLA.
+
 A shard (:class:`~bundleadjustment_jl_tpu_torch.parallel.spmd.MeshShard`)
-is a :class:`BAProblem` that carries its process group, the global sizes
-and the point bounds, so every driver and step solver takes it as it takes
-a problem; each rank gets the same result, with the global points.
+is a :class:`BAProblem` that carries its process group, its layout, the
+global sizes and the split, so every driver and step solver takes it as
+it takes a problem; each rank gets the same result, with the global
+points.
 """
 
 from __future__ import annotations
@@ -35,7 +44,7 @@ from torch.distributed.device_mesh import DeviceMesh, init_device_mesh
 
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.parallel.spmd import (
-    MeshShard, shard_problem_kminor)
+    MeshShard, group_shards, shard_problem_kminor)
 
 OBS_AXIS = "obs"
 
@@ -81,15 +90,17 @@ def make_mesh(n_devices: Optional[int] = None,
 
 def shard_problem(problem: BAProblem, mesh: DeviceMesh,
                   axis_name: str = OBS_AXIS) -> MeshShard:
-    """This rank's point-aligned shard of ``problem`` on ``mesh``, on the
-    mesh's device (``cuda:LOCAL_RANK`` or the CPU). Every rank calls it
-    with the same problem.
+    """This rank's shard of ``problem`` on ``mesh``, on the mesh's device
+    (``cuda:LOCAL_RANK`` or the CPU). Every rank calls it with the same
+    problem.
 
     ``nobs_pad`` must divide by the mesh size, as in the JAX package
-    (``ValueError`` otherwise, so both packages refuse the same inputs),
-    though the port's shards are not cut in equal chunks: each holds its
-    points' rows, and the global padding rows stay on the last shard. A
-    one-rank shard is the problem itself, padding rows included."""
+    (``ValueError`` otherwise, so both packages refuse the same inputs).
+    A point-sorted problem's shards are not cut in equal chunks: each
+    holds its points' rows, and the global padding rows stay on the last
+    shard. A partitioned problem's (``pnt_perm``) are the equal chunks, its
+    camera groups. A one-rank shard is the problem itself, padding rows
+    included."""
     if mesh.ndim != 1 or axis_name not in (mesh.mesh_dim_names or ()):
         raise ValueError(f"shard_problem needs a 1-D mesh named "
                          f"{axis_name!r}, got {mesh}")
@@ -100,5 +111,6 @@ def shard_problem(problem: BAProblem, mesh: DeviceMesh,
             f"rebuild the problem with pad_obs_to a multiple of {n}")
     device = (torch.device("cuda", torch.cuda.current_device())
               if mesh.device_type == "cuda" else torch.device("cpu"))
-    return shard_problem_kminor(problem, n).rank_shard(
-        mesh.get_group(axis_name), device)
+    split = (shard_problem_kminor(problem, n) if problem.pnt_perm is None
+             else group_shards(problem, n))
+    return split.rank_shard(mesh.get_group(axis_name), device)

@@ -21,6 +21,15 @@ rows, and the global problem's padding rows stay at the end of the last
 shard, so a one-shard problem is the problem itself. The points are padded
 to a common count only where the ranks gather them
 (:meth:`SpmdProblem.global_points`).
+
+A partitioned problem (`parallel/partition.py:partition_problem`, rows in
+camera groups with ``pnt_perm``) is split the JAX package's way instead:
+:class:`GroupProblem` gives rank ``r`` the equal row chunk ``r``, its
+camera group when the ranks are as many as the parts. Every rank holds
+every camera and point, and the ids stay global; each camera's rows sit on
+one rank, but a point's rows span the ranks that see it, so the point sums
+are per-rank partials as well. Its shards carry ``layout = "cameras"``,
+on which `ops/spmdctx.py` all-reduces the point sums too.
 """
 
 from __future__ import annotations
@@ -34,19 +43,68 @@ import torch
 import torch.distributed as dist
 
 from bundleadjustment_jl_tpu_torch.models.problem import (
-    HALF_DTYPES, BAProblem)
+    HALF_DTYPES, BAProblem, host_array as _host)
+from bundleadjustment_jl_tpu_torch.parallel.partition import row_order
 
 
-def _host(x: torch.Tensor) -> np.ndarray:
-    """A float tensor on the host in a numpy dtype that holds it exactly
-    (float64 for bfloat16, which numpy lacks)."""
-    if x.dtype == torch.bfloat16:
-        x = x.double()
-    return x.detach().cpu().numpy()
+class _Shards:
+    """What both kinds of split share: each rank's shard as a problem on
+    its device, built once (``shards``), and as the :class:`MeshShard` a
+    rank solves. A subclass has ``ndev``, ``device_type``, ``shards``,
+    :attr:`LAYOUT` and ``_build(rank, device)``."""
+    LAYOUT = "points"
+
+    def device(self, rank: int) -> torch.device:
+        """The device of shard ``rank``: ``cuda:LOCAL_RANK`` (the current
+        device without the variable) when the global problem lived on a
+        card, else the CPU."""
+        if self.device_type != "cuda":
+            return torch.device("cpu")
+        local = os.environ.get("LOCAL_RANK")
+        return torch.device("cuda", int(local) if local is not None
+                            else torch.cuda.current_device())
+
+    def local(self, rank: int, device=None) -> BAProblem:
+        """Shard ``rank`` as a problem of its own on ``device`` (default
+        :meth:`device`); built once a rank and device (``shards``)."""
+        dev = torch.device(self.device(rank) if device is None else device)
+        if dev.type == "cuda" and dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+        key = (rank, str(dev))
+        if key not in self.shards:
+            self.shards[key] = self._build(rank, dev)
+        return self.shards[key]
+
+    def rank_shard(self, group: Optional[dist.ProcessGroup] = None,
+                   device=None) -> "MeshShard":
+        """This rank's shard of a solve over ``group`` (default: the world
+        group), on ``device`` (default :meth:`device`): the :meth:`local`
+        problem with the group, its rank, this split and its layout.
+        Raises unless ``group`` is initialized, has ``ndev`` ranks and its
+        backend serves the device (NCCL for a card, gloo for the CPU)."""
+        if not dist.is_available() or not dist.is_initialized():
+            raise RuntimeError("a solve over ranks needs a torch.distributed "
+                               "process group (init_process_group)")
+        group = dist.group.WORLD if group is None else group
+        world, rank = dist.get_world_size(group), dist.get_rank(group)
+        if world != self.ndev:
+            raise ValueError(f"{type(self).__name__} has {self.ndev} shards "
+                             f"but the group has {world} ranks: split the "
+                             f"problem into {world}")
+        lp = self.local(rank, device)
+        backend = str(dist.get_backend(group))
+        need = "nccl" if lp.cams.is_cuda else "gloo"
+        if need not in backend:
+            raise ValueError(f"a shard on {lp.cams.device} needs a {need} "
+                             f"group, this one is {backend}")
+        return MeshShard(**{f.name: getattr(lp, f.name)
+                            for f in dataclasses.fields(BAProblem)},
+                         spmd=self, group=group, rank=rank,
+                         layout=self.LAYOUT)
 
 
 @dataclasses.dataclass
-class SpmdProblem:
+class SpmdProblem(_Shards):
     """A problem split into ``ndev`` point-aligned shards, kept as the
     global problem's host arrays and the shards' bounds."""
     cams: np.ndarray            # (ncams, 9) replicated
@@ -86,28 +144,6 @@ class SpmdProblem:
         extra = self.nobs_pad - self.nobs if rank == self.ndev - 1 else 0
         return int(self.nobs_loc[rank]) + extra
 
-    def device(self, rank: int) -> torch.device:
-        """The device of shard ``rank``: ``cuda:LOCAL_RANK`` (the current
-        device without the variable) when the global problem lived on a
-        card, else the CPU."""
-        if self.device_type != "cuda":
-            return torch.device("cpu")
-        local = os.environ.get("LOCAL_RANK")
-        return torch.device("cuda", int(local) if local is not None
-                            else torch.cuda.current_device())
-
-    def local(self, rank: int, device=None) -> BAProblem:
-        """Shard ``rank`` as a problem of its own on ``device`` (default
-        :meth:`device`), its point ids local, its camera ids global; built
-        once a rank and device (:attr:`shards`)."""
-        dev = torch.device(self.device(rank) if device is None else device)
-        if dev.type == "cuda" and dev.index is None:
-            dev = torch.device("cuda", torch.cuda.current_device())
-        key = (rank, str(dev))
-        if key not in self.shards:
-            self.shards[key] = self._build(rank, dev)
-        return self.shards[key]
-
     def _build(self, rank: int, device: torch.device) -> BAProblem:
         p0 = int(self.point_offsets[rank])
         p1 = p0 + int(self.npnts_loc[rank])
@@ -118,33 +154,6 @@ class SpmdProblem:
             self.pnt_idx[r0:r1] - p0, self.pt2d[r0:r1], dtype=self.dtype,
             pad_obs_to=max(self.rows(rank), 1),
             name=f"{self.name}/shard{rank}", device=device)
-
-    def rank_shard(self, group: Optional[dist.ProcessGroup] = None,
-                   device=None) -> "MeshShard":
-        """This rank's shard of a solve over ``group`` (default: the world
-        group), on ``device`` (default :meth:`device`): the :meth:`local`
-        problem with the group, its rank and this :class:`SpmdProblem`.
-        Raises unless ``group`` is initialized, has :attr:`ndev` ranks and
-        its backend serves the device (NCCL for a card, gloo for the
-        CPU)."""
-        if not dist.is_available() or not dist.is_initialized():
-            raise RuntimeError("a solve over ranks needs a torch.distributed "
-                               "process group (init_process_group)")
-        group = dist.group.WORLD if group is None else group
-        world, rank = dist.get_world_size(group), dist.get_rank(group)
-        if world != self.ndev:
-            raise ValueError(f"SpmdProblem has {self.ndev} shards but the "
-                             f"group has {world} ranks: rebuild it with "
-                             f"shard_problem_kminor(problem, {world})")
-        lp = self.local(rank, device)
-        backend = str(dist.get_backend(group))
-        need = "nccl" if lp.cams.is_cuda else "gloo"
-        if need not in backend:
-            raise ValueError(f"a shard on {lp.cams.device} needs a {need} "
-                             f"group, this one is {backend}")
-        return MeshShard(**{f.name: getattr(lp, f.name)
-                            for f in dataclasses.fields(BAProblem)},
-                         spmd=self, group=group, rank=rank)
 
     def split_points(self, points_global: torch.Tensor,
                      rank: int) -> torch.Tensor:
@@ -183,16 +192,103 @@ class SpmdProblem:
 
 
 @dataclasses.dataclass
+class GroupProblem(_Shards):
+    """A problem split into ``ndev`` equal row chunks, the JAX package's
+    mesh layout of a partitioned problem (`parallel/partition.py`): shard
+    ``r`` holds rows ``[r * chunk, (r + 1) * chunk)`` with their global
+    ids, ``pnt_perm`` and the other orders of its own rows, and every
+    camera and point."""
+    LAYOUT = "cameras"
+    cams: np.ndarray            # (ncams, 9) replicated
+    points: np.ndarray          # (npnts, 3) replicated
+    cam_idx: np.ndarray         # (nobs_pad,) global camera ids
+    pnt_idx: np.ndarray         # (nobs_pad,) global point ids
+    pt2d: np.ndarray            # (nobs_pad, 2)
+    w: np.ndarray               # (nobs_pad,)
+    ndev: int
+    nobs: int                   # global true rows
+    dtype: torch.dtype
+    device_type: str            # where the global problem lived
+    name: str = "ba"
+    shards: dict = dataclasses.field(default_factory=dict, repr=False,
+                                     compare=False)
+
+    @property
+    def ncams(self) -> int:
+        return self.cams.shape[0]
+
+    @property
+    def npnts(self) -> int:
+        return self.points.shape[0]
+
+    @property
+    def nobs_pad(self) -> int:
+        return self.cam_idx.shape[0]
+
+    @property
+    def chunk(self) -> int:
+        return self.nobs_pad // self.ndev
+
+    def _build(self, rank: int, device: torch.device) -> BAProblem:
+        rows = slice(rank * self.chunk, (rank + 1) * self.chunk)
+        ci, pi, w = self.cam_idx[rows], self.pnt_idx[rows], self.w[rows]
+        pnt_perm, pnt_starts, cam_perm, cam_starts = row_order(
+            ci, pi, self.ncams, self.npnts)
+        return BAProblem.from_numpy(
+            dict(cams=self.cams, points=self.points, cam_idx=ci,
+                 pnt_idx=pi, pt2d=self.pt2d[rows], w=w,
+                 pnt_starts=pnt_starts, cam_perm=cam_perm,
+                 cam_starts=cam_starts, pnt_perm=pnt_perm,
+                 nobs=int(np.count_nonzero(w)),
+                 name=f"{self.name}/shard{rank}"),
+            device=device, dtype=self.dtype)
+
+    def split_points(self, points_global: torch.Tensor,
+                     rank: int) -> torch.Tensor:
+        """The points shard ``rank`` holds: all of them."""
+        return points_global.reshape(self.npnts, 3)
+
+    def global_points(self, points_local: torch.Tensor,
+                      group: Optional[dist.ProcessGroup] = None
+                      ) -> torch.Tensor:
+        """The global points: every rank holds them already."""
+        return points_local
+
+
+def group_shards(problem: BAProblem, ndev: int) -> GroupProblem:
+    """Split ``problem`` into ``ndev`` equal row chunks with every camera
+    and point on each (:class:`GroupProblem`). Meant for a partitioned
+    problem (``partition_problem(problem, ndev)``), whose chunks are its
+    camera groups; raises unless ``nobs_pad`` divides by ``ndev``."""
+    if problem.nobs_pad % ndev:
+        raise ValueError(f"nobs_pad={problem.nobs_pad} not divisible by "
+                         f"{ndev} ranks")
+    return GroupProblem(
+        cams=_host(problem.cams), points=_host(problem.points),
+        cam_idx=problem.cam_idx.cpu().numpy(),
+        pnt_idx=problem.pnt_idx.cpu().numpy(), pt2d=_host(problem.pt2d),
+        w=_host(problem.w), ndev=ndev, nobs=problem.nobs,
+        dtype=problem.dtype, device_type=problem.cams.device.type,
+        name=problem.name)
+
+
+@dataclasses.dataclass
 class MeshShard(BAProblem):
     """One rank's shard of a problem, which the drivers
     (`solver/lm_jit.py`, `solver/lm.py`) take as they take a
     :class:`BAProblem` and solve over ``group``
-    (:meth:`SpmdProblem.rank_shard`). Its arrays are the rank's rows and
-    points (global camera ids, local point ids); ``spmd`` holds the global
-    sizes and every shard's point and row bounds."""
-    spmd: Optional[SpmdProblem] = None
+    (:meth:`SpmdProblem.rank_shard`, :meth:`GroupProblem.rank_shard`).
+    ``spmd`` holds the global sizes and the split. ``layout`` names it:
+
+    - ``"points"`` (:class:`SpmdProblem`): the rank's rows and points,
+      global camera ids, local point ids; every point's rows on its rank;
+    - ``"cameras"`` (:class:`GroupProblem`): the rank's chunk of a
+      partitioned problem's rows, global ids, every camera and point; a
+      point's rows span ranks (`ops/spmdctx.py` sums its rows there)."""
+    spmd: Optional[_Shards] = None
     group: Optional[dist.ProcessGroup] = None
     rank: int = 0
+    layout: str = "points"
 
 
 def shard_problem_kminor(problem: BAProblem, ndev: int) -> SpmdProblem:
@@ -204,6 +300,10 @@ def shard_problem_kminor(problem: BAProblem, ndev: int) -> SpmdProblem:
     nobs, npnts = problem.nobs, problem.npnts
     if npnts < ndev:
         raise ValueError(f"npnts={npnts} < ndev={ndev}")
+    if problem.pnt_perm is not None:
+        raise ValueError("a partitioned problem (pnt_perm) is not "
+                         "point-sorted: shard it in camera groups "
+                         "(parallel/mesh.py:shard_problem, group_shards)")
     pi = problem.pnt_idx.cpu().numpy()
     w = _host(problem.w)
     if np.any(np.diff(pi[:nobs]) < 0):

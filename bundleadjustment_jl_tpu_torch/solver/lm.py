@@ -22,10 +22,11 @@ stored in the working dtype, and the tolerances come from its eps.
 It takes a mesh shard (`parallel/mesh.py:shard_problem`) as the one-shot
 driver does (`solver/lm_jit.py`): every rank runs the loop on its shard
 under `ops/spmdctx.py`'s hooks. The stage table all-reduces the camera
-sums and the trial objectives; every other scalar the host reads (the
-gradient norm, g'd, ||d||, ||x||, the predicted reduction's ||J d||^2,
-lambda_0's max Hpp, the max-time test) has its point part all-reduced, so
-the ranks take the same decisions. Rank 0 logs (``verbose``) and writes
+sums and the trial objectives (on camera groups the point sums too);
+every other scalar the host reads (the gradient norm, g'd, ||d||, ||x||,
+the predicted reduction's ||J d||^2, lambda_0's max Hpp, the max-time
+test) has its point part all-reduced where the points are the rank's own,
+so the ranks take the same decisions. Rank 0 logs (``verbose``) and writes
 the checkpoints; the result's points are the global ones on every rank.
 """
 
@@ -185,7 +186,7 @@ def _solve(problem: BAProblem, opts: LMOptions, cams, points,
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
     route = kernel_route(_whole(problem))
-    stages = solve_stages(problem.dtype)
+    stages = solve_stages(problem.dtype, problem)
     _check_lockstep(problem, route, opts.solver)
     with_jr = opts.solver == "cgls"
     verbose = opts.verbose and _rank0(problem)
@@ -233,7 +234,8 @@ def _solve(problem: BAProblem, opts: LMOptions, cams, points,
     elif opts.lam0_mode == "diag":
         lam = 1e-3 * float(torch.maximum(
             torch.max(blocks.Hcc_f.reshape(-1, 81)[:, ::10]),
-            spmdctx.pmax(torch.max(blocks.Hpp_f.reshape(-1, 9)[:, ::4]))))
+            spmdctx.pmax_points(
+                torch.max(blocks.Hpp_f.reshape(-1, 9)[:, ::4]))))
     else:
         lam = max(30.0, 1e10 / max(gnorm, 1e-300))
 
@@ -266,8 +268,8 @@ def _solve(problem: BAProblem, opts: LMOptions, cams, points,
             x0=dc_prev if (opts.pcg_warm and opts.solver == "pcg")
             else None)
         # The point parts of g'd, ||d||^2 and ||x||^2 (one all-reduce on a
-        # mesh shard; the camera parts are replicated).
-        pnt = spmdctx.psum(torch.stack([torch.sum(blocks.g_p * dp),
+        # point-aligned shard; the camera parts are replicated).
+        pnt = spmdctx.psum_points(torch.stack([torch.sum(blocks.g_p * dp),
                                         torch.sum(dp * dp),
                                         torch.sum(points ** 2)]))
         gd = torch.sum(blocks.g_c * dc) + pnt[0]

@@ -35,12 +35,16 @@ from the device (the scalars are on the host already).
 
 Both drivers take a mesh shard (`parallel/mesh.py:shard_problem`, a
 :class:`MeshShard`) as they take a problem: every rank of its group runs
-the same init and run on its point-aligned shard under `ops/spmdctx.py`'s
-hooks. The stage table all-reduces every camera-space sum; every
-point-space value the loop reads (the point parts of g'd, ||d||, ||x||,
-||J'r|| and ||J d||^2, max Hpp for lambda_0, max|W| for a float16 W, the
-CGLS and dense steps' row and point sums) goes through the hooks too, so
-every rank reads the same scalars and makes the same decisions. The route
+the same init and run on its shard under `ops/spmdctx.py`'s hooks. The
+stage table all-reduces every camera-space sum; every point-space value
+the loop reads (the point parts of g'd, ||d||, ||x||, ||J'r|| and
+||J d||^2, max Hpp for lambda_0, max|W| for a float16 W, the CGLS and
+dense steps' row and point sums) goes through the hooks too, so every
+rank reads the same scalars and makes the same decisions. On a
+point-aligned shard the points are the rank's own; on the camera groups
+of a partitioned problem (``layout = "cameras"``) every rank holds them
+all, the table all-reduces the point sums as well, and the point parts of
+the scalars are already whole. The route
 is picked from the global problem and checked across the ranks before the
 first collective (:func:`_check_lockstep`); the result holds the global
 points on every rank; rank 0 writes the checkpoints, of the global
@@ -87,8 +91,9 @@ from bundleadjustment_jl_tpu_torch.utils.checkpoint import CheckpointManager
 # of a driver from the switch and size gates beside it (`FORCE_ROUTE`
 # there sets them to force a route). Beside it, once per call,
 # `ops/normal.py:solve_stages` picks the stage table: the kernel wrappers, or
-# their plain twins for float64 or with `normal.PALLAS_MODE` off (the JAX
-# solver keeps XLA there), no kernel launched.
+# their plain twins for float64, a partitioned problem (`pnt_perm`) or with
+# `normal.PALLAS_MODE` off (the JAX solver keeps XLA there), no kernel
+# launched.
 
 # The step solvers (``solver`` of the host driver; ``use_<name>`` of the
 # jit drivers, "pcg" when none is set).
@@ -424,9 +429,10 @@ def _whole(problem: BAProblem):
 
 def _ranks(problem: BAProblem):
     """The context of a solve of ``problem``: its rank group's hooks
-    (`spmdctx.using`) for a mesh shard, else none."""
+    (`spmdctx.using`, with its layout) for a mesh shard, else none."""
     if isinstance(problem, MeshShard):
-        return spmdctx.using(problem.group)
+        return spmdctx.using(problem.group,
+                             camera_groups=problem.layout == "cameras")
     return contextlib.nullcontext()
 
 
@@ -463,20 +469,21 @@ def _any_rank(flag: bool, device) -> bool:
 def _check_lockstep(problem: BAProblem, route: str, solver: str) -> None:
     """On a mesh shard, raise on every rank unless every rank took the same
     route, stage table (kernels or plain twins), working dtype, step
-    solver and camera count: a rank that differed would make other
+    solver, camera count and layout: a rank that differed would make other
     collectives than the rest and hang them. Nothing off a mesh."""
     if spmdctx.GROUP is None:
         return
     dt = problem.cams.dtype
     code = torch.tensor(
-        [ROUTES.index(route), normal.PALLAS_MODE and dt != torch.float64,
+        [ROUTES.index(route), not normal.plain_route(dt, problem),
          list(DTYPES.values()).index(dt), SOLVERS.index(solver),
-         problem.ncams], dtype=torch.float64, device=problem.cams.device)
+         problem.ncams, spmdctx.CAMERA_GROUPS],
+        dtype=torch.float64, device=problem.cams.device)
     hi, lo = spmdctx.pmax(code), -spmdctx.pmax(-code)
     if not torch.equal(hi, lo):
         raise RuntimeError(
             f"the ranks' solves differ (route, kernels, dtype, solver, "
-            f"cameras): between {lo.tolist()} and {hi.tolist()}")
+            f"cameras, layout): between {lo.tolist()} and {hi.tolist()}")
 
 
 def _setup(problem: BAProblem, cams, points, *, max_iters, lam0,
@@ -486,7 +493,8 @@ def _setup(problem: BAProblem, cams, points, *, max_iters, lam0,
            ls_max, facto_dtype, pcg_warm) -> _Setup:
     """Check the options and resolve them (``None`` tolerances to the
     reference defaults in the working dtype); pick the route
-    (`kernel_route` of the global problem) and the stage table once. On
+    (`kernel_route` of the global problem) and the stage table
+    (`solve_stages` of the problem: plain for a partitioned one) once. On
     a mesh shard it runs inside the rank group's hooks (:func:`_ranks`),
     so the stage table carries the all-reduces; the dense step's memory
     check judges the rank's own shard."""
@@ -530,7 +538,7 @@ def _setup(problem: BAProblem, cams, points, *, max_iters, lam0,
     floor_dtype = facto_dtype if facto_dtype is not None else dt
     return _Setup(
         problem=problem, route=kernel_route(_whole(problem)),
-        stages=solve_stages(dt), solver=solver,
+        stages=solve_stages(dt, problem), solver=solver,
         facto_dtype=facto_dtype, w_dtype=w_assemble_dtype(facto_dtype),
         narrow=narrow, ft=ft, rnd=rnd, tol=tol, lam0=lam0,
         lam0_mode=lam0_mode,
@@ -565,7 +573,8 @@ def _lm_init(cfg: _Setup, cams, points) -> _State:
     if cfg.lam0_mode == "diag":
         init.append(torch.maximum(
             torch.max(blocks.Hcc_f.reshape(-1, 81)[:, ::10]),
-            spmdctx.pmax(torch.max(blocks.Hpp_f.reshape(-1, 9)[:, ::4]))))
+            spmdctx.pmax_points(
+                torch.max(blocks.Hpp_f.reshape(-1, 9)[:, ::4]))))
     init = torch.stack(init).to(torch_dtype(ft)).cpu().numpy()
     obj, gnorm = ft(init[0]), ft(init[1])
     with np.errstate(all="ignore"):
@@ -605,9 +614,9 @@ def _lm_run(cfg: _Setup, st: _State, it_max: int) -> None:
             x0=st.dc_carry if cfg.pcg_warm else None,
             stagnation_window=cfg.stagnation)
 
-        # The point parts of g'd, ||d||^2 and ||x||^2 (one all-reduce in a
-        # multi-process solve; the camera parts are replicated).
-        pnt = spmdctx.psum(torch.stack([torch.sum(blocks.g_p * dp),
+        # The point parts of g'd, ||d||^2 and ||x||^2 (one all-reduce on
+        # point-aligned shards; the camera parts are replicated).
+        pnt = spmdctx.psum_points(torch.stack([torch.sum(blocks.g_p * dp),
                                         torch.sum(dp * dp),
                                         torch.sum(points ** 2)]))
         gd = torch.sum(blocks.g_c * dc) + pnt[0]

@@ -47,9 +47,14 @@ from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
 _OTHER_SOLVERS = ("use_dense", "use_cgls", "use_power")
 
 
-def _options(options: dict) -> dict:
+def _options(sp, options: dict) -> dict:
     """``options`` over the one-shot driver's defaults; unknown keywords
-    raise ``TypeError``, a step solver other than PCG ``ValueError``."""
+    raise ``TypeError``, a step solver other than PCG ``ValueError``, as
+    does ``sp`` other than point-aligned shards (:class:`SpmdProblem`)."""
+    if not isinstance(sp, SpmdProblem):
+        raise ValueError(f"the spmd drivers take point-aligned shards "
+                         f"(shard_problem_kminor), not {type(sp).__name__}: "
+                         f"solve camera groups through parallel.mesh")
     unknown = sorted(set(options) - set(_OPTIONS))
     if unknown:
         raise TypeError(f"unknown options: {unknown}")
@@ -70,7 +75,7 @@ def levenberg_marquardt_spmd(
     all-reduced over ``group`` (default: the world group), which must have
     ``sp.ndev`` ranks. Every rank of the group calls it and gets the same
     result; ``points`` is the global (npnts, 3) array."""
-    opts = _options(options)
+    opts = _options(sp, options)
     return levenberg_marquardt_jit(sp.rank_shard(group),
                                    max_iters=max_iters, **opts)
 
@@ -100,7 +105,7 @@ def levenberg_marquardt_spmd_chunked(
       replicated).
 
     Without these the chunks make the one-shot solve's decisions."""
-    opts = _options(options)
+    opts = _options(sp, options)
     return levenberg_marquardt_jit_chunked(
         sp.rank_shard(group), max_iters=max_iters, chunk_iters=chunk_iters,
         max_time=max_time, checkpoint_dir=checkpoint_dir,

@@ -2,7 +2,8 @@
 the one-shot driver on one card, and count their all-reduces.
 
     torchrun --nproc-per-node N -m bundleadjustment_jl_tpu_torch.spmd_profile \\
-        [--problems dubrovnik356@spmd,pcg,cgls,dense final4585@spmd,pcg] \\
+        [--problems dubrovnik356@spmd,pcg,groups-pcg,cgls,dense \\
+                    final4585@spmd,pcg,groups-pcg] \\
         [--repeats 5] [--device cuda]
 
 Run from the repository root. Each ``--problems`` entry is a problem and,
@@ -10,7 +11,11 @@ after ``@``, its drivers: ``spmd`` is the spmd driver
 (`solver/lm_spmd.py` on ``shard_problem_kminor``), and a step solver
 (``pcg``, ``power``, ``dense``, ``cgls``) is the mesh path
 (`parallel/mesh.py`: ``shard_problem`` of ``make_mesh(N)``) through
-``levenberg_marquardt_jit`` with that step. Each rank builds each problem
+``levenberg_marquardt_jit`` with that step; ``groups-<step>`` is the same
+on the camera groups of ``partition_problem(problem, N)`` (the plain
+route, every point on every rank, the point sums all-reduced too; the
+line's ``layout`` is ``cameras``, else ``points``). Each rank builds each
+problem
 the way the bench leg does (``bench.make_problem``, seed 0; a
 ``synthetic:k=v,...`` spec takes the CLI's synthetic problem instead) and
 solves it with ``bench.py``'s options: for each driver a warm-up, then
@@ -48,13 +53,18 @@ from bundleadjustment_jl_tpu_torch import bench
 from bundleadjustment_jl_tpu_torch.ops import normal, spmdctx
 from bundleadjustment_jl_tpu_torch.parallel.mesh import (
     make_mesh, shard_problem)
+from bundleadjustment_jl_tpu_torch.parallel.partition import (
+    partition_problem)
 from bundleadjustment_jl_tpu_torch.parallel.spmd import shard_problem_kminor
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
     SOLVERS, STATUS_NAMES, levenberg_marquardt_jit)
 from bundleadjustment_jl_tpu_torch.solver.lm_spmd import (
     levenberg_marquardt_spmd)
 
-PROBLEMS = ["dubrovnik356@spmd,pcg,cgls,dense", "final4585@spmd,pcg"]
+PROBLEMS = ["dubrovnik356@spmd,pcg,groups-pcg,cgls,dense",
+            "final4585@spmd,pcg,groups-pcg"]
+# The drivers of a camera-group mesh: "groups-" and a step solver.
+GROUPS = "groups-"
 TIMEOUT_S = 300
 
 
@@ -132,7 +142,7 @@ def profile(problem, route: str, driver: str, multi, device: str,
             repeats: int, rank: int, world: int):
     """The JSON line of one driver (module docstring) on ``problem``;
     ``multi()`` is its multi-rank solve. None on the ranks but 0."""
-    solver = "pcg" if driver == "spmd" else driver
+    solver = "pcg" if driver == "spmd" else driver.removeprefix(GROUPS)
 
     def one_shot():
         if rank == 0:
@@ -166,6 +176,7 @@ def profile(problem, route: str, driver: str, multi, device: str,
     it = res.iterations
     return {
         "problem": problem.name, "driver": driver, "solver": solver,
+        "layout": "cameras" if driver.startswith(GROUPS) else "points",
         "ranks": world, "device": device, "route": route,
         "multi_s": statistics.median(multi_t), "multi_values": multi_t,
         "first_multi_s": first,
@@ -191,19 +202,26 @@ def run(entry: str, mesh, device: str, repeats: int, rank: int,
     rank 0's lines."""
     spec, _, names = entry.partition("@")
     drivers = names.split(",") if names else ["spmd"]
-    unknown = set(drivers) - {"spmd", *SOLVERS}
+    unknown = set(drivers) - {"spmd", *SOLVERS,
+                              *(GROUPS + s for s in SOLVERS)}
     if unknown:
         raise ValueError(f"{entry}: unknown drivers {sorted(unknown)}; "
-                         f"spmd or a step solver of {SOLVERS}")
+                         f"spmd or a step solver of {SOLVERS}, alone or "
+                         f"after {GROUPS!r}")
     problem = make(spec, device)
     route = normal.kernel_route(problem)
     sp = shard_problem_kminor(problem, world) if "spmd" in drivers else None
     shard = (shard_problem(problem, mesh)
-             if set(drivers) - {"spmd"} else None)
+             if set(drivers) & set(SOLVERS) else None)
+    groups = (shard_problem(partition_problem(problem, world)[0], mesh)
+              if any(d.startswith(GROUPS) for d in drivers) else None)
     for driver in drivers:
         if driver == "spmd":
             def multi():
                 return levenberg_marquardt_spmd(sp, **bench.SOLVE_OPTS)
+        elif driver.startswith(GROUPS):
+            def multi(solver=driver.removeprefix(GROUPS)):
+                return solve(groups, solver)
         else:
             def multi(solver=driver):
                 return solve(shard, solver)

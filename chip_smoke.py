@@ -119,10 +119,28 @@ CUDA card.
    held to phase 8's bar instead (status, iterations within one,
    objective rel 1e-4, rmse within 1% of the anchor). The median seconds
    of both beside the card.
-12. The bench leg (``python -m bundleadjustment_jl_tpu_torch.bench``): its
+12. The camera-partitioned layout (``check_partition``), in the same
+   group: ``partition_problem`` of Dubrovnik-356 and LadyBug-49 into
+   PARTITION_PARTS camera groups and ``shard_problem`` of each on the
+   one-rank mesh (both timed), then each case of PARTITION_CASES
+   (Dubrovnik-356 without a mesh through the one-shot driver with pcg
+   steps; on the mesh through the one-shot driver with pcg, power and
+   cgls steps, the chunked and the host driver with pcg; LadyBug-49 on the
+   mesh with dense steps) with ``bench.py``'s options: a warm-up of the
+   partitioned and the unpartitioned problem, then PARTITION_REPEATS
+   solves of each in turns. A partitioned problem takes the plain route:
+   its solves launch no kernel; the unpartitioned ones' launches are
+   checked as in 3. Each partitioned solve is held to phase 8's bar
+   against the same call on the unpartitioned problem (and the one-shot
+   pcg solve against phase 3's): status, iterations within one (not for
+   dense), objective rel 1e-4, rmse within 1% of the anchor. Then LadyBug-49 in
+   float64, partitioned, on the card (no launch) makes the decisions of
+   the same solve on the CPU (status, iterations, objective rel 1e-9).
+   The median seconds of both beside the card.
+13. The bench leg (``python -m bundleadjustment_jl_tpu_torch.bench``): its
    JSON line, once, with the launches of its run checked (route A's
    kernels and the probe).
-13. Prints the run's wall time, the kernel table as one JSON line (each
+14. Prints the run's wall time, the kernel table as one JSON line (each
    kernel's time beside its least time on the card, ``bench.bound_ms``,
    from this run's shapes, at each problem; the plans' build times and
    the repeat checks under their kernels), the card line, and last
@@ -300,6 +318,18 @@ MESH_CASES = (
     (FINAL, "jit", "pcg"))
 MESH_REPEATS = 3
 ATOMIC_SOLVERS = ("cgls", "dense")
+# Phase 12: the camera groups of a partitioned problem, and its cases
+# (problem, on the one-rank mesh, driver, step solver), each timed
+# PARTITION_REPEATS times in turns with the unpartitioned solve after a
+# warm-up.
+PARTITION_PARTS = 4
+PARTITION_CASES = (
+    ("dubrovnik356", False, "jit", "pcg"), ("dubrovnik356", True, "jit", "pcg"),
+    ("dubrovnik356", True, "chunked", "pcg"),
+    ("dubrovnik356", True, "host", "pcg"),
+    ("dubrovnik356", True, "jit", "power"),
+    ("dubrovnik356", True, "jit", "cgls"), ("ladybug49", True, "jit", "dense"))
+PARTITION_REPEATS = 3
 # Each route's metric-name suffix and "route" entry in its solve line.
 ROUTE_TAGS = {"fused": ("", None), "sorted": ("_sorted", "camera_sorted"),
               "scatter_split": ("_scatter_split", "scatter_split"),
@@ -860,11 +890,19 @@ def check_launches(name, res, counts, w_counts, route, facto,
                              f"{w_counts} != {w_expect}")
 
 
+def decisions(res):
+    """``(status, iterations, objective)`` of a one-shot, chunked or
+    host-driver result."""
+    from bundleadjustment_jl_tpu_torch.solver.lm import LMResult
+    status = res.status if isinstance(res, LMResult) else res.status_name()
+    return status, res.iterations, res.objective
+
+
 def agree(res, ref) -> bool:
-    """Same status, iterations within one, objective to rel 1e-4."""
-    return (res.status_name() == ref.status_name()
-            and abs(res.iterations - ref.iterations) <= 1
-            and abs(res.objective - ref.objective) <= 1e-4 * ref.objective)
+    """Same status, iterations within one, objective to rel 1e-4 (results
+    of any driver)."""
+    (s1, i1, o1), (s2, i2, o2) = decisions(res), decisions(ref)
+    return s1 == s2 and abs(i1 - i2) <= 1 and abs(o1 - o2) <= 1e-4 * o2
 
 
 def agree_decisions(res, ref) -> bool:
@@ -1328,7 +1366,7 @@ def spmd_lines(name, problem, group, launches_total, card):
 @contextlib.contextmanager
 def nccl_group():
     """An NCCL process group of one rank on the card (a localhost store)
-    for phases 10 and 11; destroyed after."""
+    for phases 10 to 12; destroyed after."""
     from datetime import timedelta
 
     import torch.distributed as dist
@@ -1496,6 +1534,151 @@ def check_mesh(final, launches_total, card):
                                      f"differs from the no-mesh solve")
         del shard, problem
     return lines
+
+
+def check_partition(solves, launches_total, card):
+    """Phase 12: each case of PARTITION_CASES on ``partition_problem`` of
+    its problem (no mesh, or the shard of the one-rank mesh, phase 10's
+    NCCL group) against the same call on the unpartitioned problem: a
+    warm-up of each, PARTITION_REPEATS solves of each in turns. The
+    partitioned solves launch nothing (the plain route); the unpartitioned
+    ones' launches are checked (``check_launches``) and added to
+    ``launches_total``. Each partitioned solve ``agree``s with the
+    unpartitioned one (and phase 3's ``solves`` for the one-shot pcg
+    solve; dense: the objective within rel 1e-4, its iterations not
+    held, phase 8's bar), solved, its rmse within 1% of the anchor. Then
+    the float64
+    check (``check_partition_f64``). Returns the JSON lines it prints."""
+    import torch
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.ops import _cuda, normal
+    from bundleadjustment_jl_tpu_torch.parallel import (
+        make_mesh, partition_problem, shard_problem)
+
+    mesh = make_mesh(1)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return time.perf_counter() - t, out
+
+    lines = []
+    for name in dict.fromkeys(case[0] for case in PARTITION_CASES):
+        problem = bench.make_problem(name, 0)
+        route = normal.kernel_route(problem)
+        part_s, (part, _) = timed(
+            lambda: partition_problem(problem, PARTITION_PARTS))
+        shard_s, shard = timed(lambda: shard_problem(part, mesh))
+        if shard.layout != "cameras" or part.pnt_perm is None:
+            raise AssertionError(f"{name}: the partitioned shard's layout "
+                                 f"is {shard.layout}")
+        for _, on_mesh, driver, solver in (c for c in PARTITION_CASES
+                                           if c[0] == name):
+            target = shard if on_mesh else part
+            tag = (f"{name}_part{PARTITION_PARTS}"
+                   f"{'_mesh' if on_mesh else ''}_{driver}_{solver}")
+            first_s = timed(lambda: run_solver(target, solver, driver))[0]
+            run_solver(problem, solver, driver)              # warm-up
+            one_t, part_t = [], []
+            for i in range(PARTITION_REPEATS):
+                for which in (("one", "part") if i % 2 == 0
+                              else ("part", "one")):
+                    _cuda.reset_launches()
+                    if which == "one":
+                        secs, one = timed(
+                            lambda: run_solver(problem, solver, driver))
+                        counts = dict(_cuda.LAUNCHES)
+                        check_launches(f"{tag} unpartitioned", one, counts,
+                                       dict(_cuda.W_LAUNCHES), route, None,
+                                       solver)
+                        for k, v in counts.items():
+                            launches_total[k] += v
+                        one_t.append(secs)
+                        continue
+                    secs, res = timed(
+                        lambda: run_solver(target, solver, driver))
+                    launched = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+                    if launched:
+                        raise AssertionError(f"{tag}: the partitioned solve "
+                                             f"launched {launched}")
+                    part_t.append(secs)
+            status, it, obj = decisions(res)
+            rmse = (obj / problem.nobs) ** 0.5
+            if solver == "dense":
+                # phase 8's bar: in float32 near convergence the dense
+                # steps are rounding noise (in both packages), so the
+                # iterations a reordered sum takes are not held
+                ok = abs(obj - one.objective) <= 1e-4 * one.objective
+            else:
+                ok = agree(res, one)
+            if (driver, solver) == ("jit", "pcg"):
+                ok = ok and agree(res, solves[name][True])
+            line = {"metric": tag, "route": "plain", "ranks": 1 if on_mesh
+                    else None, "parts": PARTITION_PARTS, "driver": driver,
+                    "solver": solver,
+                    "value": sorted(part_t)[len(part_t) // 2], "unit": "s",
+                    "values": part_t,
+                    "unpartitioned_value": sorted(one_t)[len(one_t) // 2],
+                    "unpartitioned_values": one_t,
+                    "unpartitioned_route": route,
+                    "partition_s": part_s, "shard_s": shard_s,
+                    "first_s": first_s, "status": status, "iterations": it,
+                    "objective": obj, "rmse_px": rmse,
+                    "unpartitioned": list(decisions(one)),
+                    "agrees": ok, "card": card}
+            print(json.dumps(line))
+            lines.append(line)
+            if status not in SOLVED or not ok \
+                    or abs(rmse - RMSE[name]) > 0.01 * RMSE[name]:
+                raise AssertionError(f"{tag}: the partitioned solve "
+                                     f"({status}, {it}, {obj}) differs from "
+                                     f"the unpartitioned {decisions(one)}")
+        del shard, part, problem
+    lines.append(check_partition_f64(card))
+    return lines
+
+
+def check_partition_f64(card):
+    """Phase 12, float64: LadyBug-49 as the default constructor builds it
+    (``make_f64``'s problem), partitioned, solved on the card (the plain
+    route: no launch) and on the CPU with bench.py's options: the same
+    status and iterations, the objective within rel 1e-9 (the card's
+    ``index_add_`` sums with atomics). Returns its JSON line."""
+    import torch
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
+    from bundleadjustment_jl_tpu_torch.ops import _cuda
+    from bundleadjustment_jl_tpu_torch.parallel import partition_problem
+
+    kw = dict(bench.PROBLEMS["ladybug49"], noise_px=1.0, perturb=2e-2,
+              seed=0, pad_obs_to=512)
+    part, cpu = (partition_problem(synthetic_bal(**kw, device=dev)[0],
+                                   PARTITION_PARTS)[0]
+                 for dev in ("cuda", "cpu"))
+    bench.solve_cfg(part)                                   # warm-up
+    _cuda.reset_launches()
+    secs, res = bench.timed_solve(part)
+    launched = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    t0 = time.perf_counter()
+    ref = run_solver(cpu, "pcg", "jit")
+    cpu_s = time.perf_counter() - t0
+    line = {"metric": f"ladybug49_part{PARTITION_PARTS}_f64",
+            "route": "plain", "value": secs, "unit": "s", "cpu_s": cpu_s,
+            "status": res.status_name(), "iterations": res.iterations,
+            "objective": res.objective,
+            "cpu": [ref.status_name(), ref.iterations, ref.objective],
+            "launches": launched, "card": card}
+    print(json.dumps(line))
+    if launched or part.dtype != torch.float64 or not part.cams.is_cuda:
+        raise AssertionError(f"ladybug49 f64 partitioned: {part.dtype} on "
+                             f"{part.cams.device}, launched {launched}")
+    if (res.status, res.iterations) != (ref.status, ref.iterations) or abs(
+            res.objective - ref.objective) > 1e-9 * ref.objective:
+        raise AssertionError("ladybug49 f64 partitioned: the card's "
+                             "decisions differ from the CPU's")
+    return line
 
 
 def check_solvers(solves, launches_total, card):
@@ -2163,6 +2346,12 @@ def main() -> int:
         mesh = check_mesh(final, launches, card)
         del final
         print(json.dumps({"phase11_s": time.perf_counter() - t0}))
+        print(f"[partition] partition_problem into {PARTITION_PARTS} "
+              f"camera groups: no mesh and the one-rank mesh against the "
+              f"unpartitioned solve")
+        t0 = time.perf_counter()
+        partition = check_partition(solves, launches, card)
+        print(json.dumps({"phase12_s": time.perf_counter() - t0}))
     check_bench(launches)
     for k, v in launches.items():
         if v == 0 and k not in SCHUR_CHECK_ONLY:
@@ -2175,6 +2364,7 @@ def main() -> int:
     print(f"[wall] {time.perf_counter() - wall0:.1f} s")
     print(json.dumps({"probe": probe, "f64_solve": f64, "chunked": chunked,
                       "drivers": drivers, "spmd": spmd, "mesh": mesh,
+                      "partition": partition,
                       "f64_anchor": precision["f64_anchor"],
                       "cli": [ln["stats"] for ln in surface["cli"]]}))
     print(json.dumps({"kernels": kernel_table(launches, schur_launches, errs,

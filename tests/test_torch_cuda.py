@@ -33,6 +33,11 @@ from bundleadjustment_jl_tpu_torch.ops.normal import ROUTES, inv3x3_damped_flat
 from bundleadjustment_jl_tpu_torch.solver import lm, lm_jit
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import levenberg_marquardt_jit
 
+# One intra-op thread: xdist runs test files side by side, one worker a
+# core or so, and torch's default pool (a thread a core in every worker)
+# oversubscribes the cores.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 
 
@@ -330,6 +335,39 @@ def test_default_f64_solve_on_card_takes_the_plain_route():
                                   **opts)
     assert got.status == ref.status and got.iterations == ref.iterations
     assert got.objective == pytest.approx(ref.objective, rel=1e-9)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_partitioned_solve_on_card_takes_the_plain_route(dtype):
+    """A partitioned problem (camera groups, ``pnt_perm``) on the card
+    launches no kernel in either dtype. In float64 it makes the CPU
+    solve's decisions (the same status and iterations, objective within
+    rel 1e-9); in float32 the unpartitioned kernel-route solve's (status,
+    iterations within one, objective within rel 1e-4)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    from bundleadjustment_jl_tpu_torch.parallel import partition_problem
+    kw = dict(ncams=12, npnts=900, obs_per_pnt=4, seed=3, noise_px=1.0,
+              perturb=2e-2, dtype=dtype)
+    opts = dict(max_iters=30, lam0_mode="diag")
+    card, _ = partition_problem(synthetic_bal(**kw)[0], 4)
+    assert card.cams.is_cuda and card.pnt_perm is not None
+    assert normal.solve_stages(card.dtype, card) is normal.PLAIN
+    _cuda.reset_launches()
+    got = levenberg_marquardt_jit(card, **opts)
+    assert not any(_cuda.LAUNCHES.values()), dict(_cuda.LAUNCHES)
+    if dtype == "float64":
+        ref = levenberg_marquardt_jit(partition_problem(
+            synthetic_bal(**kw, device="cpu")[0], 4)[0], **opts)
+        assert (got.status, got.iterations) == (ref.status, ref.iterations)
+        assert got.objective == pytest.approx(ref.objective, rel=1e-9)
+    else:
+        ref = levenberg_marquardt_jit(synthetic_bal(**kw)[0], **opts)
+        assert any(_cuda.LAUNCHES.values())
+        assert got.status == ref.status
+        assert abs(got.iterations - ref.iterations) <= 1
+        assert got.objective == pytest.approx(ref.objective, rel=1e-4)
 
 
 @pytest.mark.cuda

@@ -48,6 +48,11 @@ from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
     MAX_ITER, MAX_TIME, STATUS_NAMES, levenberg_marquardt_jit,
     levenberg_marquardt_jit_chunked)
 
+# One intra-op thread: xdist runs test files side by side, one worker a
+# core or so, and torch's default pool (a thread a core in every worker)
+# oversubscribes the cores.
+torch.set_num_threads(1)
+
 P9 = dict(ncams=8, npnts=60, obs_per_pnt=3, noise_px=0.4, perturb=2e-3,
           seed=9)
 P10 = dict(ncams=6, npnts=40, obs_per_pnt=3, noise_px=0.3, perturb=2e-3,

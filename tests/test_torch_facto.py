@@ -51,6 +51,11 @@ from bundleadjustment_jl_tpu_torch.ops.stream_probe import (
 from bundleadjustment_jl_tpu_torch.solver import lm_jit
 from bundleadjustment_jl_tpu_torch.utils.timing import timed
 
+# One intra-op thread: xdist runs test files side by side, one worker a
+# core or so, and torch's default pool (a thread a core in every worker)
+# oversubscribes the cores.
+torch.set_num_threads(1)
+
 LAM = 0.37
 DTYPES = {"bf16": (torch.bfloat16, jnp.bfloat16),
           "f16": (torch.float16, jnp.float16)}

@@ -50,6 +50,11 @@ from bundleadjustment_jl_tpu_torch.ops.normal import (
     GNBlocks, assemble_blocks, kernel_route)
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import levenberg_marquardt_jit
 
+# One intra-op thread: xdist runs test files side by side, one worker a
+# core or so, and torch's default pool (a thread a core in every worker)
+# oversubscribes the cores.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 LAM = 0.37
 B_ROUTES = ["scatter_split", "sorted_relin"]

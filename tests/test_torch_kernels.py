@@ -36,6 +36,11 @@ from bundleadjustment_jl_tpu_torch.ops.normal import assemble_blocks
 from bundleadjustment_jl_tpu_torch.ops.schur import (
     back_substitute_quad, reduce_and_diag, schur_matvec)
 
+# One intra-op thread: xdist runs test files side by side, one worker a
+# core or so, and torch's default pool (a thread a core in every worker)
+# oversubscribes the cores.
+torch.set_num_threads(1)
+
 F32_TOL = dict(rtol=1e-4, atol=1e-3)
 
 

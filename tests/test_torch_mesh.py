@@ -61,6 +61,11 @@ from bundleadjustment_jl_tpu_torch.solver import (
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
     STATUS_NAMES, levenberg_marquardt_jit, levenberg_marquardt_jit_chunked)
 
+# One intra-op thread: xdist runs test files side by side, one worker a
+# core or so, and torch's default pool (a thread a core in every worker)
+# oversubscribes the cores.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 PROBLEM = dict(ncams=8, npnts=64, obs_per_pnt=4, noise_px=0.3, perturb=2e-2,
                seed=21, pad_obs_to=128)

@@ -25,6 +25,11 @@ from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.ops.chain import linearize, project_residual
 from bundleadjustment_jl_tpu_torch.ops.residuals import objective, residuals
 
+# One intra-op thread: xdist runs test files side by side, one worker a
+# core or so, and torch's default pool (a thread a core in every worker)
+# oversubscribes the cores.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 LAYOUT = ("cams", "points", "cam_idx", "pnt_idx", "pt2d", "w", "pnt_starts",
           "cam_perm", "cam_starts")

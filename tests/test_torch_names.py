@@ -23,9 +23,16 @@ from bundleadjustment_jl_tpu.models import camera as jax_camera
 from bundleadjustment_jl_tpu.ops import jacobian as jax_jacobian
 from bundleadjustment_jl_tpu.ops import normal as jax_normal
 from bundleadjustment_jl_tpu.ops import schur as jax_schur
+from bundleadjustment_jl_tpu.parallel import partition as jax_partition
 from bundleadjustment_jl_tpu_torch.models import camera
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.ops import jacobian, normal, schur
+from bundleadjustment_jl_tpu_torch.parallel import partition_problem
+
+# One intra-op thread: xdist runs test files side by side, one worker a
+# core or so, and torch's default pool (a thread a core in every worker)
+# oversubscribes the cores.
+torch.set_num_threads(1)
 
 # The pcg modules by name: each package's `ops` exports its function `pcg`.
 jax_pcg = importlib.import_module("bundleadjustment_jl_tpu.ops.pcg")
@@ -202,3 +209,20 @@ def test_project_p1_matches_jax(dtype):
         jax_camera.project(jnp.asarray(cams[1]), jnp.asarray(X[1])),
         rtol=rel * 10)
     assert torch.isfinite(p1).all()
+
+
+@pytest.mark.parametrize("dtype", list(DTYPES))
+def test_partition_problem_matches_jax(dtype):
+    """`parallel.partition_problem` against the JAX function at an odd part
+    count: every array, ``part_of_cam``, the sizes and the name."""
+    jp, tp, _ = _problems(dtype)
+    jq, jpart = jax_partition.partition_problem(jp, 3)
+    tq, tpart = partition_problem(tp, 3)
+    np.testing.assert_array_equal(tpart, jpart)
+    for k in BAProblem.FIELDS[:-1]:
+        np.testing.assert_array_equal(getattr(tq, k).numpy(),
+                                      np.asarray(getattr(jq, k)), err_msg=k)
+    assert tq.dtype == tp.dtype
+    assert (tq.nobs, tq.nobs_pad, tq.ncams, tq.npnts) == (
+        jq.nobs, jq.nobs_pad, jq.ncams, jq.npnts)
+    assert tq.name == f"{tp.name}-part3"

@@ -119,6 +119,11 @@ from bundleadjustment_jl_tpu_torch.solver import lm_jit
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
     levenberg_marquardt_jit, levenberg_marquardt_jit_chunked)
 
+# One intra-op thread: xdist runs test files side by side, one worker a
+# core or so, and torch's default pool (a thread a core in every worker)
+# oversubscribes the cores.
+torch.set_num_threads(1)
+
 # The JAX tests/test_benchmark.py problems and options.
 LOW_STAGE = dict(ncams=8, npnts=80, obs_per_pnt=4, noise_px=0.5,
                  perturb=3e-2, seed=41)

@@ -24,6 +24,11 @@ from bundleadjustment_jl_tpu_torch.ops.pcg import (
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
     MAX_ITER, levenberg_marquardt_jit)
 
+# One intra-op thread: xdist runs test files side by side, one worker a
+# core or so, and torch's default pool (a thread a core in every worker)
+# oversubscribes the cores.
+torch.set_num_threads(1)
+
 
 def to_port(jp):
     return BAProblem.from_numpy(

@@ -64,6 +64,11 @@ from bundleadjustment_jl_tpu_torch.solver import (
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
     STATUS_NAMES, levenberg_marquardt_jit)
 
+# One intra-op thread: xdist runs test files side by side, one worker a
+# core or so, and torch's default pool (a thread a core in every worker)
+# oversubscribes the cores.
+torch.set_num_threads(1)
+
 ROOT = Path(__file__).resolve().parents[1]
 # The JAX tests/test_spmd.py problem and options.
 PROBLEM = dict(ncams=11, npnts=400, obs_per_pnt=4, seed=3, perturb=2e-2,

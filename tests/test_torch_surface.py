@@ -46,6 +46,11 @@ from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
     STATUS_NAMES, levenberg_marquardt_jit, levenberg_marquardt_jit_chunked)
 from bundleadjustment_jl_tpu_torch.utils.profiling import PhaseTimers, trace
 
+# One intra-op thread: xdist runs test files side by side, one worker a
+# core or so, and torch's default pool (a thread a core in every worker)
+# oversubscribes the cores.
+torch.set_num_threads(1)
+
 FIXTURE = "tests/fixtures/problem-24-800-pre.txt.bz2"
 FIELDS = ("cams", "points", "cam_idx", "pnt_idx", "pt2d", "w", "pnt_starts",
           "cam_perm", "cam_starts")

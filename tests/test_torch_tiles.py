@@ -48,6 +48,11 @@ from bundleadjustment_jl_tpu_torch.ops import plans
 from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
 from bundleadjustment_jl_tpu_torch.ops.chain import linearize
 
+# One intra-op thread: xdist runs test files side by side, one worker a
+# core or so, and torch's default pool (a thread a core in every worker)
+# oversubscribes the cores.
+torch.set_num_threads(1)
+
 CSRC = Path(__file__).resolve().parents[1] / "bundleadjustment_jl_tpu_torch" \
     / "csrc"
 
