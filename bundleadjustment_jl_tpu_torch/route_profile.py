@@ -1,9 +1,12 @@
-"""Time the port's four kernel routes on synthetic Final-4585, and profile
-a route-B1 and a route-B2 solve, on one CUDA card.
+"""Time the port's four kernel routes on synthetic Final-4585 (or a
+capacity problem), and profile a route-B1 and a route-B2 solve, on one
+CUDA card.
 
-    python -m bundleadjustment_jl_tpu_torch.route_profile
+    python -m bundleadjustment_jl_tpu_torch.route_profile [--problem NAME]
 
-The problem is ``chip_smoke.py``'s Final-4585 (``bench.make_problem``) and
+The problem is ``chip_smoke.py``'s Final-4585 (``bench.make_problem``) or,
+named by ``--problem``, a problem of ``capacity.CAPACITY`` as its run
+builds it (``capacity.make``: ``final13682`` is the largest), in float32;
 each solve is timed as the bench leg times its (``bench.timed_solve``,
 with its options). Each route is forced by the gate settings of
 ``normal.FORCE_ROUTE``: a warm-up per route, then two timed solves per
@@ -16,6 +19,7 @@ profile; the Chrome traces go to the git-ignored kernel build directory.
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import sys
@@ -24,7 +28,7 @@ from pathlib import Path
 
 import torch
 
-from bundleadjustment_jl_tpu_torch import bench
+from bundleadjustment_jl_tpu_torch import bench, capacity
 from bundleadjustment_jl_tpu_torch.ops import _cuda, normal
 
 ORDER = ("fused", "scatter_split", "sorted", "sorted_relin")
@@ -61,7 +65,11 @@ def kernel_breakdown(trace_path: Path) -> dict:
             "kernels": {k: {"ms": ms, "launches": n} for k, (ms, n) in top}}
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="route_profile")
+    p.add_argument("--problem", default="final4585",
+                   choices=["final4585", *capacity.CAPACITY])
+    name = p.parse_args(argv).problem
     if not torch.cuda.is_available():
         print("route_profile: no CUDA card", file=sys.stderr)
         return 2
@@ -69,8 +77,8 @@ def main() -> int:
     print(f"card: {card}")
     out = _cuda.BUILD_DIR / "route_profile"
     out.mkdir(parents=True, exist_ok=True)
-    name = "final4585"
-    problem = bench.make_problem(name, 0)
+    problem = (bench.make_problem(name, 0) if name in bench.PROBLEMS
+               else capacity.make(capacity.CAPACITY[name].problem)[0])
 
     def solve_on(route):
         with forced(route):

@@ -16,8 +16,9 @@ on the camera groups of ``partition_problem(problem, N)`` (the plain
 route, every point on every rank, the point sums all-reduced too; the
 line's ``layout`` is ``cameras``, else ``points``). Each rank builds each
 problem
-the way the bench leg does (``bench.make_problem``, seed 0; a
-``synthetic:k=v,...`` spec takes the CLI's synthetic problem instead) and
+the way the bench leg does (``bench.make_problem``, seed 0; a name of
+``capacity.CAPACITY``, ``final13682`` say, the capacity run's problem, on
+either device; a ``synthetic:k=v,...`` spec the CLI's synthetic problem) and
 solves it with ``bench.py``'s options: for each driver a warm-up, then
 ``--repeats`` rounds of a one-shot solve of the whole problem with the
 same step on rank 0 (the others wait at a barrier) and the multi-rank
@@ -49,7 +50,7 @@ from datetime import timedelta
 import torch
 import torch.distributed as dist
 
-from bundleadjustment_jl_tpu_torch import bench
+from bundleadjustment_jl_tpu_torch import bench, capacity
 from bundleadjustment_jl_tpu_torch.ops import normal, spmdctx
 from bundleadjustment_jl_tpu_torch.parallel.mesh import (
     make_mesh, shard_problem)
@@ -69,6 +70,8 @@ TIMEOUT_S = 300
 
 
 def make(spec: str, device: str):
+    if spec in capacity.CAPACITY:
+        return capacity.make(capacity.CAPACITY[spec].problem, device)[0]
     if spec.startswith("synthetic"):
         from bundleadjustment_jl_tpu_torch.cli import _parse_synthetic
         from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal

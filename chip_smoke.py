@@ -137,10 +137,29 @@ CUDA card.
    float64, partitioned, on the card (no launch) makes the decisions of
    the same solve on the CPU (status, iterations, objective rel 1e-9).
    The median seconds of both beside the card.
-13. The bench leg (``python -m bundleadjustment_jl_tpu_torch.bench``): its
+13. The capacity runs (``check_capacity``), once ``final`` and the
+   Dubrovnik-356 problems are freed: Final-13682 built by the capacity
+   recipe (``capacity.make``; 13,682 cameras, 31,193,088 padded rows; its
+   build time, row counts and K2's and K5's plans), every kernel route B1
+   launches held against its plain twin at that full size
+   (``check_capacity_kernels``: K7, K2's cam90, W C W' | W t and W op, K6
+   pnt12, K5's point direction, the W forms with W in float32 and
+   bfloat16, K4 at S = 1 and 5; the twins over point ranges of at most
+   TWIN_ROWS rows, their camera sums added in float32), each timed beside
+   its bound; then the runs of CAPACITY_SOLVES as
+   ``python -m bundleadjustment_jl_tpu_torch.capacity`` makes them
+   (Final-13682 with bfloat16 W on the chunked driver, a chunk an
+   iteration, then its first-order run, then Venice-1778 in float32 on
+   route A, three iterations a chunk), each held to the JAX package's
+   record (status, iterations within one, two with bfloat16 W, rmse
+   within 1% of the record and of sqrt(1 - nvar / (2 nobs))), the route
+   the default gates pick and the launches ``lm_jit.expected_launches``
+   gives; the timed Final-13682 solve's launches x (ms - bound) by kernel
+   form.
+14. The bench leg (``python -m bundleadjustment_jl_tpu_torch.bench``): its
    JSON line, once, with the launches of its run checked (route A's
    kernels and the probe).
-14. Prints the run's wall time, the kernel table as one JSON line (each
+15. Prints the run's wall time, the kernel table as one JSON line (each
    kernel's time beside its least time on the card, ``bench.bound_ms``,
    from this run's shapes, at each problem; the plans' build times and
    the repeat checks under their kernels), the card line, and last
@@ -330,25 +349,57 @@ PARTITION_CASES = (
     ("dubrovnik356", True, "jit", "power"),
     ("dubrovnik356", True, "jit", "cgls"), ("ladybug49", True, "jit", "dense"))
 PARTITION_REPEATS = 3
+# Phase 13: the capacity problem whose route-B1 kernels are held against
+# their plain twins at full size (`capacity.CAPACITY`), the runs solved
+# there, in order (`capacity.RUNS`; the first two solve that problem), the
+# kernel launches a timed window (each launch takes milliseconds, each
+# twin call a few hundred) and the rows a twin takes at a time: the twins
+# run over point ranges of at most TWIN_ROWS rows, about Final-4585's,
+# where phase 4 runs each twin whole beside that problem.
+CAPACITY_CHECKED = "final13682"
+CAPACITY_SOLVES = ("final13682", "final13682-firstorder", "venice1778")
+CAPACITY_REPS = 2
+TWIN_ROWS = 1 << 23
+# Entries compared at a time (`compare`, `compare_stored`): whole float64
+# copies of a W at Final-13682 (842 M entries) would take ~7 GB each.
+COMPARE_CHUNK = 1 << 26
 # Each route's metric-name suffix and "route" entry in its solve line.
 ROUTE_TAGS = {"fused": ("", None), "sorted": ("_sorted", "camera_sorted"),
               "scatter_split": ("_scatter_split", "scatter_split"),
               "sorted_relin": ("_sorted_relin", "sorted_relin")}
 
 
+def chunks(n):
+    """Slices of COMPARE_CHUNK elements covering ``range(n)``."""
+    return [slice(i, min(i + COMPARE_CHUNK, n))
+            for i in range(0, n, COMPARE_CHUNK)]
+
+
+def flat_pair(name, got, ref):
+    """``got`` and ``ref`` flattened; raise unless they have as many
+    entries."""
+    if got.numel() != ref.numel():
+        raise AssertionError(f"{name}: {tuple(got.shape)} against "
+                             f"{tuple(ref.shape)}")
+    return got.reshape(-1), ref.reshape(-1)
+
+
 def compare(name, got, ref, errs):
     """Raise unless ``got`` matches ``ref`` within TOL[name]; record the
-    max abs error."""
+    max abs error. Compared in float64, COMPARE_CHUNK entries at a time."""
     import torch
     rtol, afrac = TOL[name]
-    got, ref = got.double(), ref.double()
-    if not bool(torch.isfinite(got).all()):
-        raise AssertionError(f"{name}: non-finite kernel output")
-    diff = (got - ref).abs()
-    scale = float(ref.abs().max())
-    bound = rtol * ref.abs() + afrac * scale
-    bad = int((diff > bound).sum())
-    err = float(diff.max())
+    got, ref = flat_pair(name, got, ref)
+    parts = chunks(ref.numel())
+    scale = max(float(ref[c].abs().max()) for c in parts)
+    bad, err = 0, 0.0
+    for c in parts:
+        g, r = got[c].double(), ref[c].double()
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{name}: non-finite kernel output")
+        diff = (g - r).abs()
+        bad += int((diff > rtol * r.abs() + afrac * scale).sum())
+        err = max(err, float(diff.max()))
     print(f"  {name:10s} max_abs_err {err:.3e}  max|plain| {scale:.3e}  "
           f"rtol {rtol:g} atol {afrac:g}*max  violations {bad}")
     if bad:
@@ -364,29 +415,40 @@ def compare_stored(name, got, ref, errs):
     bit — before the store rounds them), with at most STORE_MISMATCH_MAX
     of the entries not bit-equal, and with any non-finite entries (a raw
     float16 W past 65504) at the same places; record the max abs error of
-    the finite ones."""
+    the finite ones. Compared COMPARE_CHUNK entries at a time."""
     import torch
     mant, emin = {torch.bfloat16: (7, -126), torch.float16: (10, -14)}[
         got.dtype]
     if got.dtype != ref.dtype:
         raise AssertionError(f"{name}: stored as {got.dtype}, plain "
                              f"{ref.dtype}")
-    g, r = got.float(), ref.float()
-    fin = torch.isfinite(r)
-    if not (torch.equal(fin, torch.isfinite(g))
-            and torch.equal(g[~fin], r[~fin])):
-        raise AssertionError(f"{name}: non-finite entries differ")
-    g, r = g[fin], r[fin]
-    ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp(
-        min=2.0 ** emin))) - mant)
+    got, ref = flat_pair(name, got, ref)
+    parts = chunks(ref.numel())
+    rmax, nonfinite = 0.0, 0
+    for c in parts:
+        g, r = got[c].float(), ref[c].float()
+        fin = torch.isfinite(r)
+        if not (torch.equal(fin, torch.isfinite(g))
+                and torch.equal(g[~fin], r[~fin])):
+            raise AssertionError(f"{name}: non-finite entries differ")
+        nonfinite += int((~fin).sum())
+        if bool(fin.any()):
+            rmax = max(rmax, float(r[fin].abs().max()))
     rtol, afrac = TOL[name]
-    diff = (g - r).abs()
-    bad = int((diff > ulp + rtol * r.abs()
-               + afrac * float(r.abs().max())).sum())
-    differ = int((diff != 0).sum())
-    err = float(diff.max()) if diff.numel() else 0.0
+    bad, differ, err = 0, 0, 0.0
+    for c in parts:
+        g, r = got[c].float(), ref[c].float()
+        fin = torch.isfinite(r)
+        g, r = g[fin], r[fin]
+        ulp = torch.exp2(torch.floor(torch.log2(r.abs().clamp(
+            min=2.0 ** emin))) - mant)
+        diff = (g - r).abs()
+        bad += int((diff > ulp + rtol * r.abs() + afrac * rmax).sum())
+        differ += int((diff != 0).sum())
+        if diff.numel():
+            err = max(err, float(diff.max()))
     print(f"  {name:10s} {str(got.dtype)[6:]} max_abs_err {err:.3e}  "
-          f"non-finite {int((~fin).sum())}  beyond TOL + one ulp {bad}  "
+          f"non-finite {nonfinite}  beyond TOL + one ulp {bad}  "
           f"not bit-equal {differ} of {got.numel()}")
     if bad:
         raise AssertionError(f"{name}: {bad} entries beyond TOL + one ulp")
@@ -576,8 +638,9 @@ def checker(name, problem, errs, timings, facts):
     return check
 
 
-def plan_times(name, problem, facts):
-    """Build each plan of ``problem`` twice more from scratch
+def plan_times(name, problem, facts, labels=None):
+    """Build each plan of ``problem`` (or those named in ``labels``) twice
+    more from scratch
     (``ops/plans.py``, on a copy of the problem with no plans, so shared
     pieces such as ``cam_pnt`` are built too) and record the second
     build's time (the first loads torch's sort kernels in a fresh
@@ -599,6 +662,8 @@ def plan_times(name, problem, facts):
                 p, plans.WCW_BLOCK_COLS), ("seg_prod_reduce",)),
             ("cam_row_plan", plans.build_cam_row_plan,
              ("linearize_w_only",))):
+        if labels is not None and label not in labels:
+            continue
         build(dataclasses.replace(problem, plans={}))
         torch.cuda.synchronize()
         fresh = dataclasses.replace(problem, plans={})
@@ -1178,6 +1243,234 @@ def check_facto_solves(final, launches_total):
         raise AssertionError(f"{FINAL}: routes B1 and B2 disagree with W in "
                              f"bfloat16")
     return route_a
+
+
+def twin_parts(problem):
+    """``[(lo, hi, part)]``: the point-sorted rows of ``problem`` cut at
+    point boundaries into ranges ``[lo, hi)`` of at most TWIN_ROWS rows
+    (plus the rest of a point that crosses a multiple of it), each with
+    ``part``, the problem of those rows alone (every camera and point, the
+    global ids; no segment starts or camera order, which no twin of route
+    B1 reads)."""
+    import dataclasses
+
+    import torch
+    ps = problem.pnt_starts.long()
+    n = problem.nobs_pad
+    marks = torch.tensor(range(TWIN_ROWS, n, TWIN_ROWS), dtype=ps.dtype,
+                         device=ps.device)
+    cuts = ps[torch.searchsorted(ps, marks)]
+    bounds = sorted({0, n, *cuts.tolist()})
+    return [(lo, hi, dataclasses.replace(
+        problem, cam_idx=problem.cam_idx[lo:hi],
+        pnt_idx=problem.pnt_idx[lo:hi], pt2d=problem.pt2d[lo:hi],
+        w=problem.w[lo:hi], pnt_starts=None, cam_perm=None,
+        cam_starts=None, plans={}))
+        for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+
+def summed(parts, fn):
+    """The float32 sum over ``parts`` (``twin_parts``) of ``fn(part, lo,
+    hi)``: a plain twin's camera (or disjoint point) sums, range by
+    range."""
+    total = None
+    for lo, hi, part in parts:
+        y = fn(part, lo, hi)
+        total = y if total is None else total + y
+    return total
+
+
+def stacked(parts, n, fn):
+    """``fn(part, lo, hi)``'s per-row outputs (a tuple of (k, rows)
+    arrays) over ``parts``, put side by side into (k, n) arrays."""
+    import torch
+    outs = None
+    for lo, hi, part in parts:
+        ys = fn(part, lo, hi)
+        if outs is None:
+            outs = [torch.empty((y.shape[0], n), dtype=y.dtype,
+                                device=y.device) for y in ys]
+        for o, y in zip(outs, ys):
+            o[:, lo:hi] = y
+    return tuple(outs)
+
+
+def check_capacity_kernels(name, problem, errs, facts):
+    """Phase 13, the kernels: every kernel route B1 launches against its
+    plain twin on ``problem`` at full size, phase 2's tolerances (a W
+    writer's W to those plus one ulp, STORE_MISMATCH_MAX), each compared
+    once and the twin's output freed before the next: K7 (W in float32 and
+    bfloat16), K2's cam90, and W C W' | W t and W op products with W in
+    float32 and bfloat16, K6 pnt12, K5's point direction (its right-hand
+    side form, then the matvec's, timed; W in both dtypes), K4 at S = 1
+    and 5. The kernels run on the whole problem; the twins over point
+    ranges (``twin_parts``), their camera sums added in float32. The
+    forms that read through a plan launch twice, bit-identical
+    (``check_repeat``). Each is timed with the twin (``time_pair``,
+    CAPACITY_REPS launches a window) beside its bound
+    (``bench.bound_ms``); the times go to ``facts`` under the kernel's row,
+    ``name``, by form and W dtype (``<key>@<dtype>``, K4 ``objective@S<S>``)."""
+    import torch
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.kernel_profile import trial_states
+    from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
+    from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
+    from bundleadjustment_jl_tpu_torch.ops import linearize as lz
+    from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
+    from bundleadjustment_jl_tpu_torch.ops.normal import inv3x3_damped_flat
+
+    parts = twin_parts(problem)
+    n = problem.nobs_pad
+    print(f"[capacity kernels] {name}: nobs_pad {n}, ncams {problem.ncams}, "
+          f"npnts {problem.npnts}; the twins over {len(parts)} point "
+          f"ranges of at most {TWIN_ROWS} rows")
+    cams, points = problem.cams, problem.points
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    bf16 = torch.bfloat16
+
+    def check(key, kernel, plain, form, stored=(), tols=None, timed=True,
+              **bound_kw):
+        got = kernel()
+        torch.cuda.synchronize()
+        check_repeat(key, f"{name}@{form}", kernel, got, facts)
+        ref = plain()
+        for i, (g, r) in enumerate(zip(outputs(got), outputs(ref))):
+            (compare_stored if i in stored else compare)(
+                tols[i] if tols else key, g, r, errs)
+        del ref
+        if timed:
+            kms, pms = time_pair(kernel, plain, CAPACITY_REPS)
+            w = 2 if form == "bfloat16" else 4
+            bound, by = bench.bound_ms(key, problem, w, **bound_kw)
+            tag = f"{key}@{form}"
+            facts.setdefault(KERNEL_OF[key], {}).setdefault(name, {})[
+                tag] = {"ms": kms, "plain_ms": pms, "bound_ms": bound,
+                        "bound_by": by, "twin_ranges": len(parts)}
+            print(f"  time {tag:26s} kernel {kms:.4f} ms  plain {pms:.4f} "
+                  f"ms  bound {bound:.4f} ms ({bound / kms:.3f} of it)")
+        return got
+
+    JR_t, W32 = check(
+        "linearize", lambda: lz.linearize_w_kminor(problem, cams, points),
+        lambda: stacked(parts, n, lambda p, lo, hi: lz._linearize_plain(
+            p, cams, points)), "float32")
+    W16 = check(
+        "linearize",
+        lambda: lz.linearize_w_kminor(problem, cams, points, bf16),
+        lambda: stacked(parts, n, lambda p, lo, hi: lz._linearize_plain(
+            p, cams, points, bf16)), "bfloat16", stored=(1,))[1]
+    hc90 = check(
+        "cam_reduce_cam90", lambda: fs.cam_reduce_cam90(JR_t, problem),
+        lambda: summed(parts, lambda p, lo, hi: fs._cam_reduce_cam90_plain(
+            JR_t[:, lo:hi], p)), "float32")
+    hp12 = check(
+        "seg_prod_pnt12", lambda: sr.jtj_pnt_reduce(JR_t, problem),
+        lambda: summed(parts, lambda p, lo, hi: sr._jtj_pnt_plain(
+            JR_t[:, lo:hi], p)), "float32")
+    del JR_t
+    # Damped point blocks as the solver forms them (lambda_0, "diag").
+    lam = 1e-3 * float(torch.maximum(hc90[:, :81:10].max(),
+                                     hp12[:, :9:4].max()))
+    hpp_inv = inv3x3_damped_flat(hp12[:, :9].reshape(-1), lam)
+    g_p = hp12[:, 9:12].reshape(-1).contiguous()
+    t = torch.einsum("pab,pb->pa", hpp_inv.reshape(-1, 3, 3),
+                     g_p.reshape(-1, 3))
+    v = torch.randn((problem.ncams, 9), generator=gen, device="cuda")
+    for form, W in (("float32", W32), ("bfloat16", W16)):
+        check("cam_reduce",
+              lambda: fs.cam_reduce_wcw_rhs(W, problem, hpp_inv, t),
+              lambda: summed(parts, lambda p, lo, hi:
+                             fs._cam_reduce_wcw_rhs_plain(
+                                 W[:, lo:hi], p, hpp_inv, t)), form)
+        for kw, timed in ((dict(hpp_inv_f=hpp_inv, add_f=g_p, sign=-1.0),
+                           False), (dict(hpp_inv_f=hpp_inv), True)):
+            tp = check(
+                "seg_block_point",
+                lambda: sr.wtv_point_reduce(W, v, problem, **kw),
+                lambda: sr.fold_point(summed(parts, lambda p, lo, hi:
+                                             sr.wtv_point_sum(
+                                                 W[:, lo:hi], v, p)), **kw),
+                form, timed=timed)
+        check("cam_reduce_w_op", lambda: fs.cam_reduce_w_op(W, problem, tp),
+              lambda: summed(parts, lambda p, lo, hi:
+                             fs._cam_reduce_w_op_plain(W[:, lo:hi], p, tp)),
+              form)
+    del W32, W16
+    for S in OBJECTIVE_TIMED:
+        cams_all, pts_all = trial_states(cams, points, S)
+        check("objective",
+              lambda: fa.objective_scatter(problem, cams_all, pts_all),
+              lambda: summed(parts, lambda p, lo, hi: fa._objective_plain(
+                  p, cams_all, pts_all)), f"S{S}", scales=S)
+    torch.cuda.empty_cache()
+
+
+def launch_gaps(name, facts, line):
+    """For each form timed at ``name`` in phase 13 in the run's W storage
+    (``line``: its capacity line), the run's launches of it and launches x
+    (ms - bound): the ms a solve loses to the gap between the kernel and
+    its bound. Added to the form's entry in ``facts``; printed worst
+    first."""
+    from bundleadjustment_jl_tpu_torch.ops._cuda import W_READERS, W_WRITERS
+    w_dtype = line["facto_dtype"] or "float32"
+    rows = []
+    for row in facts.values():
+        for tag, entry in row.get(name, {}).items():
+            key, _, form = tag.partition("@")
+            if form != ("S1" if key == "objective" else w_dtype
+                        if key in W_READERS + W_WRITERS else "float32"):
+                continue
+            entry["launches"] = line["launches"].get(key, 0)
+            entry["gap_ms"] = entry["launches"] * (entry["ms"]
+                                                   - entry["bound_ms"])
+            rows.append((entry["gap_ms"], tag, entry["launches"]))
+    for gap, tag, count in sorted(rows, reverse=True):
+        print(f"  {name} {line['run']}: {tag:26s} {count:4d} launches x "
+              f"(ms - bound) = {gap:.2f} ms")
+
+
+def check_capacity(launches_total, card, errs, facts):
+    """Phase 13: CAPACITY_CHECKED built by the capacity recipe
+    (``capacity.make``; its build time, row counts and plans), its route-B1
+    kernels held at full size (``check_capacity_kernels``), then each run
+    of CAPACITY_SOLVES as ``capacity.run`` gives it (a warm-up and a timed
+    solve, launches counted from 0 around the timed one and added to
+    ``launches_total``), held to the JAX record, the route the default
+    gates pick and its launches (``capacity.misses``: any miss raises),
+    and the timed solve's launches x (ms - bound) by kernel form
+    (``launch_gaps``). Returns the runs' lines."""
+    import torch
+    from bundleadjustment_jl_tpu_torch import capacity
+
+    name = CAPACITY_CHECKED
+    problem, gen_s = built = capacity.make(capacity.RUNS[name].problem)
+    print(f"[capacity] {name} built in {gen_s:.1f} s: nobs {problem.nobs}, "
+          f"nobs_pad {problem.nobs_pad}, ncams {problem.ncams}, npnts "
+          f"{problem.npnts}")
+    plan_times(name, problem, facts, labels=("tile_plan", "point_blocks"))
+    check_capacity_kernels(name, problem, errs, facts)
+    problem.plans.clear()
+    del problem
+    torch.cuda.empty_cache()
+    lines = {}
+    for run in CAPACITY_SOLVES:
+        if capacity.RUNS[run].problem != capacity.RUNS[name].problem:
+            built = None
+            torch.cuda.empty_cache()
+        line = lines[run] = capacity.run(run, built=built, card=card)
+        print(json.dumps(line))
+        for k, v in line["launches"].items():
+            launches_total[k] += v
+        print(f"  {run}: {line['status']} / {line['iters']} iterations, "
+              f"rmse {line['rmse_px']:.4f} (the JAX record "
+              f"{line['record']}), route {line['route']}, solve "
+              f"{line['solve_s']:.4f} s, peak {line['peak_gb']:.2f} GB on "
+              f"{card}")
+        if line["misses"]:
+            raise AssertionError(f"{run}: {'; '.join(line['misses'])}")
+        if run == name:
+            launch_gaps(name, facts, line)
+    return lines
 
 
 def run_solver(problem, solver, driver):
@@ -2352,6 +2645,11 @@ def main() -> int:
         t0 = time.perf_counter()
         partition = check_partition(solves, launches, card)
         print(json.dumps({"phase12_s": time.perf_counter() - t0}))
+    print(f"[capacity] {CAPACITY_CHECKED}: the route-B1 kernels at full size, "
+          f"then {', '.join(CAPACITY_SOLVES)} against the JAX records")
+    t0 = time.perf_counter()
+    capacity = check_capacity(launches, card, errs, facts)
+    print(json.dumps({"phase13_s": time.perf_counter() - t0}))
     check_bench(launches)
     for k, v in launches.items():
         if v == 0 and k not in SCHUR_CHECK_ONLY:
@@ -2364,7 +2662,7 @@ def main() -> int:
     print(f"[wall] {time.perf_counter() - wall0:.1f} s")
     print(json.dumps({"probe": probe, "f64_solve": f64, "chunked": chunked,
                       "drivers": drivers, "spmd": spmd, "mesh": mesh,
-                      "partition": partition,
+                      "partition": partition, "capacity": capacity,
                       "f64_anchor": precision["f64_anchor"],
                       "cli": [ln["stats"] for ln in surface["cli"]]}))
     print(json.dumps({"kernels": kernel_table(launches, schur_launches, errs,
