@@ -3,86 +3,125 @@
 //
 // Replaces the TPU kernel `bundleadjustment_jl_tpu/ops/pallas_schur.py`
 // `_cam_scatter_kernel` as dispatched by `cam_scatter_reduce` (:1109), with
-// each product it is given:
+// each product it is given (``form``, ops/fused_schur.py:FORMS):
 //
-//   wcw_rhs (`_prod_wcw_rhs`): [sum W C W' (81) | sum W t (9)], C the
+//   0 wcw_rhs (`_prod_wcw_rhs`): [sum W C W' (81) | sum W t (9)], C the
 //           damped Hpp_inv of the row's point, t = Hpp_inv g_p: the exact
 //           Schur diagonal and the reduced right-hand side in one pass
 //                                                             -> (ncams, 90)
-//   w_op    (`_prod_w_op`):   sum W op[pnt]: the reduced right-hand side,
+//   1 w_op  (`_prod_w_op`):   sum W op[pnt]: the reduced right-hand side,
 //           the two-pass matvec's camera pass and the |J d|^2 cross term
 //           when there is no camera-sorted W                  -> (ncams, 9)
-//   wcw     (`_prod_wcw`):    sum W C W': the Schur diagonal   -> (ncams, 81)
-//   cam90   (`_prod_cam90`):  [Jc'Jc (81) | Jc'r (9)] over JR: [Hcc | g_c]
+//   2 wcw   (`_prod_wcw`):    sum W C W': the Schur diagonal   -> (ncams, 81)
+//   3 cam90 (`_prod_cam90`):  [Jc'Jc (81) | Jc'r (9)] over JR: [Hcc | g_c]
 //           of the split assembly                             -> (ncams, 90)
 //
-// Design (cam_prod.cuh, ba_launch_cam_tiles): the rows are read in point
-// order, one block per tile of BA_TILE_ROWS rows, staged in shared memory
-// with coalesced 16 B copies; a thread per run (one camera's rows within
-// the tile) sums in registers and writes K partial sums per run (45 + 9
-// for the d90 products, 45 for wcw, 9 for w_op); a second pass sums each
-// camera's runs in a fixed order. No atomics, no camera table, so no bound
-// on the camera count; plan `ops/plans.py:TilePlan`, built once per
-// problem. R = 512 and why: cam_prod.cuh. The TPU kernel's one-hot camera
-// scatter into a VMEM accumulator has no counterpart.
+// Design (cam_pass.cuh, ba_launch_cam_pass): point-order tiles cut at
+// point boundaries, staged with cp.async, walked by a fixed
+// number of blocks that keep per-camera sums of their own in shared
+// memory, then summed per camera in block order. Past shared memory, W op
+// writes each run's sums in tile order and sums each camera's runs, and
+// the 45- and 54-sum products write each row's planes as a record in tile
+// order and reduce each camera's records a block a camera. The path is
+// chosen per call from the problem's sizes (ops/plans.py:cam_pass_path). No atomics, no
+// camera table, so no bound on the camera count; plan
+// `ops/plans.py:TilePlan`, built once per problem.
 //
 // W is read in its storage type (float, bf16 or f16: w_dtype, w_store.cuh)
 // and widened at the load; sums are float.
 //
 // Bound: the least traffic reads each row's W (108 B in f32, 54 B in bf16 /
-// f16) or Jc + r (80 B) once (147 MB of f32 W at Dubrovnik-356, 1.0 GB at
-// Final-4585), plus the point operands; ~250 FMA a row for the 9x9
-// products, 27 for w_op. This design adds the run partials, 2 K 4 B a run:
-// at Final-4585 about one run a row, so 72 B a row for w_op and 432 B for
-// the d90 products, which then bound it.
-#include "cam_prod.cuh"
+// f16) or Jc + r (80 B) once, plus the point operands; ~250 FMA a row for
+// the 9x9 products, 27 for w_op. The per-block sums add 2 G ncams K 4 B a
+// call; the per-run sums 36 B a run, written and read; the records a
+// 32 B-rounded record a row, written and read (64 B for bf16 W, 128 B for
+// f32 W, 96 B for Jc | r), and a gather of the point operands.
+#include "cam_pass.cuh"
 
-// W (27, n) planes in storage w_dtype; hpp_inv (npnts, 9); t (npnts, 3);
-// partial (nruns, 54) scratch; out (ncams, 90).
-extern "C" int ba_cam_reduce_wcw_rhs(const void* W, int w_dtype,
-                                     const int* pnt_idx,
-                                     const float* hpp_inv, const float* t,
-                                     const BaTilePlan* plan, int ncams,
-                                     long long n, float* partial, float* out,
-                                     void* stream) {
-  return ba_with_w_rows(W, w_dtype, n, pnt_idx, hpp_inv, t, [&](auto in) {
-    return ba_launch_cam_tiles<ProdWcwRhs>(in, plan, partial, ncams, out,
-                                           stream);
+namespace {
+
+// f.template operator()<Prod>() for the product of ``form``.
+template <class F>
+int ba_with_form(int form, F&& f) {
+  switch (form) {
+    case 0:
+      return f(ProdWcwRhs{});
+    case 1:
+      return f(ProdWOp{});
+    case 2:
+      return f(ProdWcw81{});
+    case 3:
+      return f(ProdCam90{});
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// f(tag) for the storage type of X: W's types, or float alone for cam90
+// (JR).
+template <class F>
+int ba_with_x_type(int form, int x_dtype, F&& f) {
+  if (form == 3) {
+    if (x_dtype != 0) return static_cast<int>(cudaErrorInvalidValue);
+    return f(static_cast<float*>(nullptr));
+  }
+  return ba_with_w_type(x_dtype, f);
+}
+
+}  // namespace
+
+// X: W (27, n) in storage x_dtype (forms 0-2) or JR (26, n) float (form
+// 3), point-sorted; a, b the per-point operands of the form (wcw_rhs:
+// hpp_inv (npnts, 9), t (npnts, 3); w_op: op (npnts, 3); wcw: hpp_inv;
+// cam90: none); path and nblocks of ops/plans.py:cam_pass_path; scratch
+// the path's (nblocks, ncams, K) f32 slices, (nruns, 9) f32 partials or
+// (n, record bytes) records; out (ncams, d_out).
+extern "C" int ba_cam_reduce(int form, const void* X, int x_dtype,
+                             const int* pnt_idx, const float* a,
+                             const float* b, const BaTilePlan* plan,
+                             int ncams, long long n, int path, int nblocks,
+                             void* scratch, float* out, void* stream) {
+  return ba_with_form(form, [&](auto prod) {
+    using Prod = decltype(prod);
+    return ba_with_x_type(form, x_dtype, [&](auto tag) {
+      using T = BA_W_TYPE(tag);
+      if constexpr (std::is_same<Prod, ProdCam90>::value &&
+                    !std::is_same<T, float>::value) {
+        return static_cast<int>(cudaErrorInvalidValue);
+      } else {
+        return ba_launch_cam_pass<Prod, T>(
+            BaRows<T>{static_cast<const T*>(X), n, pnt_idx, a, b}, *plan,
+            ncams, path, nblocks, scratch, out, stream);
+      }
+    });
   });
 }
 
-// W (27, n) in storage w_dtype; op (npnts, 3); partial (nruns, 9)
-// scratch; out (ncams, 9).
-extern "C" int ba_cam_reduce_w_op(const void* W, int w_dtype,
-                                  const int* pnt_idx, const float* op,
-                                  const BaTilePlan* plan, int ncams,
-                                  long long n, float* partial, float* out,
-                                  void* stream) {
-  return ba_with_w_rows(W, w_dtype, n, pnt_idx, op, nullptr, [&](auto in) {
-    return ba_launch_cam_tiles<ProdWOp>(in, plan, partial, ncams, out,
-                                        stream);
+// Sizes of a K2 form in storage x_dtype: which 0, the dynamic shared memory
+// of its stages and per-row values (the shared accumulators come on top);
+// 1, the most dynamic shared memory its block pass may take on this card;
+// 2, a record's bytes (0 for a form without records). -1 for an unknown
+// form or storage.
+extern "C" long long ba_cam_pass_bytes(int form, int x_dtype, int which) {
+  long long got = -1;
+  ba_with_form(form, [&](auto prod) {
+    using Prod = decltype(prod);
+    return ba_with_x_type(form, x_dtype, [&](auto tag) {
+      using T = BA_W_TYPE(tag);
+      if constexpr (std::is_same<Prod, ProdCam90>::value &&
+                    !std::is_same<T, float>::value) {
+        return 0;
+      } else {
+        if (which == 0)
+          got = BaStage<Prod, T, false>::ALL;
+        else if (which == 1)
+          got = (long long)ba_smem_limit(
+              ba_cam_pass_kernel<Prod, T, BA_EMIT_ACC>);
+        else if (which == 2)
+          got = Prod::K > 9 ? BaRec<Prod, T>::BYTES : 0;
+        return 0;
+      }
+    });
   });
-}
-
-// W (27, n) in storage w_dtype; hpp_inv (npnts, 9); partial (nruns, 45)
-// scratch; out (ncams, 81).
-extern "C" int ba_cam_reduce_wcw(const void* W, int w_dtype,
-                                 const int* pnt_idx, const float* hpp_inv,
-                                 const BaTilePlan* plan, int ncams,
-                                 long long n, float* partial, float* out,
-                                 void* stream) {
-  return ba_with_w_rows(W, w_dtype, n, pnt_idx, hpp_inv, nullptr,
-                        [&](auto in) {
-                          return ba_launch_cam_tiles<ProdWcw81>(
-                              in, plan, partial, ncams, out, stream);
-                        });
-}
-
-// JR (26, n) point-sorted; partial (nruns, 54) scratch; out (ncams, 90).
-extern "C" int ba_cam_reduce_cam90(const float* JR, const BaTilePlan* plan,
-                                   int ncams, long long n, float* partial,
-                                   float* out, void* stream) {
-  return ba_launch_cam_tiles<ProdCam90>(
-      BaRows<float>{JR, n, nullptr, nullptr, nullptr}, plan, partial, ncams,
-      out, stream);
+  return got;
 }

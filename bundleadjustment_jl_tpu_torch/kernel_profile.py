@@ -1,21 +1,28 @@
-"""Device time of each CUDA kernel that K1 (the assembly), K4 (the trial
-objectives), K5's camera direction, K6's point product and W C W', and K8
-launch, by kernel name, on one card.
+"""Device time of each CUDA kernel that K1 (the assembly), K2 (its four
+forms), K3, K4 (the trial objectives), K5's camera direction, K6's point
+product and W C W', and K8 launch, by kernel name, on one card.
 
-    python -m bundleadjustment_jl_tpu_torch.kernel_profile
+    python -m bundleadjustment_jl_tpu_torch.kernel_profile \
+        [--problems dubrovnik356,final4585] [--kernels all|camera]
 
-At synthetic Dubrovnik-356 and Final-4585 (``bench.make_problem``): K1 with
+At synthetic Dubrovnik-356 and Final-4585 (``bench.make_problem``; the
+capacity sizes of ``capacity.py``, e.g. ``final13682``, by name): K1 with
 W in float32; K4 at S = 1 and S = 5 trial states (:data:`SCALES`: a solve
 without and with its line search, ``ls_max`` 4); K6's point product over
 K7's JR; K5's camera direction and K6's W C W' over the camera-sorted W,
-and K8 writing it, in float32, bfloat16 and float16; each called
-:data:`REPS` times under ``torch.profiler`` after a warm-up. Prints one
-JSON line per problem with, per call, the device ms per call of each
-kernel it launched (the trace's kernel events,
+and K8 writing it, in float32, bfloat16 and float16; K2's cam90 over K7's
+JR and its W forms and K3 over K7's W in float32, bfloat16 and float16,
+with the path each took (``fused_schur.cam_path``; ``--kernels camera``:
+these alone); each called :data:`REPS` times under ``torch.profiler``
+after a warm-up. Prints one JSON line per problem with, per call, the
+device ms per call of each kernel it launched (the trace's kernel events,
 ``route_profile.kernel_breakdown``), and the card's name and power limit.
 A wrapper's passes are separate kernels, so this times them apart: K1's
 point pass and its camera pass, K4's row pass and sums, the range and
-run-sum passes.
+run-sum passes, K2's and K3's block pass and block sums or record writes
+and record sums. These are device times with the L2 as the previous call
+left it; ``chip_smoke.py``'s ``time_pair`` times a window of calls with
+CUDA events, host gaps between launches included.
 
 To compare two trees, run it from the root of each checkout and compare
 the JSON lines; it uses only the wrappers' public calls, so a copy of this
@@ -89,7 +96,65 @@ def trial_states(cams, points, S: int, seed: int = 0):
             (points[None] + sc[:, None, None] * dpt[None]).contiguous())
 
 
-def main() -> int:
+def make(name: str):
+    """Problem ``name`` on the card: ``bench.make_problem`` (seed 0), or a
+    capacity size of ``capacity.py`` by its name."""
+    from bundleadjustment_jl_tpu_torch import capacity
+    if name in bench.PROBLEMS:
+        return bench.make_problem(name, 0)
+    return capacity.make(name)[0]
+
+
+def camera_pass(name: str, p) -> dict:
+    """K2's four forms and K3 on ``p``: cam90 over K7's JR, the W forms
+    and K3 over K7's W in each storage dtype, device ms by kernel and the
+    path (``fused_schur.cam_path``) of each."""
+    from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
+    from bundleadjustment_jl_tpu_torch.ops import linearize as lz
+    from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
+    from bundleadjustment_jl_tpu_torch.ops.normal import inv3x3_damped_flat
+    from bundleadjustment_jl_tpu_torch.solver.lm_jit import narrow_w
+    # A tree older than fused_schur.cam_path (copied in to compare two
+    # trees in one call) has one path: None.
+    cam_path = getattr(fs, "cam_path", lambda form, p, code: None)
+    JR_t, W = lz.linearize_w_kminor(p, p.cams, p.points)
+    line = {"cam_reduce_cam90": device_ms(
+        lambda: fs.cam_reduce_cam90(JR_t, p), f"{name}_cam_reduce_cam90")}
+    paths = {"cam_reduce_cam90": cam_path("cam90", p, 0)}
+    hp12 = sr.jtj_pnt_reduce(JR_t, p)
+    del JR_t
+    hpp = inv3x3_damped_flat(hp12[:, :9].reshape(-1),
+                             1e-3 * float(hp12[:, :9:4].max()))
+    del hp12
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    t = torch.randn((p.npnts, 3), generator=gen, device="cuda")
+    v = torch.randn((p.ncams, 9), generator=gen, device="cuda")
+    for dt in (torch.float32, torch.bfloat16, torch.float16):
+        tag = str(dt)[6:]
+        Wd = narrow_w(W, dt)
+        code = _cuda.W_CODES[dt]
+        for key, form, fn in (
+                ("cam_reduce", "wcw_rhs",
+                 lambda: fs.cam_reduce_wcw_rhs(Wd, p, hpp, t)),
+                ("cam_reduce_w_op", "w_op",
+                 lambda: fs.cam_reduce_w_op(Wd, p, t)),
+                ("cam_reduce_wcw81", "wcw",
+                 lambda: fs.cam_reduce_wcw(Wd, p, hpp)),
+                ("matvec", "matvec",
+                 lambda: fs.matvec_cam_scatter(Wd, v, p, hpp))):
+            line[f"{key}@{tag}"] = device_ms(fn, f"{name}_{key}_{tag}")
+            paths[f"{key}@{tag}"] = cam_path(form, p, code)
+        del Wd
+    line["paths"] = paths
+    return line
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--problems", default="dubrovnik356,final4585")
+    ap.add_argument("--kernels", choices=("all", "camera"), default="all")
+    args = ap.parse_args(argv)
     from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
     from bundleadjustment_jl_tpu_torch.ops import linearize as lz
     from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
@@ -97,8 +162,13 @@ def main() -> int:
     from bundleadjustment_jl_tpu_torch.solver.lm_jit import narrow_w
     bench.require_card()
     card = bench.card()["nvidia_smi"]
-    for name in ("dubrovnik356", "final4585"):
-        p = bench.make_problem(name, 0)
+    for name in args.problems.split(","):
+        p = make(name)
+        if args.kernels == "camera":
+            line = {"problem": name, "card": card, **camera_pass(name, p)}
+            print(json.dumps(line), flush=True)
+            del p
+            continue
         W = fa.assemble_scatter(p, p.cams, p.points)[0]
         line = {"problem": name, "card": card,
                 "assemble@float32": device_ms(
@@ -133,8 +203,10 @@ def main() -> int:
             line[f"linearize_w_only@{tag}"] = device_ms(
                 lambda: lz.linearize_w_only(p, p.cams, p.points, dt),
                 f"{name}_linearize_w_only_{tag}")
+        del W
+        line.update(camera_pass(name, p))
         print(json.dumps(line), flush=True)
-        del p, W, hp12, hpp_inv
+        del p, hp12, hpp_inv
     return 0
 
 

@@ -157,12 +157,16 @@ _P, _I, _I64, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_int64,
 
 
 class TilePlanC(ctypes.Structure):
-    """K2's plan as its C entry points take it (``csrc/cam_prod.cuh``
-    ``BaTilePlan``), by pointer: the device arrays of
-    :class:`ops.plans.TilePlan`."""
-    _fields_ = [("tile_rows", _P), ("tile_run_starts", _P),
-                ("tile_run_bounds", _P), ("tile_runs", _P),
-                ("cam_run_starts", _P), ("ntiles", _I), ("rows", _I)]
+    """K2 and K3's plan as their C entry points take it
+    (``csrc/cam_pass.cuh`` ``BaTilePlan``), by pointer: the device arrays of
+    :class:`ops.plans.TilePlan` and the problem's ``cam_perm`` and
+    ``cam_starts``."""
+    _fields_ = [("tile_bounds", _P), ("tile_pnts", _P),
+                ("tile_run_starts", _P), ("run_cam", _P), ("run_ends", _P),
+                ("tile_rows", _P), ("visits", _P), ("cam_runs", _P),
+                ("cam_run_starts", _P), ("cam_perm", _P),
+                ("cam_starts", _P), ("ntiles", _I),
+                ("nruns", _I), ("nvisits", _I), ("rows", _I), ("npnts", _I)]
 
 
 class CamColPlanC(ctypes.Structure):
@@ -179,12 +183,9 @@ _COLS = ctypes.POINTER(CamColPlanC)
 # Every W pointer is followed by its storage code (W_CODES).
 _SIGNATURES = {
     "ba_assemble": [_P] * 8 + [_I, _P, _P, _I, _I64, _P, _I] + [_P] * 5,
-    "ba_cam_reduce_wcw_rhs": [_P, _I] + [_P] * 3 + [_PLAN, _I, _I64]
+    "ba_cam_reduce": [_I, _P, _I] + [_P] * 3 + [_PLAN, _I, _I64, _I, _I]
     + [_P] * 3,
-    "ba_cam_reduce_w_op": [_P, _I, _P, _P, _PLAN, _I, _I64] + [_P] * 3,
-    "ba_cam_reduce_wcw": [_P, _I, _P, _P, _PLAN, _I, _I64] + [_P] * 3,
-    "ba_cam_reduce_cam90": [_P, _PLAN, _I, _I64] + [_P] * 3,
-    "ba_matvec": [_P, _I] + [_P] * 5 + [_I, _PLAN, _P, _P, _F, _I, _I64]
+    "ba_matvec": [_P, _I] + [_P] * 4 + [_PLAN, _P, _P, _F, _I, _I64, _I, _I]
     + [_P] * 4,
     "ba_objective": [_P] * 6 + [_I, _I, _I, _I64, _P, _P, _P],
     "ba_linearize_rows": [_P] * 6 + [_I64, _P, _P, _I, _P],
@@ -207,6 +208,10 @@ def lib() -> ctypes.CDLL:
         fn = getattr(so, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
+    for name, argtypes in (("ba_cam_pass_bytes", [_I, _I, _I]),
+                           ("ba_matvec_bytes", [_I, _I])):
+        getattr(so, name).argtypes = argtypes
+        getattr(so, name).restype = ctypes.c_int64
     so.ba_objective_blocks.argtypes = [_I64]
     so.ba_objective_blocks.restype = ctypes.c_int64
     so.ba_stream_probe_blocks.argtypes = [_I64]
@@ -220,12 +225,29 @@ def ptr(t: torch.Tensor | None) -> ctypes.c_void_p:
     return ctypes.c_void_p(0 if t is None else t.data_ptr())
 
 
-def tile_plan_arg(plan) -> ctypes._Pointer:
-    """:class:`ops.plans.TilePlan` as the C entry points take it."""
+def tile_plan_arg(plan, problem) -> ctypes._Pointer:
+    """:class:`ops.plans.TilePlan` of ``problem`` as the C entry points
+    take it."""
     return ctypes.pointer(TilePlanC(
-        ptr(plan.tile_rows), ptr(plan.tile_run_starts),
-        ptr(plan.tile_run_bounds), ptr(plan.tile_runs),
-        ptr(plan.cam_run_starts), plan.ntiles, plan.rows))
+        ptr(plan.tile_bounds), ptr(plan.tile_pnts),
+        ptr(plan.tile_run_starts), ptr(plan.run_cam), ptr(plan.run_ends),
+        ptr(plan.tile_rows), ptr(plan.visits), ptr(plan.cam_runs),
+        ptr(plan.cam_run_starts), ptr(problem.cam_perm),
+        ptr(problem.cam_starts), plan.ntiles, plan.nruns,
+        plan.visits.shape[0], plan.rows, problem.npnts))
+
+
+@functools.cache
+def cam_pass_bytes(form: int | None, x_code: int, which: int) -> int:
+    """Sizes of K2's form ``form`` (``csrc/cam_reduce.cu``
+    ``ba_cam_pass_bytes``; None: K3, ``ba_matvec_bytes``) with rows stored
+    as ``x_code``: ``which`` 0 its stages' dynamic shared memory, 1 the
+    most its block pass may take on this card, 2 a record's bytes."""
+    got = (lib().ba_matvec_bytes(x_code, which) if form is None
+           else lib().ba_cam_pass_bytes(form, x_code, which))
+    if got < 0:
+        raise ValueError(f"no K2 form {form} with storage {x_code}")
+    return int(got)
 
 
 def cam_col_plan_arg(plan) -> ctypes._Pointer:

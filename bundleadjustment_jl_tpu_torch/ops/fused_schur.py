@@ -13,9 +13,11 @@ per-point operands are flat (npnts*9,) / (npnts*3,) or (npnts, 3).
 
 K2 (`cam_scatter_reduce`) has one wrapper per product the JAX package
 gives it; each sums its per-row product per camera over the point-sorted
-rows (no camera-sorted copy), in point-order tiles with per-run partial
-sums (plan :func:`ops.plans.tile_plan`, a (nruns, K) scratch buffer per
-call; ``csrc/cam_prod.cuh``):
+rows (no camera-sorted copy), in point-order tiles walked by a fixed number
+of blocks with camera sums of their own in shared memory, or at many
+cameras through per-run sums (W op) or records (the other products) (plan
+:func:`ops.plans.tile_plan`, the path :func:`cam_path`, scratch per call;
+``csrc/cam_pass.cuh``):
 
 - :func:`cam_reduce_wcw_rhs` (``_prod_wcw_rhs``): the fused routes' Schur
   diagonal and reduced right-hand side in one pass;
@@ -26,8 +28,8 @@ call; ``csrc/cam_prod.cuh``):
 - :func:`cam_reduce_cam90` (``_prod_cam90``): ``[Hcc | g_c]`` over
   ``JR_t`` on the split assembly of routes B1 and B2.
 
-K3 (:func:`matvec_cam_scatter`) is K5's point pass then K2's W op product,
-launched back to back (two plans; one launch counted).
+K3 (:func:`matvec_cam_scatter`) does both of its directions over each
+staged tile of the same plan, in one launch (``csrc/matvec.cu``).
 """
 
 from __future__ import annotations
@@ -39,28 +41,60 @@ from bundleadjustment_jl_tpu_torch.ops import _cuda, plans
 from bundleadjustment_jl_tpu_torch.ops.seg_reduce import (
     _wtv_point_plain, jtj_cam_rows, seg_sum, w_op_rows, wcw_rows)
 
-# Partial sums a run of each K2 form keeps (csrc/cam_prod.cuh, Prod*::K):
-# the upper triangle of a symmetric 9x9 is 45.
-PARTIAL_K = {"ba_cam_reduce_wcw_rhs": 54, "ba_cam_reduce_w_op": 9,
-             "ba_cam_reduce_wcw": 45, "ba_cam_reduce_cam90": 54}
+# K2's forms: the C entry point's form code and the sums a camera keeps
+# (csrc/cam_reduce.cu; the upper triangle of a symmetric 9x9 is 45); "matvec"
+# is K3 (csrc/matvec.cu).
+FORMS = {"wcw_rhs": (0, 54), "w_op": (1, 9), "wcw": (2, 45), "cam90": (3, 54),
+         "matvec": (None, 9)}
 
 
-def _cam_reduce(fn: str, key: str, x: torch.Tensor, problem: BAProblem,
-                d_out: int, *args, w: torch.Tensor | None = None
-                ) -> torch.Tensor:
-    """Launch the K2 form ``fn`` -> (ncams, d_out); ``args`` go between
-    the row-order arrays and the plan, as in its C signature; ``w``: the
-    W it reads (:func:`_cuda.launched`)."""
+def cam_path(form: str, problem: BAProblem,
+             x_code: int) -> tuple[str, int]:
+    """``(path, blocks)`` of K2's ``form`` (or K3, "matvec") on
+    ``problem`` with its rows stored as ``x_code`` (`_cuda.W_CODES`):
+    :func:`ops.plans.cam_pass_path` from the camera count and the kernel's
+    stage bytes (card only)."""
+    code, k = FORMS[form]
+    return plans.cam_pass_path(
+        problem.ncams, k, _cuda.cam_pass_bytes(code, x_code, 0),
+        _cuda.cam_pass_bytes(code, x_code, 1))
+
+
+def _scratch(path: str, blocks: int, k: int, rec_bytes: int,
+             problem: BAProblem, plan, device) -> torch.Tensor:
+    """The path's scratch: (blocks, ncams, k) float32 slices, the (nruns,
+    k) float32 per-run sums, or the (nobs_pad, rec_bytes) records as int32
+    words."""
+    if path == "records":
+        return torch.empty((problem.nobs_pad, rec_bytes // 4),
+                           dtype=torch.int32, device=device)
+    if path == "runs":
+        return torch.empty((plan.nruns, k), dtype=torch.float32,
+                           device=device)
+    return torch.empty((blocks, problem.ncams, k), dtype=torch.float32,
+                       device=device)
+
+
+def _cam_reduce(form: str, key: str, x: torch.Tensor, x_code: int,
+                problem: BAProblem, d_out: int, a=None, b=None,
+                w: torch.Tensor | None = None) -> torch.Tensor:
+    """Launch the K2 form ``form`` over ``x`` (W or JR, storage
+    ``x_code``) with per-point operands ``a``, ``b`` -> (ncams, d_out);
+    ``w``: the W it reads (:func:`_cuda.launched`)."""
     _cuda.require_problem(problem)
     plan = plans.tile_plan(problem)
-    partial = torch.empty((plan.nruns, PARTIAL_K[fn]), dtype=torch.float32,
-                          device=x.device)
+    code, k = FORMS[form]
+    path, blocks = cam_path(form, problem, x_code)
+    scratch = _scratch(path, blocks, k, _cuda.cam_pass_bytes(code, x_code, 2),
+                       problem, plan, x.device)
     out = torch.empty((problem.ncams, d_out), dtype=torch.float32,
                       device=x.device)
-    rc = getattr(_cuda.lib(), fn)(
-        *args, _cuda.tile_plan_arg(plan), problem.ncams, problem.nobs_pad,
-        _cuda.ptr(partial), _cuda.ptr(out), _cuda.stream())
-    _cuda.check(rc, fn)
+    rc = _cuda.lib().ba_cam_reduce(
+        code, _cuda.ptr(x), x_code, _cuda.ptr(problem.pnt_idx), _cuda.ptr(a),
+        _cuda.ptr(b), _cuda.tile_plan_arg(plan, problem),
+        problem.ncams, problem.nobs_pad, plans.PATHS[path], blocks,
+        _cuda.ptr(scratch), _cuda.ptr(out), _cuda.stream())
+    _cuda.check(rc, f"ba_cam_reduce ({form}, {path})")
     _cuda.launched(key, w)
     return out
 
@@ -76,10 +110,8 @@ def cam_reduce_wcw_rhs(W_t: torch.Tensor, problem: BAProblem,
     code = _cuda.w_code(W_t, "W_t", (27, p.nobs_pad))
     _cuda.require(hpp_inv_f, "hpp_inv_f", torch.float32, (npt * 9,))
     _cuda.require(t, "t", torch.float32, (npt, 3))
-    return _cam_reduce(
-        "ba_cam_reduce_wcw_rhs", "cam_reduce", W_t, p, 90, _cuda.ptr(W_t),
-        code, _cuda.ptr(p.pnt_idx), _cuda.ptr(hpp_inv_f), _cuda.ptr(t),
-        w=W_t)
+    return _cam_reduce("wcw_rhs", "cam_reduce", W_t, code, p, 90,
+                       hpp_inv_f, t, w=W_t)
 
 
 def _cam_reduce_wcw_rhs_plain(W_t, problem, hpp_inv_f, t):
@@ -98,9 +130,8 @@ def cam_reduce_w_op(W_t: torch.Tensor, problem: BAProblem,
     p = problem
     code = _cuda.w_code(W_t, "W_t", (27, p.nobs_pad))
     _cuda.require(op, "op", torch.float32, (p.npnts, 3))
-    return _cam_reduce(
-        "ba_cam_reduce_w_op", "cam_reduce_w_op", W_t, p, 9, _cuda.ptr(W_t),
-        code, _cuda.ptr(p.pnt_idx), _cuda.ptr(op), w=W_t)
+    return _cam_reduce("w_op", "cam_reduce_w_op", W_t, code, p, 9, op,
+                       w=W_t)
 
 
 def _cam_reduce_w_op_plain(W_t, problem, op):
@@ -117,9 +148,8 @@ def cam_reduce_wcw(W_t: torch.Tensor, problem: BAProblem,
     p = problem
     code = _cuda.w_code(W_t, "W_t", (27, p.nobs_pad))
     _cuda.require(hpp_inv_f, "hpp_inv_f", torch.float32, (p.npnts * 9,))
-    return _cam_reduce(
-        "ba_cam_reduce_wcw", "cam_reduce_wcw81", W_t, p, 81, _cuda.ptr(W_t),
-        code, _cuda.ptr(p.pnt_idx), _cuda.ptr(hpp_inv_f), w=W_t)
+    return _cam_reduce("wcw", "cam_reduce_wcw81", W_t, code, p, 81,
+                       hpp_inv_f, w=W_t)
 
 
 def _cam_reduce_wcw_plain(W_t, problem, hpp_inv_f):
@@ -134,9 +164,7 @@ def cam_reduce_cam90(JR_t: torch.Tensor, problem: BAProblem) -> torch.Tensor:
         return _cam_reduce_cam90_plain(JR_t, problem)
     p = problem
     _cuda.require(JR_t, "JR_t", torch.float32, (26, p.nobs_pad))
-    return _cam_reduce(
-        "ba_cam_reduce_cam90", "cam_reduce_cam90", JR_t, p, 90,
-        _cuda.ptr(JR_t))
+    return _cam_reduce("cam90", "cam_reduce_cam90", JR_t, 0, p, 90)
 
 
 def _cam_reduce_cam90_plain(JR_t, problem):
@@ -164,19 +192,19 @@ def matvec_cam_scatter(W_t: torch.Tensor, v: torch.Tensor,
     if gp_f is not None:
         _cuda.require(gp_f, "gp_f", torch.float32, (npt * 3,))
     _cuda.require_problem(problem)
-    plan, blocks = plans.tile_plan(problem), plans.point_blocks(problem)
+    plan = plans.tile_plan(problem)
+    path, blocks = cam_path("matvec", problem, code)
     t = torch.empty((npt, 3), dtype=torch.float32, device=W_t.device)
-    partial = torch.empty((plan.nruns, 9), dtype=torch.float32,
-                          device=W_t.device)
+    scratch = _scratch(path, blocks, 9, 0, problem, plan, W_t.device)
     out = torch.empty((nc, 9), dtype=torch.float32, device=W_t.device)
     p = problem
     rc = _cuda.lib().ba_matvec(
         _cuda.ptr(W_t), code, _cuda.ptr(v), _cuda.ptr(p.cam_idx),
-        _cuda.ptr(p.pnt_idx), _cuda.ptr(p.pnt_starts), _cuda.ptr(blocks),
-        blocks.shape[0] - 1, _cuda.tile_plan_arg(plan), _cuda.ptr(hpp_inv_f),
-        _cuda.ptr(gp_f), float(sign), nc, n, _cuda.ptr(t),
-        _cuda.ptr(partial), _cuda.ptr(out), _cuda.stream())
-    _cuda.check(rc, "ba_matvec")
+        _cuda.ptr(p.pnt_idx), _cuda.ptr(p.pnt_starts),
+        _cuda.tile_plan_arg(plan, p), _cuda.ptr(hpp_inv_f), _cuda.ptr(gp_f),
+        float(sign), nc, n, plans.PATHS[path], blocks, _cuda.ptr(t),
+        _cuda.ptr(scratch), _cuda.ptr(out), _cuda.stream())
+    _cuda.check(rc, f"ba_matvec ({path})")
     _cuda.launched("matvec", W_t)
     return (out, t) if with_dp else out
 

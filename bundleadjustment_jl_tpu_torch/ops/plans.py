@@ -15,19 +15,33 @@ built once per problem, with torch ops on the problem's device, at the
 first kernel call that needs it, and kept on the problem
 (``BAProblem.plans``); the LM loop never rebuilds it.
 
-K2, :class:`TilePlan`. The point-sorted rows are cut into tiles of
-:data:`TILE_ROWS` rows. A *run* is a maximal stretch of ``cam_perm`` with
-one camera and one tile. ``cam_perm`` is the stable argsort of ``cam_idx``,
-so each camera's rows ascend, its runs are consecutive in ``cam_perm`` and
-come in tile order (:func:`build_tile_plan` checks this and raises
-otherwise). Pass 1
-of the kernel takes one block per tile: it stages the tile's rows of every
-plane, sums each run, and writes the run's sums to row ``r`` (the run's
-id, in ``cam_perm`` order) of a (nruns, K) scratch buffer. Pass 2 sums
-each camera's runs ``[cam_run_starts[c], cam_run_starts[c+1])`` in run
-order. Pass 1 walks the tile's runs through arrays in tile order
-(``tile_rows``, ``tile_run_bounds``, ``tile_runs``), so every read it makes
-of the plan is coalesced.
+K2 and K3, :class:`TilePlan`. The point-sorted rows are cut into tiles of
+at most :data:`TILE_ROWS` (C) rows at point boundaries
+(:func:`tile_bounds`): a tile ends at the start of the point that holds
+each multiple of C - S (S = :data:`TILE_SHORT`), so a tile of points of at
+most S rows holds fewer than C; a point of more than S rows has tiles of
+its own (cut every C rows when it has more than C). Within a tile, a *run*
+is one camera's rows: ``tile_rows`` lists each tile's rows by camera (row
+order within a camera, offsets into the tile), ``run_ends`` each run's end
+in that list, ``run_cam`` its camera, ``tile_run_starts`` each tile's runs.
+A tile *owns* the points ``[tile_pnts[t], tile_pnts[t+1])``: from its
+first row's point up to the next tile's, so every point, with rows or
+not, has one owner, and a tile inside a long point owns none but its last
+tile. ``visits`` is K3's walk over the tiles: a tile once (point and
+camera pass), but the tiles of a point of more than C rows twice, their
+point passes before their camera passes (:data:`VISIT_POINT`,
+:data:`VISIT_CAMERA`); a block's span of visits starts only at a
+:data:`VISIT_START`.
+
+The kernels take the tiles in contiguous spans with a fixed number of
+blocks, each keeping camera sums of its own in shared memory; a second
+pass sums each camera's blocks in order. :func:`cam_pass_path` picks,
+from the problem's sizes, the path: when the (ncams, K) floats do not fit
+beside a block's tile stages, a 9-sum form writes each run's sums in tile
+order and a second pass sums each camera's runs (``cam_runs``,
+``cam_run_starts``); a 45- or 54-sum form writes each row's operands as a
+record in row order and reduces each camera's records (``cam_perm``) a
+block a camera.
 
 K5's point direction, :func:`point_blocks`: the points cut into ranges of
 about :data:`POINT_BLOCK_ROWS` rows each, one block per range.
@@ -65,9 +79,32 @@ import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import HALF_DTYPES
 
-# Rows of a K2 tile: csrc/cam_prod.cuh:BA_TILE_ROWS (the kernel refuses a
-# plan of another size). Chosen by measurement (see there).
+# The most rows of a K2 / K3 tile: csrc/cam_pass.cuh:BA_TILE_ROWS (the
+# kernel refuses a plan of another size; below 2^15, the plan's offsets
+# are 16 bit), chosen by measurement (`tile_sweep --sweep tiles`,
+# PERF.md); and the most rows of a point that shares a tile (a longer one
+# has tiles of its own), so tiles hold about TILE_ROWS - TILE_SHORT rows
+# (not swept).
 TILE_ROWS = 512
+TILE_SHORT = TILE_ROWS // 8
+# Blocks of the per-block camera sums a wave (a plan constant: every sum's
+# order depends on the problem alone, never on the card), and the blocks an
+# SM holds at once: as many as its shared memory takes (SM_SMEM, the
+# H100's, of which each block reserves 1 KB), at most BLOCKS_PER_SM of a
+# form with K sums (its registers: 64 a thread for the 9-sum forms, ~175
+# for the others). Chosen by measurement (`tile_sweep --sweep tiles`,
+# PERF.md).
+CAM_BLOCKS = 132
+SM_SMEM = 233_472
+BLOCKS_PER_SM = {9: 4}
+# The dynamic shared memory a block may take for its stages and
+# accumulators; None: the card's own limit for the kernel (the C entry
+# points report it). Tests set it lower to take the other paths.
+SMEM_BUDGET = None
+# K2 / K3's paths (csrc/cam_pass.cuh:BA_PATH_*) and K3's visit flags
+# (BA_VISIT_*).
+PATHS = {"smem": 0, "records": 1, "runs": 2}
+VISIT_POINT, VISIT_CAMERA, VISIT_START = 1, 2, 4
 # Target rows of a K5 point block; a block ends at the first point boundary
 # at or after each multiple of it. Its chunk of csrc/wtv_point.cuh
 # (BA_PNT_CHUNK, 1536 rows) holds a block whose last point runs a few
@@ -88,25 +125,26 @@ WCW_BLOCK_COLS = 512
 
 
 class TilePlan(NamedTuple):
-    """K2's plan (int32 tensors on the problem's device). Runs have two
-    orders: their id ``r`` is their place in ``cam_perm`` order; *tile
-    order* lists tile 0's runs, then tile 1's, each tile's in camera
-    order."""
-    rows: int                       # R, rows per tile
-    run_bounds: torch.Tensor        # (nruns+1,) run r = cam_perm[b[r]:b[r+1]]
-    cam_run_starts: torch.Tensor    # (ncams+1,) camera c's runs, by id
-    tile_runs: torch.Tensor         # (nruns,) run ids in tile order
-    tile_run_starts: torch.Tensor   # (ntiles+1,) tile t's runs, tile order
-    tile_run_bounds: torch.Tensor   # (nruns+1,) tile-order runs in tile_rows
-    tile_rows: torch.Tensor         # (n,) cam_perm's rows in tile order
+    """K2 and K3's plan (on the problem's device; int32 but the 16-bit
+    offsets into a tile)."""
+    rows: int                       # C, the most rows a tile holds
+    tile_bounds: torch.Tensor       # (ntiles+1,) tile t = rows [b[t], b[t+1])
+    tile_pnts: torch.Tensor         # (ntiles+1,) the points tile t owns
+    tile_run_starts: torch.Tensor   # (ntiles+1,) tile t's runs
+    run_cam: torch.Tensor           # (nruns,) each run's camera
+    run_ends: torch.Tensor          # (nruns,) int16, end in tile_rows
+    tile_rows: torch.Tensor         # (n,) int16, each tile's rows by camera
+    visits: torch.Tensor            # (nvisits,) K3's walk: t << 3 | flags
+    cam_runs: torch.Tensor          # (nruns,) the runs by camera, tile order
+    cam_run_starts: torch.Tensor    # (ncams+1,) camera c's stretch of them
 
     @property
     def nruns(self) -> int:
-        return self.tile_runs.shape[0]
+        return self.run_cam.shape[0]
 
     @property
     def ntiles(self) -> int:
-        return self.tile_run_starts.shape[0] - 1
+        return self.tile_bounds.shape[0] - 1
 
 
 class CamColPlan(NamedTuple):
@@ -151,41 +189,138 @@ def _point_sorted(problem) -> None:
                          "route)")
 
 
-def build_tile_plan(problem, rows: int = TILE_ROWS) -> TilePlan:
-    """K2's plan for ``problem`` with tiles of ``rows`` rows (uncached;
-    :func:`tile_plan` keeps it on the problem). Raises ValueError unless
-    ``cam_perm`` lists the cameras in order and each camera's rows in
-    ascending order (a stable argsort of ``cam_idx``)."""
-    _point_sorted(problem)
+def _check_cam_perm(problem) -> None:
+    """Raise unless ``cam_perm`` lists the cameras in order and each
+    camera's rows in ascending order (a stable argsort of ``cam_idx``)."""
     perm = problem.cam_perm.long()
-    n, dev = perm.shape[0], perm.device
     cam = problem.cam_idx.long()[perm]
-    tile = perm // rows
     same_cam = cam[1:] == cam[:-1]
     if bool(((cam[1:] < cam[:-1])
              | (same_cam & (perm[1:] <= perm[:-1]))).any()):
         raise ValueError("cam_perm must list the cameras in order and each "
                          "camera's rows in ascending order (a stable argsort "
                          "of cam_idx)")
+
+
+def tile_bounds(pnt_starts: torch.Tensor, n: int, rows: int,
+                short: int) -> torch.Tensor:
+    """(ntiles+1,) row bounds of the tiles of at most ``rows`` rows over
+    rows ``[0, n)`` with points ``pnt_starts``: a bound at the start of the
+    point that holds each multiple of rows - short, at both ends of every
+    point of more than ``short`` rows, and every ``rows`` rows inside a
+    point of more than ``rows``. A tile between two bounds either lies in
+    one long point (at most ``rows`` rows) or holds points of at most
+    ``short`` rows and at most one multiple of rows - short past its start,
+    so fewer than ``rows`` rows."""
+    if not 1 <= short <= rows // 2:
+        raise ValueError(f"short points of {short} rows: 1 to rows // 2")
+    ps = pnt_starts.long()
+    dev = ps.device
+    at = torch.arange(0, n, rows - short, device=dev)
+    cuts = [ps[torch.searchsorted(ps, at, right=True) - 1],
+            ps.new_tensor([0, n])]
+    seg = ps[1:] - ps[:-1]
+    long_ = torch.nonzero(seg > short).flatten()
+    cuts += [ps[long_], ps[long_ + 1]]
+    big = long_[seg[long_] > rows]
+    nsplit = (seg[big] - 1) // rows
+    if int(nsplit.sum()) > 0:
+        owner = torch.repeat_interleave(big, nsplit)
+        first = torch.cumsum(nsplit, 0) - nsplit
+        j = torch.arange(owner.shape[0], device=dev) \
+            - torch.repeat_interleave(first, nsplit) + 1
+        cuts.append(ps[owner] + j * rows)
+    return torch.unique(torch.cat(cuts))
+
+
+def build_tile_plan(problem, rows: int = TILE_ROWS,
+                    short: int | None = None) -> TilePlan:
+    """K2 and K3's plan for ``problem`` with tiles of at most ``rows`` rows,
+    points of more than ``short`` rows (default rows // 8) in tiles of their
+    own (uncached; :func:`tile_plan` keeps it on the problem). Raises
+    ValueError unless ``cam_perm`` lists the cameras in order and each
+    camera's rows in ascending order (a stable argsort of ``cam_idx``)."""
+    _point_sorted(problem)
+    if not 2 <= rows < 1 << 15:
+        raise ValueError(f"tile rows {rows}: the plan's offsets are 16 bit")
+    _check_cam_perm(problem)
+    perm = problem.cam_perm.long()
+    n, dev = perm.shape[0], perm.device
+    ps, pidx = problem.pnt_starts.long(), problem.pnt_idx.long()
+    bounds = tile_bounds(ps, n, rows, max(1, rows // 8) if short is None
+                         else short)
+    ntiles = bounds.shape[0] - 1
+    tile = torch.searchsorted(bounds, torch.arange(n, device=dev),
+                              right=True) - 1
+    pnts = torch.cat([bounds.new_zeros(1), pidx[bounds[1:-1]],
+                      bounds.new_tensor([problem.npnts])])
+    # Each tile's rows by camera (stable: row order within a camera).
+    order = perm[torch.sort(tile[perm], stable=True).indices]
+    tile_o, cam_o = tile[order], problem.cam_idx.long()[order]
     new = torch.ones(n, dtype=torch.bool, device=dev)
-    new[1:] = ~same_cam | (tile[1:] != tile[:-1])
+    new[1:] = (cam_o[1:] != cam_o[:-1]) | (tile_o[1:] != tile_o[:-1])
     starts = torch.nonzero(new).flatten()
-    run_bounds = torch.cat([starts, starts.new_tensor([n])])
-    run_tile = tile[starts]
-    cam_run_starts = torch.searchsorted(
-        cam[starts], torch.arange(problem.ncams + 1, device=dev))
-    tile_sorted, tile_runs = torch.sort(run_tile, stable=True)
-    ntiles = -(-n // rows)
-    tile_run_starts = torch.searchsorted(
-        tile_sorted, torch.arange(ntiles + 1, device=dev))
-    lens = (run_bounds[1:] - run_bounds[:-1])[tile_runs]
-    tile_run_bounds = torch.cat([lens.new_zeros(1), torch.cumsum(lens, 0)])
-    # Positions in tile order: stable, so camera order within a tile, and
-    # each tile-order run's rows are contiguous.
-    tile_rows = perm[torch.sort(tile, stable=True).indices]
-    return TilePlan(rows, _i32(run_bounds), _i32(cam_run_starts),
-                    _i32(tile_runs), _i32(tile_run_starts),
-                    _i32(tile_run_bounds), _i32(tile_rows))
+    run_tile = tile_o[starts]
+    ends = torch.cat([starts[1:], starts.new_tensor([n])])
+    run_starts = torch.searchsorted(run_tile,
+                                    torch.arange(ntiles + 1, device=dev))
+    run_cam = cam_o[starts]
+    cam_runs = torch.sort(run_cam, stable=True).indices
+    return TilePlan(rows, _i32(bounds), _i32(pnts), _i32(run_starts),
+                    _i32(run_cam),
+                    (ends - bounds[run_tile]).to(torch.int16).contiguous(),
+                    (order - bounds[tile_o]).to(torch.int16).contiguous(),
+                    _i32(_visits(ps, bounds, pidx, rows)), _i32(cam_runs),
+                    _i32(torch.searchsorted(run_cam[cam_runs], torch.arange(
+                        problem.ncams + 1, device=dev))))
+
+
+def _visits(ps, bounds, pidx, rows) -> torch.Tensor:
+    """K3's walk over the tiles ``bounds``: a tile once (point and camera
+    pass, a block may start there), a tile inside a point of more than
+    ``rows`` rows twice: the point's tiles' point passes (the first may
+    start a block), then their camera passes."""
+    ntiles, dev = bounds.shape[0] - 1, bounds.device
+    t = torch.arange(ntiles, device=dev)
+    p = pidx[bounds[:-1]]
+    grouped = (ps[p + 1] - ps[p]) > rows
+    anchor = torch.where(grouped, torch.searchsorted(bounds, ps[p]), t)
+    first = torch.where(grouped, VISIT_POINT | torch.where(
+        t == anchor, VISIT_START, 0), VISIT_POINT | VISIT_CAMERA | VISIT_START)
+    g = torch.nonzero(grouped).flatten()
+    codes = torch.cat([t * 8 + first, g * 8 + VISIT_CAMERA])
+    keys = torch.cat([anchor * 2 * ntiles + t,
+                      (anchor[g] * 2 + 1) * ntiles + g])
+    return codes[torch.sort(keys).indices]
+
+
+def cam_pass_path(ncams: int, k: int, stage_bytes: int,
+                  budget: int) -> tuple[str, int]:
+    """``(path, blocks)`` of a K2 form (or K3) with ``k`` sums a camera
+    whose tile stages take ``stage_bytes`` of a block's dynamic shared
+    memory ``budget`` (:data:`SMEM_BUDGET` when set): "smem" when the
+    (ncams, k) float accumulators fit beside the stages (for a 9-sum form,
+    and leave room for a second block on an SM, or the per-run sums would
+    not either); else "runs" for the 9-sum forms (the stages and a tile's
+    run sums always fit), "records" (no blocks: one a camera) for the
+    others. The blocks: CAM_BLOCKS times the blocks an SM holds at once
+    (:data:`SM_SMEM`, :data:`BLOCKS_PER_SM`)."""
+    if SMEM_BUDGET is not None:
+        budget = SMEM_BUDGET
+
+    def per_sm(smem):
+        return max(1, min(BLOCKS_PER_SM.get(k, 1), SM_SMEM // (smem + 1024)))
+    smem = stage_bytes + ncams * k * 4
+    runs = stage_bytes + TILE_ROWS * k * 4
+    # A 9-sum form whose shared sums leave its block alone on an SM takes
+    # the per-run sums when those let several blocks share it (W op and
+    # K3 stage one tile at a time: alone, a block waits on each tile).
+    if smem <= budget and not (k == 9 and per_sm(smem) == 1
+                               and per_sm(runs) > 1):
+        return "smem", CAM_BLOCKS * per_sm(smem)
+    if k == 9:
+        return "runs", CAM_BLOCKS * per_sm(runs)
+    return "records", 0
 
 
 def build_point_blocks(problem, rows: int = POINT_BLOCK_ROWS) -> torch.Tensor:
@@ -252,9 +387,10 @@ def rows(problem) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def tile_plan(problem) -> TilePlan:
-    """K2's plan of ``problem``, built at the first call."""
+    """K2 and K3's plan of ``problem``, built at the first call."""
     if "tiles" not in problem.plans:
-        problem.plans["tiles"] = build_tile_plan(problem, TILE_ROWS)
+        problem.plans["tiles"] = build_tile_plan(problem, TILE_ROWS,
+                                                 TILE_SHORT)
     return problem.plans["tiles"]
 
 

@@ -1,14 +1,14 @@
-"""Time K2's tiled camera reduce and K3 at several tile sizes, K5's
-camera direction and K6's W C W' at several column ranges, K4 at several
-row blocks and K6's point product at several chunks, on one card: the
-measurements behind ``csrc/cam_prod.cuh:BA_TILE_ROWS``,
-``ops/plans.py:CAM_BLOCK_COLS``, ``ops/plans.py:WCW_BLOCK_COLS`` with
-``csrc/seg_prod_reduce.cu:BA_WCW_COLS``,
+"""Time K2's camera pass and K3 at several tile sizes, stage depths and
+block counts, K5's camera direction and K6's W C W' at several column
+ranges, K4 at several row blocks and K6's point product at several chunks,
+on one card: the measurements behind ``csrc/cam_pass.cuh:BA_TILE_ROWS`` and
+``BA_STAGES``, ``ops/plans.py:CAM_BLOCKS``, ``ops/plans.py:CAM_BLOCK_COLS``,
+``ops/plans.py:WCW_BLOCK_COLS`` with ``csrc/seg_prod_reduce.cu:BA_WCW_COLS``,
 ``csrc/objective.cu:BA_OBJ_ROWS`` and
 ``csrc/seg_prod_reduce.cu:BA_PNT12_ROWS_PER_THREAD``.
 
     python -m bundleadjustment_jl_tpu_torch.tile_sweep \
-        [--sweep tiles|cam_cols|wcw|objective|pnt12]
+        [--sweep tiles|cam_cols|wcw|objective|pnt12] [--problems a,b]
 
 Without ``--sweep`` all run. A constant of the CUDA sources is swept by
 building a copy of ``csrc/`` with that constant changed under the
@@ -16,16 +16,21 @@ git-ignored ``_build/tile_sweep/`` and loading it in place of the
 package's kernels (``ops/_cuda.py``'s ``CSRC`` and ``BUILD_DIR`` pointed at
 the copy); a plan size is swept by setting it in ``ops/plans.py`` and
 dropping the problem's plan (the kernels take it at run time). The
-package's sources are not changed. Times: CUDA events, L2 flushed before
-each launch (``utils/timing.timed``), at synthetic Dubrovnik-356 and
-Final-4585; each sweep's first setting comes again last, to show the
-run-to-run spread.
+package's sources are not changed. Each sweep's first setting comes again
+last, to show the run-to-run spread.
 
+- ``tiles``: for each (C, S, S9, G, B) of :data:`TILE_ORDER`,
+  ``BA_TILE_ROWS = C``, ``BA_STAGES = S``, ``BA_STAGES_K9 = S9`` and
+  ``TILE_ROWS = C``, ``CAM_BLOCKS = G``, ``BLOCKS_PER_SM = {9: B}``: the
+  plan's build time, tiles and runs, and the
+  device ms (``kernel_profile.device_ms``, by kernel, summed) of K2's four
+  forms and K3, W in float32 and bfloat16, with the path and blocks each
+  took, at
+  synthetic Dubrovnik-356, Venice-1778, Final-4585 and Final-13682
+  (:data:`TILE_PROBLEMS`; ``kernel_profile.make``). A setting whose stages
+  pass the card's shared memory is recorded as refused.
 - ``cam_cols``: K5's camera direction over the camera-sorted W in
   float32, bfloat16 and float16 at each C of :data:`COLS_ORDER`.
-- ``tiles``: for each tile size R of :data:`ORDER`, ``BA_TILE_ROWS = R``
-  and ``TILE_ROWS = R``: the plan's build time and run count, and the time
-  of K2's four forms and K3, W in float32 and bfloat16.
 - ``wcw``: K6's W C W' over the camera-sorted W in float32, bfloat16 and
   float16, at each (``BA_WCW_COLS``, ``WCW_BLOCK_COLS``) of
   :data:`WCW_ORDER`, also at the card tests' ``many_cameras`` and
@@ -35,10 +40,11 @@ run-to-run spread.
 - ``pnt12``: K6's point product at each ``BA_PNT12_ROWS_PER_THREAD`` of
   :data:`PNT12_ORDER` (``csrc/seg_prod_reduce.cu``).
 
-The last two time the card alone: each kernel's device ms under
+``cam_cols`` and ``wcw`` time with CUDA events, L2 flushed before each
+launch (``utils/timing.timed``, host enqueue included, 10-15% spread run
+to run); the others time the card alone: each kernel's device ms under
 ``torch.profiler`` (``kernel_profile.device_ms``), summed over the
-wrapper's kernels; K4 takes ~0.1 ms, about a wrapper's host work, which
-the CUDA-event window would hold.
+wrapper's kernels.
 
 Prints one line per (problem, setting, form) and, last, all of it as one
 JSON object. A run that finds no card raises.
@@ -56,7 +62,12 @@ import torch
 
 from bundleadjustment_jl_tpu_torch import bench
 
-ORDER = (1024, 256, 512, 1024)
+# (BA_TILE_ROWS, BA_STAGES, BA_STAGES_K9, CAM_BLOCKS, BLOCKS_PER_SM of the
+# 9-sum forms): rows a tile at most, tiles in flight a block (45- and
+# 54-sum forms; W op and K3), blocks a wave, blocks an SM holds at most
+TILE_ORDER = ((512, 2, 1, 132, 4), (512, 2, 2, 132, 4), (256, 2, 1, 132, 4),
+              (256, 2, 2, 132, 4), (512, 2, 1, 132, 2), (512, 2, 1, 132, 4))
+TILE_PROBLEMS = ("dubrovnik356", "venice1778", "final4585", "final13682")
 COLS_ORDER = (2048, 1024, 4096, 8192, 2048)
 # (BA_WCW_COLS, WCW_BLOCK_COLS): columns a lane, columns a range
 WCW_ORDER = ((2, 512), (2, 256), (2, 1024), (2, 2048), (4, 512), (2, 512))
@@ -68,31 +79,28 @@ REPS = 10
 W_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
 
 
-def use_constant(source: str, name: str, value: int) -> None:
+def use_constants(source: str, **values: int) -> None:
     """Build and load the kernels with ``constexpr int <name> = value;`` in
-    ``csrc/<source>``, the other sources as the package has them."""
+    ``csrc/<source>`` for each of ``values``, the other sources as the
+    package has them."""
     from bundleadjustment_jl_tpu_torch.ops import _cuda
-    root = _cuda._PKG / "_build" / "tile_sweep" / f"{name}{value}"
+    tag = "_".join(f"{k}{v}" for k, v in sorted(values.items()))
+    root = _cuda._PKG / "_build" / "tile_sweep" / tag
     src = root / "csrc"
     if not src.exists():
         shutil.copytree(_cuda._PKG / "csrc", src)
         head = src / source
-        text, count = re.subn(rf"constexpr int {name} = \d+;",
-                              f"constexpr int {name} = {value};",
-                              head.read_text())
-        if count != 1:
-            raise RuntimeError(f"{name} not found in {source}")
+        text = head.read_text()
+        for name, value in values.items():
+            text, count = re.subn(rf"constexpr int {name} = \d+;",
+                                  f"constexpr int {name} = {value};", text)
+            if count != 1:
+                raise RuntimeError(f"{name} not found in {source}")
         head.write_text(text)
     _cuda.CSRC, _cuda.BUILD_DIR = src, root / "_build"
     _cuda.lib.cache_clear()
+    _cuda.cam_pass_bytes.cache_clear()
     _cuda.lib()
-
-
-def use_tile_rows(rows: int) -> None:
-    """Build and load the kernels with ``BA_TILE_ROWS = rows``."""
-    from bundleadjustment_jl_tpu_torch.ops import plans
-    use_constant("cam_prod.cuh", "BA_TILE_ROWS", rows)
-    plans.TILE_ROWS = rows
 
 
 def edge_problem(case: str):
@@ -119,60 +127,101 @@ def edge_problem(case: str):
 EDGE_SHAPES = ("many_cameras", "empty_cameras_ragged")
 
 
-def sweep() -> dict:
+def sweep(problems=TILE_PROBLEMS) -> dict:
+    """K2's four forms and K3 at each (C, S, S9, G, B) of
+    :data:`TILE_ORDER` on each of ``problems``."""
     bench.require_card()
+    from bundleadjustment_jl_tpu_torch.kernel_profile import device_ms, make
+    from bundleadjustment_jl_tpu_torch.ops import _cuda
     from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
     from bundleadjustment_jl_tpu_torch.ops import linearize as lz
     from bundleadjustment_jl_tpu_torch.ops import plans
     from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
     from bundleadjustment_jl_tpu_torch.ops.normal import inv3x3_damped_flat
-    from bundleadjustment_jl_tpu_torch.utils.timing import timed
 
+    defaults = (plans.TILE_ROWS, plans.CAM_BLOCKS, plans.BLOCKS_PER_SM)
     out = {"device": bench.card(), "lines": []}
-    for name in ("dubrovnik356", "final4585"):
-        p = bench.make_problem(name, 0)
-        JR_t, W32 = lz.linearize_w_kminor(p, p.cams, p.points)
-        hp12 = sr.jtj_pnt_reduce(JR_t, p)
-        hpp = inv3x3_damped_flat(hp12[:, :9].reshape(-1),
-                                 1e-3 * float(hp12[:, :9:4].max()))
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        t = torch.randn((p.npnts, 3), generator=gen, device="cuda")
-        v = torch.randn((p.ncams, 9), generator=gen, device="cuda")
-        Ws = {"float32": W32, "bfloat16": W32.to(torch.bfloat16)}
-        for rows in ORDER:
-            use_tile_rows(rows)
-            p.plans.clear()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            plan = plans.tile_plan(p)
-            torch.cuda.synchronize()
-            build_ms = 1e3 * (time.perf_counter() - t0)
-            forms = {"cam_reduce_cam90": (fs.cam_reduce_cam90, (JR_t, p), 4)}
+    try:
+        for name in problems:
+            p = make(name)
+            JR_t, W32 = lz.linearize_w_kminor(p, p.cams, p.points)
+            hp12 = sr.jtj_pnt_reduce(JR_t, p)
+            hpp = inv3x3_damped_flat(hp12[:, :9].reshape(-1),
+                                     1e-3 * float(hp12[:, :9:4].max()))
+            del hp12
+            gen = torch.Generator(device="cuda").manual_seed(0)
+            t = torch.randn((p.npnts, 3), generator=gen, device="cuda")
+            v = torch.randn((p.ncams, 9), generator=gen, device="cuda")
+            Ws = {"float32": W32, "bfloat16": W32.to(torch.bfloat16)}
+            forms = {"cam_reduce_cam90": (
+                "cam90", 0, lambda: fs.cam_reduce_cam90(JR_t, p), 4)}
             for dt, W in Ws.items():
-                size = W.element_size()
+                code, size = _cuda.W_CODES[W.dtype], W.element_size()
                 forms.update({
-                    f"cam_reduce_w_op@{dt}": (fs.cam_reduce_w_op, (W, p, t),
-                                              size),
-                    f"cam_reduce@{dt}": (fs.cam_reduce_wcw_rhs,
-                                         (W, p, hpp, t), size),
-                    f"cam_reduce_wcw81@{dt}": (fs.cam_reduce_wcw,
-                                               (W, p, hpp), size),
-                    f"matvec@{dt}": (fs.matvec_cam_scatter, (W, v, p, hpp),
-                                     size)})
-            for form, (fn, args, size) in forms.items():
-                key = form.split("@")[0]
-                ms = timed(fn, args, reps=REPS, flush_l2=True).ms
-                bound = bench.bound_ms(key, p, size)[0]
-                line = {"problem": name, "rows": rows, "form": form,
-                        "ms": ms, "bound_ms": bound,
-                        "nruns": plan.nruns, "runs_per_row":
-                        plan.nruns / p.nobs_pad, "plan_build_ms": build_ms}
-                out["lines"].append(line)
-                print(f"{name:13s} R {rows:5d} {form:24s} {ms:9.4f} ms  "
-                      f"bound {bound:.4f} ({bound / ms:.3f})  runs/row "
-                      f"{line['runs_per_row']:.3f}  plan {build_ms:.1f} ms",
-                      flush=True)
-        del p, JR_t, W32, Ws
+                    f"cam_reduce_w_op@{dt}": (
+                        "w_op", code,
+                        lambda W=W: fs.cam_reduce_w_op(W, p, t), size),
+                    f"cam_reduce@{dt}": (
+                        "wcw_rhs", code,
+                        lambda W=W: fs.cam_reduce_wcw_rhs(W, p, hpp, t),
+                        size),
+                    f"cam_reduce_wcw81@{dt}": (
+                        "wcw", code, lambda W=W: fs.cam_reduce_wcw(W, p, hpp),
+                        size),
+                    f"matvec@{dt}": (
+                        "matvec", code,
+                        lambda W=W: fs.matvec_cam_scatter(W, v, p, hpp),
+                        size)})
+            for rows, stages, stages9, blocks, per_sm in TILE_ORDER:
+                use_constants("cam_pass.cuh", BA_TILE_ROWS=rows,
+                              BA_STAGES=stages, BA_STAGES_K9=stages9)
+                plans.TILE_ROWS, plans.CAM_BLOCKS = rows, blocks
+                plans.BLOCKS_PER_SM = {9: per_sm}
+                for key in ("tiles", "records"):
+                    p.plans.pop(key, None)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                plan = plans.tile_plan(p)
+                torch.cuda.synchronize()
+                build_ms = 1e3 * (time.perf_counter() - t0)
+                for form, (kind, code, fn, size) in forms.items():
+                    key = form.split("@")[0]
+                    bound = bench.bound_ms(key, p, size)[0]
+                    line = {"problem": name, "rows": rows, "stages": stages,
+                            "stages_k9": stages9, "blocks": blocks,
+                            "per_sm": per_sm,
+                            "form": form,
+                            "path": fs.cam_path(kind, p, code),
+                            "bound_ms": bound, "ntiles": plan.ntiles,
+                            "nruns": plan.nruns, "runs_per_row":
+                            plan.nruns / p.nobs_pad,
+                            "plan_build_ms": build_ms}
+                    try:
+                        by_name = device_ms(
+                            fn, f"tiles_{name}_{rows}_{stages}_{stages9}_"
+                            f"{blocks}_{per_sm}_{form.replace('@', '_')}")
+                    except RuntimeError as e:   # stages past the card's
+                        line["refused"] = str(e).splitlines()[0]
+                        out["lines"].append(line)
+                        print(f"{name:13s} C {rows:5d} S {stages} {stages9} "
+                              f"G {blocks:4d} B {per_sm} {form:24s} refused",
+                              flush=True)
+                        continue
+                    ms = sum(by_name.values())
+                    line.update(ms=ms, kernels=by_name)
+                    out["lines"].append(line)
+                    print(f"{name:13s} C {rows:5d} S {stages} {stages9} G "
+                          f"{blocks:4d} B {per_sm} {form:24s} "
+                          f"{line['path'][0]:7s} "
+                          f"{line['path'][1]:4d} {ms:9.4f} ms  "
+                          f"bound {bound:.4f} ({bound / ms:.3f})  tiles "
+                          f"{plan.ntiles}  runs/row "
+                          f"{line['runs_per_row']:.3f}  plan "
+                          f"{build_ms:.1f} ms", flush=True)
+            del p, JR_t, W32, Ws, forms
+            torch.cuda.empty_cache()
+    finally:
+        plans.TILE_ROWS, plans.CAM_BLOCKS, plans.BLOCKS_PER_SM = defaults
     return out
 
 
@@ -265,7 +314,7 @@ def sweep_wcw() -> dict:
     ops = {name: wcw_operands(p) for name, p in problems.items()}
     try:
         for lane_cols, cols in WCW_ORDER:
-            use_constant("seg_prod_reduce.cu", "BA_WCW_COLS", lane_cols)
+            use_constants("seg_prod_reduce.cu", BA_WCW_COLS=lane_cols)
             plans.WCW_BLOCK_COLS = cols
             for name, p in problems.items():
                 p.plans.pop("wcw_cols", None)
@@ -303,7 +352,7 @@ def sweep_device_ms(source: str, name: str, order, forms) -> dict:
     calls = forms({name: bench.make_problem(name, 0)
                    for name in ("dubrovnik356", "final4585")})
     for value in order:
-        use_constant(source, name, value)
+        use_constants(source, **{name: value})
         for (prob, form), (fn, bound) in calls.items():
             by_name = device_ms(fn, f"sweep_{prob}_{form}")
             ms = sum(by_name.values())
@@ -359,14 +408,17 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--sweep", choices=("tiles", "cam_cols", "wcw",
                                         "objective", "pnt12"))
-    which = ap.parse_args().sweep
+    ap.add_argument("--problems", default=",".join(TILE_PROBLEMS),
+                    help="the tiles sweep's problems")
+    args = ap.parse_args()
+    which = args.sweep
     outs = {}
     if which in (None, "cam_cols"):
         outs["cam_cols"] = sweep_cam_cols()
     if which in (None, "wcw"):
         outs["wcw"] = sweep_wcw()
     if which in (None, "tiles"):
-        outs["tiles"] = sweep()
+        outs["tiles"] = sweep(args.problems.split(","))
     if which in (None, "objective"):
         outs["objective"] = sweep_objective()
     if which in (None, "pnt12"):

@@ -7,7 +7,7 @@ CUDA card.
    the nine CUDA kernels from ``bundleadjustment_jl_tpu_torch/csrc`` (one
    ``nvcc`` per source, in parallel) and prints the build time and the
    compiler's register report.
-2. Builds each launch plan (``ops/plans.py``: K2's tiles, K5's point
+2. Builds each launch plan (``ops/plans.py``: K2 and K3's tiles, K5's point
    ranges, K5's and K6's column ranges, K8's camera-order rows) once more
    from scratch and prints its build time, then checks each kernel
    against its plain PyTorch version on the card, at the shapes of
@@ -20,7 +20,13 @@ CUDA card.
    plan, and K4 (REPEAT_CHECKED), launch twice and must give bit-identical
    outputs. K1's point pass and camera pass, and K4's row blocks and
    sums, are timed apart (``torch.profiler``, by kernel:
-   ``kernel_profile.device_ms``). Then phase 6 for the problem.
+   ``kernel_profile.device_ms``). Then phase 6 for the problem, and at
+   Dubrovnik-356 K2's forms and K3 on their other path (the shared
+   budget at 0: W op and K3 in global slices, the others through records;
+   ``check_past_smem``), against their plain versions, repeated and timed
+   beside the shared path. K2's forms and K3 print their earlier times
+   (EARLIER_MS) beside their own and their bounds here, in phase 4 and in
+   phase 13.
 3. Solves both problems with ``levenberg_marquardt_jit`` and
    ``bench.py``'s options (``bench.SOLVE_OPTS`` of the port) on each
    kernel route (``normal.CAM_SCATTER``
@@ -261,6 +267,40 @@ REPEAT_CHECKED = ("cam_reduce", "cam_reduce_w_op", "cam_reduce_wcw81",
                   "cam_reduce_cam90", "seg_block_point", "matvec",
                   "assemble", "seg_block_camera", "seg_prod_wcw81",
                   "linearize_w_only", "seg_prod_pnt12", "objective")
+# K2's forms and K3 on the paths past shared memory (``plans.SMEM_BUDGET``
+# 0: per-run sums for W op and K3, records for the others), checked,
+# repeated and timed at Dubrovnik-356 beside the shared path they take
+# there by the default budget.
+PAST_SMEM = ("cam_reduce", "cam_reduce_w_op", "cam_reduce_wcw81",
+             "cam_reduce_cam90", "matvec")
+# K2's forms and K3 as the per-run-partial design before timed them
+# (``time_pair``; NVIDIA H100 80GB HBM3, 700 W; PERF.md), printed beside
+# this run's times: (key, problem, W dtype) -> ms.
+EARLIER_MS = {
+    ("cam_reduce", "dubrovnik356", "float32"): 0.3597,
+    ("cam_reduce_w_op", "dubrovnik356", "float32"): 0.1366,
+    ("cam_reduce_wcw81", "dubrovnik356", "float32"): 0.3376,
+    ("cam_reduce_cam90", "dubrovnik356", "float32"): 0.2690,
+    ("matvec", "dubrovnik356", "float32"): 0.2068,
+    ("cam_reduce", "dubrovnik356", "bfloat16"): 0.3281,
+    ("cam_reduce_w_op", "dubrovnik356", "bfloat16"): 0.0961,
+    ("cam_reduce_wcw81", "dubrovnik356", "bfloat16"): 0.3140,
+    ("matvec", "dubrovnik356", "bfloat16"): 0.1495,
+    ("cam_reduce", "dubrovnik356", "float16"): 0.3265,
+    ("cam_reduce_w_op", "dubrovnik356", "float16"): 0.0964,
+    ("cam_reduce_wcw81", "dubrovnik356", "float16"): 0.3123,
+    ("matvec", "dubrovnik356", "float16"): 0.1500,
+    ("cam_reduce", "final4585", "float32"): 2.8994,
+    ("cam_reduce_w_op", "final4585", "float32"): 0.9282,
+    ("cam_reduce_wcw81", "final4585", "float32"): 2.6448,
+    ("cam_reduce_cam90", "final4585", "float32"): 2.4173,
+    ("matvec", "final4585", "float32"): 1.3474,
+    ("cam_reduce", "final13682", "float32"): 9.3114,
+    ("cam_reduce", "final13682", "bfloat16"): 8.8035,
+    ("cam_reduce_w_op", "final13682", "float32"): 3.3222,
+    ("cam_reduce_w_op", "final13682", "bfloat16"): 2.9358,
+    ("cam_reduce_cam90", "final13682", "float32"): 8.5212,
+}
 # K4's trial states checked against its plain version (1: a solve without
 # the line search; 5 = 1 + ls_max: with it; 3 and 9: other counts) and
 # those timed.
@@ -486,6 +526,24 @@ def time_pair(kernel, plain, reps):
     return med["kernel"], med["plain"]
 
 
+def earlier(key, name, dtype="float32") -> str:
+    """The earlier time of K2's form or K3 ``key`` at ``name`` with W in
+    ``dtype`` (EARLIER_MS), as a note for a time line; "" for the other
+    kernels."""
+    ms = EARLIER_MS.get((key, name, dtype))
+    return "" if ms is None else f"  earlier {ms:.4f} ms"
+
+
+def time_note(key, name, problem, kms, pms, dtype="float32") -> str:
+    """A time line's text: kernel and plain ms, the bound and the kernel's
+    share of it, the form's earlier time where it has one."""
+    from bundleadjustment_jl_tpu_torch import bench
+    bound = bench.bound_ms(key.partition("@")[0], problem,
+                           2 if dtype in NARROW else 4)[0]
+    return (f"kernel {kms:.4f} ms  plain {pms:.4f} ms  bound {bound:.4f} "
+            f"({bound / kms:.3f}){earlier(key.partition('@')[0], name, dtype)}")
+
+
 def pass_times(fn, tag) -> dict:
     """Device ms a call of each pass of ``fn`` (its kernels, by name,
     under ``torch.profiler``: ``kernel_profile.device_ms``): K1's point
@@ -551,7 +609,7 @@ def check_kernels(name, problem, errs, timings, facts):
     check_objective(name, problem, errs, timings, facts, reps)
     for k in ("assemble", "cam_reduce", "matvec", "objective"):
         kms, pms = timings[k][name]
-        print(f"  time {k:10s} kernel {kms:.4f} ms  plain {pms:.4f} ms")
+        print(f"  time {k:10s} {time_note(k, name, problem, kms, pms)}")
 
 
 def check_objective(name, problem, errs, timings, facts, reps):
@@ -644,10 +702,10 @@ def plan_times(name, problem, facts, labels=None):
     (``ops/plans.py``, on a copy of the problem with no plans, so shared
     pieces such as ``cam_pnt`` are built too) and record the second
     build's time (the first loads torch's sort kernels in a fresh
-    process): K2's tiles under the K2 and K3 rows, K5's point ranges under
-    the K5 and K3 rows, K5's column ranges under the K5 row, K6's under
-    the K6 row, K8's camera-order rows under the K8 row. (K1 reads the
-    point ranges.)"""
+    process): K2 and K3's tiles under the K2 and K3 rows, K5's point
+    ranges under the K5 row,
+    K5's column ranges under the K5 row, K6's under the K6 row, K8's
+    camera-order rows under the K8 row. (K1 reads the point ranges.)"""
     import dataclasses
 
     import torch
@@ -655,7 +713,7 @@ def plan_times(name, problem, facts, labels=None):
     for label, build, rows in (
             ("tile_plan", plans.build_tile_plan, ("cam_reduce", "matvec")),
             ("point_blocks", plans.build_point_blocks,
-             ("seg_block_reduce", "matvec")),
+             ("seg_block_reduce",)),
             ("cam_col_plan", plans.build_cam_col_plan,
              ("seg_block_reduce",)),
             ("wcw_col_plan", lambda p: plans.build_cam_col_plan(
@@ -676,6 +734,11 @@ def plan_times(name, problem, facts, labels=None):
         elif label == "cam_row_plan":
             nbytes = sum(t.numel() * t.element_size() for t in plan)
             size = f"{nbytes / 1e6:.1f} MB"
+        elif label == "tile_plan":
+            size = (f"{plan.ntiles} tiles, {problem.nobs_pad / plan.ntiles:.1f}"
+                    f" rows a tile, {plan.nruns} runs, "
+                    f"{plan.nruns / problem.nobs_pad:.3f} a row, "
+                    f"{plan.visits.shape[0]} visits")
         else:
             size = (f"{plan.nruns} runs, {plan.nruns / problem.nobs_pad:.3f}"
                     f" a row")
@@ -775,7 +838,89 @@ def check_split_kernels(name, problem, errs, timings, facts):
     for k in ("linearize_w_only", "cam_reduce_cam90", "cam_reduce_wcw81",
               "cam_reduce_w_op"):
         kms, pms = timings[k][name]
-        print(f"  time {k:16s} kernel {kms:.4f} ms  plain {pms:.4f} ms")
+        print(f"  time {k:16s} {time_note(k, name, problem, kms, pms)}")
+
+
+def check_past_smem(name, problem, errs, facts):
+    """Phase 2's other paths: K2's four forms and K3 (PAST_SMEM) with the
+    block's shared budget at 0 (``plans.SMEM_BUDGET``), so W op and K3 go
+    through per-run sums and the other forms through records; W in float32
+    and bfloat16, against their plain versions to TOL, launched twice
+    (bit-identical) and timed beside the path the default budget gives
+    them; in ``facts`` under the kernel's row, ``past_smem``."""
+    import torch
+    from bundleadjustment_jl_tpu_torch import bench
+    from bundleadjustment_jl_tpu_torch.ops import _cuda, plans
+    from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
+    from bundleadjustment_jl_tpu_torch.ops import linearize as lz
+    from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
+    from bundleadjustment_jl_tpu_torch.ops.normal import inv3x3_damped_flat
+    from bundleadjustment_jl_tpu_torch.solver.lm_jit import narrow_w
+
+    print(f"[past shared memory] {name}: K2's forms and K3 through per-run "
+          f"sums or records")
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    JR_t, W32 = lz.linearize_w_kminor(problem, problem.cams, problem.points)
+    hp12 = sr.jtj_pnt_reduce(JR_t, problem)
+    hpp_inv = inv3x3_damped_flat(hp12[:, :9].reshape(-1),
+                                 1e-3 * float(hp12[:, :9:4].max()))
+    t = torch.randn((problem.npnts, 3), generator=gen, device="cuda")
+    v = torch.randn((problem.ncams, 9), generator=gen, device="cuda")
+    forms = {"cam_reduce": "wcw_rhs", "cam_reduce_w_op": "w_op",
+             "cam_reduce_wcw81": "wcw", "cam_reduce_cam90": "cam90",
+             "matvec": "matvec"}
+    reps = 20 if problem.nobs_pad < 1 << 18 else 5
+    for dt in ("float32", "bfloat16"):
+        W = narrow_w(W32, getattr(torch, dt))
+        calls = {
+            "cam_reduce": (lambda: fs.cam_reduce_wcw_rhs(W, problem, hpp_inv,
+                                                         t),
+                           lambda: fs._cam_reduce_wcw_rhs_plain(
+                               W, problem, hpp_inv, t)),
+            "cam_reduce_w_op": (lambda: fs.cam_reduce_w_op(W, problem, t),
+                                lambda: fs._cam_reduce_w_op_plain(
+                                    W, problem, t)),
+            "cam_reduce_wcw81": (lambda: fs.cam_reduce_wcw(W, problem,
+                                                           hpp_inv),
+                                 lambda: fs._cam_reduce_wcw_plain(
+                                     W, problem, hpp_inv)),
+            "matvec": (lambda: fs.matvec_cam_scatter(W, v, problem, hpp_inv),
+                       lambda: fs._matvec_plain(W, v, problem, hpp_inv, None,
+                                                1.0)[0])}
+        if dt == "float32":
+            calls["cam_reduce_cam90"] = (
+                lambda: fs.cam_reduce_cam90(JR_t, problem),
+                lambda: fs._cam_reduce_cam90_plain(JR_t, problem))
+        code = _cuda.W_CODES[W.dtype]
+        for key in PAST_SMEM:
+            if key not in calls:
+                continue
+            kernel, plain = calls[key]
+            x_code = 0 if key == "cam_reduce_cam90" else code
+            default = fs.cam_path(forms[key], problem, x_code)
+            dms = time_pair(kernel, plain, reps)[0]
+            old = plans.SMEM_BUDGET
+            plans.SMEM_BUDGET = 0
+            try:
+                path = fs.cam_path(forms[key], problem, x_code)
+                got = kernel()
+                torch.cuda.synchronize()
+                check_repeat(key, f"{name}@{dt}@{path[0]}", kernel, got,
+                             facts)
+                compare(key, got, plain(), errs)
+                kms, pms = time_pair(kernel, plain, reps)
+            finally:
+                plans.SMEM_BUDGET = old
+            bound = bench.bound_ms(key, problem, W.element_size())[0]
+            facts.setdefault(KERNEL_OF[key], {}).setdefault(
+                "past_smem", {})[f"{key}@{dt}@{name}"] = {
+                    "path": path, "ms": kms, "plain_ms": pms,
+                    "bound_ms": bound, "default_path": default,
+                    "default_ms": dms}
+            print(f"  time {key + '@' + dt:26s} {path} {kms:.4f} ms "
+                  f"against {default} {dms:.4f} ms; bound {bound:.4f}")
+        del W
+    del JR_t, W32, hp12, hpp_inv
 
 
 def check_probe(errs, timings, probe):
@@ -910,7 +1055,8 @@ def check_narrow(name, problem, errs, timings, facts, final=False):
         del W
     for k in sorted(k for k in timings if "@" in k and name in timings[k]):
         kms, pms = timings[k][name]
-        print(f"  time {k:26s} kernel {kms:.4f} ms  plain {pms:.4f} ms")
+        print(f"  time {k:26s} "
+              f"{time_note(k, name, problem, kms, pms, k.partition('@')[2])}")
 
 
 @contextlib.contextmanager
@@ -1300,10 +1446,10 @@ def check_capacity_kernels(name, problem, errs, facts):
     plain twin on ``problem`` at full size, phase 2's tolerances (a W
     writer's W to those plus one ulp, STORE_MISMATCH_MAX), each compared
     once and the twin's output freed before the next: K7 (W in float32 and
-    bfloat16), K2's cam90, and W C W' | W t and W op products with W in
-    float32 and bfloat16, K6 pnt12, K5's point direction (its right-hand
-    side form, then the matvec's, timed; W in both dtypes), K4 at S = 1
-    and 5. The kernels run on the whole problem; the twins over point
+    bfloat16), K2's cam90, and W C W' | W t, W op and W C W' products and
+    K3 with W in float32 and bfloat16, K6 pnt12, K5's point direction (its
+    right-hand side form, then the matvec's, timed; W in both dtypes), K4
+    at S = 1 and 5. K2's forms and K3 print their earlier time beside theirs. The kernels run on the whole problem; the twins over point
     ranges (``twin_parts``), their camera sums added in float32. The
     forms that read through a plan launch twice, bit-identical
     (``check_repeat``). Each is timed with the twin (``time_pair``,
@@ -1347,7 +1493,8 @@ def check_capacity_kernels(name, problem, errs, facts):
                 tag] = {"ms": kms, "plain_ms": pms, "bound_ms": bound,
                         "bound_by": by, "twin_ranges": len(parts)}
             print(f"  time {tag:26s} kernel {kms:.4f} ms  plain {pms:.4f} "
-                  f"ms  bound {bound:.4f} ms ({bound / kms:.3f} of it)")
+                  f"ms  bound {bound:.4f} ms ({bound / kms:.3f} of it)"
+                  f"{earlier(key, name, form)}")
         return got
 
     JR_t, W32 = check(
@@ -1395,6 +1542,20 @@ def check_capacity_kernels(name, problem, errs, facts):
               lambda: summed(parts, lambda p, lo, hi:
                              fs._cam_reduce_w_op_plain(W[:, lo:hi], p, tp)),
               form)
+        check("cam_reduce_wcw81",
+              lambda: fs.cam_reduce_wcw(W, problem, hpp_inv),
+              lambda: summed(parts, lambda p, lo, hi:
+                             fs._cam_reduce_wcw_plain(W[:, lo:hi], p,
+                                                      hpp_inv)), form)
+
+        def matvec_twin():
+            tt = sr.fold_point(summed(parts, lambda p, lo, hi:
+                                      sr.wtv_point_sum(W[:, lo:hi], v, p)),
+                               hpp_inv_f=hpp_inv)
+            return summed(parts, lambda p, lo, hi:
+                          fs._cam_reduce_w_op_plain(W[:, lo:hi], p, tt))
+        check("matvec", lambda: fs.matvec_cam_scatter(W, v, problem, hpp_inv),
+              matvec_twin, form)
     del W32, W16
     for S in OBJECTIVE_TIMED:
         cams_all, pts_all = trial_states(cams, points, S)
@@ -1447,7 +1608,8 @@ def check_capacity(launches_total, card, errs, facts):
     print(f"[capacity] {name} built in {gen_s:.1f} s: nobs {problem.nobs}, "
           f"nobs_pad {problem.nobs_pad}, ncams {problem.ncams}, npnts "
           f"{problem.npnts}")
-    plan_times(name, problem, facts, labels=("tile_plan", "point_blocks"))
+    plan_times(name, problem, facts,
+               labels=("tile_plan", "point_blocks"))
     check_capacity_kernels(name, problem, errs, facts)
     problem.plans.clear()
     del problem
@@ -2571,6 +2733,8 @@ def main() -> int:
         check_sorted_kernels(name, problem, errs, timings, facts)
         check_split_kernels(name, problem, errs, timings, facts)
         check_narrow(name, problem, errs, timings, facts)
+        if name == "dubrovnik356":
+            check_past_smem(name, problem, errs, facts)
         del problem
     print("[probe] K9 vs plain and torch.sum")
     check_probe(errs, timings, probe)

@@ -651,6 +651,49 @@ def test_redesigned_kernels_at_edge_shapes_on_card(case, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("budget", ["card", "past_smem"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("case", ["one_camera", "many_cameras",
+                                  "long_point", "empty_cameras_ragged"])
+def test_camera_pass_paths_at_edge_shapes_on_card(monkeypatch, case, dtype,
+                                                  budget):
+    """K2's four forms and K3 on each path against their plain versions at
+    :func:`edge_problem`'s shapes, W in ``dtype``: the card's budget (at
+    these sizes, the camera sums in shared memory but for the 45- and
+    54-sum forms at 700 cameras), or none (``plans.SMEM_BUDGET`` 0): per-run sums for W
+    op and K3, records for the other forms. A second launch gives
+    bit-identical output."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    p = edge_problem(case)
+    o = edge_operands(p, dtype)
+    calls = redesigned_calls(p, o)
+    code = _cuda.W_CODES[dtype]
+    forms = {"cam_reduce_w_op": "w_op", "cam_reduce_wcw81": "wcw",
+             "cam_reduce": "wcw_rhs", "cam_reduce_cam90": "cam90",
+             "matvec": "matvec", "matvec_dp": "matvec"}
+    if budget == "past_smem":
+        monkeypatch.setattr(plans, "SMEM_BUDGET", 0)
+    for key, form in forms.items():
+        if key not in calls:
+            continue
+        k = fs.FORMS[form][1]
+        path = fs.cam_path(form, p, 0 if form == "cam90" else code)
+        if budget == "past_smem":
+            assert path[0] == ("runs" if k == 9 else "records"), (key, path)
+        elif case == "one_camera":
+            assert path[0] == "smem", (key, path)
+        kernel, plain = calls[key]
+        got, again = kernel(), kernel()
+        want = plain()
+        pairs = (zip(got, want, again) if isinstance(got, tuple)
+                 else [(got, want, again)])
+        for g, w, a in pairs:
+            close(g, w)
+            assert torch.equal(g, a), (key, path)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("solver", ["power", "dense", "cgls"])
 @pytest.mark.parametrize("route", ["fused", "sorted"])
 def test_step_solvers_on_card(card_problem, monkeypatch, route, solver):

@@ -92,84 +92,167 @@ CASES = {
     # one camera holds every row (no padding)
     "one_camera": lambda: problem_of([1] * 32, list(np.arange(32) // 4), 3,
                                      8),
+    # a point of 21 rows (cut into three tiles) among points of 1-3 rows,
+    # points without rows, and 10 rows of padding on the last point
+    "long_point": lambda: problem_of(
+        list(np.arange(31) % 5), [0, 0, 1] + [3] * 21 + [4, 4, 6, 7, 7, 7, 8],
+        5, 9, pad_obs_to=41),
 }
 R = 8
+SHORT = 2
 
 
-def runs_of(problem, plan):
-    """(camera, tile) of each run, from cam_perm and run_bounds."""
-    perm = problem.cam_perm.long()
-    first = perm[plan.run_bounds[:-1].long()]
-    return problem.cam_idx.long()[first], first // plan.rows
+def runs_of(plan, lo=0, hi=None):
+    """(camera, tile, rows) of each run of tiles [lo, hi), read as the
+    kernels read the plan: a tile's runs at tile_run_starts, each run's
+    end in the tile's stretch of tile_rows, its rows as offsets from the
+    tile's first row."""
+    tb, trs = plan.tile_bounds.tolist(), plan.tile_run_starts.tolist()
+    ends, rows = plan.run_ends.tolist(), plan.tile_rows.tolist()
+    cams = plan.run_cam.tolist()
+    out = []
+    for t in range(lo, plan.ntiles if hi is None else hi):
+        q = 0
+        for s in range(trs[t], trs[t + 1]):
+            out.append((cams[s], t, [tb[t] + r for r in
+                                     rows[tb[t] + q:tb[t] + ends[s]]]))
+            q = ends[s]
+    return out
 
 
 @pytest.mark.parametrize("case", CASES)
 def test_tile_plan_runs_partition_cam_perm(case):
-    """Every cam_perm position lies in exactly one run; a run is one
-    camera and one tile, and maximal; a camera's runs are consecutive
-    (cam_run_starts) and come in tile order; no run is empty."""
+    """Every row lies in exactly one run; a run is one camera's rows of one
+    tile, in row order; a tile has one run a camera, in camera order;
+    taken camera by camera (tiles in order), the runs' rows are cam_perm;
+    no run is empty."""
     p = CASES[case]()
-    plan = plans.build_tile_plan(p, rows=R)
-    n = p.nobs_pad
-    b = plan.run_bounds.long()
-    assert int(b[0]) == 0 and int(b[-1]) == n
-    assert bool((b[1:] > b[:-1]).all())
-    perm = p.cam_perm.long()
-    cam, tile = p.cam_idx.long()[perm], perm // R
-    run_of_pos = torch.repeat_interleave(torch.arange(plan.nruns),
-                                         b[1:] - b[:-1])
-    assert run_of_pos.shape[0] == n
-    for key in (cam, tile):            # constant within a run
-        first = key[b[:-1]]
-        assert torch.equal(key, first[run_of_pos])
-    run_cam, run_tile = runs_of(p, plan)
-    same = (run_cam[1:] == run_cam[:-1]) & (run_tile[1:] == run_tile[:-1])
-    assert not bool(same.any())        # maximal
-    crs = plan.cam_run_starts.long()
-    assert crs.shape[0] == p.ncams + 1 and int(crs[0]) == 0 \
-        and int(crs[-1]) == plan.nruns
-    for c in range(p.ncams):
-        ids = torch.arange(int(crs[c]), int(crs[c + 1]))
-        assert bool((run_cam[ids] == c).all())
-        assert bool((run_tile[ids][1:] > run_tile[ids][:-1]).all())
-        starts = p.cam_starts.long()
-        assert int(b[crs[c]]) == int(starts[c]) or ids.numel() == 0
+    plan = plans.build_tile_plan(p, rows=R, short=SHORT)
+    runs = runs_of(plan)
+    cam, tb = p.cam_idx.tolist(), plan.tile_bounds.tolist()
+    assert plan.nruns == len(runs)
+    for c, t, rows in runs:
+        assert rows and rows == sorted(rows)
+        assert all(cam[r] == c and tb[t] <= r < tb[t + 1] for r in rows)
+    assert sorted(r for _, _, rows in runs for r in rows) \
+        == list(range(p.nobs_pad))
+    per_tile = {}
+    for c, t, _ in runs:
+        per_tile.setdefault(t, []).append(c)
+    assert all(cs == sorted(set(cs)) for cs in per_tile.values())
+    by_cam = sorted(runs, key=lambda run: (run[0], run[1]))
+    assert [r for _, _, rows in by_cam for r in rows] == p.cam_perm.tolist()
+    with_rows = {c for c, _, _ in runs}
     if case == "empty_cameras":
-        assert [c for c in range(p.ncams) if crs[c] == crs[c + 1]] \
-            == [0, 3, 5]
+        assert sorted(set(range(p.ncams)) - with_rows) == [0, 3, 5]
     if case == "one_tile_and_many":
-        assert run_tile[crs[1]:crs[2]].tolist() == [0]
-        assert int(crs[1] - crs[0]) == plan.ntiles > 4
+        assert {t for c, t, _ in runs if c == 1} == {0}
+        assert sum(c == 0 for c, _, _ in runs) == plan.ntiles > 4
     if case == "one_camera":
-        assert int(crs[2] - crs[1]) == plan.ntiles == plan.nruns
+        assert plan.nruns == plan.ntiles
+
+
+@pytest.mark.parametrize("short", [1, SHORT, R // 2])
+@pytest.mark.parametrize("case", CASES)
+def test_tile_plan_tile_order(case, short):
+    """The tiles cover the rows in order, each of at most C rows; a bound
+    lies at a point's start, but inside a point of more than C rows, which
+    is cut every C rows from its start; a point of more than ``short`` rows
+    has tiles of its own; each tile's stretch of tile_rows is a permutation
+    of its offsets; tile t owns the points from its first row's point to
+    the next tile's (all points, one owner each)."""
+    p = CASES[case]()
+    plan = plans.build_tile_plan(p, rows=R, short=short)
+    n, ps = p.nobs_pad, p.pnt_starts.tolist()
+    pidx, tb = p.pnt_idx.tolist(), plan.tile_bounds.tolist()
+    assert tb[0] == 0 and tb[-1] == n
+    assert all(0 < b - a <= R for a, b in zip(tb, tb[1:]))
+    rows = plan.tile_rows.tolist()
+    for t in range(plan.ntiles):
+        assert sorted(rows[tb[t]:tb[t + 1]]) == list(range(tb[t + 1] - tb[t]))
+    for b in tb[1:-1]:
+        q = pidx[b]
+        seg = ps[q + 1] - ps[q]
+        assert b == ps[q] or (seg > R and (b - ps[q]) % R == 0)
+    for q in range(p.npnts):
+        if ps[q + 1] - ps[q] > short:
+            assert ps[q] in tb and ps[q + 1] in tb
+    tp = plan.tile_pnts.tolist()
+    assert tp[0] == 0 and tp[-1] == p.npnts
+    assert tp == sorted(tp)
+    assert all(tp[t] == pidx[tb[t]] for t in range(1, plan.ntiles))
+    if case == "long_point":
+        assert max(ps[q + 1] - ps[q] for q in range(p.npnts)) > 2 * R
+        assert n - ps[-2] > R      # the padding tail, on the last point
+    if case == "random" and short == 1:
+        # points of 3 rows, each its own tile: no tile holds two
+        assert plan.ntiles == p.npnts
 
 
 @pytest.mark.parametrize("case", CASES)
-def test_tile_plan_tile_order(case):
-    """Tile order lists each run once, tile by tile; tile t's stretch of
-    tile_rows is exactly its rows [t R, (t+1) R), and each tile-order
-    run's stretch is its run's cam_perm stretch."""
+def test_visits_walk_every_tile(case):
+    """K3's visits: a tile outside a point of more than C rows once (point
+    and camera pass; a block may start there); the tiles of such a point
+    twice, every point pass before every camera pass, a block starting only
+    at the first; so a point's t is formed (by the tile that owns it)
+    before any camera pass reads it."""
     p = CASES[case]()
-    plan = plans.build_tile_plan(p, rows=R)
-    n = p.nobs_pad
-    assert plan.ntiles == -(-n // R)
-    tr = plan.tile_runs.long()
-    assert torch.equal(torch.sort(tr).values, torch.arange(plan.nruns))
-    _, run_tile = runs_of(p, plan)
-    trs, trb = plan.tile_run_starts.long(), plan.tile_run_bounds.long()
-    rows = plan.tile_rows.long()
-    perm, b = p.cam_perm.long(), plan.run_bounds.long()
-    for t in range(plan.ntiles):
-        slots = range(int(trs[t]), int(trs[t + 1]))
-        assert all(int(run_tile[tr[s]]) == t for s in slots)
-        lo, hi = t * R, min((t + 1) * R, n)
-        assert int(trb[trs[t]]) == lo and int(trb[trs[t + 1]]) == hi
-        assert torch.equal(torch.sort(rows[lo:hi]).values,
-                           torch.arange(lo, hi))
-        for s in slots:
-            r = int(tr[s])
-            assert torch.equal(rows[trb[s]:trb[s + 1]],
-                               perm[b[r]:b[r + 1]])
+    plan = plans.build_tile_plan(p, rows=R, short=SHORT)
+    ps, pidx = p.pnt_starts.tolist(), p.pnt_idx.tolist()
+    tb, tp = plan.tile_bounds.tolist(), plan.tile_pnts.tolist()
+    codes = plan.visits.tolist()
+    count = {}
+    formed = set()
+    for i, code in enumerate(codes):
+        t, flags = code >> 3, code & 7
+        count[t, flags & 3] = count.get((t, flags & 3), 0) + 1
+        grouped = ps[pidx[tb[t]] + 1] - ps[pidx[tb[t]]] > R
+        if not grouped:
+            assert flags == plans.VISIT_POINT | plans.VISIT_CAMERA \
+                | plans.VISIT_START
+        elif flags & plans.VISIT_START:
+            assert flags == plans.VISIT_POINT | plans.VISIT_START
+            assert tb[t] == ps[pidx[tb[t]]]
+        if flags & plans.VISIT_POINT:
+            formed.update(range(tp[t], tp[t + 1]))
+        if flags & plans.VISIT_CAMERA:
+            assert {pidx[r] for r in range(tb[t], tb[t + 1])} <= formed
+    assert formed == set(range(p.npnts))
+    assert all(count.get((t, 3), 0) + count.get((t, 1), 0) == 1
+               for t in range(plan.ntiles))
+    assert len(codes) == plan.ntiles + sum(
+        c for (_, f), c in count.items() if f == plans.VISIT_CAMERA)
+    if case == "long_point":
+        assert any(f == plans.VISIT_CAMERA for _, f in count)
+
+
+def test_cam_pass_path_picks_by_budget(monkeypatch):
+    """Shared accumulators while the (ncams, K) floats fit beside the
+    stages in the block's budget (a 9-sum form's only when they leave room
+    for a second block on an SM or the per-run sums would not); past it,
+    per-run sums for a 9-sum form, records (no blocks) for a 45- or 54-sum
+    form. The blocks: CAM_BLOCKS times the blocks an SM holds (its shared
+    memory, 1 KB a block reserved, at most BLOCKS_PER_SM). SMEM_BUDGET,
+    when set, takes the card's limit's place."""
+    G = plans.CAM_BLOCKS
+    monkeypatch.setattr(plans, "SM_SMEM", 100_000)
+    monkeypatch.setattr(plans, "BLOCKS_PER_SM", {9: 4})
+    runs = plans.TILE_ROWS * 36    # a tile's run sums
+    # 1000 + 100 * 36 = 4600 B a block: at most 4 of them an SM
+    assert plans.cam_pass_path(100, 9, 1000, 4600) == ("smem", 4 * G)
+    assert plans.cam_pass_path(101, 9, 1000, 4600) == ("runs", 4 * G)
+    assert plans.cam_pass_path(100, 9, 40_000, 10 ** 6) == ("smem", 2 * G)
+    assert plans.cam_pass_path(13682, 9, 60_000, 200_000) == ("runs", G)
+    # alone on an SM with its sums in shared memory, two with per-run sums
+    assert 100_000 // (30_000 + runs + 1024) == 2
+    assert plans.cam_pass_path(1500, 9, 30_000, 10 ** 6) == ("runs", 2 * G)
+    # alone either way: the shared sums
+    assert plans.cam_pass_path(100, 9, 90_000, 10 ** 6) == ("smem", G)
+    assert plans.cam_pass_path(356, 54, 100, 100 + 356 * 216) == ("smem", G)
+    assert plans.cam_pass_path(357, 54, 100, 100 + 356 * 216) \
+        == ("records", 0)
+    monkeypatch.setattr(plans, "SMEM_BUDGET", 100 + 357 * 216)
+    assert plans.cam_pass_path(357, 54, 100, 100) == ("smem", G)
 
 
 def test_tile_plan_refuses_unsorted_cam_perm():
@@ -184,7 +267,7 @@ def test_tile_plan_refuses_unsorted_cam_perm():
 
 
 def test_tile_plan_kept_on_the_problem():
-    """Built once per problem, at the first call, with the kernels' R."""
+    """Built once per problem, at the first call, with the kernels' C."""
     p = CASES["random"]()
     assert "tiles" not in p.plans
     first = plans.tile_plan(p)
@@ -204,7 +287,14 @@ def test_plan_sizes_match_the_kernels():
     K5's camera range, a multiple of the columns a thread takes and at
     most the kernel's largest (it refuses others); K6 pnt12's chunk, as
     K1's; K4's row blocks, whole rows a thread."""
-    assert constant("BA_TILE_ROWS", "cam_prod.cuh") == plans.TILE_ROWS
+    assert constant("BA_TILE_ROWS", "cam_pass.cuh") == plans.TILE_ROWS
+    assert plans.TILE_ROWS < 1 << 15    # the plan's 16-bit offsets
+    assert 1 <= plans.TILE_SHORT <= plans.TILE_ROWS // 2
+    for name, value in plans.PATHS.items():
+        assert constant(f"BA_PATH_{name.upper()}", "cam_pass.cuh") == value
+    for name in ("POINT", "CAMERA", "START"):
+        assert constant(f"BA_VISIT_{name}", "cam_pass.cuh") \
+            == getattr(plans, f"VISIT_{name}")
     block = constant("BA_BLOCK", "chain.cuh")
     for name, source in (("BA_PNT_ROWS_PER_THREAD", "wtv_point.cuh"),
                          ("BA_ASM_ROWS_PER_THREAD", "assemble.cu"),
@@ -223,29 +313,134 @@ def test_plan_sizes_match_the_kernels():
     assert constant("BA_OBJ_ROWS", "objective.cu") % block == 0
 
 
-# ------------------------------------------------------- K2: two passes
-def two_pass(rows_val, plan, ncams):
-    """The kernel's two passes in torch ops: pass 1 sums each tile-order
-    run's rows (read at tile_rows) into its run id's partial; pass 2 sums
-    each camera's runs [cam_run_starts[c], cam_run_starts[c+1])."""
-    trb = plan.tile_run_bounds.long()
-    slot_of_q = torch.repeat_interleave(torch.arange(plan.nruns),
-                                        trb[1:] - trb[:-1])
-    run_of_q = plan.tile_runs.long()[slot_of_q]
-    partial = torch.zeros((plan.nruns, rows_val.shape[1]),
-                          dtype=rows_val.dtype)
-    partial.index_add_(0, run_of_q, rows_val[plan.tile_rows.long()])
-    crs = plan.cam_run_starts.long()
-    cam_of_run = torch.repeat_interleave(torch.arange(ncams),
-                                         crs[1:] - crs[:-1])
-    return torch.zeros((ncams, rows_val.shape[1]),
-                       dtype=rows_val.dtype).index_add_(0, cam_of_run,
-                                                        partial)
+# --------------------------------------------- K2 and K3: the camera pass
+def block_spans(count, blocks):
+    """Block g's span [count g / G, count (g+1) / G) (csrc/cam_pass.cuh
+    ba_span)."""
+    return [(count * g // blocks, count * (g + 1) // blocks)
+            for g in range(blocks)]
 
 
-@pytest.fixture(scope="module")
-def jprob():
-    jp, _ = jax_synthetic(ncams=9, npnts=300, obs_per_pnt=4, seed=11,
+def block_walk(row_vals, plan, ncams, blocks):
+    """K2's per-block sums in torch ops over the plan: block g of
+    ``blocks`` adds each run of its span of tiles (rows read at
+    tile_bounds + tile_rows) to its own row of the run's camera; pass 2
+    sums each camera's rows over the blocks in block order."""
+    K = row_vals.shape[1]
+    slices = torch.zeros((blocks, ncams, K), dtype=row_vals.dtype)
+    for g, (lo, hi) in enumerate(block_spans(plan.ntiles, blocks)):
+        for c, _, rows in runs_of(plan, lo, hi):
+            slices[g, c] += row_vals[rows].sum(0)
+    out = torch.zeros((ncams, K), dtype=row_vals.dtype)
+    for g in range(blocks):
+        out += slices[g]
+    return out
+
+
+def row_products(product, W, JR, C, op, pnt):
+    """Per-row products (rows in the order given) of ``product`` from the
+    rows' W (27, m) or JR (26, m) and their points ``pnt``."""
+    return {"w_op": lambda: sr.w_op_rows(W, op, pnt),
+            "wcw": lambda: sr.wcw_rows(W, C, pnt),
+            "wcw_rhs": lambda: torch.cat([sr.wcw_rows(W, C, pnt),
+                                          sr.w_op_rows(W, op, pnt)], dim=1),
+            "cam90": lambda: sr.jtj_cam_rows(JR)}[product]()
+
+
+def runs_walk(row_vals, plan, ncams):
+    """K2's per-run sums in torch ops: pass 1 sums each run of each tile
+    (in tile order) into its row of the partials; pass 2 sums each camera's
+    runs cam_runs[cam_run_starts[c]:cam_run_starts[c+1]] in that order."""
+    runs = runs_of(plan)
+    partial = torch.stack([row_vals[rows].sum(0) for _, _, rows in runs])
+    cr, crs = plan.cam_runs.tolist(), plan.cam_run_starts.tolist()
+    out = torch.zeros((ncams, row_vals.shape[1]), dtype=row_vals.dtype)
+    for c in range(ncams):
+        assert all(runs[s][0] == c for s in cr[crs[c]:crs[c + 1]])
+        for s in cr[crs[c]:crs[c + 1]]:
+            out[c] += partial[s]
+    return out
+
+
+def record_walk(problem, product, W, JR, C, op):
+    """K2's records in torch ops: pass 1 writes each row's planes and point
+    as its record, in row order; pass 2 sums each camera's rows
+    cam_perm[j], j in [cam_starts[c], cam_starts[c+1]), read at their
+    records, the products taken at the record's point."""
+    perm = problem.cam_perm.long()
+    vals = row_products(product, W[:, perm], JR[:, perm], C, op,
+                        problem.pnt_idx.long()[perm])
+    cs = problem.cam_starts.tolist()
+    return torch.stack([vals[cs[c]:cs[c + 1]].sum(0)
+                        for c in range(problem.ncams)])
+
+
+def matvec_walk(problem, plan, W, v, hpp, gp, sign, blocks, runs=False):
+    """K3 in torch ops over the plan's visits: block g walks the visits of
+    its span from the first VISIT_START at or after nvisits g / G; a point
+    pass sums each owned point's rows (W' v[cam]) in row order, a long
+    point's carried over its tiles, and folds t_p; a camera pass adds each
+    run's W t to the block's row of its camera (``runs``: to the run's own
+    row, each camera's runs summed in cam_runs order after). Returns (out,
+    t)."""
+    n, ncams = problem.nobs_pad, problem.ncams
+    ps, pidx = problem.pnt_starts.tolist(), problem.pnt_idx.long()
+    cam = problem.cam_idx.long()
+    y = torch.einsum("abr,ra->rb", W.reshape(9, 3, n), v[cam])
+    H = hpp.reshape(-1, 3, 3)
+    g_all = torch.zeros((problem.npnts, 3), dtype=W.dtype) if gp is None \
+        else gp.reshape(-1, 3)
+    t = torch.full((problem.npnts, 3), float("nan"), dtype=W.dtype)
+    slices = torch.zeros((blocks, ncams, 9), dtype=W.dtype)
+    partial = torch.zeros((plan.nruns, 9), dtype=W.dtype)
+    codes, tb, tp = (plan.visits.tolist(), plan.tile_bounds.tolist(),
+                     plan.tile_pnts.tolist())
+    trs = plan.tile_run_starts.tolist()
+
+    def start_at(j):
+        while j < len(codes) and not codes[j] & plans.VISIT_START:
+            j += 1
+        return j
+    for g, (lo, hi) in enumerate(block_spans(len(codes), blocks)):
+        carry = torch.zeros(3, dtype=W.dtype)
+        for code in codes[start_at(lo):start_at(hi)]:
+            k, flags = code >> 3, code & 7
+            r0, r1 = tb[k], tb[k + 1]
+            if flags & plans.VISIT_POINT:
+                for j, q in enumerate(range(tp[k], tp[k + 1])):
+                    s = carry.clone() if j == 0 and ps[q] < r0 \
+                        else torch.zeros(3, dtype=W.dtype)
+                    for r in range(max(ps[q], r0), ps[q + 1]):
+                        s += y[r]
+                    t[q] = sign * H[q] @ (s + g_all[q])
+                if tp[k] == tp[k + 1]:
+                    if flags & plans.VISIT_START:
+                        carry = torch.zeros(3, dtype=W.dtype)
+                    carry = carry + y[r0:r1].sum(0)
+            if flags & plans.VISIT_CAMERA:
+                for s_run, (c, _, rows) in enumerate(runs_of(plan, k, k + 1),
+                                                     trs[k]):
+                    assert not torch.isnan(t[pidx[rows]]).any()
+                    sums = sr.w_op_rows(W[:, rows], t, pidx[rows]).sum(0)
+                    if runs:
+                        partial[s_run] = sums
+                    else:
+                        slices[g, c] += sums
+    if not runs:
+        return slices.sum(0), t
+    cr, crs = plan.cam_runs.tolist(), plan.cam_run_starts.tolist()
+    out = torch.zeros((ncams, 9), dtype=W.dtype)
+    for c in range(ncams):
+        for s_run in cr[crs[c]:crs[c + 1]]:
+            out[c] += partial[s_run]
+    return out, t
+
+
+def jax_problem(ncams, seed):
+    """A JAX problem (f32, 300 points of 4 rows, padded to 1280 rows: a
+    padding tail of 80 rows on the last point) and its port, and random
+    operands from seed 0: W (zero on the padding), JR, an SPD C, op, v, g_p."""
+    jp, _ = jax_synthetic(ncams=ncams, npnts=300, obs_per_pnt=4, seed=seed,
                           dtype=jnp.float32, noise_px=1.0, perturb=2e-2,
                           pad_obs_to=1280)
     tp = BAProblem.from_numpy(
@@ -258,7 +453,24 @@ def jprob():
     A = rng.standard_normal((jp.npnts, 3, 3)).astype(np.float32)
     C = (A @ np.swapaxes(A, 1, 2) + 3.0 * np.eye(3, dtype=np.float32))
     op = rng.standard_normal((jp.npnts, 3)).astype(np.float32)
-    return jp, tp, dict(W=W, JR=JR, C=C.reshape(-1), op=op)
+    v = rng.standard_normal((jp.ncams, 9)).astype(np.float32)
+    gp = rng.standard_normal(jp.npnts * 3).astype(np.float32)
+    return jp, tp, dict(W=W, JR=JR, C=C.reshape(-1), op=op, v=v, gp=gp)
+
+
+@pytest.fixture(scope="module")
+def jprob():
+    return jax_problem(ncams=9, seed=11)
+
+
+@pytest.fixture(scope="module")
+def jprob_many():
+    """More cameras (700) than a tile has rows: about a run a row, and
+    cameras without rows."""
+    jp, tp, ops = jax_problem(ncams=700, seed=12)
+    seen = np.bincount(np.asarray(jp.cam_idx)[:jp.nobs], minlength=700)
+    assert (seen == 0).sum() > 0
+    return jp, tp, ops
 
 
 def jax_cam_reduce(jp, ops, product):
@@ -287,31 +499,57 @@ def jax_cam_reduce(jp, ops, product):
                               prod=pallas_schur._prod_cam90, interpret=True)
 
 
+def jax_matvec(jp, ops, form):
+    """`matvec_cam_scatter` (``form`` "matvec" or "back_substitution"),
+    interpreted: (out, t (npnts, 3))."""
+    old = (pallas_schur.PALLAS_MODE, pallas_schur.INTERPRET,
+           pallas_schur.CAM_SCATTER)
+    try:
+        pallas_schur.set_mode(True)
+        pallas_schur.INTERPRET = True
+        pallas_schur.CAM_SCATTER = True
+        kw = dict(gp_f=jnp.asarray(ops["gp"]), sign=-1.0) \
+            if form == "back_substitution" else {}
+        out, dp = pallas_schur.matvec_cam_scatter(
+            pad_rows(jnp.asarray(ops["W"]), 32), jnp.asarray(ops["v"]),
+            jp.cam_idx, jp.pnt_idx, jnp.asarray(ops["C"]),
+            tile_bounds(jp.pnt_starts, jp.npnts), jp.ncams, jp.npnts,
+            with_dp=True, **kw)
+    finally:
+        (pallas_schur.PALLAS_MODE, pallas_schur.INTERPRET,
+         pallas_schur.CAM_SCATTER) = old
+    return np.asarray(out), np.asarray(dp)[:3, :jp.npnts].T
+
+
 @pytest.fixture(scope="module")
-def jax_refs(jprob):
-    """The JAX kernel's output per product, computed once."""
-    jp, _, ops = jprob
+def jax_refs(jprob, jprob_many):
+    """The JAX kernels' outputs per (problem, product), computed once."""
+    probs = {"few": jprob, "many": jprob_many}
     cache = {}
 
-    def get(product):
-        if product not in cache:
-            cache[product] = np.asarray(jax_cam_reduce(jp, ops, product))
-        return cache[product]
+    def get(which, product):
+        if (which, product) not in cache:
+            jp, _, ops = probs[which]
+            cache[which, product] = (
+                jax_matvec(jp, ops, product) if product in MATVEC_FORMS
+                else np.asarray(jax_cam_reduce(jp, ops, product)))
+        return cache[which, product]
     return get
+
+
+MATVEC_FORMS = ("matvec", "back_substitution")
+
+
+def port_operands(ops, dtype):
+    return {k: torch.from_numpy(np.ascontiguousarray(x)).to(dtype)
+            for k, x in ops.items()}
 
 
 def port_rows_and_plain(tp, ops, product, dtype):
     """Per-row products (n, d_out) in point order, and the plain twin."""
-    W = torch.from_numpy(ops["W"]).to(dtype)
-    JR = torch.from_numpy(ops["JR"]).to(dtype)
-    C = torch.from_numpy(ops["C"]).to(dtype)
-    op = torch.from_numpy(ops["op"]).to(dtype)
-    pi = tp.pnt_idx.long()
-    rows = {"w_op": lambda: sr.w_op_rows(W, op, pi),
-            "wcw": lambda: sr.wcw_rows(W, C, pi),
-            "wcw_rhs": lambda: torch.cat([sr.wcw_rows(W, C, pi),
-                                          sr.w_op_rows(W, op, pi)], dim=1),
-            "cam90": lambda: sr.jtj_cam_rows(JR)}[product]()
+    o = port_operands(ops, dtype)
+    W, JR, C, op = o["W"], o["JR"], o["C"], o["op"]
+    rows = row_products(product, W, JR, C, op, tp.pnt_idx.long())
     plain = {"w_op": lambda: fs.cam_reduce_w_op(W, tp, op),
              "wcw": lambda: fs.cam_reduce_wcw(W, tp, C),
              "wcw_rhs": lambda: fs.cam_reduce_wcw_rhs(W, tp, C, op),
@@ -325,23 +563,115 @@ def close32(got, ref):
                                atol=1e-5 * np.abs(ref).max())
 
 
+def close_twin(got, plain, dtype):
+    """f64 against the f64 plain twin at 1e-12 (the same sums in another
+    order); f32 at the f32 tolerance."""
+    if dtype == torch.float64:
+        torch.testing.assert_close(got, plain, rtol=1e-12, atol=1e-12)
+    else:
+        close32(got, plain)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
                          ids=["f32", "f64"])
 @pytest.mark.parametrize("rows", [8, 64, plans.TILE_ROWS])
 @pytest.mark.parametrize("product", ["w_op", "wcw", "wcw_rhs", "cam90"])
 def test_two_pass_sum_matches_pallas_and_plain(jprob, jax_refs, product,
                                                 rows, dtype):
-    """K2's plan-driven two passes, for each product, against the JAX
+    """K2's per-block sums (pass 1 a block's own camera rows, pass 2 the
+    blocks summed in order) over the plan at each tile size, for each
+    product, with the kernels' CAM_BLOCKS blocks (more than the tiles at the
+    larger sizes: blocks without tiles), against the JAX
     `cam_scatter_reduce` and the port's plain twin."""
     _, tp, ops = jprob
     plan = plans.build_tile_plan(tp, rows=rows)
     row_vals, plain = port_rows_and_plain(tp, ops, product, dtype)
-    got = two_pass(row_vals, plan, tp.ncams)
-    close32(got, jax_refs(product))
-    if dtype == torch.float64:
-        torch.testing.assert_close(got, plain, rtol=1e-12, atol=1e-12)
+    got = block_walk(row_vals, plan, tp.ncams, plans.CAM_BLOCKS)
+    close32(got, jax_refs("few", product))
+    close_twin(got, plain, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("budget", ["smem", "past_smem"])
+@pytest.mark.parametrize("product", ["w_op", "wcw", "wcw_rhs", "cam90"])
+def test_camera_pass_at_many_cameras_matches_pallas_and_plain(
+        jprob_many, jax_refs, monkeypatch, product, budget, dtype):
+    """K2 with more cameras than a tile has rows (about a run a row,
+    cameras without rows, the padding tail on the last point), on the path
+    ``plans.cam_pass_path`` picks under the injected budget (shared memory
+    for all the sums, or none: per-run sums for W op, records for the
+    others), against the JAX kernel and the plain twin."""
+    _, tp, ops = jprob_many
+    k = fs.FORMS[product][1]
+    monkeypatch.setattr(plans, "SMEM_BUDGET",
+                        10 ** 9 if budget == "smem" else 0)
+    path, blocks = plans.cam_pass_path(tp.ncams, k, 0, 0)
+    assert path == ("smem" if budget == "smem" else
+                    "runs" if k == 9 else "records")
+    plan = plans.build_tile_plan(tp, rows=64)
+    tp.plans["tiles"] = plan
+    row_vals, plain = port_rows_and_plain(tp, ops, product, dtype)
+    assert plan.nruns > 0.8 * tp.nobs_pad
+    o = port_operands(ops, dtype)
+    if path == "records":
+        got = record_walk(tp, product, o["W"], o["JR"], o["C"], o["op"])
+    elif path == "runs":
+        got = runs_walk(row_vals, plan, tp.ncams)
     else:
-        close32(got, plain)
+        assert blocks % plans.CAM_BLOCKS == 0
+        got = block_walk(row_vals, plan, tp.ncams, blocks)
+    close32(got, jax_refs("many", product))
+    close_twin(got, plain, dtype)
+    empty = (tp.cam_starts[1:] == tp.cam_starts[:-1]).nonzero().flatten()
+    assert empty.numel() > 0 and not bool(got[empty].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("product", ["w_op", "wcw", "wcw_rhs", "cam90"])
+def test_record_walk_matches_pallas_and_plain(jprob, jax_refs, product,
+                                              dtype):
+    """K2's records (each row's planes and point written as a record, then
+    each camera's records reduced) and its per-run sums at few cameras,
+    against the JAX kernel and the plain twin."""
+    _, tp, ops = jprob
+    o = port_operands(ops, dtype)
+    row_vals, plain = port_rows_and_plain(tp, ops, product, dtype)
+    for got in (record_walk(tp, product, o["W"], o["JR"], o["C"], o["op"]),
+                runs_walk(row_vals, plans.build_tile_plan(tp, rows=64),
+                          tp.ncams)):
+        close32(got, jax_refs("few", product))
+        close_twin(got, plain, dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64],
+                         ids=["f32", "f64"])
+@pytest.mark.parametrize("blocks", [1, 7, plans.CAM_BLOCKS, "runs"])
+@pytest.mark.parametrize("form", MATVEC_FORMS)
+@pytest.mark.parametrize("which", ["few", "many"])
+def test_fused_matvec_walk_matches_pallas_and_plain(
+        jprob, jprob_many, jax_refs, which, form, blocks, dtype):
+    """K3 in one walk over the plan's visits (each tile's point pass, then
+    its camera pass; the padding tail's long point cut into three tiles,
+    its point passes first), with 1, 7 and CAM_BLOCKS blocks (a span
+    starts at a VISIT_START), and with per-run sums summed by camera,
+    against the JAX `matvec_cam_scatter` (out and t) and the plain twin."""
+    _, tp, ops = jprob if which == "few" else jprob_many
+    plan = plans.build_tile_plan(tp, rows=32)
+    assert int((plan.visits & 3 == plans.VISIT_CAMERA).sum()) == 3
+    o = port_operands(ops, dtype)
+    gp, sign = (o["gp"], -1.0) if form == "back_substitution" else (None, 1.0)
+    runs = blocks == "runs"
+    out, t = matvec_walk(tp, plan, o["W"], o["v"], o["C"], gp, sign,
+                         plans.CAM_BLOCKS if runs else blocks, runs)
+    ref_out, ref_t = jax_refs(which, form)
+    close32(out, ref_out)
+    close32(t, ref_t)
+    p_out, p_t = fs._matvec_cam_scatter_plain(o["W"], o["v"], tp, o["C"],
+                                              gp, sign, with_dp=True)
+    close_twin(out, p_out, dtype)
+    close_twin(t, p_t, dtype)
 
 
 # ------------------------------------------------------- K5: point ranges
