@@ -37,6 +37,7 @@ from bundleadjustment_jl_tpu_torch.ops.normal import (
     GNBlocks, damp, inv3x3_damped_flat)
 from bundleadjustment_jl_tpu_torch.ops.pcg import (
     block_jacobi_apply, block_jacobi_inverse)
+from bundleadjustment_jl_tpu_torch.utils.profiling import host_read
 
 
 class CGLSResult(NamedTuple):
@@ -125,7 +126,7 @@ def cgls_solve(problem: BAProblem, blocks: GNBlocks, lam, rtol,
     s2c, s2p = torch.zeros_like(zc), torch.zeros_like(zp)
     pc, pp = zc, zp
     it = 0
-    while it < max_iters and bool(gamma > tol):
+    while it < max_iters and bool(host_read(gamma > tol)):
         q1 = _jd(problem, JR_t, pc, pp)
         # the row and point parts, summed over the ranks together (the
         # point part only over the ranks' points)

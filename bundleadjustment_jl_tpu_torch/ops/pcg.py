@@ -4,7 +4,8 @@ solve on the reduced camera system (PyTorch port of
 
 PyTorch runs eagerly, so the CG loop is a Python loop over device
 tensors. Each step makes exactly one host read: the continue flag
-(``||r|| > tol`` and no breakdown), which stays on the device until then.
+(``||r|| > tol`` and no breakdown), which stays on the device until then;
+each is counted (`utils/profiling.py:host_read`).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import numpy as np
 import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import HALF_DTYPES
+from bundleadjustment_jl_tpu_torch.utils.profiling import host_read
 
 # Consecutive CG steps without a 4% best-residual improvement after which
 # `pcg` stops when `stagnation_window > 0` (the JAX package's default).
@@ -99,7 +101,7 @@ def pcg(matvec: Callable, b: torch.Tensor, precond: Callable, rtol,
         live = torch.logical_not(down) & (torch.sqrt(_dot(r, r)) > tol)
         if stagnation_window > 0:
             live = live & (stag < stagnation_window)
-        if not bool(live):
+        if not bool(host_read(live)):
             break
         Sp = matvec(p)
         pSp = _dot(p, Sp)
@@ -138,7 +140,7 @@ def power_series(matvec: Callable, b: torch.Tensor, m_apply: Callable,
     x = m_solve(b)
     res = torch.full_like(bnorm, float("inf"))
     it = 0
-    while it < max_terms and bool(res > tol):
+    while it < max_terms and bool(host_read(res > tol)):
         Sx = matvec(x)
         res = torch.sqrt(torch.sum((b - Sx) ** 2))
         x = m_solve(b + m_apply(x) - Sx)

@@ -61,6 +61,12 @@ K8, :class:`CamRowPlan`: the row data in camera order, so that K8 reads
 every per-row field coalesced; 16 B a row on top of ``cam_pnt`` (148 MB at
 Final-4585's 9,272,320 rows).
 
+Each plan built opens the span ``ba.plan.<key>`` (`utils/profiling.py`;
+the key's first part), and each value its builders read into the host is
+counted there (``host_reads``): the flags of the checks, and each op whose
+output size is a device value (``nonzero``, ``unique``, the total of the
+cuts inside long points) and so waits for it.
+
 Every plan assumes point-sorted rows: a problem in camera groups (its
 ``pnt_perm`` set, `parallel/partition.py`) has none, and each build function
 refuses it; such a problem solves on the plain route.
@@ -78,6 +84,7 @@ from typing import NamedTuple
 import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import HALF_DTYPES
+from bundleadjustment_jl_tpu_torch.utils.profiling import host_read, span
 
 # The most rows of a K2 / K3 tile: csrc/cam_pass.cuh:BA_TILE_ROWS (the
 # kernel refuses a plan of another size; below 2^15, the plan's offsets
@@ -195,8 +202,8 @@ def _check_cam_perm(problem) -> None:
     perm = problem.cam_perm.long()
     cam = problem.cam_idx.long()[perm]
     same_cam = cam[1:] == cam[:-1]
-    if bool(((cam[1:] < cam[:-1])
-             | (same_cam & (perm[1:] <= perm[:-1]))).any()):
+    if bool(host_read(((cam[1:] < cam[:-1])
+                       | (same_cam & (perm[1:] <= perm[:-1]))).any())):
         raise ValueError("cam_perm must list the cameras in order and each "
                          "camera's rows in ascending order (a stable argsort "
                          "of cam_idx)")
@@ -220,17 +227,18 @@ def tile_bounds(pnt_starts: torch.Tensor, n: int, rows: int,
     cuts = [ps[torch.searchsorted(ps, at, right=True) - 1],
             ps.new_tensor([0, n])]
     seg = ps[1:] - ps[:-1]
-    long_ = torch.nonzero(seg > short).flatten()
+    long_ = host_read(torch.nonzero(seg > short)).flatten()
     cuts += [ps[long_], ps[long_ + 1]]
-    big = long_[seg[long_] > rows]
-    nsplit = (seg[big] - 1) // rows
-    if int(nsplit.sum()) > 0:
-        owner = torch.repeat_interleave(big, nsplit)
+    # The cuts inside each long point: none in one of at most ``rows``.
+    nsplit = (seg[long_] - 1) // rows
+    total = int(host_read(nsplit.sum()))
+    if total > 0:
+        owner = torch.repeat_interleave(long_, nsplit, output_size=total)
         first = torch.cumsum(nsplit, 0) - nsplit
-        j = torch.arange(owner.shape[0], device=dev) \
-            - torch.repeat_interleave(first, nsplit) + 1
+        j = torch.arange(total, device=dev) - torch.repeat_interleave(
+            first, nsplit, output_size=total) + 1
         cuts.append(ps[owner] + j * rows)
-    return torch.unique(torch.cat(cuts))
+    return host_read(torch.unique(torch.cat(cuts)))
 
 
 def build_tile_plan(problem, rows: int = TILE_ROWS,
@@ -259,7 +267,7 @@ def build_tile_plan(problem, rows: int = TILE_ROWS,
     tile_o, cam_o = tile[order], problem.cam_idx.long()[order]
     new = torch.ones(n, dtype=torch.bool, device=dev)
     new[1:] = (cam_o[1:] != cam_o[:-1]) | (tile_o[1:] != tile_o[:-1])
-    starts = torch.nonzero(new).flatten()
+    starts = host_read(torch.nonzero(new)).flatten()
     run_tile = tile_o[starts]
     ends = torch.cat([starts[1:], starts.new_tensor([n])])
     run_starts = torch.searchsorted(run_tile,
@@ -287,7 +295,7 @@ def _visits(ps, bounds, pidx, rows) -> torch.Tensor:
     anchor = torch.where(grouped, torch.searchsorted(bounds, ps[p]), t)
     first = torch.where(grouped, VISIT_POINT | torch.where(
         t == anchor, VISIT_START, 0), VISIT_POINT | VISIT_CAMERA | VISIT_START)
-    g = torch.nonzero(grouped).flatten()
+    g = host_read(torch.nonzero(grouped)).flatten()
     codes = torch.cat([t * 8 + first, g * 8 + VISIT_CAMERA])
     keys = torch.cat([anchor * 2 * ntiles + t,
                       (anchor[g] * 2 + 1) * ntiles + g])
@@ -335,7 +343,8 @@ def build_point_blocks(problem, rows: int = POINT_BLOCK_ROWS) -> torch.Tensor:
     cuts = torch.searchsorted(ps, rows * torch.arange(
         1, -(-problem.nobs_pad // rows), device=dev))
     ends = ps.new_tensor([0, npt])
-    return _i32(torch.unique(torch.cat([ends, cuts.clamp(max=npt)])))
+    return _i32(host_read(torch.unique(torch.cat([ends,
+                                                  cuts.clamp(max=npt)]))))
 
 
 def build_cam_col_plan(problem, cols: int = CAM_BLOCK_COLS) -> CamColPlan:
@@ -347,12 +356,12 @@ def build_cam_col_plan(problem, cols: int = CAM_BLOCK_COLS) -> CamColPlan:
     perm = problem.cam_perm.long()
     n, dev = perm.shape[0], perm.device
     cam = problem.cam_idx.long()[perm]
-    if bool((cam[1:] < cam[:-1]).any()):
+    if bool(host_read((cam[1:] < cam[:-1]).any())):
         raise ValueError("cam_perm must list the cameras in order")
     rng = torch.arange(n, device=dev) // cols
     new = torch.ones(n, dtype=torch.bool, device=dev)
     new[1:] = (cam[1:] != cam[:-1]) | (rng[1:] != rng[:-1])
-    starts = torch.nonzero(new).flatten()
+    starts = host_read(torch.nonzero(new)).flatten()
     nranges = -(-n // cols)
     return CamColPlan(
         cols, cam_pnt(problem),
@@ -373,44 +382,45 @@ def build_cam_row_plan(problem) -> CamRowPlan:
                       _by_camera(problem, "cam_idx"), cam_pnt(problem))
 
 
+def _cached(problem, key, build):
+    """``problem.plans[key]``, built by ``build()`` at the first call inside
+    the span ``ba.plan.<name>`` (`utils/profiling.py`; the name is the key's
+    first part, a string key itself); a cached plan opens no span."""
+    if key not in problem.plans:
+        name = key if isinstance(key, str) else key[0]
+        with span(f"ba.plan.{name}"):
+            problem.plans[key] = build()
+    return problem.plans[key]
+
+
 def rows(problem) -> tuple[torch.Tensor, torch.Tensor]:
     """``(pt2d, w)`` as the kernels read them: the problem's own, or for a
     problem in a 2-byte dtype their float32 copies (the rounded values,
     widened exactly), built at the first call and kept under that dtype."""
     if problem.pt2d.dtype not in HALF_DTYPES:
         return problem.pt2d, problem.w
-    key = ("rows", problem.pt2d.dtype)
-    if key not in problem.plans:
-        problem.plans[key] = (problem.pt2d.float().contiguous(),
-                              problem.w.float().contiguous())
-    return problem.plans[key]
+    return _cached(problem, ("rows", problem.pt2d.dtype), lambda: (
+        problem.pt2d.float().contiguous(), problem.w.float().contiguous()))
 
 
 def tile_plan(problem) -> TilePlan:
     """K2 and K3's plan of ``problem``, built at the first call."""
-    if "tiles" not in problem.plans:
-        problem.plans["tiles"] = build_tile_plan(problem, TILE_ROWS,
-                                                 TILE_SHORT)
-    return problem.plans["tiles"]
+    return _cached(problem, "tiles", lambda: build_tile_plan(
+        problem, TILE_ROWS, TILE_SHORT))
 
 
 def point_blocks(problem) -> torch.Tensor:
     """K5's point ranges of ``problem``, built at the first call."""
-    if "point_blocks" not in problem.plans:
-        problem.plans["point_blocks"] = build_point_blocks(problem,
-                                                           POINT_BLOCK_ROWS)
-    return problem.plans["point_blocks"]
+    return _cached(problem, "point_blocks", lambda: build_point_blocks(
+        problem, POINT_BLOCK_ROWS))
 
 
 def _by_camera(problem, field: str) -> torch.Tensor:
     """(n,) int32 index array ``field`` in camera order (``[cam_perm]``),
     built at the first call."""
     _point_sorted(problem)
-    key = ("by_camera", field)
-    if key not in problem.plans:
-        problem.plans[key] = _i32(
-            getattr(problem, field).long()[problem.cam_perm.long()])
-    return problem.plans[key]
+    return _cached(problem, ("by_camera", field), lambda: _i32(
+        getattr(problem, field).long()[problem.cam_perm.long()]))
 
 
 def cam_pnt(problem) -> torch.Tensor:
@@ -421,25 +431,19 @@ def cam_pnt(problem) -> torch.Tensor:
 
 def cam_col_plan(problem) -> CamColPlan:
     """K5 camera direction's plan of ``problem``, built at the first call."""
-    if "cam_cols" not in problem.plans:
-        problem.plans["cam_cols"] = build_cam_col_plan(problem,
-                                                       CAM_BLOCK_COLS)
-    return problem.plans["cam_cols"]
+    return _cached(problem, "cam_cols", lambda: build_cam_col_plan(
+        problem, CAM_BLOCK_COLS))
 
 
 def wcw_col_plan(problem) -> CamColPlan:
     """K6 W C W's column plan of ``problem``, built at the first call."""
-    if "wcw_cols" not in problem.plans:
-        problem.plans["wcw_cols"] = build_cam_col_plan(problem,
-                                                       WCW_BLOCK_COLS)
-    return problem.plans["wcw_cols"]
+    return _cached(problem, "wcw_cols", lambda: build_cam_col_plan(
+        problem, WCW_BLOCK_COLS))
 
 
 def cam_row_plan(problem) -> CamRowPlan:
     """K8's camera-order rows of ``problem``, built at the first call and
     kept under the dtype of ``pt2d``: a copy of the problem in another
     dtype (``astype``) never reads them."""
-    key = ("cam_rows", problem.pt2d.dtype)
-    if key not in problem.plans:
-        problem.plans[key] = build_cam_row_plan(problem)
-    return problem.plans[key]
+    return _cached(problem, ("cam_rows", problem.pt2d.dtype),
+                   lambda: build_cam_row_plan(problem))

@@ -26,6 +26,9 @@ Host reads per LM iteration: one flag per CG step (`ops/pcg.py`; a power
 term and a CGLS step alike), one packed block (trial objectives, g'd,
 ||J d||^2, ||d||, ||x||) at the accept decision, and — after an accepted
 step — the new objective and gradient norm that the stopping tests need.
+Each is counted in `utils/profiling.py:COUNTERS` (``host_reads``), and the
+stages of a solve are spans there (:func:`solve_step`, :func:`_linearize`,
+:func:`_lm_run`'s ``ba.trial``, ``ba.solve`` around a driver's call).
 
 As in the JAX package, the solve is an init (:func:`_lm_init`: the first
 linearization and the state) and a run until a status or an iteration
@@ -85,6 +88,7 @@ from bundleadjustment_jl_tpu_torch.ops.schur import (
     reduce_system, schur_matvec, solve_dense)
 from bundleadjustment_jl_tpu_torch.parallel.spmd import MeshShard
 from bundleadjustment_jl_tpu_torch.utils.checkpoint import CheckpointManager
+from bundleadjustment_jl_tpu_torch.utils.profiling import host_read, span
 
 # The kernel route of a solve is one of `ops/normal.py:ROUTES`, which lists
 # each route's kernels; `ops/normal.py:kernel_route` picks it once per call
@@ -161,6 +165,18 @@ def expected_launches(route: str, iterations: int, naccepts: int, cg: int,
                        ("seg_block_camera" if split else "cam_reduce_w_op"):
                        cg + 2 * it})
     return expect
+
+
+def expected_host_reads(iterations: int, naccepts: int, hist_cg,
+                        max_steps: int) -> int:
+    """The host reads (`utils/profiling.py:COUNTERS`) a jit solve with the
+    ``pcg`` or ``power`` step makes, from its decisions, less those of its
+    launch plans: the initial read; per iteration the step's flags (one a
+    CG step or power term, and one more where the step stopped before
+    ``max_steps``) and the packed read; per accept the new objective's
+    read."""
+    flags = sum(int(c) + (int(c) < max_steps) for c in hist_cg[:iterations])
+    return 1 + flags + iterations + naccepts
 
 
 def expected_w_launches(launches: dict, facto_dtype,
@@ -339,35 +355,46 @@ def solve_step(problem: BAProblem, blocks: GNBlocks, lam, rtol,
       quadratic form;
     - ``cgls``: CGLS on the blocks' ``JR_t``, ``||J d||^2`` from
       ``j_matvec`` (its row sum all-reduced on a mesh shard).
+
+    Spans (`utils/profiling.py`): ``ba.reduce`` (the reduction and the
+    preconditioner), ``ba.pcg`` (the step solver), ``ba.backsub``.
     """
     lam = float(lam)
-    if solver == "cgls":
-        res = cgls_solve(problem, blocks, lam, rtol, max_iters=max_iters)
-        Jd = j_matvec(problem, blocks, res.dc, res.dp)
-        return res.dc, res.dp, spmdctx.psum(torch.sum(Jd * Jd)), res.iters
-    if solver == "pcg":
-        sys, Sd = reduce_and_diag(problem, blocks, lam)
-        M_inv = block_jacobi_inverse(Sd)
-        res = pcg(lambda v: schur_matvec(sys, v), sys.b,
-                  lambda v: block_jacobi_apply(M_inv, v), rtol=float(rtol),
-                  max_iters=max_iters, x0=x0,
-                  stagnation_window=stagnation_window)
-        dc, iters = res.x, res.iters
-    elif solver == "power":
-        sys = reduce_system(problem, blocks, lam)
-        M_inv = block_jacobi_inverse(sys.Hcc_l)
-        res = power_series(
-            lambda v: schur_matvec(sys, v), sys.b,
-            lambda v: torch.einsum("cab,cb->ca", sys.Hcc_l, v),
-            lambda v: block_jacobi_apply(M_inv, v), rtol=float(rtol),
-            max_terms=max_iters)
-        dc, iters = res.x, res.iters
-    elif solver == "dense":
-        sys = reduce_system(problem, blocks, lam)
-        dc, iters = solve_dense(sys), 0
-    else:
+    if solver not in SOLVERS:
         raise ValueError(f"unknown solver {solver!r}; one of {SOLVERS}")
-    dp, Jd2 = back_substitute_quad(problem, blocks, sys, dc)
+    if solver == "cgls":
+        with span("ba.pcg"):
+            res = cgls_solve(problem, blocks, lam, rtol, max_iters=max_iters)
+        with span("ba.backsub"):
+            Jd = j_matvec(problem, blocks, res.dc, res.dp)
+            Jd2 = spmdctx.psum(torch.sum(Jd * Jd))
+        return res.dc, res.dp, Jd2, res.iters
+    with span("ba.reduce"):
+        if solver == "pcg":
+            sys, Sd = reduce_and_diag(problem, blocks, lam)
+            M_inv = block_jacobi_inverse(Sd)
+        else:
+            sys = reduce_system(problem, blocks, lam)
+            if solver == "power":
+                M_inv = block_jacobi_inverse(sys.Hcc_l)
+    with span("ba.pcg"):
+        if solver == "pcg":
+            res = pcg(lambda v: schur_matvec(sys, v), sys.b,
+                      lambda v: block_jacobi_apply(M_inv, v),
+                      rtol=float(rtol), max_iters=max_iters, x0=x0,
+                      stagnation_window=stagnation_window)
+            dc, iters = res.x, res.iters
+        elif solver == "power":
+            res = power_series(
+                lambda v: schur_matvec(sys, v), sys.b,
+                lambda v: torch.einsum("cab,cb->ca", sys.Hcc_l, v),
+                lambda v: block_jacobi_apply(M_inv, v), rtol=float(rtol),
+                max_terms=max_iters)
+            dc, iters = res.x, res.iters
+        else:
+            dc, iters = solve_dense(sys), 0
+    with span("ba.backsub"):
+        dp, Jd2 = back_substitute_quad(problem, blocks, sys, dc)
     return dc, dp, Jd2, iters
 
 
@@ -463,7 +490,8 @@ def _any_rank(flag: bool, device) -> bool:
     decision every rank must take alike); ``flag`` itself off a mesh."""
     if spmdctx.GROUP is None:
         return flag
-    return bool(spmdctx.pmax(torch.tensor(float(flag), device=device)))
+    return bool(host_read(spmdctx.pmax(torch.tensor(float(flag),
+                                                    device=device))))
 
 
 def _check_lockstep(problem: BAProblem, route: str, solver: str) -> None:
@@ -480,7 +508,7 @@ def _check_lockstep(problem: BAProblem, route: str, solver: str) -> None:
          problem.ncams, spmdctx.CAMERA_GROUPS],
         dtype=torch.float64, device=problem.cams.device)
     hi, lo = spmdctx.pmax(code), -spmdctx.pmax(-code)
-    if not torch.equal(hi, lo):
+    if not torch.equal(host_read(hi), lo):
         raise RuntimeError(
             f"the ranks' solves differ (route, kernels, dtype, solver, "
             f"cameras, layout): between {lo.tolist()} and {hi.tolist()}")
@@ -553,12 +581,14 @@ def _setup(problem: BAProblem, cams, points, *, max_iters, lam0,
 
 def _linearize(cfg: _Setup, cams, points):
     """The blocks at (cams, points) with W in its storage dtype, and the
-    objective and gradient norm on the device (no host read)."""
-    blocks = assemble_blocks(cfg.problem, cams, points, route=cfg.route,
-                             w_dtype=cfg.w_dtype, stages=cfg.stages,
-                             with_jr=cfg.solver == "cgls")
-    return (maybe_cast_facto(blocks, cfg.facto_dtype), blocks.obj,
-            gradient_norm(blocks))
+    objective and gradient norm on the device (no host read); span
+    ``ba.linearize``."""
+    with span("ba.linearize"):
+        blocks = assemble_blocks(cfg.problem, cams, points, route=cfg.route,
+                                 w_dtype=cfg.w_dtype, stages=cfg.stages,
+                                 with_jr=cfg.solver == "cgls")
+        return (maybe_cast_facto(blocks, cfg.facto_dtype), blocks.obj,
+                gradient_norm(blocks))
 
 
 def _lm_init(cfg: _Setup, cams, points) -> _State:
@@ -575,7 +605,7 @@ def _lm_init(cfg: _Setup, cams, points) -> _State:
             torch.max(blocks.Hcc_f.reshape(-1, 81)[:, ::10]),
             spmdctx.pmax_points(
                 torch.max(blocks.Hpp_f.reshape(-1, 9)[:, ::4]))))
-    init = torch.stack(init).to(torch_dtype(ft)).cpu().numpy()
+    init = host_read(torch.stack(init).to(torch_dtype(ft))).cpu().numpy()
     obj, gnorm = ft(init[0]), ft(init[1])
     with np.errstate(all="ignore"):
         if cfg.lam0_mode == "diag":
@@ -614,19 +644,21 @@ def _lm_run(cfg: _Setup, st: _State, it_max: int) -> None:
             x0=st.dc_carry if cfg.pcg_warm else None,
             stagnation_window=cfg.stagnation)
 
-        # The point parts of g'd, ||d||^2 and ||x||^2 (one all-reduce on
-        # point-aligned shards; the camera parts are replicated).
-        pnt = spmdctx.psum_points(torch.stack([torch.sum(blocks.g_p * dp),
-                                        torch.sum(dp * dp),
-                                        torch.sum(points ** 2)]))
-        gd = torch.sum(blocks.g_c * dc) + pnt[0]
-        dnorm_t = torch.sqrt(torch.sum(dc * dc) + pnt[1])
-        xnorm = torch.sqrt(torch.sum(cams ** 2) + pnt[2])
-        objs_t = cfg.stages.objective_scatter(
-            problem, cams[None] + scales[:, None, None] * dc[None],
-            points[None] + scales[:, None, None] * dp[None])
-        packed = torch.cat([objs_t, torch.stack([gd, Jd2, dnorm_t, xnorm])])
-        packed = packed.to(torch_dtype(ft)).cpu().numpy()
+        with span("ba.trial"):
+            # The point parts of g'd, ||d||^2 and ||x||^2 (one all-reduce
+            # on point-aligned shards; the camera parts are replicated).
+            pnt = spmdctx.psum_points(torch.stack([
+                torch.sum(blocks.g_p * dp), torch.sum(dp * dp),
+                torch.sum(points ** 2)]))
+            gd = torch.sum(blocks.g_c * dc) + pnt[0]
+            dnorm_t = torch.sqrt(torch.sum(dc * dc) + pnt[1])
+            xnorm = torch.sqrt(torch.sum(cams ** 2) + pnt[2])
+            objs_t = cfg.stages.objective_scatter(
+                problem, cams[None] + scales[:, None, None] * dc[None],
+                points[None] + scales[:, None, None] * dp[None])
+            packed = torch.cat([objs_t,
+                                torch.stack([gd, Jd2, dnorm_t, xnorm])])
+            packed = host_read(packed.to(torch_dtype(ft))).cpu().numpy()
         objs = packed[:-4]
         gd, Jd2, dnorm, xnorm = (ft(v) for v in packed[-4:])
 
@@ -679,7 +711,8 @@ def _lm_run(cfg: _Setup, st: _State, it_max: int) -> None:
             st.cams = cams + float(s_sel) * dc
             st.points = points + float(s_sel) * dp
             st.blocks, obj_t, gnorm_t = _linearize(cfg, st.cams, st.points)
-            new = torch.stack([obj_t, gnorm_t]).to(torch_dtype(ft)).cpu()
+            new = host_read(torch.stack([obj_t, gnorm_t])
+                            .to(torch_dtype(ft))).cpu()
             obj_n, gnorm_n = (ft(v) for v in new.numpy())
             st.naccepts += 1
         else:
@@ -757,7 +790,7 @@ def levenberg_marquardt_jit(
     cams = problem.cams if cams is None else cams
     points = (problem.points if points is None
               else _local_points(problem, points))
-    with _ranks(problem):
+    with _ranks(problem), span("ba.solve"):
         cfg = _setup(
             problem, cams, points, max_iters=max_iters, lam0=lam0,
             lam0_mode=lam0_mode, atol=atol, rtol=rtol, restol=restol,
@@ -825,7 +858,7 @@ def levenberg_marquardt_jit_chunked(
     cams = problem.cams if cams is None else cams
     points = (problem.points if points is None
               else _local_points(problem, points))
-    with _ranks(problem):
+    with _ranks(problem), span("ba.solve"):
         cfg = _setup(problem, cams, points, max_iters=max_iters,
                      **{**_OPTIONS, **options})
         _check_lockstep(problem, cfg.route, cfg.solver)

@@ -1,79 +1,58 @@
-"""Phase timers and traces (PyTorch port of
-`bundleadjustment_jl_tpu/utils/profiling.py`).
+"""Spans, a host-read counter and traces (the port's tracing).
 
-- :class:`PhaseTimers`: named wall-clock timers that accumulate over
-  calls. PyTorch returns before the card finishes, so a phase given its
-  result waits for the card (`utils/timing.py:sync`) before its clock
-  stops, and the time lands on the phase that did the work. For the
-  device time of a kernel use `utils/timing.py:timed` (CUDA events).
+- :func:`span`: a named ``torch.profiler.record_function`` annotation
+  while a profiler records, one shared null context otherwise (no
+  ``record_function`` entered: a flag read). Spans carry no clock and take
+  no synchronize: the profiler keeps them beside the kernels, on its own
+  clock, and writes them when it exports. They nest. The solvers open them
+  at the stages of an LM solve (ROADMAP's seven): ``ba.solve`` around a
+  call of a jit driver (its own time is stage 7, the lambda schedule and
+  the stop tests), ``ba.linearize`` (1), ``ba.reduce`` (2-3), ``ba.pcg``
+  (4, whichever step solver), ``ba.backsub`` (5), ``ba.trial`` (6); and
+  ``ba.plan.<key>`` around each launch plan built (`ops/plans.py`).
+- :data:`COUNTERS`: ``host_reads``, each device value a solve reads into
+  the host (:func:`host_read`): a ``bool()``, ``int()`` or copy to the
+  host, or an op whose output size is a device value (``nonzero``,
+  ``unique``) and so waits for it. Counted where the read happens, on the
+  CPU as on the card; :func:`reset_counters` zeroes it.
+  `solver/lm_jit.py:expected_host_reads` gives a solve's count from its
+  decisions.
 - :func:`trace`: ``torch.profiler`` around a block, written as a Chrome
-  trace (``chrome://tracing`` or Perfetto): host operators and, on the
-  card, each kernel with its device time.
+  trace (``chrome://tracing`` or Perfetto): host operators, the spans and,
+  on the card, each kernel with its device time.
 """
 
 from __future__ import annotations
 
 import contextlib
 import os
-import time
-from collections import defaultdict
 from typing import Iterator
 
 import torch
 
-from bundleadjustment_jl_tpu_torch.utils.timing import sync as _sync
+_OFF = contextlib.nullcontext()
+
+COUNTERS = {"host_reads": 0}
 
 
-class PhaseTimers:
-    """Wall time per named phase, accumulated over calls.
+def span(name: str):
+    """A context manager that marks its block as ``name`` in the trace of a
+    recording profiler; with none recording, the shared null context."""
+    if torch._C._autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _OFF
 
-    >>> timers = PhaseTimers()
-    >>> blocks = timers.timed("linearize", assemble_blocks,
-    ...                       problem)          # doctest: +SKIP
-    >>> print(timers.summary())                 # doctest: +SKIP
-    """
 
-    def __init__(self, sync: bool = True):
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
-        self.sync = sync
+def host_read(value):
+    """Count one read of a device value into the host; returns ``value``
+    (the caller reads it: ``bool(host_read(flag))``)."""
+    COUNTERS["host_reads"] += 1
+    return value
 
-    @contextlib.contextmanager
-    def phase(self, name: str, result=None) -> Iterator[None]:
-        """Charge the block's wall time to ``name``; with ``sync`` and a
-        ``result`` (tensors), first wait for the card to finish them."""
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            if self.sync and result is not None:
-                _sync(result)
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
 
-    def timed(self, name: str, fn, *args, **kwargs):
-        """Run ``fn``, wait for its result (with ``sync``), charge the
-        elapsed time to ``name``; returns the result."""
-        t0 = time.perf_counter()
-        out = fn(*args, **kwargs)
-        if self.sync:
-            _sync(out)
-        self.totals[name] += time.perf_counter() - t0
-        self.counts[name] += 1
-        return out
-
-    def summary(self) -> str:
-        """A table of the phases, most time first: total seconds, calls,
-        mean milliseconds and share of the total."""
-        rows = sorted(self.totals.items(), key=lambda kv: -kv[1])
-        total = sum(self.totals.values()) or 1.0
-        lines = [f"{'phase':<24} {'total s':>10} {'calls':>7} "
-                 f"{'mean ms':>9} {'%':>6}"]
-        for name, t in rows:
-            n = self.counts[name]
-            lines.append(f"{name:<24} {t:10.3f} {n:7d} "
-                         f"{1e3 * t / n:9.3f} {100 * t / total:6.1f}")
-        return "\n".join(lines)
+def reset_counters() -> None:
+    for k in COUNTERS:
+        COUNTERS[k] = 0
 
 
 @contextlib.contextmanager

@@ -45,6 +45,11 @@ DTYPES = {"float64": (jnp.float64, torch.float64, 1e-12),
           "float32": (jnp.float32, torch.float32, 1e-5)}
 PROBLEM = dict(ncams=6, npnts=60, obs_per_pnt=3, seed=5, noise_px=1.0,
                perturb=2e-2)
+# JAX names the port leaves out on purpose, by sub-package: the port marks
+# a solve's phases with spans under the profiler (`utils/profiling.py`)
+# in place of wall-clock phase timers, which synchronize each phase and so
+# change what they time.
+NOT_PORTED = {"utils": {"PhaseTimers"}}
 
 
 def _exports(init: Path) -> set:
@@ -71,8 +76,10 @@ def test_port_exports_a_superset_of_jax(sub):
     jax_init = ROOT / JAX_PKG / sub / "__init__.py"
     want = _exports(jax_init)
     port = importlib.import_module(PORT_PKG + ("." + sub if sub else ""))
-    missing = sorted(n for n in want if not hasattr(port, n))
-    assert not missing, f"{PORT_PKG}.{sub} lacks {missing}"
+    missing = {n for n in want if not hasattr(port, n)}
+    dropped = NOT_PORTED.get(sub, set())
+    assert dropped <= want
+    assert missing == dropped, f"{PORT_PKG}.{sub} lacks {sorted(missing)}"
 
 
 def _close(got, ref, rel):

@@ -1,6 +1,6 @@
 """The port's surface against the JAX package, on the CPU: the native BAL
 reader and ``write_bal``, the AD Jacobian cross-check, the problem suites,
-the campaign runner, the CLI and the phase timers.
+the campaign runner, the CLI and the profiler's trace.
 
 Bars:
 
@@ -44,7 +44,7 @@ from bundleadjustment_jl_tpu_torch.solver import LMOptions, levenberg_marquardt
 from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
     STATUS_NAMES, levenberg_marquardt_jit, levenberg_marquardt_jit_chunked)
-from bundleadjustment_jl_tpu_torch.utils.profiling import PhaseTimers, trace
+from bundleadjustment_jl_tpu_torch.utils.profiling import trace
 
 # One intra-op thread: xdist runs test files side by side, one worker a
 # core or so, and torch's default pool (a thread a core in every worker)
@@ -449,22 +449,18 @@ def test_cli_platform_is_the_device_option():
 
 
 # ---------------------------------------------------------------- profiling
-def test_phase_timers_and_trace(tmp_path):
-    timers = PhaseTimers()
-    x = torch.ones(1000, dtype=torch.float64)
-    y = timers.timed("square", torch.square, x)
-    with timers.phase("sum", result=y):
-        s = torch.sum(y)
-    with timers.phase("sum"):
-        pass
-    assert float(s) == 1000.0
-    assert dict(timers.counts) == {"square": 1, "sum": 2}
-    assert all(t >= 0.0 for t in timers.totals.values())
-    lines = timers.summary().splitlines()
-    assert lines[0].split() == ["phase", "total", "s", "calls", "mean", "ms",
-                                "%"]
-    assert {ln.split()[0] for ln in lines[1:]} == {"square", "sum"}
+def test_trace_holds_the_solve_spans(tmp_path):
+    """``trace()`` writes a Chrome trace that holds a solve's ``ba.*``
+    spans beside the operators."""
+    prob, _ = synthetic_bal(ncams=6, npnts=40, obs_per_pnt=3, seed=2,
+                            device="cpu")
     with trace(str(tmp_path / "trace")) as prof:
-        torch.square(x)
-    assert (tmp_path / "trace" / "trace.json").exists()
-    assert any("square" in e.key for e in prof.key_averages())
+        res = levenberg_marquardt_jit(prob, max_iters=20)
+    events = json.loads((tmp_path / "trace" / "trace.json").read_text())[
+        "traceEvents"]
+    names = [e["name"] for e in events if e.get("cat") == "user_annotation"]
+    assert names.count("ba.solve") == 1
+    assert names.count("ba.linearize") == res.naccepts + 1
+    for stage in ("ba.reduce", "ba.pcg", "ba.backsub", "ba.trial"):
+        assert names.count(stage) == res.iterations > 0
+    assert any(e.key == "ba.pcg" for e in prof.key_averages())
