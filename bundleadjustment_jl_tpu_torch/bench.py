@@ -76,6 +76,10 @@ FLOPS_PER_ROW = {
     "seg_prod_cam90": 216, "seg_prod_wcw81": 405, "seg_block_point": 54,
     "seg_block_camera": 54,
 }
+# The point-block forms' arithmetic a point: the damped adjugate inverse
+# (3 damped diagonals, 18 products and 9 differences, the determinant's 5,
+# 9 scalings) and a 3x3 block times a vector (15); dp' Hpp dp 15 + 6.
+FLOPS_PER_POINT = {"point_inv": 44 + 15, "point_quad": 21}
 
 
 def shape(name: str):
@@ -124,6 +128,8 @@ def kernel_bytes(name: str, problem, w_itemsize: int = 4, *,
         "seg_block_point": W + vec_c + idx + pnt_starts + hpp_inv + vec_p,
         "seg_block_camera": W + vec_p + 2 * idx + cam_starts + vec_c,
         "stream_probe": (32 + nsmall) * n * f + 32 * f,
+        "point_inv": 2 * (hpp_inv + vec_p),
+        "point_quad": hpp_inv + vec_p + f,
     }
     return table[name]
 
@@ -132,10 +138,12 @@ def kernel_flops(name: str, problem, *, nsmall: int = 0,
                  scales: int = 1) -> int:
     """Floating-point operations of one launch of ``name`` on ``problem``
     (:data:`FLOPS_PER_ROW` a row, a row and scale for ``objective``; one
-    add a value for the probe)."""
+    add a value for the probe; :data:`FLOPS_PER_POINT` a point)."""
     n = problem.nobs_pad
     if name == "stream_probe":
         return (32 + nsmall) * n
+    if name in FLOPS_PER_POINT:
+        return FLOPS_PER_POINT[name] * problem.npnts
     return FLOPS_PER_ROW[name] * n * (scales if name == "objective" else 1)
 
 

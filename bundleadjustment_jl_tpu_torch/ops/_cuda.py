@@ -9,7 +9,8 @@ without ``nvcc``, or when the compiler fails, the loader raises with the
 compiler's output.
 
 Each kernel wrapper (``ops/fused_assemble.py``, ``ops/fused_schur.py``,
-``ops/linearize.py``, ``ops/seg_reduce.py``, ``ops/stream_probe.py``)
+``ops/linearize.py``, ``ops/point_block.py``, ``ops/seg_reduce.py``,
+``ops/stream_probe.py``)
 counts its launches in :data:`LAUNCHES` through :func:`launched` — one
 per wrapper call that launches the kernel — so a run can show which
 kernels it went through; the W kernels' launches are also counted by W's
@@ -47,14 +48,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # One key per kernel form: K1 assemble; K2 cam_reduce (its `_prod_wcw_rhs`
 # form) and cam_reduce_{w_op,wcw81,cam90}; K3 matvec; K4 objective; K7
 # linearize; K8 linearize_w_only; K6 seg_prod_* (one key per product); K5
-# seg_block_* (one key per direction); K9 stream_probe. Which route runs
-# which: `ops/normal.py:kernel_route`; K9 runs on the measurement path
-# (`bench.py`, `mv_sweep.py` of this package).
+# seg_block_* (one key per direction); K9 stream_probe; the point blocks'
+# point_inv (damped inverse and Hpp_inv g_p) and point_quad (dp' Hpp dp).
+# Which route runs which: `ops/normal.py:kernel_route`; K9 runs on the
+# measurement path (`bench.py`, `mv_sweep.py` of this package).
 LAUNCHES = {"assemble": 0, "cam_reduce": 0, "cam_reduce_w_op": 0,
             "cam_reduce_wcw81": 0, "cam_reduce_cam90": 0, "matvec": 0,
             "objective": 0, "linearize": 0, "linearize_w_only": 0,
             "seg_prod_pnt12": 0, "seg_prod_cam90": 0, "seg_prod_wcw81": 0,
-            "seg_block_point": 0, "seg_block_camera": 0, "stream_probe": 0}
+            "seg_block_point": 0, "seg_block_camera": 0, "stream_probe": 0,
+            "point_inv": 0, "point_quad": 0}
 
 # Storage dtypes of W and their codes in the C entry points
 # (`csrc/w_store.cuh`).
@@ -197,6 +200,8 @@ _SIGNATURES = {
                                                    _P],
     "ba_wt_cam_reduce": [_P, _I, _P, _COLS, _I, _I64] + [_P] * 3,
     "ba_stream_probe": [_P] * 3 + [_I, _I64, _I, _P, _P, _P],
+    "ba_point_inv": [_P, _P, _F, _P, _I, _I, _I64, _I, _P, _P, _P],
+    "ba_point_quad": [_P, _P, _I, _I64, _I, _P, _P, _P],
 }
 
 
@@ -212,8 +217,9 @@ def lib() -> ctypes.CDLL:
                            ("ba_matvec_bytes", [_I, _I])):
         getattr(so, name).argtypes = argtypes
         getattr(so, name).restype = ctypes.c_int64
-    so.ba_objective_blocks.argtypes = [_I64]
-    so.ba_objective_blocks.restype = ctypes.c_int64
+    for name in ("ba_objective_blocks", "ba_point_blocks"):
+        getattr(so, name).argtypes = [_I64]
+        getattr(so, name).restype = ctypes.c_int64
     so.ba_stream_probe_blocks.argtypes = [_I64]
     so.ba_stream_probe_blocks.restype = ctypes.c_int
     so.ba_error_string.argtypes = [_I]

@@ -26,8 +26,10 @@ from bundleadjustment_jl_tpu_torch.models.problem import (
 from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
 from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
 from bundleadjustment_jl_tpu_torch.ops import linearize as lz
+from bundleadjustment_jl_tpu_torch.ops import point_block as pb
 from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
 from bundleadjustment_jl_tpu_torch.ops import spmdctx
+from bundleadjustment_jl_tpu_torch.ops.point_block import inv3x3_damped_flat
 
 # The kernel routes (`kernel_route` below picks one per solve):
 #   "fused"         A: K1 assembly; K2 + K3 read W through cam_perm.
@@ -91,6 +93,8 @@ class Stages(NamedTuple):
     wtv_point_reduce: Callable      # K5 point direction
     wt_cam_reduce: Callable         # K5 camera direction
     objective_scatter: Callable     # K4
+    point_inv_rhs: Callable         # point blocks: Hpp_inv, Hpp_inv g_p
+    point_quad: Callable            # point blocks: dp' Hpp dp
 
 
 KERNELS = Stages(
@@ -98,13 +102,15 @@ KERNELS = Stages(
     sr.jtj_cam_reduce, fs.cam_reduce_cam90, lz.linearize_w_only,
     fs.cam_reduce_wcw_rhs, fs.matvec_cam_scatter, fs.cam_reduce_w_op,
     fs.cam_reduce_wcw, sr.wcw_cam_reduce, sr.wtv_point_reduce,
-    sr.wt_cam_reduce, fa.objective_scatter)
+    sr.wt_cam_reduce, fa.objective_scatter, pb.point_inv_rhs,
+    pb.point_quad)
 PLAIN = Stages(
     fa._assemble_plain, lz._linearize_plain, sr._jtj_pnt_plain,
     sr._jtj_cam_plain, fs._cam_reduce_cam90_plain, lz._linearize_w_only_plain,
     fs._cam_reduce_wcw_rhs_plain, fs._matvec_cam_scatter_plain,
     fs._cam_reduce_w_op_plain, fs._cam_reduce_wcw_plain, sr._wcw_cam_plain,
-    sr._wtv_point_plain, sr._wt_cam_plain, fa._objective_plain)
+    sr._wtv_point_plain, sr._wt_cam_plain, fa._objective_plain,
+    pb._point_inv_rhs_plain, pb._point_quad_plain)
 
 # PALLAS_MODE is the JAX package's `pallas_schur.PALLAS_MODE`: the kernels
 # on (default here, as bench.py measures) or the plain route everywhere.
@@ -118,16 +124,17 @@ _UNROUNDED = {"assemble_scatter": (0,), "linearize_w_kminor": (0, 1),
 
 
 def _widen(x):
-    if isinstance(x, torch.Tensor) and x.dtype in HALF_DTYPES:
+    if isinstance(x, torch.Tensor) and x.dim() and x.dtype in HALF_DTYPES:
         return x.float()
     return x
 
 
 def _half_stage(fn: Callable, dt: torch.dtype, keep: tuple) -> Callable:
     """``fn`` as a solve in the 2-byte working dtype ``dt`` calls it:
-    every tensor operand but the first (W, JR or none) widened to float32,
-    and every result but those at the positions ``keep`` rounded to
-    ``dt``, as the JAX package casts around its kernels."""
+    every tensor operand but the first (W, JR, Hpp or none) and but a 0-d
+    one (a float16 W's range scale, applied in its own dtype) widened to
+    float32, and every result but those at the positions ``keep`` rounded
+    to ``dt``, as the JAX package casts around its kernels."""
     def stage(first, *args, **kwargs):
         out = fn(first, *map(_widen, args),
                  **{k: _widen(v) for k, v in kwargs.items()})
@@ -418,47 +425,6 @@ def gradient_norm(blocks: GNBlocks) -> torch.Tensor:
     (`spmdctx.psum_points`)."""
     return torch.sqrt(torch.sum(blocks.g_c_f ** 2)
                       + spmdctx.psum_points(torch.sum(blocks.g_p_f ** 2)))
-
-
-def inv3x3_damped_flat(Hpp_f: torch.Tensor, lam) -> torch.Tensor:
-    """Adjugate inverse of ``Hpp + lam I`` on flat (P*9,) blocks
-    (row-major ``3a+b``). Where ``det`` is not finite or not above
-    ``8 tiny`` the block falls back to the inverse of its clamped
-    diagonal, so the step stays finite and LM's reject logic takes over.
-    A 2-byte dtype computes in float32 and rounds the inverse back, as in
-    the JAX package (its determinant products underflow there)."""
-    if Hpp_f.dtype in HALF_DTYPES:
-        return inv3x3_damped_flat(Hpp_f.float(), lam).to(Hpp_f.dtype)
-    M = Hpp_f.reshape(-1, 9)
-    tiny8 = torch.finfo(Hpp_f.dtype).tiny * 8.0
-    a, b, c = M[:, 0] + lam, M[:, 1], M[:, 2]
-    d, e, f = M[:, 3], M[:, 4] + lam, M[:, 5]
-    g, h, i = M[:, 6], M[:, 7], M[:, 8] + lam
-    A = e * i - f * h
-    B = c * h - b * i
-    C = b * f - c * e
-    D = f * g - d * i
-    E = a * i - c * g
-    F = c * d - a * f
-    G = d * h - e * g
-    H = b * g - a * h
-    I = a * e - b * d  # noqa: E741
-    det = a * A + b * D + c * G
-    ok = torch.isfinite(det) & (det > tiny8)
-    one = torch.ones_like(det)
-    inv_det = torch.where(ok, 1.0 / torch.where(ok, det, one),
-                          torch.zeros_like(det))
-    z = torch.zeros_like(a)
-
-    def dinv(x):
-        return 1.0 / torch.clamp(torch.where(torch.isfinite(x), x, z),
-                                 min=tiny8)
-
-    da, de, di = dinv(a), dinv(e), dinv(i)
-    cols = [torch.where(ok, adj * inv_det, fb) for adj, fb in
-            zip((A, B, C, D, E, F, G, H, I),
-                (da, z, z, z, de, z, z, z, di))]
-    return torch.stack(cols, dim=-1).reshape(-1)
 
 
 def inv3x3(M: torch.Tensor) -> torch.Tensor:

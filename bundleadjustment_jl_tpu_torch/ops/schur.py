@@ -61,7 +61,7 @@ import torch
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.ops import normal, spmdctx
 from bundleadjustment_jl_tpu_torch.ops.normal import (
-    KERNELS, GNBlocks, Stages, damp, inv3x3_damped_flat)
+    KERNELS, GNBlocks, Stages, damp)
 
 # Routes whose camera sums run the camera scatter (K2 over the point-sorted
 # W): the JAX package's `pallas_schur.cam_scatter_ok`.
@@ -88,11 +88,6 @@ class SchurSystem(NamedTuple):
     @property
     def b(self):
         return self.b_f.reshape(-1, 9)
-
-
-def _hpp_dot(Hpp_f: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-    """Per-point 3x3 block times (npnts, 3)."""
-    return torch.einsum("pab,pb->pa", Hpp_f.reshape(-1, 3, 3), x)
 
 
 def _bf16_round(x: torch.Tensor) -> torch.Tensor:
@@ -126,13 +121,16 @@ def _point_dir_operand(W_t: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     return v
 
 
-def _hat(blocks: GNBlocks, Hpp_inv_f: torch.Tensor):
-    """``(Hpp_inv / s^2, s g_p)``: the hatted point space of a W stored as
-    ``s W``; ``(Hpp_inv, g_p)`` without a scale."""
-    if blocks.w_scale is None:
-        return Hpp_inv_f, blocks.g_p_f
-    return (Hpp_inv_f / torch.square(blocks.w_scale),
-            blocks.g_p_f * blocks.w_scale)
+def _point_space(blocks: GNBlocks, lam):
+    """``(Hpp_inv / s^2, s g_p, Hpp_inv g_p / s)`` at ``lam``: the hatted
+    point space of a W stored as ``s W`` (``(Hpp_inv, g_p, Hpp_inv g_p)``
+    without a scale), the inverse and its product from the stage table's
+    point-block stage."""
+    Hpp_inv_f, t = blocks.stages.point_inv_rhs(blocks.Hpp_f, blocks.g_p_f,
+                                               lam, blocks.w_scale)
+    g_p_f = (blocks.g_p_f if blocks.w_scale is None
+             else blocks.g_p_f * blocks.w_scale)
+    return Hpp_inv_f, g_p_f, t
 
 
 def _unhat(sys: SchurSystem, dp: torch.Tensor) -> torch.Tensor:
@@ -153,9 +151,8 @@ def reduce_system(problem: BAProblem, blocks: GNBlocks, lam) -> SchurSystem:
     """Damp with ``lam`` and form ``b = -g_c + segsum_cam(W_k (Hpp_inv
     g_p)[pnt_k])``."""
     Hcc_l = damp(blocks.Hcc, lam)
-    Hpp_inv_f, g_p_f = _hat(blocks, inv3x3_damped_flat(blocks.Hpp_f, lam))
-    corr = _cam_dir_reduce(problem, blocks.W_t, blocks.W_cam_t,
-                           _hpp_dot(Hpp_inv_f, g_p_f.reshape(-1, 3)),
+    Hpp_inv_f, g_p_f, t = _point_space(blocks, lam)
+    corr = _cam_dir_reduce(problem, blocks.W_t, blocks.W_cam_t, t,
                            blocks.stages)
     return _system(problem, blocks, Hcc_l, Hpp_inv_f, g_p_f, corr)
 
@@ -181,10 +178,8 @@ def reduce_and_diag(problem: BAProblem, blocks: GNBlocks, lam):
         sys = reduce_system(problem, blocks, lam)
         return sys, schur_diag_blocks(sys)
     Hcc_l = damp(blocks.Hcc, lam)
-    Hpp_inv_f, g_p_f = _hat(blocks, inv3x3_damped_flat(blocks.Hpp_f, lam))
-    out = blocks.stages.cam_reduce_wcw_rhs(
-        blocks.W_t, problem, Hpp_inv_f,
-        _hpp_dot(Hpp_inv_f, g_p_f.reshape(-1, 3)))
+    Hpp_inv_f, g_p_f, t = _point_space(blocks, lam)
+    out = blocks.stages.cam_reduce_wcw_rhs(blocks.W_t, problem, Hpp_inv_f, t)
     sys = _system(problem, blocks, Hcc_l, Hpp_inv_f, g_p_f, out[:, 81:90])
     return sys, Hcc_l - out[:, :81].reshape(-1, 9, 9)
 
@@ -215,10 +210,11 @@ def back_substitute(sys: SchurSystem, dc: torch.Tensor) -> torch.Tensor:
 def _quad(blocks: GNBlocks, dc, dp, cross_cam) -> torch.Tensor:
     """``||J d||^2 = dc' Hcc dc + 2 dc . cross_cam + dp' Hpp dp`` with
     ``cross_cam = segsum_cam(W_k dp[pnt_k])`` (ncams, 9), all-reduced by
-    the stage that made it; in a multi-process solve the point term is
-    summed over the ranks' points (`spmdctx.psum_points`)."""
+    the stage that made it; the point term by the stage table's point-block
+    stage, in a multi-process solve summed over the ranks' points
+    (`spmdctx.psum_points`)."""
     t_c = torch.sum(dc * torch.einsum("cab,cb->ca", blocks.Hcc, dc))
-    t_p = spmdctx.psum_points(torch.sum(dp * _hpp_dot(blocks.Hpp_f, dp)))
+    t_p = spmdctx.psum_points(blocks.stages.point_quad(blocks.Hpp_f, dp))
     return t_c + 2.0 * torch.sum(cross_cam * dc) + t_p
 
 

@@ -139,7 +139,11 @@ def expected_launches(route: str, iterations: int, naccepts: int, cg: int,
     initial residual): the right-hand side's camera sum once per
     iteration (K2 W op on A and B1, K5's camera direction on C and B2),
     one Schur matvec per power term, then the back-substitution and
-    |J d|^2 (K3 on A; K5's point direction and the camera sum elsewhere)."""
+    |J d|^2 (K3 on A; K5's point direction and the camera sum elsewhere).
+
+    ``pcg``, ``power`` and ``dense`` on every route: the point blocks'
+    damped inverse with ``Hpp_inv g_p`` (``point_inv``) and ``dp' Hpp dp``
+    (``point_quad``) once per iteration."""
     if solver not in SOLVERS:
         raise ValueError(f"unknown solver {solver!r}; one of {SOLVERS}")
     it, acc = iterations, naccepts
@@ -148,6 +152,7 @@ def expected_launches(route: str, iterations: int, naccepts: int, cg: int,
     expect.update(dict.fromkeys(_ASSEMBLY[asm], 1 + acc))
     if solver == "cgls":
         return expect
+    expect.update(point_inv=it, point_quad=it)
     split = route in ("sorted", "sorted_relin")
     if solver == "pcg":
         if route == "fused":

@@ -16,9 +16,12 @@ CUDA card.
    fused camera-scatter route (K4 at 1, 3, 5 and 9 trial states, timed at
    1 and 5, each beside its bound), K7, K6 and K5 of the camera-sorted
    route, then K2's other three products and K8 of the Final-scale routes
-   (and K8 against K7's W in camera order). The forms that read through a
-   plan, and K4 (REPEAT_CHECKED), launch twice and must give bit-identical
-   outputs. K1's point pass and camera pass, and K4's row blocks and
+   (and K8 against K7's W in camera order), and the point-block kernels
+   (``check_point_blocks``: the damped inverse bit-identical to its
+   twin's, ``Hpp_inv g_p`` and ``dp' Hpp dp`` within tolerance, each
+   timed beside its bound). The forms that read through a plan, K4 and
+   the point blocks (REPEAT_CHECKED), launch twice and must give
+   bit-identical outputs. K1's point pass and camera pass, and K4's row blocks and
    sums, are timed apart (``torch.profiler``, by kernel:
    ``kernel_profile.device_ms``). Then phase 6 for the problem, and at
    Dubrovnik-356 K2's forms and K3 on their other path (the shared
@@ -150,9 +153,9 @@ CUDA card.
    launches held against its plain twin at that full size
    (``check_capacity_kernels``: K7, K2's cam90, W C W' | W t and W op, K6
    pnt12, K5's point direction, the W forms with W in float32 and
-   bfloat16, K4 at S = 1 and 5; the twins over point ranges of at most
-   TWIN_ROWS rows, their camera sums added in float32), each timed beside
-   its bound; then the runs of CAPACITY_SOLVES as
+   bfloat16, K4 at S = 1 and 5, the point blocks at its 4,456,117 points;
+   the twins over point ranges of at most TWIN_ROWS rows, their camera
+   sums added in float32), each timed beside its bound; then the runs of CAPACITY_SOLVES as
    ``python -m bundleadjustment_jl_tpu_torch.capacity`` makes them
    (Final-13682 with bfloat16 W on the chunked driver, a chunk an
    iteration, then its first-order run, then Venice-1778 in float32 on
@@ -218,6 +221,9 @@ TOL = {"W": (1e-5, 1e-6), "hp12": (1e-4, 1e-3), "hc90": (1e-4, 1e-3),
        "cam_reduce_w_op": (1e-4, 1e-4), "cam_reduce_wcw81": (1e-4, 1e-4),
        "cam_reduce_cam90": (1e-4, 1e-3), "linearize_w_only": (1e-5, 1e-6),
        "schur": (1e-4, 1e-4),
+       # Hpp_inv g_p: three products a point, FMA-contracted on the card;
+       # dp' Hpp dp: a sum of non-negative terms in another order
+       "point_inv": (1e-5, 1e-6), "point_quad": (1e-5, 0.0),
        # sums of (32 + nsmall) rows of n uniform [0, 1) values, f32 partial
        # sums in another order
        "stream_probe": (1e-5, 0.0)}
@@ -257,6 +263,10 @@ KERNELS = {
                          ["seg_block_point", "seg_block_camera"]),
     "stream_probe": ("csrc/stream_probe.cu", "scripts/tpu_mv_sweep.py:120",
                      ["stream_probe"], ["stream_probe"]),
+    "point_block": ("csrc/point_block.cu",
+                    "none (XLA in the JAX package: ops/normal.py:"
+                    "inv3x3_damped_flat, ops/schur.py's einsums)",
+                    ["point_inv", "point_quad"], ["point_inv", "point_quad"]),
 }
 # The forms that read their rows through a launch plan (`ops/plans.py`:
 # K2's four, K5's both directions, K3 = K5 point + K2 W op, K1's point
@@ -266,7 +276,8 @@ KERNELS = {
 REPEAT_CHECKED = ("cam_reduce", "cam_reduce_w_op", "cam_reduce_wcw81",
                   "cam_reduce_cam90", "seg_block_point", "matvec",
                   "assemble", "seg_block_camera", "seg_prod_wcw81",
-                  "linearize_w_only", "seg_prod_pnt12", "objective")
+                  "linearize_w_only", "seg_prod_pnt12", "objective",
+                  "point_inv", "point_quad")
 # K2's forms and K3 on the paths past shared memory (``plans.SMEM_BUDGET``
 # 0: per-run sums for W op and K3, records for the others), checked,
 # repeated and timed at Dubrovnik-356 beside the shared path they take
@@ -605,11 +616,59 @@ def check_kernels(name, problem, errs, timings, facts):
     check("matvec",        # the Schur matvec's form, timed
           lambda: fs.matvec_cam_scatter(W_t, v, problem, hpp_inv),
           lambda: fs._matvec_plain(W_t, v, problem, hpp_inv, None, 1.0)[0])
+    for k, pair in check_point_blocks(name, hp12, lam, errs, facts).items():
+        timings.setdefault(k, {})[name] = pair
 
     check_objective(name, problem, errs, timings, facts, reps)
-    for k in ("assemble", "cam_reduce", "matvec", "objective"):
+    for k in ("assemble", "cam_reduce", "matvec", "objective", "point_inv",
+              "point_quad"):
         kms, pms = timings[k][name]
         print(f"  time {k:10s} {time_note(k, name, problem, kms, pms)}")
+
+
+def check_point_blocks(name, hp12, lam, errs, facts, reps=20):
+    """The point-block kernels on the blocks ``hp12`` ([Hpp | g_p], (npnts,
+    12)) at ``lam`` against their plain twins: the damped inverse
+    bit-identical, ``Hpp_inv g_p`` and ``dp' Hpp dp`` (``dp`` random) under
+    TOL (the share of products bit-equal to the twin's printed and kept in
+    ``facts``), each launched twice (bit-identical: ``check_repeat``) and timed in
+    turns with its twin over ``reps`` calls a window. Returns ``{key:
+    (kernel ms, plain ms)}``."""
+    import torch
+    from bundleadjustment_jl_tpu_torch.ops import point_block as pb
+
+    Hpp_f = hp12[:, :9].reshape(-1)
+    g_p = hp12[:, 9:12].reshape(-1)
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    dp = torch.randn((Hpp_f.shape[0] // 9, 3), generator=gen, device="cuda")
+    calls = {"point_inv": (lambda: pb.point_inv_rhs(Hpp_f, g_p, lam),
+                           lambda: pb._point_inv_rhs_plain(Hpp_f, g_p, lam)),
+             "point_quad": (lambda: pb.point_quad(Hpp_f, dp),
+                            lambda: pb._point_quad_plain(Hpp_f, dp))}
+    out = {}
+    for key, (kernel, plain) in calls.items():
+        got = kernel()
+        torch.cuda.synchronize()
+        check_repeat(key, name, kernel, got, facts)
+        ref = plain()
+        if key == "point_inv":
+            same = torch.equal(got[0], ref[0])
+            facts.setdefault("point_block", {}).setdefault(
+                "inverse_bit_identical", {})[name] = same
+            print(f"  point_inv  inverse bit-identical to the twin's: {same}")
+            if not same:
+                raise AssertionError(f"{name}: the damped inverse differs "
+                                     f"from its twin's")
+            got, ref = got[1], ref[1]
+            share = float((got == ref).float().mean())
+            facts["point_block"].setdefault(
+                "product_bit_equal_share", {})[name] = share
+            print(f"  point_inv  Hpp_inv g_p bit-equal to the twin's einsum: "
+                  f"{share:.6f} of the entries")
+        compare(key, got.reshape(-1), ref.reshape(-1), errs)
+        del ref
+        out[key] = time_pair(kernel, plain, reps)
+    return out
 
 
 def check_objective(name, problem, errs, timings, facts, reps):
@@ -1338,7 +1397,7 @@ def check_final_schur(name, problem, errs):
     expect = dict.fromkeys(counts, 0)
     expect.update(linearize=1, cam_reduce_cam90=1, seg_prod_pnt12=1,
                   cam_reduce=1, cam_reduce_w_op=3, cam_reduce_wcw81=1,
-                  seg_block_point=2)
+                  seg_block_point=2, point_inv=2, point_quad=2)
     if counts != expect:
         raise AssertionError(f"{name}: Schur check launches {counts} != "
                              f"{expect}")
@@ -1522,6 +1581,14 @@ def check_capacity_kernels(name, problem, errs, facts):
     g_p = hp12[:, 9:12].reshape(-1).contiguous()
     t = torch.einsum("pab,pb->pa", hpp_inv.reshape(-1, 3, 3),
                      g_p.reshape(-1, 3))
+    for key, (kms, pms) in check_point_blocks(name, hp12, lam, errs,
+                                              facts).items():
+        bound, by = bench.bound_ms(key, problem)
+        facts.setdefault(KERNEL_OF[key], {}).setdefault(name, {})[
+            f"{key}@float32"] = {"ms": kms, "plain_ms": pms,
+                                 "bound_ms": bound, "bound_by": by}
+        print(f"  time {key + '@float32':26s} kernel {kms:.4f} ms  plain "
+              f"{pms:.4f} ms  bound {bound:.4f} ms ({bound / kms:.3f} of it)")
     v = torch.randn((problem.ncams, 9), generator=gen, device="cuda")
     for form, W in (("float32", W32), ("bfloat16", W16)):
         check("cam_reduce",

@@ -28,6 +28,7 @@ from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
 from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
 from bundleadjustment_jl_tpu_torch.ops import linearize as lz
 from bundleadjustment_jl_tpu_torch.ops import normal, plans
+from bundleadjustment_jl_tpu_torch.ops import point_block as pb
 from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
 from bundleadjustment_jl_tpu_torch.ops.normal import ROUTES, inv3x3_damped_flat
 from bundleadjustment_jl_tpu_torch.solver import lm, lm_jit
@@ -786,6 +787,136 @@ def test_bf16_working_dtype_on_card_runs_the_kernels(card_problem,
     assert res.status_name() == plain.status_name() != "exception"
     assert abs(res.iterations - plain.iterations) <= 2
     assert res.objective == pytest.approx(plain.objective, rel=0.05)
+
+
+POINT_LAM = 0.37
+
+
+def point_operands(p, edges):
+    """The point blocks of ``p``'s assembly (``edges``: then one block for
+    each fallback of the damped inverse at POINT_LAM: det 0 once damped, a
+    det that overflows, a NaN and an inf diagonal, 904 points in all: a
+    ragged last block), and its g_p and a random dp, on the card."""
+    hp12 = fa.assemble_scatter(p, p.cams, p.points)[1]
+    H, g = hp12[:, :9], hp12[:, 9:12]
+    if edges:
+        e = torch.zeros((4, 3, 3), device="cuda")
+        e[0] = -POINT_LAM * torch.eye(3)
+        e[1] = 1e30 * torch.ones((3, 3)) + torch.eye(3)
+        e[2] = torch.diag(torch.tensor([float("nan"), 1.0, 2.0]))
+        e[3] = torch.diag(torch.tensor([float("inf"), -5.0, 2.0]))
+        H = torch.cat([H, e.reshape(4, 9)])
+        g = torch.cat([g, torch.ones((4, 3), device="cuda")])
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    dp = torch.randn(g.shape, generator=gen, device="cuda")
+    return H.reshape(-1).contiguous(), g.reshape(-1).contiguous(), dp
+
+
+def offset_copy(x, k):
+    """``x`` as a view ``k`` floats into a larger buffer (not 16-byte
+    aligned for odd ``k``): the kernels' scalar staging."""
+    buf = torch.empty(x.numel() + k, dtype=x.dtype, device=x.device)
+    buf[k:] = x.reshape(-1)
+    return buf[k:].view(x.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["aligned", "offset"])
+@pytest.mark.parametrize("scale", [None, 16.0], ids=["no_scale", "scale16"])
+@pytest.mark.parametrize("lam", [POINT_LAM, 0.0])
+def test_point_inv_matches_its_twin_on_card(card_problem, lam, scale,
+                                            layout):
+    """The damped inverse (hatted with a float16 W's scale) equal to the
+    plain twin's on the card bit for bit, every fallback included, and
+    Hpp_inv g_p within 2e-6 of |Hpp_inv| |g_p|; a repeat bit-identical."""
+    H, g, _ = point_operands(card_problem, edges=True)
+    if layout == "offset":
+        H, g = offset_copy(H, 1), offset_copy(g, 1)
+    s = None if scale is None else torch.tensor(scale, dtype=torch.float16,
+                                                device="cuda")
+    _cuda.reset_launches()
+    inv, t = pb.point_inv_rhs(H, g, lam, s)
+    assert _cuda.LAUNCHES["point_inv"] == 1
+    ref_inv, ref_t = pb._point_inv_rhs_plain(H, g, lam, s)
+    assert torch.equal(inv, ref_inv)
+    assert bool(torch.isfinite(inv).all())
+    g_h = g if s is None else g * s
+    bound = torch.einsum("pab,pb->pa", ref_inv.abs().reshape(-1, 3, 3),
+                         g_h.abs().reshape(-1, 3))
+    assert bool(((t - ref_t).abs() <= 2e-6 * bound).all())
+    again = pb.point_inv_rhs(H, g, lam, s)
+    assert torch.equal(again[0], inv) and torch.equal(again[1], t)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["aligned", "offset"])
+def test_point_quad_matches_its_twin_on_card(card_problem, layout):
+    """dp' Hpp dp within 1e-5 of the sum of |terms| of the twin's, the
+    same bits on every call."""
+    H, _, dp = point_operands(card_problem, edges=False)
+    if layout == "offset":
+        H, dp = offset_copy(H, 1), offset_copy(dp, 3)
+    _cuda.reset_launches()
+    q = pb.point_quad(H, dp)
+    assert _cuda.LAUNCHES["point_quad"] == 1 and q.shape == ()
+    terms = dp * torch.einsum("pab,pb->pa", H.reshape(-1, 3, 3), dp)
+    assert abs(float(q) - float(pb._point_quad_plain(H, dp))) <= (
+        1e-5 * float(terms.abs().sum()))
+    for _ in range(3):
+        assert torch.equal(pb.point_quad(H, dp), q)
+
+
+@pytest.mark.cuda
+def test_point_blocks_in_a_2_byte_working_dtype_on_card(card_problem):
+    """Through a bfloat16 solve's stage table: the inverse equal to the
+    plain table's (both round the same float32 inverse), the product and
+    the quadratic term within one bfloat16 ulp plus the float32
+    tolerances."""
+    H, g, dp = point_operands(card_problem, edges=False)
+    bf = torch.bfloat16
+    H, g, dp = H.to(bf), g.to(bf), dp.to(bf)
+    kern = normal.stages_for(normal.KERNELS, bf)
+    plain = normal.stages_for(normal.PLAIN, bf)
+    inv, t = kern.point_inv_rhs(H, g, POINT_LAM, None)
+    ref_inv, ref_t = plain.point_inv_rhs(H, g, POINT_LAM, None)
+    assert inv.dtype == t.dtype == bf and torch.equal(inv, ref_inv)
+    bound = torch.einsum("pab,pb->pa", ref_inv.float().abs().reshape(-1, 3, 3),
+                         g.float().abs().reshape(-1, 3))
+    diff = (t.float() - ref_t.float()).abs()
+    assert bool((diff <= 2.0 ** -7 * ref_t.float().abs()
+                 + 2e-6 * bound).all())
+    q, ref_q = kern.point_quad(H, dp), plain.point_quad(H, dp)
+    assert q.dtype == bf
+    assert abs(float(q) - float(ref_q)) <= 2.0 ** -7 * abs(float(ref_q)) + (
+        1e-5 * float((dp.float() * torch.einsum(
+            "pab,pb->pa", H.float().reshape(-1, 3, 3), dp.float())).abs()
+            .sum()))
+
+
+@pytest.mark.cuda
+def test_point_blocks_refuse_cuda_float64(card_problem):
+    H, g, dp = (x.double() for x in point_operands(card_problem, False))
+    with pytest.raises(TypeError, match="float64"):
+        pb.point_inv_rhs(H, g, POINT_LAM)
+    with pytest.raises(TypeError, match="float64"):
+        pb.point_quad(H, dp)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["fused", "scatter_split"])
+def test_solve_launches_the_point_blocks_once_an_iteration(card_problem,
+                                                           monkeypatch,
+                                                           route):
+    for k, v in normal.FORCE_ROUTE[route].items():
+        monkeypatch.setattr(normal, k, v)
+    _cuda.reset_launches()
+    res = levenberg_marquardt_jit(card_problem, max_iters=30,
+                                  lam0_mode="diag")
+    expect = lm_jit.expected_launches(route, res.iterations, res.naccepts,
+                                      int(res.hist_cg[:res.iterations].sum()))
+    assert res.iterations > 0
+    for key in ("point_inv", "point_quad"):
+        assert _cuda.LAUNCHES[key] == expect[key] == res.iterations
 
 
 @pytest.mark.cuda

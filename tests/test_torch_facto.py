@@ -379,6 +379,10 @@ DUB = types.SimpleNamespace(nobs_pad=1_360_384, ncams=356, npnts=226_730)
      + (356 * 9 + 226_730 * 3) * 4 + 4),
     ("objective", 4, dict(scales=5), 5 * 1_360_384 * 4
      + 5 * ((356 * 9 + 226_730 * 3) * 4 + 4)),
+    # Hpp and g_p in, Hpp_inv and Hpp_inv g_p out (npnts blocks of 9 and 3)
+    ("point_inv", 4, {}, 2 * 226_730 * (9 + 3) * 4),
+    # Hpp and dp in, one float out
+    ("point_quad", 4, {}, 226_730 * (9 + 3) * 4 + 4),
 ])
 def test_kernel_bytes_counted_by_hand(name, w_itemsize, kw, want):
     assert bench.kernel_bytes(name, DUB, w_itemsize, **kw) == want

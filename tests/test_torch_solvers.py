@@ -74,7 +74,8 @@ COUNTER = dict(
     cam_reduce_wcw_rhs="cam_reduce", matvec_cam_scatter="matvec",
     cam_reduce_w_op="cam_reduce_w_op", cam_reduce_wcw="cam_reduce_wcw81",
     wcw_cam_reduce="seg_prod_wcw81", wtv_point_reduce="seg_block_point",
-    wt_cam_reduce="seg_block_camera", objective_scatter="objective")
+    wt_cam_reduce="seg_block_camera", objective_scatter="objective",
+    point_inv_rhs="point_inv", point_quad="point_quad")
 
 
 def to_port(jp):
