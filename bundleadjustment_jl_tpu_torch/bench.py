@@ -80,6 +80,19 @@ FLOPS_PER_ROW = {
 # (3 damped diagonals, 18 products and 9 differences, the determinant's 5,
 # 9 scalings) and a 3x3 block times a vector (15); dp' Hpp dp 15 + 6.
 FLOPS_PER_POINT = {"point_inv": 44 + 15, "point_quad": 21}
+# The dense step's pair kernel: Y = W Hpp_inv once a row (9x3 times 3x3),
+# Y_i W_j' once a pair of rows of one point (9x3 times 3x9).
+FLOPS_PER_PAIR_ROW, FLOPS_PER_PAIR = 162, 486
+
+
+def pair_count(problem) -> int:
+    """The pairs of rows ``(k, l)``, ``k <= l``, of one point that the
+    dense step's S sums, with ``problem.nobs_pad`` rows spread as evenly
+    over its points as they go (as `synthetic_bal` and the capacity
+    recipe spread them)."""
+    k, extra = divmod(problem.nobs_pad, problem.npnts)
+    return ((problem.npnts - extra) * k * (k + 1) // 2
+            + extra * (k + 1) * (k + 2) // 2)
 
 
 def shape(name: str):
@@ -130,6 +143,10 @@ def kernel_bytes(name: str, problem, w_itemsize: int = 4, *,
         "stream_probe": (32 + nsmall) * n * f + 32 * f,
         "point_inv": 2 * (hpp_inv + vec_p),
         "point_quad": hpp_inv + vec_p + f,
+        # W, Hpp_inv, the plan (two row ids a pair, a 12-byte chunk a block
+        # of S's lower triangle) and S written once
+        "dense_pairs": W + hpp_inv + 8 * pair_count(problem)
+        + 12 * (nc * (nc + 1) // 2) + f * (9 * nc) ** 2,
     }
     return table[name]
 
@@ -144,6 +161,8 @@ def kernel_flops(name: str, problem, *, nsmall: int = 0,
         return (32 + nsmall) * n
     if name in FLOPS_PER_POINT:
         return FLOPS_PER_POINT[name] * problem.npnts
+    if name == "dense_pairs":
+        return FLOPS_PER_PAIR_ROW * n + FLOPS_PER_PAIR * pair_count(problem)
     return FLOPS_PER_ROW[name] * n * (scales if name == "objective" else 1)
 
 

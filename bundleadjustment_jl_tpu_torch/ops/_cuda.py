@@ -10,7 +10,7 @@ compiler's output.
 
 Each kernel wrapper (``ops/fused_assemble.py``, ``ops/fused_schur.py``,
 ``ops/linearize.py``, ``ops/point_block.py``, ``ops/seg_reduce.py``,
-``ops/stream_probe.py``)
+``ops/dense_schur.py``, ``ops/stream_probe.py``)
 counts its launches in :data:`LAUNCHES` through :func:`launched` — one
 per wrapper call that launches the kernel — so a run can show which
 kernels it went through; the W kernels' launches are also counted by W's
@@ -49,7 +49,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # form) and cam_reduce_{w_op,wcw81,cam90}; K3 matvec; K4 objective; K7
 # linearize; K8 linearize_w_only; K6 seg_prod_* (one key per product); K5
 # seg_block_* (one key per direction); K9 stream_probe; the point blocks'
-# point_inv (damped inverse and Hpp_inv g_p) and point_quad (dp' Hpp dp).
+# point_inv (damped inverse and Hpp_inv g_p) and point_quad (dp' Hpp dp);
+# the dense Schur step's dense_pairs (S by camera pairs, every route).
 # Which route runs which: `ops/normal.py:kernel_route`; K9 runs on the
 # measurement path (`bench.py`, `mv_sweep.py` of this package).
 LAUNCHES = {"assemble": 0, "cam_reduce": 0, "cam_reduce_w_op": 0,
@@ -57,7 +58,7 @@ LAUNCHES = {"assemble": 0, "cam_reduce": 0, "cam_reduce_w_op": 0,
             "objective": 0, "linearize": 0, "linearize_w_only": 0,
             "seg_prod_pnt12": 0, "seg_prod_cam90": 0, "seg_prod_wcw81": 0,
             "seg_block_point": 0, "seg_block_camera": 0, "stream_probe": 0,
-            "point_inv": 0, "point_quad": 0}
+            "point_inv": 0, "point_quad": 0, "dense_pairs": 0}
 
 # Storage dtypes of W and their codes in the C entry points
 # (`csrc/w_store.cuh`).
@@ -66,7 +67,8 @@ W_DTYPES = tuple(W_CODES)
 # The kernel forms that write W and those that read it (LAUNCHES keys).
 W_WRITERS = ("assemble", "linearize", "linearize_w_only")
 W_READERS = ("cam_reduce", "cam_reduce_w_op", "cam_reduce_wcw81", "matvec",
-             "seg_prod_wcw81", "seg_block_point", "seg_block_camera")
+             "seg_prod_wcw81", "seg_block_point", "seg_block_camera",
+             "dense_pairs")
 # Launches of the W_WRITERS and W_READERS forms by the storage dtype of the
 # W each wrote or read, so a run can show that W went to the kernels narrow
 # (`solver/lm_jit.py:expected_w_launches`).
@@ -202,6 +204,8 @@ _SIGNATURES = {
     "ba_stream_probe": [_P] * 3 + [_I, _I64, _I, _P, _P, _P],
     "ba_point_inv": [_P, _P, _F, _P, _I, _I, _I64, _I, _P, _P, _P],
     "ba_point_quad": [_P, _P, _I, _I64, _I, _P, _P, _P],
+    "ba_dense_pairs": [_P, _I, _I64, _I64] + [_P] * 8 + [_I64, _P, _P, _I64,
+                                                        _I64] + [_P] * 4,
 }
 
 

@@ -23,6 +23,7 @@ import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import (
     HALF_DTYPES, BAProblem, torch_dtype)
+from bundleadjustment_jl_tpu_torch.ops import dense_schur as ds
 from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
 from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
 from bundleadjustment_jl_tpu_torch.ops import linearize as lz
@@ -77,8 +78,10 @@ GATHER_DIRECT_MAX_BYTES = 4 << 30
 class Stages(NamedTuple):
     """The callables a solve's stages call, one field per kernel wrapper and
     named after it: :data:`KERNELS` (the wrappers) or :data:`PLAIN` (their
-    plain twins, same signatures). :func:`solve_stages` picks the table
-    once per solve; `GNBlocks` and `ops/schur.py:SchurSystem` carry it."""
+    plain twins, same signatures; for ``dense_schur`` the JAX package's
+    two-target S, where the wrapper's own twin sums the pairs on the CPU).
+    :func:`solve_stages` picks the table once per solve; `GNBlocks` and
+    `ops/schur.py:SchurSystem` carry it."""
     assemble_scatter: Callable      # K1
     linearize_w_kminor: Callable    # K7
     jtj_pnt_reduce: Callable        # K6 pnt12
@@ -95,6 +98,7 @@ class Stages(NamedTuple):
     objective_scatter: Callable     # K4
     point_inv_rhs: Callable         # point blocks: Hpp_inv, Hpp_inv g_p
     point_quad: Callable            # point blocks: dp' Hpp dp
+    dense_schur: Callable           # the dense step's S (pair kernel)
 
 
 KERNELS = Stages(
@@ -103,24 +107,25 @@ KERNELS = Stages(
     fs.cam_reduce_wcw_rhs, fs.matvec_cam_scatter, fs.cam_reduce_w_op,
     fs.cam_reduce_wcw, sr.wcw_cam_reduce, sr.wtv_point_reduce,
     sr.wt_cam_reduce, fa.objective_scatter, pb.point_inv_rhs,
-    pb.point_quad)
+    pb.point_quad, ds.dense_schur)
 PLAIN = Stages(
     fa._assemble_plain, lz._linearize_plain, sr._jtj_pnt_plain,
     sr._jtj_cam_plain, fs._cam_reduce_cam90_plain, lz._linearize_w_only_plain,
     fs._cam_reduce_wcw_rhs_plain, fs._matvec_cam_scatter_plain,
     fs._cam_reduce_w_op_plain, fs._cam_reduce_wcw_plain, sr._wcw_cam_plain,
     sr._wtv_point_plain, sr._wt_cam_plain, fa._objective_plain,
-    pb._point_inv_rhs_plain, pb._point_quad_plain)
+    pb._point_inv_rhs_plain, pb._point_quad_plain, ds._dense_schur_plain)
 
 # PALLAS_MODE is the JAX package's `pallas_schur.PALLAS_MODE`: the kernels
 # on (default here, as bench.py measures) or the plain route everywhere.
 PALLAS_MODE = True
 
 # The outputs (by position) that a 2-byte working dtype's table hands on
-# unrounded: W in its storage dtype, and K7's float32 JR, which the next
-# stages read.
+# unrounded: W in its storage dtype, K7's float32 JR, which the next
+# stages read, and the dense step's float32 S, which `ops/schur.py` rounds
+# to W's storage dtype.
 _UNROUNDED = {"assemble_scatter": (0,), "linearize_w_kminor": (0, 1),
-              "linearize_w_only": (0,)}
+              "linearize_w_only": (0,), "dense_schur": (0,)}
 
 
 def _widen(x):

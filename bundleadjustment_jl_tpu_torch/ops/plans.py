@@ -61,6 +61,18 @@ K8, :class:`CamRowPlan`: the row data in camera order, so that K8 reads
 every per-row field coalesced; 16 B a row on top of ``cam_pnt`` (148 MB at
 Final-4585's 9,272,320 rows).
 
+The dense Schur step's pair kernel (``csrc/dense_pairs.cu``),
+:class:`PairPlan`: every point's pairs of true rows ``(k, l)``, ``k <= l``
+(``sum_p n_p (n_p + 1) / 2``; 15,102,831 at Venice-1778), each oriented as
+``(i, j)`` with ``cam_i >= cam_j`` and so charged to the 9x9 block
+``(cam_i, cam_j)`` of S's lower triangle (block ``b = ci (ci + 1) / 2 +
+cj``). The pairs are sorted by block, stably (within a block in point
+order, then ``k``, then ``l``), so every block is one stretch summed in one
+fixed order. A block is cut into chunks of at most :data:`PAIR_CHUNK`
+pairs, and a block with no pair has one empty chunk: each chunk is summed
+apart, a block of one chunk written at once, the chunks of a longer block
+into partial slots that a second pass sums in order.
+
 Each plan built opens the span ``ba.plan.<key>`` (`utils/profiling.py`;
 the key's first part), and each value its builders read into the host is
 counted there (``host_reads``): the flags of the checks, and each op whose
@@ -129,6 +141,11 @@ CAM_BLOCK_COLS = 2048
 # (`python -m bundleadjustment_jl_tpu_torch.tile_sweep --sweep wcw`,
 # PERF.md).
 WCW_BLOCK_COLS = 512
+# The most pairs a chunk of the dense Schur step's pair kernel sums
+# (:class:`PairPlan`): a block of S with more is cut, so the few long
+# blocks (at Venice-1778 each diagonal block holds ~2,800 pairs, an
+# off-diagonal one ~6) are summed by many chunks side by side.
+PAIR_CHUNK = 32
 
 
 class TilePlan(NamedTuple):
@@ -178,6 +195,32 @@ class CamRowPlan(NamedTuple):
     w: torch.Tensor                 # (n,) w[cam_perm]
     cam: torch.Tensor               # (n,) cam_idx[cam_perm]
     pnt: torch.Tensor               # (n,) pnt_idx[cam_perm], cam_pnt
+
+
+class PairPlan(NamedTuple):
+    """The dense Schur step's plan (int32 tensors on the problem's
+    device): the oriented pairs by block of S's lower triangle, their
+    chunks, and the blocks of more than one chunk."""
+    pair_i: torch.Tensor            # (npairs,) the row of the block's row camera
+    pair_j: torch.Tensor            # (npairs,) the row of its column camera
+    chunk_starts: torch.Tensor      # (nchunks+1,) chunk c = pairs [s[c], s[c+1])
+    chunk_block: torch.Tensor       # (nchunks,) the block chunk c sums into
+    chunk_slot: torch.Tensor        # (nchunks,) its partial's slot, -1: none
+    multi_block: torch.Tensor       # (nmulti,) the blocks of several chunks
+    multi_slots: torch.Tensor       # (nmulti+1,) block m's slots [s[m], s[m+1])
+    nslots: int                     # the partial slots, multi_slots[-1]
+
+    @property
+    def npairs(self) -> int:
+        return self.pair_i.shape[0]
+
+    @property
+    def nchunks(self) -> int:
+        return self.chunk_block.shape[0]
+
+    @property
+    def nmulti(self) -> int:
+        return self.multi_block.shape[0]
 
 
 def _i32(x: torch.Tensor) -> torch.Tensor:
@@ -382,6 +425,68 @@ def build_cam_row_plan(problem) -> CamRowPlan:
                       _by_camera(problem, "cam_idx"), cam_pnt(problem))
 
 
+def count_pairs(problem) -> int:
+    """``sum_p n_p (n_p + 1) / 2`` over the true rows, the padding rows past
+    ``nobs`` (in the last point's segment) left out (uncached;
+    :func:`pair_count` keeps it on the problem): one host read."""
+    _point_sorted(problem)
+    ps = problem.pnt_starts.long().clamp(max=problem.nobs)
+    n = ps[1:] - ps[:-1]
+    return int(host_read(torch.sum(n * (n + 1) // 2)))
+
+
+def build_pair_plan(problem, npairs: int,
+                    chunk: int = PAIR_CHUNK) -> PairPlan:
+    """The dense Schur step's plan of ``problem`` with ``npairs`` pairs
+    (:func:`count_pairs`) and chunks of at most ``chunk`` pairs (uncached;
+    :func:`pair_plan` keeps it on the problem). One host read: the chunk
+    counts."""
+    _point_sorted(problem)
+    nc, n = problem.ncams, problem.nobs
+    nblk = nc * (nc + 1) // 2
+    if nblk >= 1 << 31:
+        raise ValueError(f"{nc} cameras: the plan's block ids are 32 bit")
+    dev = problem.pnt_idx.device
+    ps = problem.pnt_starts.long().clamp(max=n)
+    rows = torch.arange(n, device=dev)
+    per = ps[problem.pnt_idx[:n].long() + 1] - rows
+    k = torch.repeat_interleave(rows, per, output_size=npairs)
+    first = torch.cumsum(per, 0) - per
+    l = k + torch.arange(npairs, device=dev) - torch.repeat_interleave(
+        first, per, output_size=npairs)
+    del first, per, rows
+    cam = problem.cam_idx.long()
+    ck, cl = cam[k], cam[l]
+    swap = ck < cl
+    i, j = torch.where(swap, l, k), torch.where(swap, k, l)
+    del k, l
+    ci, cj = torch.maximum(ck, cl), torch.minimum(ck, cl)
+    block = ci * (ci + 1) // 2 + cj
+    del ck, cl, ci, cj, swap
+    block, order = torch.sort(block, stable=True)
+    i, j = _i32(i[order]), _i32(j[order])
+    del order
+    ar = torch.arange(nblk + 1, device=dev)
+    bstart = torch.searchsorted(block, ar)
+    del block
+    nch = ((bstart[1:] - bstart[:-1] + chunk - 1) // chunk).clamp(min=1)
+    multi = nch > 1
+    nchunks, nmulti, nslots = host_read(torch.stack(
+        [nch.sum(), multi.sum(), (nch * multi).sum()])).tolist()
+    cblock = torch.repeat_interleave(ar[:-1], nch, output_size=nchunks)
+    q = torch.arange(nchunks, device=dev) - (torch.cumsum(nch, 0) - nch)[
+        cblock]
+    starts = torch.cat([bstart[cblock] + q * chunk,
+                        bstart.new_tensor([npairs])])
+    in_multi = multi[cblock]
+    slot = torch.where(in_multi, torch.cumsum(in_multi, 0) - 1, -1)
+    mblock = torch.sort((~multi).to(torch.uint8), stable=True).indices[
+        :nmulti]
+    mslots = torch.cat([mblock.new_zeros(1), torch.cumsum(nch[mblock], 0)])
+    return PairPlan(i, j, _i32(starts), _i32(cblock), _i32(slot),
+                    _i32(mblock), _i32(mslots), nslots)
+
+
 def _cached(problem, key, build):
     """``problem.plans[key]``, built by ``build()`` at the first call inside
     the span ``ba.plan.<name>`` (`utils/profiling.py`; the name is the key's
@@ -447,3 +552,17 @@ def cam_row_plan(problem) -> CamRowPlan:
     dtype (``astype``) never reads them."""
     return _cached(problem, ("cam_rows", problem.pt2d.dtype),
                    lambda: build_cam_row_plan(problem))
+
+
+def pair_count(problem) -> int:
+    """The dense Schur step's pair count of ``problem``
+    (:func:`count_pairs`), read at the first call."""
+    return _cached(problem, ("pairs", "count"),
+                   lambda: count_pairs(problem))
+
+
+def pair_plan(problem) -> PairPlan:
+    """The dense Schur step's plan of ``problem``, built at the first
+    call."""
+    return _cached(problem, "pairs", lambda: build_pair_plan(
+        problem, pair_count(problem), PAIR_CHUNK))

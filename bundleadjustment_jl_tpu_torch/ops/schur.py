@@ -59,9 +59,12 @@ from typing import NamedTuple
 import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
-from bundleadjustment_jl_tpu_torch.ops import normal, spmdctx
+from bundleadjustment_jl_tpu_torch.ops import normal, plans, spmdctx
+from bundleadjustment_jl_tpu_torch.ops.dense_schur import (
+    _add_diag, _dense_dtype)
 from bundleadjustment_jl_tpu_torch.ops.normal import (
     KERNELS, GNBlocks, Stages, damp)
+from bundleadjustment_jl_tpu_torch.utils.profiling import span
 
 # Routes whose camera sums run the camera scatter (K2 over the point-sorted
 # W): the JAX package's `pallas_schur.cam_scatter_ok`.
@@ -256,90 +259,88 @@ def back_substitute_quad(problem: BAProblem, blocks: GNBlocks,
 
 
 # ---------------------------------------------------------------- dense
-# Cap on the dense path's device bytes (:func:`dense_schur_bytes`). The
-# JAX package's 6 GiB was set for a TPU's HBM; the H100 holds 80 GB. The
-# two (3 npnts, 9 ncams) targets are the dense path's only large
-# allocations; beside them a solve keeps the problem, its W and its plans
-# (under 1 GB at Dubrovnik-356) and the caching allocator's free blocks.
-# Half the card leaves that room: 40 GiB admits Dubrovnik-356 (~18.7 GB
-# by the estimate) and refuses the BAL problems above it (Trafalgar-257:
-# ~0.3 TB), before any allocation.
+# Cap on the dense step's device bytes (:func:`dense_schur_bytes`). The
+# JAX package's 6 GiB was set for a TPU's HBM; the H100 holds 80 GB. Beside
+# the dense step a solve keeps the problem, its W and its plans (under 1 GB
+# at Dubrovnik-356, ~2.5 GB at Venice-1778) and the caching allocator's
+# free blocks. Half the card leaves that room. On the plain route the two
+# (3 npnts, 9 ncams) targets are the largest allocations: 40 GiB admits
+# Dubrovnik-356 (~18.7 GB by the estimate) and refuses the BAL problems
+# above it (Venice-1778: ~388 GB). On the kernel route S and its factor
+# are: Venice-1778 takes ~4.7 GB by the estimate (its whole solve peaks at
+# 4.2 GB on an H100); ~7,700 cameras would fill the cap.
 DENSE_MAX_BYTES = 40 << 30
 
 
 def dense_schur_bytes(ncams: int, npnts: int, nobs: int,
-                      itemsize: int = 4) -> int:
-    """Estimated peak device bytes of :func:`solve_dense`: the two
+                      itemsize: int = 4, npairs: int | None = None) -> int:
+    """Estimated peak device bytes of :func:`solve_dense` at ``itemsize``
+    bytes a value, on the route that assembles S. With ``npairs`` None the
+    plain route's (`ops/dense_schur.py:_dense_schur_plain`): the two
     targets, S and its factor, and the scatter operands (the flat int64
-    index, ``index_put_``'s sorted copy and permutation of it, the W and
-    Y values of every row), at ``itemsize`` bytes a value."""
-    mats = 2 * (3 * npnts) * (9 * ncams) * itemsize
-    s = 2 * (9 * ncams) ** 2 * itemsize
-    upd = 27 * nobs * (3 * 8 + 2 * itemsize)
-    return mats + s + upd
+    index, ``index_put_``'s sorted copy and permutation of it, the W and Y
+    values of every row). Else the kernel route's, with ``npairs`` camera
+    pairs (`ops/plans.py:pair_count`): S and its factor, the
+    factorization's workspace, the pair plan and the int64 arrays its
+    build holds at once, the row-major copies of W and W Hpp_inv and the
+    chunks' partial sums (`ops/dense_schur.py:dense_schur`)."""
+    s = (9 * ncams) ** 2 * itemsize
+    if npairs is None:
+        mats = 2 * (3 * npnts) * (9 * ncams) * itemsize
+        upd = 27 * nobs * (3 * 8 + 2 * itemsize)
+        return mats + 2 * s + upd
+    nblk = ncams * (ncams + 1) // 2
+    chunks = nblk + 2 * npairs // plans.PAIR_CHUNK + 1
+    plan = 8 * npairs + 12 * chunks + 8 * 4 * nblk
+    build = 8 * 8 * npairs
+    work = 9 * ncams * 1024 * itemsize
+    part = 81 * 4 * 2 * npairs // plans.PAIR_CHUNK
+    return 2 * s + work + plan + build + 224 * nobs + part
 
 
 def check_dense_feasible(ncams: int, npnts: int, nobs: int,
-                         itemsize: int = 4) -> None:
-    """Raise ``MemoryError`` when :func:`dense_schur_bytes` exceeds
+                         itemsize: int = 4,
+                         npairs: int | None = None) -> None:
+    """Raise ``MemoryError`` when :func:`dense_schur_bytes` (the plain
+    route's with ``npairs`` None, else the kernel route's) exceeds
     :data:`DENSE_MAX_BYTES`."""
-    b = dense_schur_bytes(ncams, npnts, nobs, itemsize)
+    b = dense_schur_bytes(ncams, npnts, nobs, itemsize, npairs)
     if b > DENSE_MAX_BYTES:
+        route = "plain route" if npairs is None else f"{npairs} pairs"
         raise MemoryError(
             f"dense Schur refused: ~{b / 2**30:.1f} GiB at ncams={ncams} "
-            f"npnts={npnts} nobs={nobs} exceeds DENSE_MAX_BYTES="
+            f"npnts={npnts} nobs={nobs} ({route}) exceeds DENSE_MAX_BYTES="
             f"{DENSE_MAX_BYTES / 2**30:.1f} GiB")
 
 
-def _dense_dtype(W_t: torch.Tensor) -> torch.dtype:
-    """The dense path's compute dtype: float32 for a 2-byte W."""
-    return torch.float32 if W_t.element_size() < 4 else W_t.dtype
+def dense_pair_count(problem: BAProblem, dtype) -> int | None:
+    """The camera pairs the kernel route sums S over
+    (`ops/plans.py:pair_count`, one host read a problem), or None where a
+    solve of ``problem`` in working dtype ``dtype`` assembles S on the
+    plain route (`ops/normal.py:plain_route`, and camera groups)."""
+    if normal.plain_route(dtype, problem) or spmdctx.CAMERA_GROUPS:
+        return None
+    return plans.pair_count(problem)
 
 
 def assemble_dense_schur(sys: SchurSystem) -> torch.Tensor:
-    """S as a dense (9 ncams, 9 ncams) matrix, ``blockdiag(Hcc_l) - Y' U``
-    with ``U[3 p + b, 9 c + a] = W_k[a, b]`` and ``Y`` alike over ``Y_k =
-    W_k Hpp_inv[p]``, for the row ``k`` of point ``p`` and camera ``c``.
-    Each row's 27 entries go to their places in one ``index_put_``
-    (accumulate) a target (a point and camera pair has one row, the
-    padding rows add zeros), then one matmul contracts the two. A 2-byte
-    W is widened to float32 (a float16 W holds ``s W`` and the system's
-    ``Hpp_inv`` is hatted by ``1 / s^2``, so ``Y' U`` is exact), and S
-    comes back rounded to W's storage dtype, as in the JAX package. On a
-    point-aligned mesh shard the targets hold the rank's points and ``Y'
-    U`` is all-reduced; on camera groups a point's rows span ranks, whose
-    cross terms no rank's product holds, so the two targets are
-    all-reduced before the product (2 * 3 npnts * 9 ncams values a step;
-    `ops/spmdctx.py`)."""
-    problem = sys.problem
-    nc, npt = problem.ncams, problem.npnts
-    cdt = _dense_dtype(sys.W_t)
-    dev = sys.W_t.device
-    W = sys.W_t.to(cdt).T.reshape(-1, 9, 3)
-    pnt, cam = problem.pnt_idx.long(), problem.cam_idx.long()
-    Y = torch.einsum("kab,kbc->kac", W,
-                     sys.Hpp_inv_f.to(cdt).reshape(-1, 3, 3)[pnt])
-    a = torch.arange(9, device=dev)[None, :, None]
-    b = torch.arange(3, device=dev)[None, None, :]
-    flat = ((3 * pnt[:, None, None] + b) * (9 * nc)
-            + 9 * cam[:, None, None] + a).reshape(-1)
-
-    def target(vals):
-        out = torch.zeros(3 * npt * 9 * nc, dtype=cdt, device=dev)
-        out.index_put_((flat,), vals.reshape(-1), accumulate=True)
-        return out.reshape(3 * npt, 9 * nc)
-
-    # On a point-aligned mesh shard Y'U is this rank's points' part:
-    # summed over the ranks in the compute dtype, before Hcc_l and the
-    # rounding to W's storage dtype, so every rank holds the same S. On
-    # camera groups the targets are summed instead, and every rank forms
-    # the same product.
-    if spmdctx.CAMERA_GROUPS:
-        S = -(spmdctx.psum(target(Y)).T @ spmdctx.psum(target(W)))
-    else:
-        S = -spmdctx.psum(target(Y).T @ target(W))
-    ar = torch.arange(nc, device=dev)
-    S.view(nc, 9, nc, 9)[ar, :, ar, :] += sys.Hcc_l.to(cdt)
+    """S as a dense (9 ncams, 9 ncams) matrix, ``blockdiag(Hcc_l) - sum_p
+    sum_{k,l in p} W_k Hpp_inv[p] W_l'``, by the stage table's
+    ``dense_schur``: the pair kernel on the kernel route, the JAX package's
+    two targets and one matmul on the plain route (`ops/dense_schur.py`). A
+    2-byte W is widened to float32 (a float16 W holds ``s W`` and the
+    system's ``Hpp_inv`` is hatted by ``1 / s^2``, so the sum is exact), and
+    S comes back rounded to W's storage dtype, as in the JAX package. On a
+    point-aligned mesh shard the stage sums the rank's points' part, which
+    is summed over the ranks in the compute dtype before Hcc_l and the
+    rounding, so every rank holds the same S; on camera groups the plain
+    stage sums its targets over the ranks itself."""
+    per_rank = spmdctx.GROUP is not None and not spmdctx.CAMERA_GROUPS
+    S = sys.stages.dense_schur(sys.W_t, sys.problem, sys.Hpp_inv_f,
+                               None if per_rank else sys.Hcc_l_f)
+    if per_rank:
+        S = spmdctx.psum(S)
+        _add_diag(S, sys.Hcc_l_f)
     return S.to(sys.W_t.dtype)
 
 
@@ -350,14 +351,20 @@ def solve_dense(sys: SchurSystem) -> torch.Tensor:
     positive definite gives a NaN ``dc`` (no exception, no host read; the
     JAX package's ``cho_factor`` gives NaN there), which the LM drivers
     reject. Refuses, before any allocation, a system above
-    :data:`DENSE_MAX_BYTES` (on a mesh shard, the rank's own). Every rank
-    of a mesh factors the same S and gets the same ``dc``."""
+    :data:`DENSE_MAX_BYTES` on its route (on a mesh shard, the rank's
+    own). Every rank of a mesh factors the same S and gets the same
+    ``dc``. Spans (`utils/profiling.py`): ``ba.dense.assemble`` (S, with
+    the pair plan's first build) and ``ba.dense.factor`` (the factorization
+    and the two triangular solves)."""
     problem = sys.problem
     cdt = _dense_dtype(sys.W_t)
     check_dense_feasible(problem.ncams, problem.npnts, problem.nobs_pad,
-                         torch.finfo(cdt).bits // 8)
-    S = assemble_dense_schur(sys)
-    L, info = torch.linalg.cholesky_ex(S.to(cdt))
-    dc = torch.cholesky_solve(sys.b_f.to(cdt)[:, None], L).reshape(-1, 9)
-    dc = torch.where(info == 0, dc, torch.full_like(dc, float("nan")))
+                         torch.finfo(cdt).bits // 8,
+                         dense_pair_count(problem, sys.b_f.dtype))
+    with span("ba.dense.assemble"):
+        S = assemble_dense_schur(sys)
+    with span("ba.dense.factor"):
+        L, info = torch.linalg.cholesky_ex(S.to(cdt))
+        dc = torch.cholesky_solve(sys.b_f.to(cdt)[:, None], L).reshape(-1, 9)
+        dc = torch.where(info == 0, dc, torch.full_like(dc, float("nan")))
     return dc.to(S.dtype).to(sys.b_f.dtype)

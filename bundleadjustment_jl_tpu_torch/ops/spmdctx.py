@@ -17,8 +17,8 @@ camera-space sums all-reduce over the ranks' process group:
 - a scalar that mixes both (||J'r||, g'd, ||d||, ||x||, the quadratic
   form, the CGLS step's gamma and denominator) sums only its point and
   row parts here; the camera part is computed alike on every rank;
-- the dense step's ``Y' U`` and CGLS's ``J' s`` camera part are per-rank
-  partials, summed here.
+- the dense step's pair sums (S without ``Hcc_l``) and CGLS's ``J' s``
+  camera part are per-rank partials, summed here.
 
 On camera-group shards of a partitioned problem (:data:`CAMERA_GROUPS`,
 `parallel/spmd.py:GroupProblem`) every rank holds every camera and point

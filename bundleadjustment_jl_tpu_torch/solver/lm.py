@@ -45,7 +45,8 @@ from bundleadjustment_jl_tpu_torch.ops import spmdctx
 from bundleadjustment_jl_tpu_torch.ops.normal import (
     assemble_blocks, gradient_norm, kernel_route, solve_stages)
 from bundleadjustment_jl_tpu_torch.ops.pcg import forcing_rtol
-from bundleadjustment_jl_tpu_torch.ops.schur import check_dense_feasible
+from bundleadjustment_jl_tpu_torch.ops.schur import (
+    check_dense_feasible, dense_pair_count)
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
     SOLVERS, _any_rank, _check_lockstep, _global_points, _local_points,
     _rank0, _ranks, _whole, expected_launches, solve_step)
@@ -181,7 +182,8 @@ def _solve(problem: BAProblem, opts: LMOptions, cams, points,
     if opts.solver == "dense":
         check_dense_feasible(problem.ncams, problem.npnts, problem.nobs_pad,
                              4 if problem.dtype in HALF_DTYPES
-                             else problem.cams.element_size())
+                             else problem.cams.element_size(),
+                             dense_pair_count(problem, problem.dtype))
     # Full-precision f32 products on the card (no TF32), as in lm_jit.
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")

@@ -84,8 +84,8 @@ from bundleadjustment_jl_tpu_torch.ops.pcg import (
     STAGNATION_WINDOW, block_jacobi_apply, block_jacobi_inverse,
     forcing_rtol, pcg, power_series)
 from bundleadjustment_jl_tpu_torch.ops.schur import (
-    back_substitute_quad, check_dense_feasible, reduce_and_diag,
-    reduce_system, schur_matvec, solve_dense)
+    back_substitute_quad, check_dense_feasible, dense_pair_count,
+    reduce_and_diag, reduce_system, schur_matvec, solve_dense)
 from bundleadjustment_jl_tpu_torch.parallel.spmd import MeshShard
 from bundleadjustment_jl_tpu_torch.utils.checkpoint import CheckpointManager
 from bundleadjustment_jl_tpu_torch.utils.profiling import host_read, span
@@ -140,6 +140,8 @@ def expected_launches(route: str, iterations: int, naccepts: int, cg: int,
     iteration (K2 W op on A and B1, K5's camera direction on C and B2),
     one Schur matvec per power term, then the back-substitution and
     |J d|^2 (K3 on A; K5's point direction and the camera sum elsewhere).
+    ``dense`` also assembles S by the pair kernel (``dense_pairs``) once
+    per iteration.
 
     ``pcg``, ``power`` and ``dense`` on every route: the point blocks'
     damped inverse with ``Hpp_inv g_p`` (``point_inv``) and ``dp' Hpp dp``
@@ -153,6 +155,8 @@ def expected_launches(route: str, iterations: int, naccepts: int, cg: int,
     if solver == "cgls":
         return expect
     expect.update(point_inv=it, point_quad=it)
+    if solver == "dense":
+        expect.update(dense_pairs=it)
     split = route in ("sorted", "sorted_relin")
     if solver == "pcg":
         if route == "fused":
@@ -173,14 +177,16 @@ def expected_launches(route: str, iterations: int, naccepts: int, cg: int,
 
 
 def expected_host_reads(iterations: int, naccepts: int, hist_cg,
-                        max_steps: int) -> int:
+                        max_steps: int, solver: str = "pcg") -> int:
     """The host reads (`utils/profiling.py:COUNTERS`) a jit solve with the
-    ``pcg`` or ``power`` step makes, from its decisions, less those of its
-    launch plans: the initial read; per iteration the step's flags (one a
+    ``pcg``, ``power`` or ``dense`` step makes, from its decisions, less
+    those of its launch plans (the dense step's pair count and pair plan
+    among them): the initial read; per iteration the step's flags (one a
     CG step or power term, and one more where the step stopped before
-    ``max_steps``) and the packed read; per accept the new objective's
-    read."""
-    flags = sum(int(c) + (int(c) < max_steps) for c in hist_cg[:iterations])
+    ``max_steps``; none for ``dense``, whose Cholesky step reads nothing)
+    and the packed read; per accept the new objective's read."""
+    flags = 0 if solver == "dense" else sum(
+        int(c) + (int(c) < max_steps) for c in hist_cg[:iterations])
     return 1 + flags + iterations + naccepts
 
 
@@ -540,10 +546,13 @@ def _setup(problem: BAProblem, cams, points, *, max_iters, lam0,
               else "dense" if use_dense else "pcg")
     if solver == "dense":
         # A 2-byte W (stored narrow or in a 2-byte working dtype) is
-        # factored in float32 (`ops/schur.py:_dense_dtype`).
+        # factored in float32 (`ops/schur.py:_dense_dtype`); the estimate
+        # is the route's that will assemble S (the kernel route's counts
+        # the problem's camera pairs: one host read).
         check_dense_feasible(problem.ncams, problem.npnts, problem.nobs_pad,
                              4 if facto_dtype is not None
-                             or dt in HALF_DTYPES else cams.element_size())
+                             or dt in HALF_DTYPES else cams.element_size(),
+                             dense_pair_count(problem, dt))
     # "Narrow" (the JAX solver's `facto_narrow`): W stored below 4 bytes,
     # or a working dtype below 4 bytes. Only then the CG floor (in eps of
     # the storage dtype, else of the working dtype), the CG stagnation stop

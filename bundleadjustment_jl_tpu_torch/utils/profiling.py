@@ -8,7 +8,9 @@
   at the stages of an LM solve (ROADMAP's seven): ``ba.solve`` around a
   call of a jit driver (its own time is stage 7, the lambda schedule and
   the stop tests), ``ba.linearize`` (1), ``ba.reduce`` (2-3), ``ba.pcg``
-  (4, whichever step solver), ``ba.backsub`` (5), ``ba.trial`` (6); and
+  (4, whichever step solver; inside it the dense step's
+  ``ba.dense.assemble``, S, and ``ba.dense.factor``, its Cholesky and
+  triangular solves), ``ba.backsub`` (5), ``ba.trial`` (6); and
   ``ba.plan.<key>`` around each launch plan built (`ops/plans.py`).
 - :data:`COUNTERS`: ``host_reads``, each device value a solve reads into
   the host (:func:`host_read`): a ``bool()``, ``int()`` or copy to the

@@ -165,10 +165,19 @@ CUDA card.
    the default gates pick and the launches ``lm_jit.expected_launches``
    gives; the timed Final-13682 solve's launches x (ms - bound) by kernel
    form.
-14. The bench leg (``python -m bundleadjustment_jl_tpu_torch.bench``): its
+14. The dense Schur step's pair kernel (``check_dense_pairs``,
+   ``csrc/dense_pairs.cu``) against its plain twin (the same pair blocks)
+   at Dubrovnik-356's and Venice-1778's sizes (bench.py's problem and the
+   capacity recipe's): S within float32 rounding of the twin's, every
+   entry finite, its off-diagonal blocks each other's transposes bit for
+   bit, a repeat bit-identical; the plan's build time; kernel and twin
+   ms in turns beside the kernel's least time (``bench.bound_ms``: W,
+   Hpp_inv, the plan and S once over 3.35 TB/s; 162 operations a row and
+   486 a pair over 67 TFLOP/s) and its share of it.
+15. The bench leg (``python -m bundleadjustment_jl_tpu_torch.bench``): its
    JSON line, once, with the launches of its run checked (route A's
    kernels and the probe).
-15. Prints the run's wall time, the kernel table as one JSON line (each
+16. Prints the run's wall time, the kernel table as one JSON line (each
    kernel's time beside its least time on the card, ``bench.bound_ms``,
    from this run's shapes, at each problem; the plans' build times and
    the repeat checks under their kernels), the card line, and last
@@ -408,6 +417,10 @@ PARTITION_REPEATS = 3
 # run over point ranges of at most TWIN_ROWS rows, about Final-4585's,
 # where phase 4 runs each twin whole beside that problem.
 CAPACITY_CHECKED = "final13682"
+# Phase 14's problems: bench.py's Dubrovnik-356 and the capacity recipe's
+# Venice-1778; lambda of the point blocks and Hcc_l there.
+DENSE_PAIRS_CHECKED = ("dubrovnik356", "venice1778")
+DENSE_LAM = 0.5
 CAPACITY_SOLVES = ("final13682", "final13682-firstorder", "venice1778")
 CAPACITY_REPS = 2
 TWIN_ROWS = 1 << 23
@@ -2679,6 +2692,63 @@ def check_runner(launches_total, card):
     return rows
 
 
+def check_dense_pairs():
+    """Phase 14: the pair kernel against its plain twin at each problem of
+    DENSE_PAIRS_CHECKED (relative to max|S|: at most 1e-5 apart), its
+    off-diagonal blocks each other's transposes, a repeat bit-identical,
+    then both timed in turns beside the kernel's least time
+    (``bench.bound_ms``). Returns a line a problem."""
+    import torch
+    from bundleadjustment_jl_tpu_torch import bench, capacity
+    from bundleadjustment_jl_tpu_torch.ops import dense_schur as ds
+    from bundleadjustment_jl_tpu_torch.ops import normal, plans
+    from bundleadjustment_jl_tpu_torch.ops import point_block as pb
+
+    lines = {}
+    for name in DENSE_PAIRS_CHECKED:
+        problem = (bench.make_problem(name, 0) if name in bench.PROBLEMS
+                   else capacity.make(name)[0])
+        blocks = normal.assemble_blocks(problem)
+        inv, _ = pb.point_inv_rhs(blocks.Hpp_f, blocks.g_p_f, DENSE_LAM)
+        hcc = normal.damp(blocks.Hcc, DENSE_LAM).reshape(-1).contiguous()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plan = plans.pair_plan(problem)
+        torch.cuda.synchronize()
+        plan_s = time.perf_counter() - t0
+
+        def kernel():
+            return ds.dense_schur(blocks.W_t, problem, inv, hcc)
+
+        def plain():
+            return ds._dense_pairs_plain(blocks.W_t, problem, inv, hcc)
+        S, ref = kernel(), plain()
+        scale = float(ref.abs().max())
+        rel = float((S - ref).abs().max()) / scale
+        nc = problem.ncams
+        off = ~torch.eye(nc, dtype=torch.bool, device=S.device)
+        off = off.repeat_interleave(9, 0).repeat_interleave(9, 1)
+        ok = (rel <= 1e-5 and bool(torch.isfinite(S).all())
+              and torch.equal(S[off], S.T[off])
+              and torch.equal(kernel(), S))
+        del S, ref, off
+        torch.cuda.empty_cache()
+        kms, pms = time_pair(kernel, plain, 3 if nc > 1000 else 10)
+        bound = bench.bound_ms("dense_pairs", problem)[0]
+        lines[name] = line = {
+            "ncams": nc, "nobs": problem.nobs, "npairs": plan.npairs,
+            "nchunks": plan.nchunks, "nmulti": plan.nmulti,
+            "plan_s": plan_s, "rel_err": rel, "ms": kms, "plain_ms": pms,
+            "bound_ms": bound, "share": bound / kms}
+        print(f"  dense_pairs@{name}: {json.dumps(line)}")
+        if not ok:
+            raise AssertionError(f"dense_pairs at {name}: kernel against its "
+                                 f"twin, rel {rel:.3g}, symmetry or repeat")
+        del problem, blocks, inv, hcc, plan
+        torch.cuda.empty_cache()
+    return lines
+
+
 def check_bench(launches_total):
     """Phase 10: the bench leg, once; its launches counted from 0 and every
     kernel of its route and the probe launched. Returns its line."""
@@ -2881,6 +2951,11 @@ def main() -> int:
     t0 = time.perf_counter()
     capacity = check_capacity(launches, card, errs, facts)
     print(json.dumps({"phase13_s": time.perf_counter() - t0}))
+    print(f"[dense] the pair kernel against its twin at "
+          f"{', '.join(DENSE_PAIRS_CHECKED)}")
+    t0 = time.perf_counter()
+    dense_pairs = check_dense_pairs()
+    print(json.dumps({"phase14_s": time.perf_counter() - t0}))
     check_bench(launches)
     for k, v in launches.items():
         if v == 0 and k not in SCHUR_CHECK_ONLY:
@@ -2894,6 +2969,7 @@ def main() -> int:
     print(json.dumps({"probe": probe, "f64_solve": f64, "chunked": chunked,
                       "drivers": drivers, "spmd": spmd, "mesh": mesh,
                       "partition": partition, "capacity": capacity,
+                      "dense_pairs": dense_pairs,
                       "f64_anchor": precision["f64_anchor"],
                       "cli": [ln["stats"] for ln in surface["cli"]]}))
     print(json.dumps({"kernels": kernel_table(launches, schur_launches, errs,

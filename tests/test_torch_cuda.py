@@ -24,6 +24,7 @@ from bundleadjustment_jl_tpu_torch.io.synthetic import synthetic_bal
 from bundleadjustment_jl_tpu_torch.kernel_profile import trial_states
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.ops import _cuda
+from bundleadjustment_jl_tpu_torch.ops import dense_schur as ds
 from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
 from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
 from bundleadjustment_jl_tpu_torch.ops import linearize as lz
@@ -975,6 +976,99 @@ def test_spmd_one_nccl_rank_bit_identical_to_one_shot_on_card():
         np.testing.assert_array_equal(getattr(res, k), getattr(one, k))
     assert torch.equal(res.cams, one.cams)
     assert torch.equal(res.points, one.points)
+
+
+def dense_operands(p, dtype):
+    """(W_t stored in ``dtype`` as a solve stores it, Hpp_inv, Hcc_l) of
+    ``p``'s assembly at lambda 0.5."""
+    blocks = normal.assemble_blocks(p)
+    if dtype is not None:
+        blocks = lm_jit.maybe_cast_facto(blocks, dtype)
+    inv, _ = pb.point_inv_rhs(blocks.Hpp_f, blocks.g_p_f, 0.5,
+                              blocks.w_scale)
+    hcc = normal.damp(blocks.Hcc, 0.5).reshape(-1).contiguous()
+    return blocks.W_t, inv, hcc
+
+
+def duplicate_rows_problem():
+    """The card problem's arrays with point 0 seen twice by its first
+    camera and point 5 three times by one camera."""
+    p = synthetic_bal(ncams=12, npnts=900, obs_per_pnt=4, seed=3,
+                      noise_px=1.0, perturb=2e-2, device="cpu")[0]
+    n = p.nobs
+    cam, pnt = p.cam_idx[:n].numpy(), p.pnt_idx[:n].numpy()
+    xy = p.pt2d[:n].numpy()
+    rows = [int(np.flatnonzero(pnt == q)[0]) for q in (0, 5, 5)]
+    return BAProblem.from_arrays(
+        p.cams.numpy(), p.points.numpy(), np.concatenate([cam, cam[rows]]),
+        np.concatenate([pnt, pnt[rows]]),
+        np.concatenate([xy, xy[rows] + 0.5]), dtype=torch.float32,
+        pad_obs_to=512, device="cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk", [2, 1024])
+@pytest.mark.parametrize("hcc", [True, False], ids=["hcc", "part"])
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16, torch.float16],
+                         ids=["f32", "bf16", "f16"])
+def test_dense_pairs_match_their_twin_on_card(monkeypatch, dtype, hcc,
+                                              chunk):
+    """S by the pair kernel within float32 rounding of its plain twin's
+    (the same pair blocks, summed by atomics on the card), its off-diagonal
+    blocks the transposes of each other bit for bit, every entry finite,
+    one launch a call, repeats bit-identical. With 2 pairs a chunk the
+    merge pass writes every block, with 1024 none."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    monkeypatch.setattr(plans, "PAIR_CHUNK", chunk)
+    p = duplicate_rows_problem()
+    W, inv, hcc_l = dense_operands(p, dtype)
+    hcc_l = hcc_l if hcc else None
+    _cuda.reset_launches()
+    S = ds.dense_schur(W, p, inv, hcc_l)
+    assert _cuda.LAUNCHES["dense_pairs"] == 1
+    assert S.dtype == torch.float32 and S.shape == (9 * p.ncams,) * 2
+    plan = plans.pair_plan(p)
+    assert plan.nmulti == (p.ncams * (p.ncams + 1) // 2 if chunk == 2
+                           else 0)
+    ref = ds._dense_pairs_plain(W, p, inv, hcc_l)
+    assert bool(torch.isfinite(S).all())
+    close(S, ref, rtol=1e-5, afrac=1e-6)
+    nc = p.ncams
+    off = ~torch.eye(nc, dtype=torch.bool, device="cuda").repeat_interleave(
+        9, 0).repeat_interleave(9, 1)
+    assert torch.equal(S[off], S.T[off])
+    for _ in range(2):
+        assert torch.equal(ds.dense_schur(W, p, inv, hcc_l), S)
+
+
+@pytest.mark.cuda
+def test_dense_pairs_refuse_cuda_float64(card_problem):
+    W, inv, hcc = dense_operands(card_problem, None)
+    with pytest.raises(TypeError, match="float64"):
+        ds.dense_schur(W.double(), card_problem, inv, hcc)
+
+
+@pytest.mark.cuda
+def test_dense_solve_on_card_makes_the_plain_routes_decisions(
+        card_problem, monkeypatch):
+    """A float32 dense solve on route A through the pair kernel (launches
+    as ``expected_launches`` says, one ``dense_pairs`` an iteration) and
+    the same solve on the plain route (the two targets): the same status
+    and iterations over six iterations, objectives within 1e-5."""
+    opts = dict(max_iters=6, lam0_mode="diag", atol=0.0, rtol=0.0,
+                satol=0.0, srtol=0.0, oatol=0.0, ortol=0.0)
+    _cuda.reset_launches()
+    res = levenberg_marquardt_jit(card_problem, use_dense=True, **opts)
+    expect = dict.fromkeys(_cuda.LAUNCHES, 0)
+    expect.update(lm_jit.expected_launches(
+        "fused", res.iterations, res.naccepts, 0, "dense"))
+    assert dict(_cuda.LAUNCHES) == expect and expect["dense_pairs"] == 6
+    monkeypatch.setattr(normal, "PALLAS_MODE", False)
+    plain = levenberg_marquardt_jit(card_problem, use_dense=True, **opts)
+    assert (res.status, res.iterations, res.naccepts) == (
+        plain.status, plain.iterations, plain.naccepts)
+    assert res.objective == pytest.approx(plain.objective, rel=1e-5)
 
 
 @pytest.mark.parametrize("alone", [False, True], ids=["checkout", "alone"])

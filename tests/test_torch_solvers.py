@@ -7,7 +7,8 @@ package's, on the CPU.
   function and against ``schur_matvec`` applied to unit vectors) and
   ``solve_dense``; ``solve_dense`` gives NaN, not an exception, on an S
   that is not positive definite; ``check_dense_feasible`` raises above
-  ``DENSE_MAX_BYTES``.
+  ``DENSE_MAX_BYTES`` (the plain route's estimate; the kernel route's
+  admits Venice-1778).
 - ``levenberg_marquardt_jit`` with ``use_power`` / ``use_dense`` /
   ``use_cgls`` against the JAX driver on its XLA path: float64, the same
   status, iterations, accepts and CG steps, objective to rel 1e-9; float32
@@ -75,7 +76,8 @@ COUNTER = dict(
     cam_reduce_w_op="cam_reduce_w_op", cam_reduce_wcw="cam_reduce_wcw81",
     wcw_cam_reduce="seg_prod_wcw81", wtv_point_reduce="seg_block_point",
     wt_cam_reduce="seg_block_camera", objective_scatter="objective",
-    point_inv_rhs="point_inv", point_quad="point_quad")
+    point_inv_rhs="point_inv", point_quad="point_quad",
+    dense_schur="dense_pairs")
 
 
 def to_port(jp):
@@ -216,11 +218,14 @@ def test_check_dense_feasible_raises_above_the_cap(monkeypatch, pair):
         schur.solve_dense(schur.reduce_system(tp, tb, LAM))
     with pytest.raises(MemoryError):
         levenberg_marquardt_jit(tp, use_dense=True)
-    # At the card's cap: Dubrovnik-356's sizes fit, Venice-1778's do not.
+    # At the card's cap: Dubrovnik-356's sizes fit the plain route's two
+    # targets, Venice-1778's do not; the kernel route's S by camera pairs
+    # (15,102,831 at Venice-1778) fits.
     monkeypatch.undo()
     schur.check_dense_feasible(356, 226730, 1360384)
     with pytest.raises(MemoryError):
         schur.check_dense_feasible(1778, 993923, 5001946)
+    schur.check_dense_feasible(1778, 993923, 5001946, npairs=15102831)
 
 
 @pytest.mark.parametrize("solver", ["power", "dense", "cgls"])

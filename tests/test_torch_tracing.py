@@ -18,7 +18,8 @@ each launch plan built.
 - Each plan accessor of `ops/plans.py` opens one ``ba.plan.<key>`` span
   (the outermost) when it builds, none when the plan is cached, and counts
   its builder's host reads: its checks' flags, and each ``nonzero``,
-  ``unique`` and sum whose value sizes an output.
+  ``unique`` and sum whose value sizes an output (the dense step's pair
+  plan: its pair count and its chunk counts).
 """
 
 import dataclasses
@@ -136,6 +137,7 @@ PLANS = [
     (plans.wcw_col_plan, "ba.plan.wcw_cols", 2),
     (plans.cam_row_plan, "ba.plan.cam_rows", 0),
     (plans.rows, "ba.plan.rows", 0),
+    (plans.pair_plan, "ba.plan.pairs", 2),
 ]
 
 
