@@ -66,15 +66,19 @@ SOLVE_OPTS = dict(max_iters=MAX_ITERS, pcg_max_iters=100, lam0_mode="diag",
 # Arithmetic of one row of each kernel form, from its source (an FMA
 # counts 2): the linearization chain ~300 operations, the forward
 # projection ~60, W = Jc' Jp 81, a 9x3 block times a vector 54, W C W' with
-# its symmetric half 405, [Jc'Jc | Jc'r] 216, [Jp'Jp | Jp'r] 36.
-_CHAIN, _PROJECT = 300, 60
+# its symmetric half 405, [Jc'Jc | Jc'r] 216, [Jp'Jp | Jp'r] 36. Jc and r
+# alone, counted from csrc/chain.cuh's ba_linearize for the terms that
+# depend on the row (the large-angle branch; R(r) and the camera-only
+# factors once a camera): k x X and k.X 14, RX 16, d(RX)/dr 133, the
+# divide 6, distortion and B 23, Jc 67, r 6.
+_CHAIN, _PROJECT, _CHAIN_JC_R = 300, 60, 265
 FLOPS_PER_ROW = {
     "assemble": 2 * _CHAIN + 81 + 36 + 216, "linearize": _CHAIN + 81,
     "linearize_w_only": _CHAIN + 81, "objective": _PROJECT,
     "cam_reduce": 405 + 54, "cam_reduce_w_op": 54, "cam_reduce_wcw81": 405,
     "cam_reduce_cam90": 216, "matvec": 2 * 54, "seg_prod_pnt12": 36,
     "seg_prod_cam90": 216, "seg_prod_wcw81": 405, "seg_block_point": 54,
-    "seg_block_camera": 54,
+    "seg_block_camera": 54, "cam_relin_cam90": _CHAIN_JC_R + 216,
 }
 # The point-block forms' arithmetic a point: the damped adjugate inverse
 # (3 damped diagonals, 18 products and 9 differences, the determinant's 5,
@@ -133,6 +137,9 @@ def kernel_bytes(name: str, problem, w_itemsize: int = 4, *,
         "cam_reduce_w_op": W + 2 * idx + cam_starts + vec_p + vec_c,
         "cam_reduce_wcw81": W + 2 * idx + cam_starts + hpp_inv + 81 * nc * f,
         "cam_reduce_cam90": 20 * n * f + idx + cam_starts + 90 * nc * f,
+        # the camera-order pt2d, w and point ids, the state once
+        "cam_relin_cam90": state + 3 * n * f + idx + cam_starts
+        + 90 * nc * f,
         "matvec": W + 3 * idx + pnt_starts + cam_starts + vec_c + hpp_inv
         + vec_c,
         "seg_prod_pnt12": 8 * n * f + pnt_starts + 12 * npt * f,

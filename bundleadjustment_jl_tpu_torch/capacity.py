@@ -115,7 +115,7 @@ RMSE_REL = 0.01
 # the warm-up and timed as plan_build_s.
 ROUTE_PLANS = {
     "fused": ("point_blocks", "tile_plan"),
-    "scatter_split": ("point_blocks", "tile_plan"),
+    "scatter_split": ("point_blocks", "tile_plan", "cam_obs", "cam_pnt"),
     "sorted": ("point_blocks", "cam_col_plan", "wcw_col_plan"),
     "sorted_relin": ("point_blocks", "tile_plan", "cam_col_plan",
                      "wcw_col_plan", "cam_row_plan"),

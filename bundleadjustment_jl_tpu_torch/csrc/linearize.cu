@@ -42,6 +42,29 @@
 // ~32 B of problem data; ~300 FLOP a row. K8 writes 108 B a row in f32,
 // 54 B in bf16 / f16 (1.0 / 0.5 GB at Final-4585), and reads 20 B a row
 // of the plan plus the gathered camera and point: the bytes bound both.
+//
+// K2 cam90 past shared memory (ba_cam_relin_cam90_kernel) stands in for
+// `bundleadjustment_jl_tpu/ops/pallas_schur.py` `_cam_scatter_kernel`
+// with `_prod_cam90` (`cam_scatter_reduce`, :1109) where the (ncams, 54)
+// camera sums do not fit a block's shared memory (ops/plans.py
+// cam_pass_path: "records"): [Jc'Jc (81) | Jc'r (9)] a camera, [Hcc | g_c]
+// of the split assembly. The records path (cam_pass.cuh) read K7's 20 JR
+// planes and wrote them out again as 96 B row records (2.78 GB at
+// Final-13682), then gathered them a block a camera. Here the rows' inputs
+// are read instead of K7's output: one block a camera walks the camera's
+// rows in camera order from the plan's copies (pt2d, w and the point of
+// each column: 16 B a row, coalesced), gathers the point, runs K7's chain
+// (ba_linearize) for the row's Jc and r and adds ProdCam90 in registers;
+// nothing is written a row. The walk is the records path's (thread t takes
+// columns cam_starts[c] + t + k BA_BLOCK in order k, then ba_block_sum),
+// and the chain compiles to K7's bits (see the kernel), so [Hcc | g_c] is
+// bit-identical to the records path's. A thread loads the next column's
+// row data and point while the current column's chain runs, and two
+// blocks share an SM.
+// Bound: 16 B a row of the plan plus the points (53 MB at Final-13682)
+// once, 265 + 216 operations a row (the chain's Jc and r, bench.py): the
+// operations bind (0.21 ms at Final-13682, 13.9 GFLOP).
+#include "cam_prod.cuh"
 #include "chain.cuh"
 #include "w_store.cuh"
 
@@ -105,6 +128,89 @@ __global__ void __launch_bounds__(BA_BLOCK) ba_linearize_w_only_kernel(
              Jc[a] * Jp[b] + Jc[9 + a] * Jp[3 + b]);
 }
 
+// Blocks an SM must hold at once (__launch_bounds__): 2 caps the
+// registers at 128 a thread (none spilled), so that two blocks' loads and
+// chains overlap (1: ~140 registers, one block an SM, 1.3x as long at
+// Final-13682; PERF.md).
+constexpr int BA_RELIN_MIN_BLOCKS = 2;
+
+// One column's inputs: its observation, weight and point.
+struct BaRelinRow {
+  float2 o;
+  float w;
+  float X[3];
+};
+
+__device__ __forceinline__ BaRelinRow ba_relin_load(
+    const float* __restrict__ points, const BaCamRows& rows, int j, int p) {
+  BaRelinRow r;
+  r.o = reinterpret_cast<const float2*>(rows.pt2d)[j];
+  r.w = rows.w[j];
+  const float* x = points + 3 * (size_t)p;
+  r.X[0] = x[0];
+  r.X[1] = x[1];
+  r.X[2] = x[2];
+  return r;
+}
+
+// K2 cam90 past shared memory: a block a camera over its camera-order
+// columns j in [cam_starts[c], cam_starts[c+1]), each column's Jc and r by
+// the chain, [Jc'Jc | Jc'r] summed as the records path sums it.
+__global__ void __launch_bounds__(BA_BLOCK, BA_RELIN_MIN_BLOCKS)
+    ba_cam_relin_cam90_kernel(const float* __restrict__ cams,
+                              const float* __restrict__ points,
+                              BaCamRows rows,
+                              const int* __restrict__ cam_starts,
+                              float* __restrict__ out) {
+  constexpr int K = ProdCam90::K;
+  const int c = blockIdx.x;
+  const BaCam cam = ba_load_cam(cams + 9 * (size_t)c);
+  float acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0.f;
+  float jp_sum = 0.f;
+  const int last = cam_starts[c + 1] - 1;
+  int j = cam_starts[c] + threadIdx.x;
+  if (j <= last) {
+    // Loads run a column ahead (the point index two), at indices clamped to
+    // the camera's last column, so that the loop body has no branch.
+    BaRelinRow next = ba_relin_load(points, rows, j, rows.pnt[j]);
+    int pnt_ahead = rows.pnt[min(j + BA_BLOCK, last)];
+    for (; j <= last; j += BA_BLOCK) {
+      const BaRelinRow cur = next;
+      next = ba_relin_load(points, rows, min(j + BA_BLOCK, last), pnt_ahead);
+      pnt_ahead = rows.pnt[min(j + 2 * BA_BLOCK, last)];
+      // The camera made opaque once a column, so that the chain's
+      // camera-only terms are not hoisted out of the loop: held across it
+      // they spill at 128 registers (1.12x as long at Final-13682).
+      BaCam cm = cam;
+      asm volatile(""
+                   : "+f"(cm.r[0]), "+f"(cm.r[1]), "+f"(cm.r[2]),
+                     "+f"(cm.t[0]), "+f"(cm.t[1]), "+f"(cm.t[2]), "+f"(cm.k1),
+                     "+f"(cm.k2), "+f"(cm.f));
+      float Jc[18], Jp[6], res[2];
+      ba_linearize(cm, cur.X, cur.o.x, cur.o.y, cur.w, Jc, Jp, res);
+      jp_sum += Jp[0] + Jp[1] + Jp[2] + Jp[3] + Jp[4] + Jp[5];
+      ProdCam90::apply(
+          acc, [&](int e) { return e < 18 ? Jc[e] : res[e - 18]; }, nullptr,
+          nullptr);
+    }
+  }
+  // Jp goes to global memory, as in K7, though nothing reads it: thread
+  // 0 stores the thread's sum to the block's output row, which ba_cam_out
+  // overwrites after the barrier. Without a store of Jp, nvcc 12.9
+  // (V12.9.86) contracted the chain's products into FMAs otherwise than
+  // in K7, and Jc's last bits differed from K7's in whole cameras (1,445
+  // of 13,682 at Final-13682, whether Jp was left dead or passed to an
+  // empty asm or to shared memory; PERF.md). chip_smoke.py and the card
+  // tests hold the walk to the records path bit for bit.
+  if (threadIdx.x == 0) out[ba_d_out<ProdCam90>() * (size_t)c] = jp_sum;
+  __shared__ float tot[K];
+  ba_block_sum<K>(acc, tot);
+  __syncthreads();
+  ba_cam_out<K, ProdCam90::SYM>(tot, out + ba_d_out<ProdCam90>() * (size_t)c);
+}
+
 }  // namespace
 
 // cams (ncams, 9); points (npnts, 3); JR (26, n) and W (27, n) out, W in
@@ -146,4 +252,20 @@ extern "C" int ba_linearize_w_only(const float* cams, const float* points,
     BA_RETURN_IF_LAUNCH_FAILED();
     return 0;
   });
+}
+
+// cams (ncams, 9); points (npnts, 3); the plan's camera-order rows
+// pt2d_cam (n, 2), w_cam (n,), cam_pnt (n,); cam_starts (ncams+1,); out
+// (ncams, 90) [Hcc (81) | g_c (9)] a camera.
+extern "C" int ba_cam_relin_cam90(const float* cams, const float* points,
+                                  const float* pt2d_cam, const float* w_cam,
+                                  const int* cam_pnt, const int* cam_starts,
+                                  int ncams, float* out, void* stream) {
+  if (ncams <= 0) return 0;
+  const BaCamRows rows{pt2d_cam, w_cam, nullptr, cam_pnt};
+  ba_cam_relin_cam90_kernel<<<ncams, BA_BLOCK, 0,
+                              static_cast<cudaStream_t>(stream)>>>(
+      cams, points, rows, cam_starts, out);
+  BA_RETURN_IF_LAUNCH_FAILED();
+  return 0;
 }

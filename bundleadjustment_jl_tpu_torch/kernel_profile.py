@@ -106,9 +106,10 @@ def make(name: str):
 
 
 def camera_pass(name: str, p) -> dict:
-    """K2's four forms and K3 on ``p``: cam90 over K7's JR, the W forms
-    and K3 over K7's W in each storage dtype, device ms by kernel and the
-    path (``fused_schur.cam_path``) of each."""
+    """K2's four forms and K3 on ``p``: cam90 over K7's JR (and re-derived
+    in camera order, ``cam_relin_cam90``), the W forms and K3 over K7's W
+    in each storage dtype, device ms by kernel and the path
+    (``fused_schur.cam_path``) of each."""
     from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
     from bundleadjustment_jl_tpu_torch.ops import linearize as lz
     from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
@@ -119,7 +120,10 @@ def camera_pass(name: str, p) -> dict:
     cam_path = getattr(fs, "cam_path", lambda form, p, code: None)
     JR_t, W = lz.linearize_w_kminor(p, p.cams, p.points)
     line = {"cam_reduce_cam90": device_ms(
-        lambda: fs.cam_reduce_cam90(JR_t, p), f"{name}_cam_reduce_cam90")}
+        lambda: fs.cam_reduce_cam90(JR_t, p), f"{name}_cam_reduce_cam90"),
+        "cam_relin_cam90": device_ms(
+            lambda: fs.cam_relin_cam90(p, p.cams, p.points),
+            f"{name}_cam_relin_cam90")}
     paths = {"cam_reduce_cam90": cam_path("cam90", p, 0)}
     hp12 = sr.jtj_pnt_reduce(JR_t, p)
     del JR_t

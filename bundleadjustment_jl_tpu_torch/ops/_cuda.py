@@ -46,16 +46,19 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # One key per kernel form: K1 assemble; K2 cam_reduce (its `_prod_wcw_rhs`
-# form) and cam_reduce_{w_op,wcw81,cam90}; K3 matvec; K4 objective; K7
-# linearize; K8 linearize_w_only; K6 seg_prod_* (one key per product); K5
-# seg_block_* (one key per direction); K9 stream_probe; the point blocks'
-# point_inv (damped inverse and Hpp_inv g_p) and point_quad (dp' Hpp dp);
-# the dense Schur step's dense_pairs (S by camera pairs, every route).
+# form) and cam_reduce_{w_op,wcw81,cam90}, and cam_relin_cam90 (its cam90
+# form past shared memory, re-derived in camera order); K3 matvec; K4
+# objective; K7 linearize; K8 linearize_w_only; K6 seg_prod_* (one key per
+# product); K5 seg_block_* (one key per direction); K9 stream_probe; the
+# point blocks' point_inv (damped inverse and Hpp_inv g_p) and point_quad
+# (dp' Hpp dp); the dense Schur step's dense_pairs (S by camera pairs,
+# every route).
 # Which route runs which: `ops/normal.py:kernel_route`; K9 runs on the
 # measurement path (`bench.py`, `mv_sweep.py` of this package).
 LAUNCHES = {"assemble": 0, "cam_reduce": 0, "cam_reduce_w_op": 0,
-            "cam_reduce_wcw81": 0, "cam_reduce_cam90": 0, "matvec": 0,
-            "objective": 0, "linearize": 0, "linearize_w_only": 0,
+            "cam_reduce_wcw81": 0, "cam_reduce_cam90": 0,
+            "cam_relin_cam90": 0, "matvec": 0, "objective": 0,
+            "linearize": 0, "linearize_w_only": 0,
             "seg_prod_pnt12": 0, "seg_prod_cam90": 0, "seg_prod_wcw81": 0,
             "seg_block_point": 0, "seg_block_camera": 0, "stream_probe": 0,
             "point_inv": 0, "point_quad": 0, "dense_pairs": 0}
@@ -195,6 +198,7 @@ _SIGNATURES = {
     "ba_objective": [_P] * 6 + [_I, _I, _I, _I64, _P, _P, _P],
     "ba_linearize_rows": [_P] * 6 + [_I64, _P, _P, _I, _P],
     "ba_linearize_w_only": [_P] * 6 + [_I64, _P, _I, _P],
+    "ba_cam_relin_cam90": [_P] * 6 + [_I, _P, _P],
     "ba_jtj_pnt_reduce": [_P] * 4 + [_I, _I64, _P, _P],
     "ba_jtj_cam_reduce": [_P, _P, _I, _I64, _P, _P],
     "ba_wcw_cam_reduce": [_P, _I, _P, _COLS, _I, _I64] + [_P] * 3,

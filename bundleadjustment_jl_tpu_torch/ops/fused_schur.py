@@ -26,7 +26,10 @@ cameras through per-run sums (W op) or records (the other products) (plan
 - :func:`cam_reduce_wcw` (``_prod_wcw``): ``sum W C W'``, the Schur
   diagonal of :func:`ops.schur.schur_diag_blocks` without a camera-sorted W;
 - :func:`cam_reduce_cam90` (``_prod_cam90``): ``[Hcc | g_c]`` over
-  ``JR_t`` on the split assembly of routes B1 and B2.
+  ``JR_t``, no solve's: the reference of :func:`cam_relin_cam90`, which
+  sums the same products for the split assembly of routes B1 and B2 with
+  each row's Jc and r re-derived in camera order (``csrc/linearize.cu``),
+  in the order of this form's records path and with no records.
 
 K3 (:func:`matvec_cam_scatter`) does both of its directions over each
 staged tile of the same plan, in one launch (``csrc/matvec.cu``).
@@ -38,6 +41,7 @@ import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.ops import _cuda, plans
+from bundleadjustment_jl_tpu_torch.ops.linearize import _linearize_plain
 from bundleadjustment_jl_tpu_torch.ops.seg_reduce import (
     _wtv_point_plain, jtj_cam_rows, seg_sum, w_op_rows, wcw_rows)
 
@@ -169,6 +173,37 @@ def cam_reduce_cam90(JR_t: torch.Tensor, problem: BAProblem) -> torch.Tensor:
 
 def _cam_reduce_cam90_plain(JR_t, problem):
     return seg_sum(jtj_cam_rows(JR_t), problem.cam_idx.long(), problem.ncams)
+
+
+def cam_relin_cam90(problem: BAProblem, cams: torch.Tensor,
+                    points: torch.Tensor) -> torch.Tensor:
+    """Per-camera ``[Hcc (81) | g_c (9)]`` at (cams, points) -> (ncams,
+    90): :func:`cam_reduce_cam90`'s sums with each row's Jc and r
+    re-derived by K7's chain, a block a camera over its rows in camera
+    order (:func:`ops.plans.cam_obs` and ``cam_pnt``), summed in the
+    records path's order, so bit-identical to it over K7's ``JR_t``."""
+    if not cams.is_cuda:
+        return _cam_relin_cam90_plain(problem, cams, points)
+    nc, npt = problem.ncams, problem.npnts
+    _cuda.require(cams, "cams", torch.float32, (nc, 9))
+    _cuda.require(points, "points", torch.float32, (npt, 3))
+    _cuda.require_problem(problem)
+    pt2d, w = plans.cam_obs(problem)
+    out = torch.empty((nc, 90), dtype=torch.float32, device=cams.device)
+    rc = _cuda.lib().ba_cam_relin_cam90(
+        _cuda.ptr(cams), _cuda.ptr(points), _cuda.ptr(pt2d), _cuda.ptr(w),
+        _cuda.ptr(plans.cam_pnt(problem)), _cuda.ptr(problem.cam_starts), nc,
+        _cuda.ptr(out), _cuda.stream())
+    _cuda.check(rc, "ba_cam_relin_cam90")
+    _cuda.launched("cam_relin_cam90")
+    return out
+
+
+def _cam_relin_cam90_plain(problem, cams, points):
+    """Plain version of :func:`cam_relin_cam90`:
+    :func:`_cam_reduce_cam90_plain` over the plain K7's ``JR_t``."""
+    JR_t = _linearize_plain(problem, cams, points)[0]
+    return _cam_reduce_cam90_plain(JR_t, problem)
 
 
 def matvec_cam_scatter(W_t: torch.Tensor, v: torch.Tensor,

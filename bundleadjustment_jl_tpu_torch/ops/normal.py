@@ -36,8 +36,9 @@ from bundleadjustment_jl_tpu_torch.ops.point_block import inv3x3_damped_flat
 #   "fused"         A: K1 assembly; K2 + K3 read W through cam_perm.
 #   "sorted"        C: K7, K6 over a camera-sorted copy of JR, W_cam_t a
 #                   camera-sorted copy of W; K6 / K5 downstream.
-#   "scatter_split" B1: K7, [Hcc | g_c] by K2 over the point-sorted JR; no
-#                   camera-sorted copy (W_cam_t None); K2 / K5 downstream.
+#   "scatter_split" B1: K7, [Hcc | g_c] by K2's cam90 re-derived in camera
+#                   order (K7's chain a camera); no camera-sorted copy
+#                   (W_cam_t None); K2 / K5 downstream.
 #   "sorted_relin"  B2: B1's assembly plus W_cam_t re-linearized in the
 #                   camera order (K8); K6 / K5 downstream, as on C.
 ROUTES = ("fused", "sorted", "scatter_split", "sorted_relin")
@@ -86,7 +87,7 @@ class Stages(NamedTuple):
     linearize_w_kminor: Callable    # K7
     jtj_pnt_reduce: Callable        # K6 pnt12
     jtj_cam_reduce: Callable        # K6 cam90
-    cam_reduce_cam90: Callable      # K2 cam90
+    cam_relin_cam90: Callable       # K2 cam90, re-derived in camera order
     linearize_w_only: Callable      # K8
     cam_reduce_wcw_rhs: Callable    # K2 W C W' | W t
     matvec_cam_scatter: Callable    # K3
@@ -103,14 +104,14 @@ class Stages(NamedTuple):
 
 KERNELS = Stages(
     fa.assemble_scatter, lz.linearize_w_kminor, sr.jtj_pnt_reduce,
-    sr.jtj_cam_reduce, fs.cam_reduce_cam90, lz.linearize_w_only,
+    sr.jtj_cam_reduce, fs.cam_relin_cam90, lz.linearize_w_only,
     fs.cam_reduce_wcw_rhs, fs.matvec_cam_scatter, fs.cam_reduce_w_op,
     fs.cam_reduce_wcw, sr.wcw_cam_reduce, sr.wtv_point_reduce,
     sr.wt_cam_reduce, fa.objective_scatter, pb.point_inv_rhs,
     pb.point_quad, ds.dense_schur)
 PLAIN = Stages(
     fa._assemble_plain, lz._linearize_plain, sr._jtj_pnt_plain,
-    sr._jtj_cam_plain, fs._cam_reduce_cam90_plain, lz._linearize_w_only_plain,
+    sr._jtj_cam_plain, fs._cam_relin_cam90_plain, lz._linearize_w_only_plain,
     fs._cam_reduce_wcw_rhs_plain, fs._matvec_cam_scatter_plain,
     fs._cam_reduce_w_op_plain, fs._cam_reduce_wcw_plain, sr._wcw_cam_plain,
     sr._wtv_point_plain, sr._wt_cam_plain, fa._objective_plain,
@@ -160,7 +161,7 @@ class _HalfStages(Stages):
 # (`ops/spmdctx.py`) they are per-rank partials, which the spmd table
 # all-reduces. The other outputs (W, JR, the point sums) stay local.
 _ROW_SUMS = {"assemble_scatter": (2, 3), "jtj_cam_reduce": (0,),
-             "cam_reduce_cam90": (0,), "cam_reduce_wcw_rhs": (0,),
+             "cam_relin_cam90": (0,), "cam_reduce_wcw_rhs": (0,),
              "matvec_cam_scatter": (0,), "cam_reduce_w_op": (0,),
              "cam_reduce_wcw": (0,), "wcw_cam_reduce": (0,),
              "wt_cam_reduce": (0,), "objective_scatter": (0,)}
@@ -377,9 +378,10 @@ def assemble_blocks(problem: BAProblem, cams=None, points=None, *,
       ``[Hpp | g_p]`` over the point-sorted rows. ``"sorted"``: K6 sums
       ``[Hcc | g_c]`` over the camera-sorted copy of ``JR_t`` and the
       blocks carry ``W_cam_t = W_t[:, cam_perm]`` (taken in the storage
-      dtype). ``"scatter_split"``: K2 sums ``[Hcc | g_c]`` over the
-      point-sorted ``JR_t`` and there is no ``W_cam_t``. ``"sorted_relin"``:
-      the same, plus ``W_cam_t`` from K8.
+      dtype). ``"scatter_split"``: ``cam_relin_cam90`` sums ``[Hcc | g_c]``
+      from the rows' inputs in camera order, before K7 (its plan is built
+      while no JR or W is held), and there is no ``W_cam_t``.
+      ``"sorted_relin"``: the same, plus ``W_cam_t`` from K8.
 
     ``with_jr`` keeps K7's ``JR_t`` in the blocks (the CGLS solver's J and
     r). K1 writes no JR, so on ``"fused"`` it assembles as
@@ -405,6 +407,8 @@ def assemble_blocks(problem: BAProblem, cams=None, points=None, *,
                                                    w_dtype)
         W_cam_t = None
     else:
+        if route != "sorted":
+            hc90 = st.cam_relin_cam90(problem, cams, points)
         JR_t, W_t = st.linearize_w_kminor(problem, cams, points, w_dtype)
         obj = spmdctx.psum(0.5 * torch.sum(JR_t[lz.R0:lz.R0 + 2] ** 2))
         if route == "sorted":
@@ -412,7 +416,6 @@ def assemble_blocks(problem: BAProblem, cams=None, points=None, *,
             hc90 = st.jtj_cam_reduce(JR_t[:, perm], problem)
             W_cam_t = W_t[:, perm]
         else:
-            hc90 = st.cam_reduce_cam90(JR_t, problem)
             W_cam_t = (st.linearize_w_only(problem, cams, points, w_dtype)
                        if route == "sorted_relin" else None)
         hp12 = st.jtj_pnt_reduce(JR_t, problem)

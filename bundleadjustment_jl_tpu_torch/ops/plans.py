@@ -59,7 +59,10 @@ reads it) gives each column's point with one coalesced read.
 
 K8, :class:`CamRowPlan`: the row data in camera order, so that K8 reads
 every per-row field coalesced; 16 B a row on top of ``cam_pnt`` (148 MB at
-Final-4585's 9,272,320 rows).
+Final-4585's 9,272,320 rows). K2 cam90 re-derived in camera order on
+routes B1 and B2 (``csrc/linearize.cu``) reads its ``pt2d`` and ``w``
+(:func:`cam_obs`, kept apart) and ``cam_pnt`` alone: 16 B a row, without
+K8's camera ids (its camera is its block's).
 
 The dense Schur step's pair kernel (``csrc/dense_pairs.cu``),
 :class:`PairPlan`: every point's pairs of true rows ``(k, l)``, ``k <= l``
@@ -415,14 +418,23 @@ def build_cam_col_plan(problem, cols: int = CAM_BLOCK_COLS) -> CamColPlan:
             problem.ncams + 1, device=dev))))
 
 
-def build_cam_row_plan(problem) -> CamRowPlan:
-    """K8's camera-order copies of ``problem``'s row data (uncached;
-    :func:`cam_row_plan` keeps them on the problem)."""
+def build_cam_obs(problem) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(pt2d[cam_perm], w[cam_perm])`` of ``problem``'s rows as the
+    kernels read them (:func:`rows`), contiguous (uncached; :func:`cam_obs`
+    keeps them on the problem)."""
     _point_sorted(problem)
     perm = problem.cam_perm.long()
     pt2d, w = rows(problem)
-    return CamRowPlan(pt2d[perm].contiguous(), w[perm].contiguous(),
-                      _by_camera(problem, "cam_idx"), cam_pnt(problem))
+    return pt2d[perm].contiguous(), w[perm].contiguous()
+
+
+def build_cam_row_plan(problem) -> CamRowPlan:
+    """K8's camera-order copies of ``problem``'s row data: the
+    observations of :func:`cam_obs` and the index arrays in camera order
+    (uncached itself; :func:`cam_row_plan` keeps it on the problem)."""
+    _point_sorted(problem)
+    return CamRowPlan(*cam_obs(problem), _by_camera(problem, "cam_idx"),
+                      cam_pnt(problem))
 
 
 def count_pairs(problem) -> int:
@@ -544,6 +556,14 @@ def wcw_col_plan(problem) -> CamColPlan:
     """K6 W C W's column plan of ``problem``, built at the first call."""
     return _cached(problem, "wcw_cols", lambda: build_cam_col_plan(
         problem, WCW_BLOCK_COLS))
+
+
+def cam_obs(problem) -> tuple[torch.Tensor, torch.Tensor]:
+    """``(pt2d, w)`` of ``problem``'s rows in camera order, built at the
+    first call and kept, as :func:`cam_row_plan`, under the dtype of
+    ``pt2d``."""
+    return _cached(problem, ("cam_obs", problem.pt2d.dtype),
+                   lambda: build_cam_obs(problem))
 
 
 def cam_row_plan(problem) -> CamRowPlan:

@@ -107,8 +107,8 @@ SOLVERS = ("pcg", "dense", "cgls", "power")
 _ASSEMBLY = {
     "fused": ("assemble",),
     "sorted": ("linearize", "seg_prod_cam90", "seg_prod_pnt12"),
-    "scatter_split": ("linearize", "cam_reduce_cam90", "seg_prod_pnt12"),
-    "sorted_relin": ("linearize", "cam_reduce_cam90", "linearize_w_only",
+    "scatter_split": ("linearize", "cam_relin_cam90", "seg_prod_pnt12"),
+    "sorted_relin": ("linearize", "cam_relin_cam90", "linearize_w_only",
                      "seg_prod_pnt12"),
 }
 
@@ -123,9 +123,9 @@ def expected_launches(route: str, iterations: int, naccepts: int, cg: int,
 
     Every solver: K4 once per iteration; the route's assembly (:data:`_ASSEMBLY`)
     at init and per accept — K1 on A; K7 with K6 pnt12 and K6 cam90 (C)
-    or K2 cam90 (B1, B2, and K8 on B2) elsewhere. ``cgls`` launches nothing
-    else (its J products are torch ops) and assembles A as B1 (K1 writes
-    no JR).
+    or K2 cam90 re-derived in camera order (B1, B2, and K8 on B2)
+    elsewhere. ``cgls`` launches nothing else (its J products are torch
+    ops) and assembles A as B1 (K1 writes no JR).
 
     ``pcg``: fused (A): K2 W C W' | W t once per iteration, K3 once per CG
     step plus the initial residual and the back-substitution.

@@ -16,8 +16,10 @@ CUDA card.
    fused camera-scatter route (K4 at 1, 3, 5 and 9 trial states, timed at
    1 and 5, each beside its bound), K7, K6 and K5 of the camera-sorted
    route, then K2's other three products and K8 of the Final-scale routes
-   (and K8 against K7's W in camera order), and the point-block kernels
-   (``check_point_blocks``: the damped inverse bit-identical to its
+   (and K8 against K7's W in camera order), K2 cam90 re-derived in camera
+   order (``cam_relin_cam90``; and bit for bit against K2 cam90 over K7's
+   JR on its records path, ``check_relin_records``), and the point-block
+   kernels (``check_point_blocks``: the damped inverse bit-identical to its
    twin's, ``Hpp_inv g_p`` and ``dp' Hpp dp`` within tolerance, each
    timed beside its bound). The forms that read through a plan, K4 and
    the point blocks (REPEAT_CHECKED), launch twice and must give
@@ -151,7 +153,8 @@ CUDA card.
    recipe (``capacity.make``; 13,682 cameras, 31,193,088 padded rows; its
    build time, row counts and K2's and K5's plans), every kernel route B1
    launches held against its plain twin at that full size
-   (``check_capacity_kernels``: K7, K2's cam90, W C W' | W t and W op, K6
+   (``check_capacity_kernels``: K7, K2's cam90 (over JR, and re-derived
+   in camera order, bit for bit against it), W C W' | W t and W op, K6
    pnt12, K5's point direction, the W forms with W in float32 and
    bfloat16, K4 at S = 1 and 5, the point blocks at its 4,456,117 points;
    the twins over point ranges of at most TWIN_ROWS rows, their camera
@@ -228,7 +231,8 @@ TOL = {"W": (1e-5, 1e-6), "hp12": (1e-4, 1e-3), "hc90": (1e-4, 1e-3),
        "seg_prod_cam90": (1e-4, 1e-3), "seg_prod_wcw81": (1e-4, 1e-4),
        "seg_block_point": (1e-4, 1e-4), "seg_block_camera": (1e-4, 1e-4),
        "cam_reduce_w_op": (1e-4, 1e-4), "cam_reduce_wcw81": (1e-4, 1e-4),
-       "cam_reduce_cam90": (1e-4, 1e-3), "linearize_w_only": (1e-5, 1e-6),
+       "cam_reduce_cam90": (1e-4, 1e-3), "cam_relin_cam90": (1e-4, 1e-3),
+       "linearize_w_only": (1e-5, 1e-6),
        "schur": (1e-4, 1e-4),
        # Hpp_inv g_p: three products a point, FMA-contracted on the card;
        # dp' Hpp dp: a sum of non-negative terms in another order
@@ -260,6 +264,9 @@ KERNELS = {
     "linearize_w_only": ("csrc/linearize.cu",
                          "bundleadjustment_jl_tpu/ops/pallas_linearize.py:258",
                          ["linearize_w_only"], ["linearize_w_only"]),
+    "cam_relin_cam90": ("csrc/linearize.cu",
+                        "bundleadjustment_jl_tpu/ops/pallas_schur.py:1109",
+                        ["cam_relin_cam90"], ["cam_relin_cam90"]),
     "seg_prod_reduce": ("csrc/seg_prod_reduce.cu",
                         "bundleadjustment_jl_tpu/ops/pallas_schur.py:969",
                         ["seg_prod_pnt12", "seg_prod_cam90",
@@ -286,7 +293,7 @@ REPEAT_CHECKED = ("cam_reduce", "cam_reduce_w_op", "cam_reduce_wcw81",
                   "cam_reduce_cam90", "seg_block_point", "matvec",
                   "assemble", "seg_block_camera", "seg_prod_wcw81",
                   "linearize_w_only", "seg_prod_pnt12", "objective",
-                  "point_inv", "point_quad")
+                  "point_inv", "point_quad", "cam_relin_cam90")
 # K2's forms and K3 on the paths past shared memory (``plans.SMEM_BUDGET``
 # 0: per-run sums for W op and K3, records for the others), checked,
 # repeated and timed at Dubrovnik-356 beside the shared path they take
@@ -894,8 +901,12 @@ def check_split_kernels(name, problem, errs, timings, facts):
     del W_cam_t, W_perm
     hc90 = check("cam_reduce_cam90", lambda: fs.cam_reduce_cam90(JR_t, problem),
                  lambda: fs._cam_reduce_cam90_plain(JR_t, problem))
+    relin = check("cam_relin_cam90",
+                  lambda: fs.cam_relin_cam90(problem, cams, points),
+                  lambda: fs._cam_relin_cam90_plain(problem, cams, points))
+    check_relin_records(name, problem, relin, JR_t, facts)
     hp12 = sr.jtj_pnt_reduce(JR_t, problem)
-    del JR_t
+    del JR_t, relin
     # Damped point blocks as the solver forms them (lambda_0, "diag").
     lam = 1e-3 * float(torch.maximum(hc90[:, :81:10].max(),
                                      hp12[:, :9:4].max()))
@@ -907,10 +918,41 @@ def check_split_kernels(name, problem, errs, timings, facts):
     t = sr.wtv_point_reduce(W_t, v, problem, hpp_inv_f=hpp_inv)
     check("cam_reduce_w_op", lambda: fs.cam_reduce_w_op(W_t, problem, t),
           lambda: fs._cam_reduce_w_op_plain(W_t, problem, t))
-    for k in ("linearize_w_only", "cam_reduce_cam90", "cam_reduce_wcw81",
-              "cam_reduce_w_op"):
+    for k in ("linearize_w_only", "cam_reduce_cam90", "cam_relin_cam90",
+              "cam_reduce_wcw81", "cam_reduce_w_op"):
         kms, pms = timings[k][name]
         print(f"  time {k:16s} {time_note(k, name, problem, kms, pms)}")
+
+
+def check_relin_records(name, problem, got, JR_t, facts):
+    """K2 cam90's camera walk's output ``got`` (``cam_relin_cam90``)
+    against K2 cam90 over K7's ``JR_t`` on its records path (forced by
+    ``plans.SMEM_BUDGET`` 0 where the camera sums fit shared memory): bit
+    for bit, recorded in ``facts`` under the walk's row, with the path
+    the default budget gives K2 cam90 there."""
+    import torch
+    from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
+    from bundleadjustment_jl_tpu_torch.ops import plans
+    default = fs.cam_path("cam90", problem, 0)[0]
+    old = plans.SMEM_BUDGET
+    plans.SMEM_BUDGET = 0
+    try:
+        rec = fs.cam_reduce_cam90(JR_t, problem)
+    finally:
+        plans.SMEM_BUDGET = old
+    torch.cuda.synchronize()
+    diff = got != rec
+    facts.setdefault(KERNEL_OF["cam_relin_cam90"], {}).setdefault(
+        "records_bit_identical", {})[name] = {
+            "same": not bool(diff.any()), "entries_differing": int(diff.sum()),
+            "max_abs": float((got - rec).abs().max()),
+            "k2_cam90_default_path": default}
+    print(f"  cam_relin_cam90 vs K2 cam90's records path: "
+          f"{int(diff.sum())} of {diff.numel()} entries differ (K2 cam90 "
+          f"takes {default} here by default)")
+    if diff.any():
+        raise AssertionError(f"{name}: cam_relin_cam90 is not bit-identical "
+                             f"to K2 cam90's records path")
 
 
 def check_past_smem(name, problem, errs, facts):
@@ -1408,7 +1450,7 @@ def check_final_schur(name, problem, errs):
     compare("schur", dp1, dp2, errs)
     compare("schur", q1.reshape(1), q2.reshape(1), errs)
     expect = dict.fromkeys(counts, 0)
-    expect.update(linearize=1, cam_reduce_cam90=1, seg_prod_pnt12=1,
+    expect.update(linearize=1, cam_relin_cam90=1, seg_prod_pnt12=1,
                   cam_reduce=1, cam_reduce_w_op=3, cam_reduce_wcw81=1,
                   seg_block_point=2, point_inv=2, point_quad=2)
     if counts != expect:
@@ -1582,6 +1624,12 @@ def check_capacity_kernels(name, problem, errs, facts):
         "cam_reduce_cam90", lambda: fs.cam_reduce_cam90(JR_t, problem),
         lambda: summed(parts, lambda p, lo, hi: fs._cam_reduce_cam90_plain(
             JR_t[:, lo:hi], p)), "float32")
+    relin = check(
+        "cam_relin_cam90", lambda: fs.cam_relin_cam90(problem, cams, points),
+        lambda: summed(parts, lambda p, lo, hi: fs._cam_relin_cam90_plain(
+            p, cams, points)), "float32")
+    check_relin_records(name, problem, relin, JR_t, facts)
+    del relin
     hp12 = check(
         "seg_prod_pnt12", lambda: sr.jtj_pnt_reduce(JR_t, problem),
         lambda: summed(parts, lambda p, lo, hi: sr._jtj_pnt_plain(
@@ -2749,6 +2797,19 @@ def check_dense_pairs():
     return lines
 
 
+def solve_kernels() -> set:
+    """The launch keys some solve makes (``lm_jit.expected_launches`` on
+    some route with some step solver): the others are no solve's (K2's W C
+    W', the Schur check's; K2 cam90 over JR, the camera walk's reference;
+    K9, the bench leg's), each checked where it runs."""
+    from bundleadjustment_jl_tpu_torch.ops.normal import ROUTES
+    from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
+        SOLVERS, expected_launches)
+    return {k for route in ROUTES for solver in SOLVERS
+            for k, v in expected_launches(route, 1, 1, 1, solver).items()
+            if v}
+
+
 def check_bench(launches_total):
     """Phase 10: the bench leg, once; its launches counted from 0 and every
     kernel of its route and the probe launched. Returns its line."""
@@ -2957,8 +3018,8 @@ def main() -> int:
     dense_pairs = check_dense_pairs()
     print(json.dumps({"phase14_s": time.perf_counter() - t0}))
     check_bench(launches)
-    for k, v in launches.items():
-        if v == 0 and k not in SCHUR_CHECK_ONLY:
+    for k in solve_kernels():
+        if launches[k] == 0:
             raise AssertionError(f"kernel {k} never launched on the path")
     for k in SCHUR_CHECK_ONLY:
         if schur_launches[k] == 0:

@@ -696,6 +696,63 @@ def test_camera_pass_paths_at_edge_shapes_on_card(monkeypatch, case, dtype,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("case", ["one_camera", "many_cameras",
+                                  "long_point", "long_camera",
+                                  "empty_cameras_ragged"])
+def test_cam_relin_cam90_is_the_records_path_on_card(monkeypatch, case):
+    """K2 cam90 re-derived in camera order (``cam_relin_cam90``) at
+    :func:`edge_problem`'s shapes and state: bit for bit K2 cam90 over
+    K7's JR on its records path (``plans.SMEM_BUDGET`` 0), a second launch
+    bit-identical, its plain twin within K2 cam90's tolerance, a camera
+    without rows exact zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    p = edge_problem(case)
+    cams, points = edge_operands(p, torch.float32)["state"]
+    JR_t = lz.linearize_w_kminor(p, cams, points)[0]
+    got = fs.cam_relin_cam90(p, cams, points)
+    again = fs.cam_relin_cam90(p, cams, points)
+    monkeypatch.setattr(plans, "SMEM_BUDGET", 0)
+    assert fs.cam_path("cam90", p, 0)[0] == "records"
+    assert torch.equal(got, fs.cam_reduce_cam90(JR_t, p))
+    assert torch.equal(got, again)
+    close(got, fs._cam_relin_cam90_plain(p, cams, points), afrac=1e-3)
+    empty = (p.cam_starts[1:] == p.cam_starts[:-1]).nonzero().ravel()
+    assert bool((got[empty] == 0).all())
+    with pytest.raises(TypeError):
+        fs.cam_relin_cam90(p, cams.double(), points.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("route", ["scatter_split", "sorted_relin"])
+def test_solve_past_shared_memory_launches_the_walk_on_card(
+        card_problem, monkeypatch, route):
+    """B1 and B2 launch ``cam_relin_cam90`` for ``[Hcc | g_c]`` as
+    ``expected_launches`` says, and make the decisions of a solve whose
+    stage sums them by K2 cam90 over K7's JR in shared memory (its sums
+    fit at 12 cameras: another order), its objective within 1e-5."""
+    for k, v in normal.FORCE_ROUTE[route].items():
+        monkeypatch.setattr(normal, k, v)
+    assert fs.cam_path("cam90", card_problem, 0)[0] == "smem"
+    k2 = normal.KERNELS._replace(cam_relin_cam90=lambda p, c, x: (
+        fs.cam_reduce_cam90(lz.linearize_w_kminor(p, c, x)[0], p)))
+    with monkeypatch.context() as m:
+        m.setattr(normal, "KERNELS", k2)
+        ref = levenberg_marquardt_jit(card_problem, max_iters=30,
+                                      lam0_mode="diag")
+    _cuda.reset_launches()
+    res = levenberg_marquardt_jit(card_problem, max_iters=30,
+                                  lam0_mode="diag")
+    it = res.iterations
+    expect = dict.fromkeys(_cuda.LAUNCHES, 0)
+    expect.update(lm_jit.expected_launches(route, it, res.naccepts,
+                                           int(res.hist_cg[:it].sum())))
+    assert dict(_cuda.LAUNCHES) == expect
+    assert (res.status, res.iterations) == (ref.status, ref.iterations)
+    assert abs(res.objective - ref.objective) <= 1e-5 * ref.objective
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("solver", ["power", "dense", "cgls"])
 @pytest.mark.parametrize("route", ["fused", "sorted"])
 def test_step_solvers_on_card(card_problem, monkeypatch, route, solver):

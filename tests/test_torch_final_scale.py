@@ -430,7 +430,7 @@ SITES = {
     "linearize_w_kminor": SPLIT,
     "jtj_pnt_reduce": SPLIT,
     "jtj_cam_reduce": {"sorted"},
-    "cam_reduce_cam90": {"scatter_split", "sorted_relin"},
+    "cam_relin_cam90": {"scatter_split", "sorted_relin"},
     "linearize_w_only": {"sorted_relin"},
     "cam_reduce_wcw_rhs": {"fused", "scatter_split"},
     "matvec_cam_scatter": {"fused"},

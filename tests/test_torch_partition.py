@@ -324,7 +324,8 @@ def test_partitioned_problem_takes_the_plain_route(monkeypatch, dtype):
     ref = levenberg_marquardt(p, LMOptions(**opts))
     assert (h.status, h.iterations) == (ref.status, ref.iterations)
     for build in (plans.tile_plan, plans.point_blocks, plans.cam_col_plan,
-                  plans.wcw_col_plan, plans.cam_row_plan, plans.cam_pnt):
+                  plans.wcw_col_plan, plans.cam_row_plan, plans.cam_pnt,
+                  plans.cam_obs):
         with pytest.raises(ValueError, match="pnt_perm"):
             build(q)
     assert not any(isinstance(k, str) or k[0] != "rows" for k in q.plans)

@@ -136,6 +136,7 @@ PLANS = [
     (plans.cam_col_plan, "ba.plan.cam_cols", 2),
     (plans.wcw_col_plan, "ba.plan.wcw_cols", 2),
     (plans.cam_row_plan, "ba.plan.cam_rows", 0),
+    (plans.cam_obs, "ba.plan.cam_obs", 0),
     (plans.rows, "ba.plan.rows", 0),
     (plans.pair_plan, "ba.plan.pairs", 2),
 ]
