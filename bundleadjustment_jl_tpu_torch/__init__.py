@@ -9,7 +9,10 @@ four kernel routes, with W stored in float32, bfloat16 or float16
 (`facto_dtype`) and a bfloat16 or float16 working dtype; the precision
 cascade, problem suites and campaign runner (`benchmark/`), the native BAL
 parser and writer, the CLI (``python -m bundleadjustment_jl_tpu_torch``)
-and its measurement path (`bench.py`, `mv_sweep.py`). Its kernels, one for each
+and the tools that time its kernels on a card (`mv_sweep.py`,
+`kernel_profile.py`, `tile_sweep.py`, `route_profile.py`, their shared
+pieces in `bench.py`); the port's benchmark is `perfbench/run.py` at the
+repository root. Its kernels, one for each
 TPU kernel of the JAX package, are CUDA C++ for Hopper (`csrc/`), built
 with nvcc at first use (`ops/_cuda.py`). Problems are built on the card
 unless the caller asks for the CPU; CUDA tensors run through the kernels,

@@ -1,48 +1,30 @@
-"""The port's bench leg: full LM solves at two BAL sizes on one card — the
-counterpart of the repository's root ``bench.py``, which runs the JAX
-package.
+"""The card tools' shared pieces: the problems they build, the solve they
+time, and the least time of each kernel form on an H100.
 
-    python -m bundleadjustment_jl_tpu_torch.bench
+``chip_smoke.py``, ``mv_sweep.py``, ``tile_sweep.py``,
+``kernel_profile.py``, ``route_profile.py``, ``capacity.py``,
+``spmd_profile.py`` and the tests read them. The port's benchmark is
+``perfbench/run.py``; nothing here is its yardstick.
 
-The problems, solver options and warm-up are root ``bench.py``'s: synthetic
-LadyBug-49 and Dubrovnik-356 (f32, ``pad_obs_to=512``; seed 1 warms up,
-seed 0 is timed), ``solve_cfg``'s keywords, and Dubrovnik-356 again with W
-stored in bfloat16 and in float16 (``facto_dtype``). The problem is on the
-card before the clock starts. ``value`` is the median of five solves, each
-timed by the host clock between two ``torch.cuda.synchronize()`` calls
-(root ``bench.py`` takes the best of two on the TPU); every timed solve is
-in ``values``.
-
-Prints ONE JSON line with root ``bench.py``'s keys (``metric``, ``value``,
-..., ``bf16facto_*``, ``f16facto_*``) plus ``route`` (the kernel route
-`ops/normal.py:kernel_route` picks), ``device`` (the card's name and
-power limit as ``nvidia-smi`` reports them), ``values`` and
-``measured_stream_gbs``: the streaming-read probe (K9, nsmall = 0) at
-Dubrovnik-356's row count. ``roofline_fraction`` holds the traffic model's
-rate against the H100's published 3.35 TB/s (read it beside the power
-limit), ``stream_fraction`` against the probe. ``pallas`` is true: the
-hand-written kernels stand where the JAX leg's Pallas kernels do.
-
-:func:`kernel_bytes` and :func:`bound_ms` give, from shapes, the least
-bytes and the least time of one launch of each kernel form; ``mv_sweep.py``
-and ``chip_smoke.py`` share them, and the problems (:data:`PROBLEMS`,
-:func:`make_problem`, :func:`shape`). A run that finds no card raises.
+The problems (:data:`PROBLEMS`, :func:`make_problem`, :func:`shape`) are
+synthetic LadyBug-49, Dubrovnik-356 and Final-4585 in float32, padded to
+512 rows; :data:`SOLVE_OPTS` (:func:`solve_cfg`) are root ``bench.py``'s
+solver keywords, and :func:`timed_solve` times one solve by the host
+clock between two ``torch.cuda.synchronize()`` calls. :func:`kernel_bytes` and
+:func:`bound_ms` give, from shapes, the least bytes and the least time of
+one launch of each kernel form. :func:`require_card` raises where no card
+is; :func:`card` names the card and its power limit.
 """
 
 from __future__ import annotations
 
-import json
 import subprocess
 import time
 import types
 
 import torch
 
-BASE_DUBROVNIK_S = 1200.0   # LM-LDL F64, Dubrovnik-356 (BASELINE.md)
-BASE_LADYBUG_S = 54.3       # LM-LDL F64, LadyBug-49
 MAX_ITERS = 100
-REPEATS = 5
-PROBE_REPS = 20             # probe launches timed for measured_stream_gbs
 
 # NVIDIA H100 SXM, data sheet: HBM3 rate and float32 (non-tensor) peak, at
 # the full 700 W power limit.
@@ -183,17 +165,6 @@ def bound_ms(name: str, problem, w_itemsize: int = 4, **kw):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def traffic_model_bytes(problem, iters: int, cg_total: int,
-                        w_itemsize: int = 4) -> int:
-    """root ``bench.py``'s first-order HBM traffic model of a solve: per CG
-    matvec ~2 W reads + vectors; per iteration one linearization (~W write
-    + problem read) + the trial residuals; W at ``w_itemsize`` bytes."""
-    n, f = problem.nobs_pad, 4
-    per_matvec = (2 * 27 * w_itemsize + (2 * 9 + 2 * 3) * f) * n
-    per_iter = (27 * w_itemsize + (9 + 3 + 2 + 9 + 3 + 12 + 2) * f) * 2 * n
-    return cg_total * per_matvec + iters * per_iter
-
-
 def require_card() -> None:
     if not torch.cuda.is_available():
         raise RuntimeError("this measurement needs a CUDA card; "
@@ -235,93 +206,3 @@ def timed_solve(problem, facto_dtype=None):
     res = solve_cfg(problem, facto_dtype)
     torch.cuda.synchronize()
     return time.perf_counter() - t0, res
-
-
-def run(warm, problem, facto_dtype=None):
-    """``(median s, every timed s, last result)``: one warm-up solve of
-    ``warm``, then :data:`REPEATS` timed solves of ``problem``."""
-    solve_cfg(warm, facto_dtype)
-    times = []
-    for _ in range(REPEATS):
-        secs, res = timed_solve(problem, facto_dtype)
-        times.append(secs)
-    return sorted(times)[len(times) // 2], times, res
-
-
-def measure_stream_gbs(problem) -> float:
-    """The probe's rate (GB/s) over 32 rows of ``problem.nobs_pad``
-    floats, L2 flushed before each launch."""
-    from bundleadjustment_jl_tpu_torch.ops.stream_probe import stream_probe
-    from bundleadjustment_jl_tpu_torch.utils.timing import timed
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    big = torch.rand((32, problem.nobs_pad), generator=gen, device="cuda")
-    return timed(stream_probe, (big,), reps=PROBE_REPS, flush_l2=True,
-                 nbytes=kernel_bytes("stream_probe", problem)).gbs
-
-
-def bench_line() -> dict:
-    """Run the leg and return its JSON line (a dict)."""
-    require_card()
-    from bundleadjustment_jl_tpu_torch.ops import normal
-    from bundleadjustment_jl_tpu_torch.solver.lm_jit import STATUS_NAMES
-
-    def rmse(res, p):
-        return (2.0 * res.objective / (2 * p.nobs)) ** 0.5
-
-    lady_warm = make_problem("ladybug49", 1)
-    lady = make_problem("ladybug49", 0)
-    lady_s, lady_times, lady_res = run(lady_warm, lady)
-    dub_warm, dub = make_problem("dubrovnik356", 1), make_problem(
-        "dubrovnik356", 0)
-    dub_s, dub_times, dub_res = run(dub_warm, dub)
-    bf_s, bf_times, bf_res = run(dub_warm, dub, torch.bfloat16)
-    f16_s, f16_times, f16_res = run(dub_warm, dub, torch.float16)
-    stream_gbs = measure_stream_gbs(dub)
-
-    it = dub_res.iterations
-    cg = int(dub_res.hist_cg[:it].sum())
-    bytes_moved = traffic_model_bytes(dub, it, cg)
-    achieved_gbs = bytes_moved / dub_s / 1e9
-    line = {
-        "metric": "dubrovnik356_synth_lm_solve",
-        "value": dub_s, "unit": "s",
-        "vs_baseline": BASE_DUBROVNIK_S / dub_s,
-        "backend": "cuda",
-        "status": STATUS_NAMES[dub_res.status],
-        "iterations": it, "cg_matvecs": cg,
-        "per_iter_ms": 1e3 * dub_s / max(it, 1),
-        "objective": dub_res.objective,
-        "rmse_px": rmse(dub_res, dub),
-        "pallas": True,
-        "cam_scatter": normal.CAM_SCATTER,
-        "traffic_model_gb": bytes_moved / 1e9,
-        "achieved_gbs": achieved_gbs,
-        "roofline_fraction": achieved_gbs / PEAK_HBM_GBS,
-        "ladybug49_s": lady_s,
-        "ladybug49_vs_baseline": BASE_LADYBUG_S / lady_s,
-        "ladybug49_status": STATUS_NAMES[lady_res.status],
-        "ladybug49_rmse_px": rmse(lady_res, lady),
-    }
-    for tag, s, res in (("bf16facto", bf_s, bf_res),
-                        ("f16facto", f16_s, f16_res)):
-        line.update({f"{tag}_s": s, f"{tag}_vs_baseline": BASE_DUBROVNIK_S / s,
-                     f"{tag}_rmse_px": rmse(res, dub),
-                     f"{tag}_status": STATUS_NAMES[res.status],
-                     f"{tag}_iterations": res.iterations})
-    line.update({
-        "route": normal.kernel_route(dub),
-        "device": card(),
-        "values": dub_times, "ladybug49_values": lady_times,
-        "bf16facto_values": bf_times, "f16facto_values": f16_times,
-        "measured_stream_gbs": stream_gbs,
-        "stream_fraction": achieved_gbs / stream_gbs,
-    })
-    return line
-
-
-def main() -> None:
-    print(json.dumps(bench_line()))
-
-
-if __name__ == "__main__":
-    main()

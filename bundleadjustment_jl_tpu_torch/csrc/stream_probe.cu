@@ -8,7 +8,7 @@
 //
 // The TPU probe measured a chunked DMA loop's fixed cost; here the same sums
 // measure how fast the card streams a large array from device memory, the
-// denominator the bench leg and the mv sweep hold every kernel against.
+// denominator the mv sweep holds every kernel against.
 //
 // Design for Hopper: grid (blocks per row, 32 + nsmall), one input row per
 // blockIdx.y. Each thread walks its row in a grid-stride loop of 16-byte

@@ -16,7 +16,7 @@ with the path each took (``fused_schur.cam_path``; ``--kernels camera``:
 these alone); each called :data:`REPS` times under ``torch.profiler``
 after a warm-up. Prints one JSON line per problem with, per call, the
 device ms per call of each kernel it launched (the trace's kernel events,
-``route_profile.kernel_breakdown``), and the card's name and power limit.
+:func:`kernel_sums`), and the card's name and power limit.
 A wrapper's passes are separate kernels, so this times them apart: K1's
 point pass and its camera pass, K4's row pass and sums, the range and
 run-sum passes, K2's and K3's block pass and block sums or record writes
@@ -34,12 +34,13 @@ from __future__ import annotations
 
 import json
 import sys
+from collections import defaultdict
+from pathlib import Path
 
 import torch
 
 from bundleadjustment_jl_tpu_torch import bench
 from bundleadjustment_jl_tpu_torch.ops import _cuda
-from bundleadjustment_jl_tpu_torch.route_profile import kernel_breakdown
 
 REPS = 10
 # Profiled windows a call may take: a trace can hold no kernel event at all
@@ -47,6 +48,21 @@ REPS = 10
 TRACE_TRIES = 3
 # K4's trial states a call: the solver's scales 1, 1/2, ... (lm_jit).
 SCALES = (1, 5)
+
+
+def kernel_sums(trace_path: Path) -> dict:
+    """``{kernel name: {"ms": device ms, "launches": n}}`` summed over the
+    kernel events of the Chrome trace at ``trace_path``, the most ms first.
+    Raises ``ValueError`` when the trace holds no kernel event."""
+    by_name = defaultdict(lambda: [0.0, 0])
+    for e in json.loads(Path(trace_path).read_text())["traceEvents"]:
+        if e.get("cat") == "kernel":
+            by_name[e["name"]][0] += e["dur"] / 1e3
+            by_name[e["name"]][1] += 1
+    if not by_name:
+        raise ValueError(f"{trace_path}: no kernel event")
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
+    return {k: {"ms": ms, "launches": n} for k, (ms, n) in top}
 
 
 def device_ms(fn, tag: str, reps: int = REPS) -> dict:
@@ -74,7 +90,7 @@ def device_ms(fn, tag: str, reps: int = REPS) -> dict:
             torch.cuda.synchronize()
         prof.export_chrome_trace(str(path))
         try:
-            kernels = kernel_breakdown(path)["kernels"]
+            kernels = kernel_sums(path)
             break
         except ValueError:      # the trace holds no kernel event
             if attempt == TRACE_TRIES - 1:

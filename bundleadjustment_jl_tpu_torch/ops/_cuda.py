@@ -53,8 +53,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # point blocks' point_inv (damped inverse and Hpp_inv g_p) and point_quad
 # (dp' Hpp dp); the dense Schur step's dense_pairs (S by camera pairs,
 # every route).
-# Which route runs which: `ops/normal.py:kernel_route`; K9 runs on the
-# measurement path (`bench.py`, `mv_sweep.py` of this package).
+# Which route runs which: `ops/normal.py:kernel_route`; K9 runs in the
+# card tools alone (`mv_sweep.py`, `chip_smoke.py`'s probe phase).
 LAUNCHES = {"assemble": 0, "cam_reduce": 0, "cam_reduce_w_op": 0,
             "cam_reduce_wcw81": 0, "cam_reduce_cam90": 0,
             "cam_relin_cam90": 0, "matvec": 0, "objective": 0,

@@ -5,8 +5,8 @@
 rows of length n: ``out[r] = sum_j big[r, j] + sum over the small rows``,
 (32,). Its bytes, ``(32 + nsmall) * 4 * n``, over its time on the card are
 the rate the card streams device memory at: the denominator that
-``bench.py`` and ``mv_sweep.py`` of this package hold the solver and each
-kernel against, measured on the card rather than taken from a data sheet.
+``mv_sweep.py`` of this package holds each kernel against, measured on the
+card rather than taken from a data sheet.
 
 Same device rule as `ops/fused_assemble.py`: CUDA float32 tensors launch
 the hand-written kernel (``csrc/stream_probe.cu``), CPU tensors take the

@@ -7,14 +7,14 @@ CUDA card.
 The problem is ``chip_smoke.py``'s Final-4585 (``bench.make_problem``) or,
 named by ``--problem``, a problem of ``capacity.CAPACITY`` as its run
 builds it (``capacity.make``: ``final13682`` is the largest), in float32;
-each solve is timed as the bench leg times its (``bench.timed_solve``,
-with its options). Each route is forced by the gate settings of
-``normal.FORCE_ROUTE``: a warm-up per route, then two timed solves per
-route in the order A, B1, C, B2, B2, C, B1, A. Then one ``torch.profiler``
-trace of a solve on B1 and on B2: device busy time (the sum of the trace's
-kernel events), span (first kernel start to last kernel end), idle share,
-and device time by kernel. Prints one JSON line per route and per
-profile; the Chrome traces go to the git-ignored kernel build directory.
+each solve is timed by ``bench.timed_solve``, with its options. Each
+route is forced by the gate settings of ``normal.FORCE_ROUTE``: a warm-up
+per route, then two timed solves per route in the order A, B1, C, B2, B2,
+C, B1, A. Then one ``torch.profiler`` trace of a solve on B1 and on B2:
+device ms and launches by kernel (``kernel_profile.kernel_sums``). Prints
+one JSON line per route and per profile; the Chrome traces go to the
+git-ignored kernel build directory. The device's idle share of a solve
+is the benchmark's (``perfbench/run.py --trace 1``: ``device_idle_share``).
 """
 
 from __future__ import annotations
@@ -24,11 +24,11 @@ import contextlib
 import json
 import sys
 from collections import defaultdict
-from pathlib import Path
 
 import torch
 
 from bundleadjustment_jl_tpu_torch import bench, capacity
+from bundleadjustment_jl_tpu_torch.kernel_profile import kernel_sums
 from bundleadjustment_jl_tpu_torch.ops import _cuda, normal
 
 ORDER = ("fused", "scatter_split", "sorted", "sorted_relin")
@@ -46,23 +46,6 @@ def forced(route):
     finally:
         for k, v in old.items():
             setattr(normal, k, v)
-
-
-def kernel_breakdown(trace_path: Path) -> dict:
-    """Busy time, span and idle share of the trace's kernel events, and
-    device ms and launches by kernel name."""
-    events = [e for e in json.loads(trace_path.read_text())["traceEvents"]
-              if e.get("cat") == "kernel"]
-    by_name = defaultdict(lambda: [0.0, 0])
-    for e in events:
-        by_name[e["name"]][0] += e["dur"] / 1e3
-        by_name[e["name"]][1] += 1
-    busy = sum(e["dur"] for e in events) / 1e3
-    span = (max(e["ts"] + e["dur"] for e in events)
-            - min(e["ts"] for e in events)) / 1e3
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])
-    return {"busy_ms": busy, "span_ms": span, "idle_share": 1 - busy / span,
-            "kernels": {k: {"ms": ms, "launches": n} for k, (ms, n) in top}}
 
 
 def main(argv=None) -> int:
@@ -113,7 +96,7 @@ def main(argv=None) -> int:
         prof.export_chrome_trace(str(path))
         print(json.dumps({"problem": name, "route": route,
                           "profiled_solve_s": secs,
-                          **kernel_breakdown(path)}))
+                          "kernels": kernel_sums(path)}))
     return 0
 
 

@@ -16,7 +16,7 @@ on the camera groups of ``partition_problem(problem, N)`` (the plain
 route, every point on every rank, the point sums all-reduced too; the
 line's ``layout`` is ``cameras``, else ``points``). Each rank builds each
 problem
-the way the bench leg does (``bench.make_problem``, seed 0; a name of
+by ``bench.make_problem`` (seed 0; a name of
 ``capacity.CAPACITY``, ``final13682`` say, the capacity run's problem, on
 either device; a ``synthetic:k=v,...`` spec the CLI's synthetic problem) and
 solves it with ``bench.py``'s options: for each driver a warm-up, then

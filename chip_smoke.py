@@ -4,9 +4,9 @@ CUDA card.
     python3 chip_smoke.py
 
 1. Prints the torch / CUDA versions and the card (``nvidia-smi``), builds
-   the nine CUDA kernels from ``bundleadjustment_jl_tpu_torch/csrc`` (one
-   ``nvcc`` per source, in parallel) and prints the build time and the
-   compiler's register report.
+   the CUDA kernels from ``bundleadjustment_jl_tpu_torch/csrc`` (one
+   ``nvcc`` per ``.cu`` source, in parallel) and prints the build time and
+   the compiler's register report.
 2. Builds each launch plan (``ops/plans.py``: K2 and K3's tiles, K5's point
    ranges, K5's and K6's column ranges, K8's camera-order rows) once more
    from scratch and prints its build time, then checks each kernel
@@ -29,9 +29,7 @@ CUDA card.
    Dubrovnik-356 K2's forms and K3 on their other path (the shared
    budget at 0: W op and K3 in global slices, the others through records;
    ``check_past_smem``), against their plain versions, repeated and timed
-   beside the shared path. K2's forms and K3 print their earlier times
-   (EARLIER_MS) beside their own and their bounds here, in phase 4 and in
-   phase 13.
+   beside the shared path.
 3. Solves both problems with ``levenberg_marquardt_jit`` and
    ``bench.py``'s options (``bench.SOLVE_OPTS`` of the port) on each
    kernel route (``normal.CAM_SCATTER``
@@ -177,10 +175,7 @@ CUDA card.
    ms in turns beside the kernel's least time (``bench.bound_ms``: W,
    Hpp_inv, the plan and S once over 3.35 TB/s; 162 operations a row and
    486 a pair over 67 TFLOP/s) and its share of it.
-15. The bench leg (``python -m bundleadjustment_jl_tpu_torch.bench``): its
-   JSON line, once, with the launches of its run checked (route A's
-   kernels and the probe).
-16. Prints the run's wall time, the kernel table as one JSON line (each
+15. Prints the run's wall time, the kernel table as one JSON line (each
    kernel's time beside its least time on the card, ``bench.bound_ms``,
    from this run's shapes, at each problem; the plans' build times and
    the repeat checks under their kernels), the card line, and last
@@ -300,34 +295,6 @@ REPEAT_CHECKED = ("cam_reduce", "cam_reduce_w_op", "cam_reduce_wcw81",
 # there by the default budget.
 PAST_SMEM = ("cam_reduce", "cam_reduce_w_op", "cam_reduce_wcw81",
              "cam_reduce_cam90", "matvec")
-# K2's forms and K3 as the per-run-partial design before timed them
-# (``time_pair``; NVIDIA H100 80GB HBM3, 700 W; PERF.md), printed beside
-# this run's times: (key, problem, W dtype) -> ms.
-EARLIER_MS = {
-    ("cam_reduce", "dubrovnik356", "float32"): 0.3597,
-    ("cam_reduce_w_op", "dubrovnik356", "float32"): 0.1366,
-    ("cam_reduce_wcw81", "dubrovnik356", "float32"): 0.3376,
-    ("cam_reduce_cam90", "dubrovnik356", "float32"): 0.2690,
-    ("matvec", "dubrovnik356", "float32"): 0.2068,
-    ("cam_reduce", "dubrovnik356", "bfloat16"): 0.3281,
-    ("cam_reduce_w_op", "dubrovnik356", "bfloat16"): 0.0961,
-    ("cam_reduce_wcw81", "dubrovnik356", "bfloat16"): 0.3140,
-    ("matvec", "dubrovnik356", "bfloat16"): 0.1495,
-    ("cam_reduce", "dubrovnik356", "float16"): 0.3265,
-    ("cam_reduce_w_op", "dubrovnik356", "float16"): 0.0964,
-    ("cam_reduce_wcw81", "dubrovnik356", "float16"): 0.3123,
-    ("matvec", "dubrovnik356", "float16"): 0.1500,
-    ("cam_reduce", "final4585", "float32"): 2.8994,
-    ("cam_reduce_w_op", "final4585", "float32"): 0.9282,
-    ("cam_reduce_wcw81", "final4585", "float32"): 2.6448,
-    ("cam_reduce_cam90", "final4585", "float32"): 2.4173,
-    ("matvec", "final4585", "float32"): 1.3474,
-    ("cam_reduce", "final13682", "float32"): 9.3114,
-    ("cam_reduce", "final13682", "bfloat16"): 8.8035,
-    ("cam_reduce_w_op", "final13682", "float32"): 3.3222,
-    ("cam_reduce_w_op", "final13682", "bfloat16"): 2.9358,
-    ("cam_reduce_cam90", "final13682", "float32"): 8.5212,
-}
 # K4's trial states checked against its plain version (1: a solve without
 # the line search; 5 = 1 + ls_max: with it; 3 and 9: other counts) and
 # those timed.
@@ -557,22 +524,14 @@ def time_pair(kernel, plain, reps):
     return med["kernel"], med["plain"]
 
 
-def earlier(key, name, dtype="float32") -> str:
-    """The earlier time of K2's form or K3 ``key`` at ``name`` with W in
-    ``dtype`` (EARLIER_MS), as a note for a time line; "" for the other
-    kernels."""
-    ms = EARLIER_MS.get((key, name, dtype))
-    return "" if ms is None else f"  earlier {ms:.4f} ms"
-
-
-def time_note(key, name, problem, kms, pms, dtype="float32") -> str:
+def time_note(key, problem, kms, pms, dtype="float32") -> str:
     """A time line's text: kernel and plain ms, the bound and the kernel's
-    share of it, the form's earlier time where it has one."""
+    share of it."""
     from bundleadjustment_jl_tpu_torch import bench
     bound = bench.bound_ms(key.partition("@")[0], problem,
                            2 if dtype in NARROW else 4)[0]
     return (f"kernel {kms:.4f} ms  plain {pms:.4f} ms  bound {bound:.4f} "
-            f"({bound / kms:.3f}){earlier(key.partition('@')[0], name, dtype)}")
+            f"({bound / kms:.3f})")
 
 
 def pass_times(fn, tag) -> dict:
@@ -643,7 +602,7 @@ def check_kernels(name, problem, errs, timings, facts):
     for k in ("assemble", "cam_reduce", "matvec", "objective", "point_inv",
               "point_quad"):
         kms, pms = timings[k][name]
-        print(f"  time {k:10s} {time_note(k, name, problem, kms, pms)}")
+        print(f"  time {k:10s} {time_note(k, problem, kms, pms)}")
 
 
 def check_point_blocks(name, hp12, lam, errs, facts, reps=20):
@@ -921,7 +880,7 @@ def check_split_kernels(name, problem, errs, timings, facts):
     for k in ("linearize_w_only", "cam_reduce_cam90", "cam_relin_cam90",
               "cam_reduce_wcw81", "cam_reduce_w_op"):
         kms, pms = timings[k][name]
-        print(f"  time {k:16s} {time_note(k, name, problem, kms, pms)}")
+        print(f"  time {k:16s} {time_note(k, problem, kms, pms)}")
 
 
 def check_relin_records(name, problem, got, JR_t, facts):
@@ -1170,7 +1129,7 @@ def check_narrow(name, problem, errs, timings, facts, final=False):
     for k in sorted(k for k in timings if "@" in k and name in timings[k]):
         kms, pms = timings[k][name]
         print(f"  time {k:26s} "
-              f"{time_note(k, name, problem, kms, pms, k.partition('@')[2])}")
+              f"{time_note(k, problem, kms, pms, k.partition('@')[2])}")
 
 
 @contextlib.contextmanager
@@ -1563,8 +1522,8 @@ def check_capacity_kernels(name, problem, errs, facts):
     bfloat16), K2's cam90, and W C W' | W t, W op and W C W' products and
     K3 with W in float32 and bfloat16, K6 pnt12, K5's point direction (its
     right-hand side form, then the matvec's, timed; W in both dtypes), K4
-    at S = 1 and 5. K2's forms and K3 print their earlier time beside theirs. The kernels run on the whole problem; the twins over point
-    ranges (``twin_parts``), their camera sums added in float32. The
+    at S = 1 and 5. The kernels run on the whole problem; the twins over
+    point ranges (``twin_parts``), their camera sums added in float32. The
     forms that read through a plan launch twice, bit-identical
     (``check_repeat``). Each is timed with the twin (``time_pair``,
     CAPACITY_REPS launches a window) beside its bound
@@ -1607,8 +1566,7 @@ def check_capacity_kernels(name, problem, errs, facts):
                 tag] = {"ms": kms, "plain_ms": pms, "bound_ms": bound,
                         "bound_by": by, "twin_ranges": len(parts)}
             print(f"  time {tag:26s} kernel {kms:.4f} ms  plain {pms:.4f} "
-                  f"ms  bound {bound:.4f} ms ({bound / kms:.3f} of it)"
-                  f"{earlier(key, name, form)}")
+                  f"ms  bound {bound:.4f} ms ({bound / kms:.3f} of it)")
         return got
 
     JR_t, W32 = check(
@@ -2801,7 +2759,7 @@ def solve_kernels() -> set:
     """The launch keys some solve makes (``lm_jit.expected_launches`` on
     some route with some step solver): the others are no solve's (K2's W C
     W', the Schur check's; K2 cam90 over JR, the camera walk's reference;
-    K9, the bench leg's), each checked where it runs."""
+    K9, the probe phase's), each checked where it runs."""
     from bundleadjustment_jl_tpu_torch.ops.normal import ROUTES
     from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
         SOLVERS, expected_launches)
@@ -2810,40 +2768,10 @@ def solve_kernels() -> set:
             if v}
 
 
-def check_bench(launches_total):
-    """Phase 10: the bench leg, once; its launches counted from 0 and every
-    kernel of its route and the probe launched. Returns its line."""
-    from bundleadjustment_jl_tpu_torch import bench
-    from bundleadjustment_jl_tpu_torch.ops import _cuda
-    from bundleadjustment_jl_tpu_torch.solver.lm_jit import expected_launches
-
-    _cuda.reset_launches()
-    line = bench.bench_line()
-    counts = dict(_cuda.LAUNCHES)
-    print(json.dumps(line))
-    need = [k for k, v in expected_launches(line["route"], 1, 0, 0).items()
-            if v] + ["stream_probe"]
-    missing = [k for k in need if counts[k] == 0]
-    if missing:
-        raise AssertionError(f"bench: kernels {missing} never launched")
-    for k, v in counts.items():
-        launches_total[k] += v
-    for tag, anchor in (("", RMSE["dubrovnik356"]),
-                        ("ladybug49_", RMSE["ladybug49"]),
-                        ("bf16facto_", RMSE["dubrovnik356"]),
-                        ("f16facto_", RMSE["dubrovnik356"])):
-        if line[f"{tag}status"] == "exception" or abs(
-                line[f"{tag}rmse_px"] - anchor) > 0.01 * anchor:
-            raise AssertionError(f"bench: {tag}status / rmse "
-                                 f"{line[tag + 'status']} "
-                                 f"{line[tag + 'rmse_px']}")
-    return line
-
-
 def kernel_table(launches, schur_launches, errs, timings,
                  facts) -> list[dict]:
-    """One row per kernel. ``launches``: the main paths' launches (the
-    solves and the bench leg). ``ms``: one launch of each of the kernel's
+    """One row per kernel. ``launches``: the solves' launches (K9, which no
+    solve launches, reads 0; its times are the probe phase's). ``ms``: one launch of each of the kernel's
     forms (its counters) summed, on Dubrovnik-356, then LadyBug-49 and
     Final-4585 (where every form was timed there); each form's own times
     beside it where it has several. ``bound_ms``: the same forms' least
@@ -3017,7 +2945,6 @@ def main() -> int:
     t0 = time.perf_counter()
     dense_pairs = check_dense_pairs()
     print(json.dumps({"phase14_s": time.perf_counter() - t0}))
-    check_bench(launches)
     for k in solve_kernels():
         if launches[k] == 0:
             raise AssertionError(f"kernel {k} never launched on the path")

@@ -18,8 +18,9 @@ are checked against on the card.
   ``levenberg_marquardt_jit`` of the JAX package: same status and
   iterations, objective to rel 1e-3.
 - The stream probe's plain version against numpy, ``kernel_bytes``
-  against values counted by hand, and the measurement entry points
-  refusing to run without a card.
+  against values counted by hand, ``kernel_profile.kernel_sums`` over a
+  hand-written trace, and the measurement entry points refusing to run
+  without a card.
 
 Routes are forced on both sides as ``tests/test_torch_final_scale.py``
 does: A and C by camera scatter on and off, B1 and B2 by
@@ -28,6 +29,7 @@ does: A and C by camera scatter on and off, B1 and B2 by
 
 import contextlib
 import functools
+import json
 import types
 
 import jax.numpy as jnp
@@ -41,7 +43,7 @@ from bundleadjustment_jl_tpu.ops import schur as jax_schur
 from bundleadjustment_jl_tpu.ops.normal import GNBlocks as JaxBlocks
 from bundleadjustment_jl_tpu.ops.normal import assemble_blocks as jax_assemble
 from bundleadjustment_jl_tpu.solver import lm_jit as jax_lm_jit
-from bundleadjustment_jl_tpu_torch import bench, mv_sweep
+from bundleadjustment_jl_tpu_torch import bench, kernel_profile, mv_sweep
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.ops import normal, schur
 from bundleadjustment_jl_tpu_torch.ops.normal import (
@@ -403,23 +405,45 @@ def test_every_kernel_form_has_a_bound():
             "operations" if name == "cam_relin_cam90" else "bytes")
 
 
-def test_traffic_model_matches_root_bench_at_f32():
-    """At 4-byte W the copy gives root bench.py's model, whose
-    Dubrovnik-356 record (9 iterations, 69 CG matvecs) is 35.85 GB."""
-    assert bench.traffic_model_bytes(DUB, 9, 69) / 1e9 == pytest.approx(
-        35.85, abs=0.005)
-    narrow = bench.traffic_model_bytes(DUB, 9, 69, 2)
-    assert narrow < bench.traffic_model_bytes(DUB, 9, 69)
+# A Chrome trace as torch.profiler exports it: the kernel events of two
+# kernels and a host op; durations in us.
+TRACE_EVENTS = [
+    {"ph": "X", "cat": "kernel", "name": "k_a", "ts": 0.0, "dur": 1500.0},
+    {"ph": "X", "cat": "kernel", "name": "k_b", "ts": 1600.0, "dur": 250.0},
+    {"ph": "X", "cat": "kernel", "name": "k_a", "ts": 2000.0, "dur": 500.0},
+    {"ph": "X", "cat": "cpu_op", "name": "aten::add", "ts": 0.0,
+     "dur": 9000.0},
+]
+
+
+@pytest.mark.parametrize("kernels", [True, False])
+def test_kernel_sums_reads_the_kernel_events(tmp_path, kernels):
+    """``kernel_profile.kernel_sums`` sums each kernel's ms and launches
+    and skips the host op; a trace with no kernel event raises
+    ``ValueError``, on which ``device_ms`` takes its window again."""
+    events = TRACE_EVENTS if kernels else TRACE_EVENTS[3:]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    if not kernels:
+        with pytest.raises(ValueError):
+            kernel_profile.kernel_sums(path)
+        return
+    got = kernel_profile.kernel_sums(path)
+    assert got == {"k_a": {"ms": 2.0, "launches": 2},
+                   "k_b": {"ms": 0.25, "launches": 1}}
+    assert list(got) == ["k_a", "k_b"]
 
 
 # ---------------------------------------------------------------- no card
-@pytest.mark.parametrize("entry", ["bench", "mv_sweep", "timed"])
+@pytest.mark.parametrize("entry", ["kernel_profile", "mv_sweep", "timed"])
 def test_measurements_refuse_without_a_card(entry):
     """The measurement entry points raise without a card; none falls back
     to the CPU."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the measurement would run")
-    call = {"bench": bench.bench_line, "mv_sweep": mv_sweep.sweep,
+    call = {"kernel_profile": lambda: kernel_profile.device_ms(
+                lambda: None, "no_card"),
+            "mv_sweep": mv_sweep.sweep,
             "timed": lambda: timed(torch.sum, (torch.ones(4),))}[entry]
     with pytest.raises((RuntimeError, ValueError)):
         call()
