@@ -61,6 +61,7 @@ FLOPS_PER_ROW = {
     "cam_reduce_cam90": 216, "matvec": 2 * 54, "seg_prod_pnt12": 36,
     "seg_prod_cam90": 216, "seg_prod_wcw81": 405, "seg_block_point": 54,
     "seg_block_camera": 54, "cam_relin_cam90": _CHAIN_JC_R + 216,
+    "cam_relin_wcw_rhs": _CHAIN + 81 + 405 + 54,
 }
 # The point-block forms' arithmetic a point: the damped adjugate inverse
 # (3 damped diagonals, 18 products and 9 differences, the determinant's 5,
@@ -122,6 +123,9 @@ def kernel_bytes(name: str, problem, w_itemsize: int = 4, *,
         # the camera-order pt2d, w and point ids, the state once
         "cam_relin_cam90": state + 3 * n * f + idx + cam_starts
         + 90 * nc * f,
+        # the same, with Hpp_inv and t once
+        "cam_relin_wcw_rhs": state + 3 * n * f + idx + cam_starts + hpp_inv
+        + vec_p + 90 * nc * f,
         "matvec": W + 3 * idx + pnt_starts + cam_starts + vec_c + hpp_inv
         + vec_c,
         "seg_prod_pnt12": 8 * n * f + pnt_starts + 12 * npt * f,

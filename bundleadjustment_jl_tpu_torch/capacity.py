@@ -276,13 +276,14 @@ def misses(line: dict, res, counts: dict, w_counts: dict) -> list[str]:
         out.append(f"route {line['route']}, the default gates' {spec.route}")
     if line["device"] == "cuda":
         it = res.iterations
-        expect = dict.fromkeys(counts, 0)
-        expect.update(expected_launches(line["route"], it, res.naccepts,
-                                        int(res.hist_cg[:it].sum())))
-        if counts != expect:
-            out.append(f"launches {counts} != {expect}")
         facto = None if spec.facto_dtype is None else getattr(
             torch, spec.facto_dtype)
+        expect = dict.fromkeys(counts, 0)
+        expect.update(expected_launches(line["route"], it, res.naccepts,
+                                        int(res.hist_cg[:it].sum()),
+                                        facto_dtype=facto))
+        if counts != expect:
+            out.append(f"launches {counts} != {expect}")
         w_expect = expected_w_launches(counts, facto)
         if w_counts != w_expect:
             out.append(f"W launches {w_counts} != {w_expect}")

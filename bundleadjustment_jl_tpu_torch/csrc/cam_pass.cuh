@@ -41,11 +41,12 @@
 //     of whole 32 B sectors, in row order (reads and writes in order);
 //     pass 2 is one block a camera over its rows (cam_perm), each read at
 //     its record, then a fixed-order block sum, as K6 does over its
-//     camera-sorted copies. The solves take it for W C W' | W t alone
-//     (W C W': the Schur check): the split assembly sums cam90 without
-//     records, re-deriving each row's Jc and r in camera order
-//     (linearize.cu, ba_cam_relin_cam90_kernel, in this pass 2's order);
-//     cam90 over JR remains as that walk's reference.
+//     camera-sorted copies. The solves take it for route A's W C W' |
+//     W t alone (W C W': the Schur check): the split assembly sums cam90,
+//     and route B1's W C W' | W t, without records, re-deriving each row's
+//     Jc and r, or its W, in camera order (linearize.cu,
+//     ba_cam_relin_cam90_kernel and ba_cam_relin_wcw_rhs_kernel, in this
+//     pass 2's order); the records remain as those walks' references.
 //
 // Measured and dropped (PERF.md): accumulators in global memory, a slice
 // a block (2.4-2.5 ms for W op at Final-4585 against 0.93 for the per-run

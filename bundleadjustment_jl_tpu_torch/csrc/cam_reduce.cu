@@ -23,9 +23,10 @@
 // writes each run's sums in tile order and sums each camera's runs, and
 // the 45- and 54-sum products write each row's planes as a record in tile
 // order and reduce each camera's records a block a camera: in a solve
-// W C W' | W t only. No solve runs cam90 here: the split assembly sums it
-// by re-deriving each row's Jc and r in camera order (linearize.cu), and
-// cam90 over JR is that walk's reference. The path is
+// route A's W C W' | W t only (W from K1). No solve runs cam90 here, nor
+// route B1's W C W' | W t: they sum by re-deriving each row's Jc and r,
+// or its W, in camera order (linearize.cu), and these records are those
+// walks' references. The path is
 // chosen per call from the problem's sizes (ops/plans.py:cam_pass_path). No atomics, no
 // camera table, so no bound on the camera count; plan
 // `ops/plans.py:TilePlan`, built once per problem.

@@ -64,6 +64,25 @@
 // Bound: 16 B a row of the plan plus the points (53 MB at Final-13682)
 // once, 265 + 216 operations a row (the chain's Jc and r, bench.py): the
 // operations bind (0.21 ms at Final-13682, 13.9 GFLOP).
+//
+// K2 W C W' | W t on route B1 (ba_cam_relin_wcw_rhs_kernel) stands in for the
+// same TPU kernel with `_prod_wcw_rhs`, once an LM iteration: [sum W C W' (81)
+// | sum W t (9)] a camera, C = Hpp_inv and t = Hpp_inv g_p of the row's point.
+// The records path read K7's 27 W planes and wrote them out as 64 B row
+// records (1.86 GB a call at Final-13682 in bf16), then gathered them a block
+// a camera with Hpp_inv and t by point. Here the walk above re-runs
+// K7's chain a column for Jc and Jp, forms W = Jc' Jp as K7 does, rounds
+// it to W's storage type as K7 stores it (w_store.cuh; a float16 W times
+// its range scale first, as the solver scales K7's float32 W) and adds
+// ProdWcwRhs at the point's Hpp_inv and t; nothing is written a row. The
+// order is the records path's, so the sums are bit-identical to it over
+// K7's W. The per-point operands are read packed, [X | Hpp_inv | t] in
+// one 64 B record a point (a pass before the walk, in the same call), so
+// that a column gathers two 32 B sectors for them (from the three arrays
+// as they are, ~5: 1.8x as long at Final-13682; PERF.md).
+// Bound: the plan's 16 B a row, the state, Hpp_inv and t once; 300 + 81
+// + 459 operations a row (the chain, W, the product, bench.py): the
+// operations bind (0.39 ms at Final-13682, 26.2 GFLOP).
 #include "cam_prod.cuh"
 #include "chain.cuh"
 #include "w_store.cuh"
@@ -211,6 +230,110 @@ __global__ void __launch_bounds__(BA_BLOCK, BA_RELIN_MIN_BLOCKS)
   ba_cam_out<K, ProdCam90::SYM>(tot, out + ba_d_out<ProdCam90>() * (size_t)c);
 }
 
+// Blocks an SM the W C W' | W t walk must hold at once (__launch_bounds__):
+// 2 caps the registers at 128 a thread, none spilled (1: 168 registers,
+// 1.25x as long at Final-13682; PERF.md).
+constexpr int BA_RELIN_WCW_MIN_BLOCKS = 2;
+
+// The per-point operands of the W C W' | W t walk packed a point:
+// [X (3) | Hpp_inv (9) | t (3) | 0], 64 B, two 32 B sectors.
+constexpr int BA_PNT_OPS = 16;
+
+// One column of the W C W' | W t walk: its observation, weight, point
+// index and point.
+struct BaRelinPnt {
+  float2 o;
+  float w;
+  int p;
+  float X[3];
+};
+
+__device__ __forceinline__ BaRelinPnt ba_relin_pnt_load(
+    const float* __restrict__ pnt_ops, const BaCamRows& rows, int j, int p) {
+  BaRelinPnt r;
+  r.o = reinterpret_cast<const float2*>(rows.pt2d)[j];
+  r.w = rows.w[j];
+  r.p = p;
+  const float* x = pnt_ops + BA_PNT_OPS * (size_t)p;
+  r.X[0] = x[0];
+  r.X[1] = x[1];
+  r.X[2] = x[2];
+  return r;
+}
+
+// [X | Hpp_inv | t | 0] a point, a thread a point.
+__global__ void __launch_bounds__(BA_BLOCK) ba_pack_pnt_ops_kernel(
+    const float* __restrict__ points, const float* __restrict__ hpp_inv,
+    const float* __restrict__ t, int npnts, float4* __restrict__ out) {
+  const int p = blockIdx.x * BA_BLOCK + threadIdx.x;
+  if (p >= npnts) return;
+  const float* x = points + 3 * (size_t)p;
+  const float* h = hpp_inv + 9 * (size_t)p;
+  const float* v = t + 3 * (size_t)p;
+  float4* o = out + (BA_PNT_OPS / 4) * (size_t)p;
+  o[0] = make_float4(x[0], x[1], x[2], h[0]);
+  o[1] = make_float4(h[1], h[2], h[3], h[4]);
+  o[2] = make_float4(h[5], h[6], h[7], h[8]);
+  o[3] = make_float4(v[0], v[1], v[2], 0.f);
+}
+
+// K2 W C W' | W t on route B1: a block a camera over its
+// camera-order columns, each column's W = Jc' Jp by the chain, as K7 stores
+// it in T (a float16 W times its range scale first), then ProdWcwRhs at the
+// column's point's Hpp_inv and t, summed as the records path sums it.
+template <class T>
+__global__ void __launch_bounds__(BA_BLOCK, BA_RELIN_WCW_MIN_BLOCKS)
+    ba_cam_relin_wcw_rhs_kernel(const float* __restrict__ cams,
+                                const float* __restrict__ pnt_ops,
+                                BaCamRows rows,
+                                const int* __restrict__ cam_starts,
+                                const float* __restrict__ w_scale,
+                                float* __restrict__ out) {
+  constexpr int K = ProdWcwRhs::K;
+  const int c = blockIdx.x;
+  const BaCam cam = ba_load_cam(cams + 9 * (size_t)c);
+  const float s = w_scale == nullptr ? 1.f : *w_scale;
+  float acc[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) acc[k] = 0.f;
+  const int last = cam_starts[c + 1] - 1;
+  int j = cam_starts[c] + threadIdx.x;
+  if (j <= last) {
+    // Loads a column ahead, as the cam90 walk's.
+    BaRelinPnt next = ba_relin_pnt_load(pnt_ops, rows, j, rows.pnt[j]);
+    int pnt_ahead = rows.pnt[min(j + BA_BLOCK, last)];
+    for (; j <= last; j += BA_BLOCK) {
+      const BaRelinPnt cur = next;
+      next = ba_relin_pnt_load(pnt_ops, rows, min(j + BA_BLOCK, last),
+                               pnt_ahead);
+      pnt_ahead = rows.pnt[min(j + 2 * BA_BLOCK, last)];
+      BaCam cm = cam;
+      asm volatile(""
+                   : "+f"(cm.r[0]), "+f"(cm.r[1]), "+f"(cm.r[2]),
+                     "+f"(cm.t[0]), "+f"(cm.t[1]), "+f"(cm.t[2]), "+f"(cm.k1),
+                     "+f"(cm.k2), "+f"(cm.f));
+      float Jc[18], Jp[6], res[2];
+      ba_linearize(cm, cur.X, cur.o.x, cur.o.y, cur.w, Jc, Jp, res);
+      float Wr[27];
+#pragma unroll
+      for (int a = 0; a < 9; ++a)
+#pragma unroll
+        for (int b = 0; b < 3; ++b) {
+          float v = Jc[a] * Jp[b] + Jc[9 + a] * Jp[3 + b];
+          if constexpr (std::is_same<T, __half>::value) v *= s;
+          Wr[3 * a + b] = ba_w_as_stored<T>(v);
+        }
+      const float* op = pnt_ops + BA_PNT_OPS * (size_t)cur.p;
+      ProdWcwRhs::apply(acc, [&](int e) { return Wr[e]; }, op + 3, op + 12);
+    }
+  }
+  __shared__ float tot[K];
+  ba_block_sum<K>(acc, tot);
+  __syncthreads();
+  ba_cam_out<K, ProdWcwRhs::SYM>(tot,
+                                 out + ba_d_out<ProdWcwRhs>() * (size_t)c);
+}
+
 }  // namespace
 
 // cams (ncams, 9); points (npnts, 3); JR (26, n) and W (27, n) out, W in
@@ -268,4 +391,36 @@ extern "C" int ba_cam_relin_cam90(const float* cams, const float* points,
       cams, points, rows, cam_starts, out);
   BA_RETURN_IF_LAUNCH_FAILED();
   return 0;
+}
+
+// cams (ncams, 9); points (npnts, 3); hpp_inv (npnts, 9) and t (npnts, 3)
+// of the point blocks; the plan's camera-order rows pt2d_cam (n, 2), w_cam
+// (n,), cam_pnt (n,); cam_starts (ncams+1,); W's storage w_dtype, and for
+// float16 the range scale w_scale (1,) or null (1); pnt_ops (npnts, 16)
+// scratch, [X | Hpp_inv | t | 0] a point; out (ncams, 90) [sum W C W' (81)
+// | sum W t (9)] a camera.
+extern "C" int ba_cam_relin_wcw_rhs(const float* cams, const float* points,
+                                    const float* hpp_inv, const float* t,
+                                    const float* pt2d_cam,
+                                    const float* w_cam, const int* cam_pnt,
+                                    const int* cam_starts,
+                                    const float* w_scale, int w_dtype,
+                                    int npnts, int ncams, float* pnt_ops,
+                                    float* out, void* stream) {
+  if (ncams <= 0) return 0;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (npnts > 0) {
+    ba_pack_pnt_ops_kernel<<<(npnts + BA_BLOCK - 1) / BA_BLOCK, BA_BLOCK, 0,
+                             s>>>(points, hpp_inv, t, npnts,
+                                  reinterpret_cast<float4*>(pnt_ops));
+    BA_RETURN_IF_LAUNCH_FAILED();
+  }
+  const BaCamRows rows{pt2d_cam, w_cam, nullptr, cam_pnt};
+  return ba_with_w_type(w_dtype, [&](auto tag) {
+    using T = BA_W_TYPE(tag);
+    ba_cam_relin_wcw_rhs_kernel<T><<<ncams, BA_BLOCK, 0, s>>>(
+        cams, pnt_ops, rows, cam_starts, w_scale, out);
+    BA_RETURN_IF_LAUNCH_FAILED();
+    return 0;
+  });
 }

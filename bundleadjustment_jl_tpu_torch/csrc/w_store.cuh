@@ -41,6 +41,19 @@ __device__ __forceinline__ void ba_stw(__half* __restrict__ p, long long i,
   p[i] = __float2half_rn(v);
 }
 
+// v as a reader of W stored in T sees it (ba_stw, then ba_ldw): for a
+// kernel that re-derives W in place of reading it.
+template <class T>
+__device__ __forceinline__ float ba_w_as_stored(float v) {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return __bfloat162float(__float2bfloat16_rn(v));
+  } else if constexpr (std::is_same<T, __half>::value) {
+    return __half2float(__float2half_rn(v));
+  } else {
+    return v;
+  }
+}
+
 // f(static_cast<T*>(nullptr)) for the storage type T of ``code``; an
 // unknown code is cudaErrorInvalidValue. Inside f, the type is
 //   using T = std::remove_pointer_t<decltype(tag)>;

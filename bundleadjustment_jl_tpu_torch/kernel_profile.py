@@ -124,13 +124,15 @@ def make(name: str):
 def camera_pass(name: str, p) -> dict:
     """K2's four forms and K3 on ``p``: cam90 over K7's JR (and re-derived
     in camera order, ``cam_relin_cam90``), the W forms and K3 over K7's W
-    in each storage dtype, device ms by kernel and the path
-    (``fused_schur.cam_path``) of each."""
+    in each storage dtype (and W C W' | W t re-derived in camera order,
+    ``cam_relin_wcw_rhs``), device ms by kernel and
+    the path (``fused_schur.cam_path``) of each."""
     from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
     from bundleadjustment_jl_tpu_torch.ops import linearize as lz
     from bundleadjustment_jl_tpu_torch.ops import seg_reduce as sr
     from bundleadjustment_jl_tpu_torch.ops.normal import inv3x3_damped_flat
-    from bundleadjustment_jl_tpu_torch.solver.lm_jit import narrow_w
+    from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
+        f16_scale, narrow_w)
     # A tree older than fused_schur.cam_path (copied in to compare two
     # trees in one call) has one path: None.
     cam_path = getattr(fs, "cam_path", lambda form, p, code: None)
@@ -165,6 +167,10 @@ def camera_pass(name: str, p) -> dict:
             line[f"{key}@{tag}"] = device_ms(fn, f"{name}_{key}_{tag}")
             paths[f"{key}@{tag}"] = cam_path(form, p, code)
         del Wd
+        s = f16_scale(W) if dt == torch.float16 else None
+        line[f"cam_relin_wcw_rhs@{tag}"] = device_ms(
+            lambda: fs.cam_relin_wcw_rhs(p, p.cams, p.points, hpp, t, dt, s),
+            f"{name}_cam_relin_wcw_rhs_{tag}")
     line["paths"] = paths
     return line
 

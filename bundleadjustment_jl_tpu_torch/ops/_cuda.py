@@ -46,19 +46,18 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # One key per kernel form: K1 assemble; K2 cam_reduce (its `_prod_wcw_rhs`
-# form) and cam_reduce_{w_op,wcw81,cam90}, and cam_relin_cam90 (its cam90
-# form past shared memory, re-derived in camera order); K3 matvec; K4
+# form) and cam_reduce_{w_op,wcw81,cam90}, and cam_relin_{cam90,wcw_rhs} (its
+# cam90 and W C W' | W t forms re-derived in camera order); K3 matvec; K4
 # objective; K7 linearize; K8 linearize_w_only; K6 seg_prod_* (one key per
-# product); K5 seg_block_* (one key per direction); K9 stream_probe; the
-# point blocks' point_inv (damped inverse and Hpp_inv g_p) and point_quad
-# (dp' Hpp dp); the dense Schur step's dense_pairs (S by camera pairs,
-# every route).
+# product); K5 seg_block_* (one key per direction); K9 stream_probe; the point
+# blocks' point_inv (damped inverse and Hpp_inv g_p) and point_quad (dp' Hpp
+# dp); the dense Schur step's dense_pairs (S by camera pairs, every route).
 # Which route runs which: `ops/normal.py:kernel_route`; K9 runs in the
 # card tools alone (`mv_sweep.py`, `chip_smoke.py`'s probe phase).
 LAUNCHES = {"assemble": 0, "cam_reduce": 0, "cam_reduce_w_op": 0,
             "cam_reduce_wcw81": 0, "cam_reduce_cam90": 0,
-            "cam_relin_cam90": 0, "matvec": 0, "objective": 0,
-            "linearize": 0, "linearize_w_only": 0,
+            "cam_relin_cam90": 0, "cam_relin_wcw_rhs": 0, "matvec": 0,
+            "objective": 0, "linearize": 0, "linearize_w_only": 0,
             "seg_prod_pnt12": 0, "seg_prod_cam90": 0, "seg_prod_wcw81": 0,
             "seg_block_point": 0, "seg_block_camera": 0, "stream_probe": 0,
             "point_inv": 0, "point_quad": 0, "dense_pairs": 0}
@@ -67,11 +66,13 @@ LAUNCHES = {"assemble": 0, "cam_reduce": 0, "cam_reduce_w_op": 0,
 # (`csrc/w_store.cuh`).
 W_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 W_DTYPES = tuple(W_CODES)
-# The kernel forms that write W and those that read it (LAUNCHES keys).
+# The kernel forms that write W and those that read it (LAUNCHES keys);
+# cam_relin_wcw_rhs re-derives W in the storage dtype in place of reading
+# it, and counts as a reader.
 W_WRITERS = ("assemble", "linearize", "linearize_w_only")
 W_READERS = ("cam_reduce", "cam_reduce_w_op", "cam_reduce_wcw81", "matvec",
              "seg_prod_wcw81", "seg_block_point", "seg_block_camera",
-             "dense_pairs")
+             "dense_pairs", "cam_relin_wcw_rhs")
 # Launches of the W_WRITERS and W_READERS forms by the storage dtype of the
 # W each wrote or read, so a run can show that W went to the kernels narrow
 # (`solver/lm_jit.py:expected_w_launches`).
@@ -84,12 +85,13 @@ def reset_launches() -> None:
             counts[k] = 0
 
 
-def launched(key: str, w: torch.Tensor | None = None) -> None:
+def launched(key: str, w: torch.Tensor | torch.dtype | None = None) -> None:
     """Count one launch of kernel form ``key``; ``w``: the W it wrote or
-    read, counted in :data:`W_LAUNCHES` under its dtype."""
+    read (or the storage dtype of the W it re-derived), counted in
+    :data:`W_LAUNCHES` under its dtype."""
     LAUNCHES[key] += 1
     if w is not None:
-        W_LAUNCHES[w.dtype] += 1
+        W_LAUNCHES[w if isinstance(w, torch.dtype) else w.dtype] += 1
 
 
 def _sources() -> list[Path]:
@@ -199,6 +201,7 @@ _SIGNATURES = {
     "ba_linearize_rows": [_P] * 6 + [_I64, _P, _P, _I, _P],
     "ba_linearize_w_only": [_P] * 6 + [_I64, _P, _I, _P],
     "ba_cam_relin_cam90": [_P] * 6 + [_I, _P, _P],
+    "ba_cam_relin_wcw_rhs": [_P] * 9 + [_I, _I, _I] + [_P] * 3,
     "ba_jtj_pnt_reduce": [_P] * 4 + [_I, _I64, _P, _P],
     "ba_jtj_cam_reduce": [_P, _P, _I, _I64, _P, _P],
     "ba_wcw_cam_reduce": [_P, _I, _P, _COLS, _I, _I64] + [_P] * 3,

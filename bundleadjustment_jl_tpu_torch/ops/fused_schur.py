@@ -19,8 +19,12 @@ cameras through per-run sums (W op) or records (the other products) (plan
 :func:`ops.plans.tile_plan`, the path :func:`cam_path`, scratch per call;
 ``csrc/cam_pass.cuh``):
 
-- :func:`cam_reduce_wcw_rhs` (``_prod_wcw_rhs``): the fused routes' Schur
-  diagonal and reduced right-hand side in one pass;
+- :func:`cam_reduce_wcw_rhs` (``_prod_wcw_rhs``): the camera-scatter
+  routes' Schur diagonal and reduced right-hand side in one pass; on route
+  B1 (:func:`relin_wcw_rhs`) the reference of
+  :func:`cam_relin_wcw_rhs`, which sums the same products with each row's
+  W re-derived in camera order, in the order of this form's records path
+  and with no records;
 - :func:`cam_reduce_w_op` (``_prod_w_op``): ``sum W op[pnt]`` where there
   is no camera-sorted W (route B1);
 - :func:`cam_reduce_wcw` (``_prod_wcw``): ``sum W C W'``, the Schur
@@ -204,6 +208,68 @@ def _cam_relin_cam90_plain(problem, cams, points):
     :func:`_cam_reduce_cam90_plain` over the plain K7's ``JR_t``."""
     JR_t = _linearize_plain(problem, cams, points)[0]
     return _cam_reduce_cam90_plain(JR_t, problem)
+
+
+def relin_wcw_rhs(w_dtype: torch.dtype, work_dtype: torch.dtype) -> bool:
+    """Whether route B1 sums W C W' | W t by :func:`cam_relin_wcw_rhs`
+    rather than over ``W_t``, for W stored in ``w_dtype`` in a solve in
+    ``work_dtype``: where the walk reproduces the stored W, that is W in
+    float32 or bfloat16, or in float16 in a float32 solve (there the
+    float16 W is K7's float32 W times its power-of-two range scale,
+    rounded once, as the walk rounds it; in a 2-byte solve it is rounded
+    twice). A float64 W is the plain route's, which no kernel stores."""
+    return w_dtype in _cuda.W_CODES and (w_dtype != torch.float16
+                                         or work_dtype == torch.float32)
+
+
+def cam_relin_wcw_rhs(problem: BAProblem, cams: torch.Tensor,
+                      points: torch.Tensor, hpp_inv_f: torch.Tensor,
+                      t: torch.Tensor, w_dtype: torch.dtype = torch.float32,
+                      w_scale: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-camera ``[sum W C W' (81) | sum W t (9)]`` at (cams, points) ->
+    (ncams, 90): :func:`cam_reduce_wcw_rhs`'s sums with each row's W
+    re-derived by K7's chain, a block a camera over its rows in camera
+    order (:func:`ops.plans.cam_obs` and ``cam_pnt``), rounded to
+    ``w_dtype`` as K7 stores it (a float16 W as ``w_scale`` times it, as
+    ``solver/lm_jit.py:maybe_cast_facto`` stores it) and summed in the
+    records path's order, so bit-identical to it over that ``W_t``."""
+    if not cams.is_cuda:
+        return _cam_relin_wcw_rhs_plain(problem, cams, points, hpp_inv_f, t,
+                                        w_dtype, w_scale)
+    nc, npt = problem.ncams, problem.npnts
+    _cuda.require(cams, "cams", torch.float32, (nc, 9))
+    _cuda.require(points, "points", torch.float32, (npt, 3))
+    _cuda.require(hpp_inv_f, "hpp_inv_f", torch.float32, (npt * 9,))
+    _cuda.require(t, "t", torch.float32, (npt, 3))
+    if w_scale is not None:
+        _cuda.require(w_scale, "w_scale", torch.float32, ())
+    _cuda.require_problem(problem)
+    code = _cuda.W_CODES[w_dtype]
+    pt2d, w = plans.cam_obs(problem)
+    # [X | Hpp_inv | t | 0] a point, packed by the launch, so that a row
+    # gathers its point's operands as two 32 B sectors.
+    pnt_ops = torch.empty((npt, 16), dtype=torch.float32, device=cams.device)
+    out = torch.empty((nc, 90), dtype=torch.float32, device=cams.device)
+    rc = _cuda.lib().ba_cam_relin_wcw_rhs(
+        _cuda.ptr(cams), _cuda.ptr(points), _cuda.ptr(hpp_inv_f),
+        _cuda.ptr(t), _cuda.ptr(pt2d), _cuda.ptr(w),
+        _cuda.ptr(plans.cam_pnt(problem)), _cuda.ptr(problem.cam_starts),
+        _cuda.ptr(w_scale if w_dtype == torch.float16 else None), code, npt,
+        nc, _cuda.ptr(pnt_ops), _cuda.ptr(out), _cuda.stream())
+    _cuda.check(rc, "ba_cam_relin_wcw_rhs")
+    _cuda.launched("cam_relin_wcw_rhs", w_dtype)
+    return out
+
+
+def _cam_relin_wcw_rhs_plain(problem, cams, points, hpp_inv_f, t,
+                             w_dtype=torch.float32, w_scale=None):
+    """Plain version of :func:`cam_relin_wcw_rhs`:
+    :func:`_cam_reduce_wcw_rhs_plain` over the plain K7's W, stored as
+    the solve stores it."""
+    W_t = _linearize_plain(problem, cams, points)[1]
+    if w_scale is not None and w_dtype == torch.float16:
+        W_t = W_t * w_scale
+    return _cam_reduce_wcw_rhs_plain(W_t.to(w_dtype), problem, hpp_inv_f, t)
 
 
 def matvec_cam_scatter(W_t: torch.Tensor, v: torch.Tensor,

@@ -38,7 +38,8 @@ from bundleadjustment_jl_tpu_torch.ops.point_block import inv3x3_damped_flat
 #                   camera-sorted copy of W; K6 / K5 downstream.
 #   "scatter_split" B1: K7, [Hcc | g_c] by K2's cam90 re-derived in camera
 #                   order (K7's chain a camera); no camera-sorted copy
-#                   (W_cam_t None); K2 / K5 downstream.
+#                   (W_cam_t None); K2 / K5 downstream, W C W' | W t
+#                   re-derived in camera order too.
 #   "sorted_relin"  B2: B1's assembly plus W_cam_t re-linearized in the
 #                   camera order (K8); K6 / K5 downstream, as on C.
 ROUTES = ("fused", "sorted", "scatter_split", "sorted_relin")
@@ -90,6 +91,7 @@ class Stages(NamedTuple):
     cam_relin_cam90: Callable       # K2 cam90, re-derived in camera order
     linearize_w_only: Callable      # K8
     cam_reduce_wcw_rhs: Callable    # K2 W C W' | W t
+    cam_relin_wcw_rhs: Callable     # the same, re-derived in camera order
     matvec_cam_scatter: Callable    # K3
     cam_reduce_w_op: Callable       # K2 W op
     cam_reduce_wcw: Callable        # K2 W C W'
@@ -105,17 +107,18 @@ class Stages(NamedTuple):
 KERNELS = Stages(
     fa.assemble_scatter, lz.linearize_w_kminor, sr.jtj_pnt_reduce,
     sr.jtj_cam_reduce, fs.cam_relin_cam90, lz.linearize_w_only,
-    fs.cam_reduce_wcw_rhs, fs.matvec_cam_scatter, fs.cam_reduce_w_op,
-    fs.cam_reduce_wcw, sr.wcw_cam_reduce, sr.wtv_point_reduce,
-    sr.wt_cam_reduce, fa.objective_scatter, pb.point_inv_rhs,
-    pb.point_quad, ds.dense_schur)
+    fs.cam_reduce_wcw_rhs, fs.cam_relin_wcw_rhs, fs.matvec_cam_scatter,
+    fs.cam_reduce_w_op, fs.cam_reduce_wcw, sr.wcw_cam_reduce,
+    sr.wtv_point_reduce, sr.wt_cam_reduce, fa.objective_scatter,
+    pb.point_inv_rhs, pb.point_quad, ds.dense_schur)
 PLAIN = Stages(
     fa._assemble_plain, lz._linearize_plain, sr._jtj_pnt_plain,
     sr._jtj_cam_plain, fs._cam_relin_cam90_plain, lz._linearize_w_only_plain,
-    fs._cam_reduce_wcw_rhs_plain, fs._matvec_cam_scatter_plain,
-    fs._cam_reduce_w_op_plain, fs._cam_reduce_wcw_plain, sr._wcw_cam_plain,
-    sr._wtv_point_plain, sr._wt_cam_plain, fa._objective_plain,
-    pb._point_inv_rhs_plain, pb._point_quad_plain, ds._dense_schur_plain)
+    fs._cam_reduce_wcw_rhs_plain, fs._cam_relin_wcw_rhs_plain,
+    fs._matvec_cam_scatter_plain, fs._cam_reduce_w_op_plain,
+    fs._cam_reduce_wcw_plain, sr._wcw_cam_plain, sr._wtv_point_plain,
+    sr._wt_cam_plain, fa._objective_plain, pb._point_inv_rhs_plain,
+    pb._point_quad_plain, ds._dense_schur_plain)
 
 # PALLAS_MODE is the JAX package's `pallas_schur.PALLAS_MODE`: the kernels
 # on (default here, as bench.py measures) or the plain route everywhere.
@@ -162,6 +165,7 @@ class _HalfStages(Stages):
 # all-reduces. The other outputs (W, JR, the point sums) stay local.
 _ROW_SUMS = {"assemble_scatter": (2, 3), "jtj_cam_reduce": (0,),
              "cam_relin_cam90": (0,), "cam_reduce_wcw_rhs": (0,),
+             "cam_relin_wcw_rhs": (0,),
              "matvec_cam_scatter": (0,), "cam_reduce_w_op": (0,),
              "cam_reduce_wcw": (0,), "wcw_cam_reduce": (0,),
              "wt_cam_reduce": (0,), "objective_scatter": (0,)}
@@ -346,6 +350,12 @@ class GNBlocks(NamedTuple):
     # (26, nobs_pad) K7's Jc | Jp | r (`ops/linearize.py`), kept only when
     # assembled ``with_jr`` (the CGLS solver, `ops/cgls.py`); else None.
     JR_t: torch.Tensor | None = None
+    # The state linearized, (ncams, 9) and (npnts, 3) in the working dtype
+    # (set by `assemble_blocks`; the solve holds them anyway): route B1's
+    # W C W' | W t re-derives W from them (`ops/schur.py:reduce_and_diag`).
+    # None: the blocks were built otherwise, and that sum reads W_t.
+    cams: torch.Tensor | None = None
+    points: torch.Tensor | None = None
 
     @property
     def g_c(self):
@@ -424,7 +434,8 @@ def assemble_blocks(problem: BAProblem, cams=None, points=None, *,
                     Hcc_f=hc90[:, :81].reshape(-1),
                     Hpp_f=hp12[:, :9].reshape(-1),
                     obj=obj.to(dt), W_t=W_t, W_cam_t=W_cam_t, route=route,
-                    stages=st, JR_t=JR_t.to(dt) if with_jr else None)
+                    stages=st, JR_t=JR_t.to(dt) if with_jr else None,
+                    cams=cams, points=points)
 
 
 def gradient_norm(blocks: GNBlocks) -> torch.Tensor:

@@ -60,9 +60,10 @@ reads it) gives each column's point with one coalesced read.
 K8, :class:`CamRowPlan`: the row data in camera order, so that K8 reads
 every per-row field coalesced; 16 B a row on top of ``cam_pnt`` (148 MB at
 Final-4585's 9,272,320 rows). K2 cam90 re-derived in camera order on
-routes B1 and B2 (``csrc/linearize.cu``) reads its ``pt2d`` and ``w``
+routes B1 and B2, and K2 W C W' | W t re-derived so on B1
+(``csrc/linearize.cu``), read its ``pt2d`` and ``w``
 (:func:`cam_obs`, kept apart) and ``cam_pnt`` alone: 16 B a row, without
-K8's camera ids (its camera is its block's).
+K8's camera ids (the camera is the block's).
 
 The dense Schur step's pair kernel (``csrc/dense_pairs.cu``),
 :class:`PairPlan`: every point's pairs of true rows ``(k, l)``, ``k <= l``

@@ -16,7 +16,8 @@ into ``SchurSystem.route``) and on whether they carry the camera-sorted
   diagonal blocks of ``S`` from one K2 launch, :func:`schur_matvec`
   applies ``S`` through one K3 launch, and :func:`back_substitute_quad`
   gets ``dp`` and the ``||J d||^2`` cross term from one more K3 launch;
-- route B1 (``"scatter_split"``): :func:`reduce_and_diag` as on route A;
+- route B1 (``"scatter_split"``): :func:`reduce_and_diag` as on route A,
+  with W re-derived in camera order;
   the two-pass matvec (K5 point direction with the fold, then K2's
   ``W op`` product over the point-sorted W), :func:`back_substitute` (K5
   point direction) and :func:`quad_form` (K2 ``W op``);
@@ -59,6 +60,7 @@ from typing import NamedTuple
 import torch
 
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
+from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
 from bundleadjustment_jl_tpu_torch.ops import normal, plans, spmdctx
 from bundleadjustment_jl_tpu_torch.ops.dense_schur import (
     _add_diag, _dense_dtype)
@@ -172,17 +174,37 @@ def schur_diag_blocks(sys: SchurSystem) -> torch.Tensor:
     return sys.Hcc_l - wcw.reshape(-1, 9, 9)
 
 
+def _relin_wcw_rhs(problem: BAProblem, blocks: GNBlocks) -> bool:
+    """Whether :func:`reduce_and_diag` re-derives W for its K2 launch
+    (``cam_relin_wcw_rhs``): on route B1, from blocks that carry their
+    state, on point-sorted rows (a partitioned problem has no
+    :func:`ops.plans.cam_obs`), where :func:`ops.fused_schur.relin_wcw_rhs`
+    says so for W's storage. Route A's W comes from K1, not K7's chain,
+    and is read."""
+    return (blocks.route == "scatter_split" and blocks.cams is not None
+            and problem.pnt_perm is None
+            and fs.relin_wcw_rhs(blocks.W_t.dtype, blocks.cams.dtype))
+
+
 def reduce_and_diag(problem: BAProblem, blocks: GNBlocks, lam):
     """(SchurSystem, exact diagonal 9x9 blocks of S) at ``lam``. On the
     camera-scatter routes (A, B1) the reduced RHS correction and ``sum W
-    Hpp_inv W'`` come from one K2 launch; elsewhere this is
-    :func:`reduce_system` and :func:`schur_diag_blocks`."""
+    Hpp_inv W'`` come from one K2 launch, on B1 with each row's W
+    re-derived in camera order in place of read
+    (:func:`_relin_wcw_rhs`); elsewhere this is :func:`reduce_system` and
+    :func:`schur_diag_blocks`."""
     if blocks.route not in _CAM_SCATTER_ROUTES:
         sys = reduce_system(problem, blocks, lam)
         return sys, schur_diag_blocks(sys)
     Hcc_l = damp(blocks.Hcc, lam)
     Hpp_inv_f, g_p_f, t = _point_space(blocks, lam)
-    out = blocks.stages.cam_reduce_wcw_rhs(blocks.W_t, problem, Hpp_inv_f, t)
+    if _relin_wcw_rhs(problem, blocks):
+        out = blocks.stages.cam_relin_wcw_rhs(
+            problem, blocks.cams, blocks.points, Hpp_inv_f, t,
+            blocks.W_t.dtype, blocks.w_scale)
+    else:
+        out = blocks.stages.cam_reduce_wcw_rhs(blocks.W_t, problem,
+                                               Hpp_inv_f, t)
     sys = _system(problem, blocks, Hcc_l, Hpp_inv_f, g_p_f, out[:, 81:90])
     return sys, Hcc_l - out[:, :81].reshape(-1, 9, 9)
 

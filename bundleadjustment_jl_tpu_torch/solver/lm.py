@@ -132,20 +132,23 @@ class LMResult:
                                "small_obj_change")
 
 
-def expected_host_launches(route: str, res: LMResult, solver: str) -> dict:
+def expected_host_launches(route: str, res: LMResult, solver: str,
+                           facto_dtype=None,
+                           work_dtype: torch.dtype = torch.float32) -> dict:
     """The kernel launches a :func:`levenberg_marquardt` solve on ``route``
     with ``solver`` makes, from its own counters: the assembly once per
     ``neval_jac``, K4 ``neval_residual - neval_jac`` times (one trial
     state a launch), and per step solve (a history row) the step's
-    launches of :func:`lm_jit.expected_launches` with its CG steps. A
-    ``small_step`` stop and an ``exception`` (a NaN step at lambda > 1e20)
-    compute a step that no row records, so it raises there."""
+    launches of :func:`lm_jit.expected_launches` with its CG steps and W's
+    storage. A ``small_step`` stop and an ``exception`` (a NaN
+    step at lambda > 1e20) compute a step that no row records, so it
+    raises there."""
     if res.status in ("small_step", "exception"):
         raise ValueError(f"a {res.status} stop's last step is not in the "
                          f"history")
     cg = sum(row["cg_iters"] for row in res.history)
     out = expected_launches(route, len(res.history), res.neval_jac - 1, cg,
-                            solver)
+                            solver, facto_dtype, work_dtype)
     out["objective"] = res.neval_residual - res.neval_jac
     return out
 

@@ -77,6 +77,7 @@ from bundleadjustment_jl_tpu_torch.ops import normal, spmdctx
 from bundleadjustment_jl_tpu_torch.ops._cuda import (
     W_DTYPES, W_READERS, W_WRITERS)
 from bundleadjustment_jl_tpu_torch.ops.cgls import cgls_solve, j_matvec
+from bundleadjustment_jl_tpu_torch.ops.fused_schur import relin_wcw_rhs
 from bundleadjustment_jl_tpu_torch.ops.normal import (
     ROUTES, GNBlocks, assemble_blocks, gradient_norm, kernel_route,
     solve_stages)
@@ -114,7 +115,8 @@ _ASSEMBLY = {
 
 
 def expected_launches(route: str, iterations: int, naccepts: int, cg: int,
-                      solver: str = "pcg") -> dict:
+                      solver: str = "pcg", facto_dtype=None,
+                      work_dtype: torch.dtype = torch.float32) -> dict:
     """The kernel launches (`ops/_cuda.py:LAUNCHES` keys) a solve on
     ``route`` with step ``solver`` makes, from its iterations (step
     solves), accepts and CG steps (Σ ``hist_cg``: power terms for
@@ -132,8 +134,11 @@ def expected_launches(route: str, iterations: int, naccepts: int, cg: int,
     Camera-sorted (C, B2): K6's W C W' once per iteration, K5's point
     direction once per CG step plus two, its camera direction once more
     per iteration (the reduced right-hand side and the |J d|^2 cross term,
-    less the back-substitution). B1: K2 W C W' | W t once per iteration,
-    K5's point direction and K2's W op each once per CG step plus two.
+    less the back-substitution). B1: K2 W C W' | W t once per iteration
+    (re-derived in camera order, ``cam_relin_wcw_rhs``, where
+    `ops/fused_schur.py:relin_wcw_rhs` says so for W stored in
+    ``facto_dtype``, None: the working dtype ``work_dtype``), K5's point
+    direction and K2's W op each once per CG step plus two.
 
     ``power`` and ``dense`` (``reduce_system``, no diagonal blocks, no
     initial residual): the right-hand side's camera sum once per
@@ -162,7 +167,10 @@ def expected_launches(route: str, iterations: int, naccepts: int, cg: int,
         if route == "fused":
             expect.update(cam_reduce=it, matvec=cg + 2 * it)
         elif route == "scatter_split":
-            expect.update(cam_reduce=it, seg_block_point=cg + 2 * it,
+            walk = relin_wcw_rhs(facto_dtype or work_dtype, work_dtype)
+            expect.update({("cam_relin_wcw_rhs" if walk
+                            else "cam_reduce"): it},
+                          seg_block_point=cg + 2 * it,
                           cam_reduce_w_op=cg + 2 * it)
         else:
             expect.update(seg_prod_wcw81=it, seg_block_point=cg + 2 * it,

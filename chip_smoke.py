@@ -18,7 +18,10 @@ CUDA card.
    route, then K2's other three products and K8 of the Final-scale routes
    (and K8 against K7's W in camera order), K2 cam90 re-derived in camera
    order (``cam_relin_cam90``; and bit for bit against K2 cam90 over K7's
-   JR on its records path, ``check_relin_records``), and the point-block
+   JR on its records path, ``check_relin_records``), K2 W C W' | W t
+   re-derived so (``cam_relin_wcw_rhs``, W in float32, bfloat16 and
+   float16; bit for bit against K2 W C W' | W t over K7's W on its
+   records path, ``check_wcw_walk``), and the point-block
    kernels (``check_point_blocks``: the damped inverse bit-identical to its
    twin's, ``Hpp_inv g_p`` and ``dp' Hpp dp`` within tolerance, each
    timed beside its bound). The forms that read through a plan, K4 and
@@ -152,7 +155,8 @@ CUDA card.
    build time, row counts and K2's and K5's plans), every kernel route B1
    launches held against its plain twin at that full size
    (``check_capacity_kernels``: K7, K2's cam90 (over JR, and re-derived
-   in camera order, bit for bit against it), W C W' | W t and W op, K6
+   in camera order, bit for bit against it), W C W' | W t (and re-derived
+   in camera order, bit for bit against it) and W op, K6
    pnt12, K5's point direction, the W forms with W in float32 and
    bfloat16, K4 at S = 1 and 5, the point blocks at its 4,456,117 points;
    the twins over point ranges of at most TWIN_ROWS rows, their camera
@@ -227,6 +231,7 @@ TOL = {"W": (1e-5, 1e-6), "hp12": (1e-4, 1e-3), "hc90": (1e-4, 1e-3),
        "seg_block_point": (1e-4, 1e-4), "seg_block_camera": (1e-4, 1e-4),
        "cam_reduce_w_op": (1e-4, 1e-4), "cam_reduce_wcw81": (1e-4, 1e-4),
        "cam_reduce_cam90": (1e-4, 1e-3), "cam_relin_cam90": (1e-4, 1e-3),
+       "cam_relin_wcw_rhs": (1e-4, 1e-4),
        "linearize_w_only": (1e-5, 1e-6),
        "schur": (1e-4, 1e-4),
        # Hpp_inv g_p: three products a point, FMA-contracted on the card;
@@ -262,6 +267,9 @@ KERNELS = {
     "cam_relin_cam90": ("csrc/linearize.cu",
                         "bundleadjustment_jl_tpu/ops/pallas_schur.py:1109",
                         ["cam_relin_cam90"], ["cam_relin_cam90"]),
+    "cam_relin_wcw_rhs": ("csrc/linearize.cu",
+                          "bundleadjustment_jl_tpu/ops/pallas_schur.py:1109",
+                          ["cam_relin_wcw_rhs"], ["cam_relin_wcw_rhs"]),
     "seg_prod_reduce": ("csrc/seg_prod_reduce.cu",
                         "bundleadjustment_jl_tpu/ops/pallas_schur.py:969",
                         ["seg_prod_pnt12", "seg_prod_cam90",
@@ -288,7 +296,8 @@ REPEAT_CHECKED = ("cam_reduce", "cam_reduce_w_op", "cam_reduce_wcw81",
                   "cam_reduce_cam90", "seg_block_point", "matvec",
                   "assemble", "seg_block_camera", "seg_prod_wcw81",
                   "linearize_w_only", "seg_prod_pnt12", "objective",
-                  "point_inv", "point_quad", "cam_relin_cam90")
+                  "point_inv", "point_quad", "cam_relin_cam90",
+                  "cam_relin_wcw_rhs")
 # K2's forms and K3 on the paths past shared memory (``plans.SMEM_BUDGET``
 # 0: per-run sums for W op and K3, records for the others), checked,
 # repeated and timed at Dubrovnik-356 beside the shared path they take
@@ -863,7 +872,9 @@ def check_split_kernels(name, problem, errs, timings, facts):
     relin = check("cam_relin_cam90",
                   lambda: fs.cam_relin_cam90(problem, cams, points),
                   lambda: fs._cam_relin_cam90_plain(problem, cams, points))
-    check_relin_records(name, problem, relin, JR_t, facts)
+    check_relin_records(name, problem, "cam_relin_cam90", relin,
+                        lambda: fs.cam_reduce_cam90(JR_t, problem),
+                        fs.cam_path("cam90", problem, 0)[0], facts)
     hp12 = sr.jtj_pnt_reduce(JR_t, problem)
     del JR_t, relin
     # Damped point blocks as the solver forms them (lambda_0, "diag").
@@ -877,41 +888,89 @@ def check_split_kernels(name, problem, errs, timings, facts):
     t = sr.wtv_point_reduce(W_t, v, problem, hpp_inv_f=hpp_inv)
     check("cam_reduce_w_op", lambda: fs.cam_reduce_w_op(W_t, problem, t),
           lambda: fs._cam_reduce_w_op_plain(W_t, problem, t))
+    check_wcw_walk(name, problem, check, W_t, hpp_inv, t, errs, timings,
+                   facts)
     for k in ("linearize_w_only", "cam_reduce_cam90", "cam_relin_cam90",
-              "cam_reduce_wcw81", "cam_reduce_w_op"):
+              "cam_reduce_wcw81", "cam_reduce_w_op", "cam_relin_wcw_rhs"):
         kms, pms = timings[k][name]
         print(f"  time {k:16s} {time_note(k, problem, kms, pms)}")
 
 
-def check_relin_records(name, problem, got, JR_t, facts):
-    """K2 cam90's camera walk's output ``got`` (``cam_relin_cam90``)
-    against K2 cam90 over K7's ``JR_t`` on its records path (forced by
-    ``plans.SMEM_BUDGET`` 0 where the camera sums fit shared memory): bit
-    for bit, recorded in ``facts`` under the walk's row, with the path
-    the default budget gives K2 cam90 there."""
+def check_wcw_walk(name, problem, check, W32, hpp_inv, t, errs, timings,
+                   facts):
+    """K2 W C W' | W t re-derived in camera order (``cam_relin_wcw_rhs``)
+    at ``problem``'s state, W stored in float32, bfloat16 and float16 (K7's
+    float32 W times its range scale, as a float32 solve stores it):
+    against its plain twin (float32 by ``check``; the others compared,
+    launched twice and timed here, under ``<key>@<dtype>``) and bit for
+    bit against K2 W C W' | W t over that W on its records path
+    (``check_relin_records``)."""
     import torch
+    from bundleadjustment_jl_tpu_torch.ops import _cuda
     from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
+    from bundleadjustment_jl_tpu_torch.ops import linearize as lz
+    from bundleadjustment_jl_tpu_torch.solver.lm_jit import f16_scale
+
+    key = "cam_relin_wcw_rhs"
+    cams, points = problem.cams, problem.points
+    s = f16_scale(W32)
+    stored = {"float32": (W32, None),
+              "bfloat16": (lz.linearize_w_kminor(problem, cams, points,
+                                                 torch.bfloat16)[1], None),
+              "float16": ((W32 * s).to(torch.float16), s)}
+    reps = 20 if problem.nobs_pad < 1 << 18 else 5
+    for dt, (W, scale) in stored.items():
+        def kernel():
+            return fs.cam_relin_wcw_rhs(problem, cams, points, hpp_inv, t,
+                                        W.dtype, scale)
+
+        def plain():
+            return fs._cam_relin_wcw_rhs_plain(problem, cams, points,
+                                               hpp_inv, t, W.dtype, scale)
+        if dt == "float32":
+            got = check(key, kernel, plain)
+        else:
+            got = kernel()
+            torch.cuda.synchronize()
+            check_repeat(key, f"{name}@{dt}", kernel, got, facts)
+            compare(key, got, plain(), errs)
+            timings.setdefault(f"{key}@{dt}", {})[name] = time_pair(
+                kernel, plain, reps)
+        check_relin_records(
+            f"{name}@{dt}", problem, key, got,
+            lambda: fs.cam_reduce_wcw_rhs(W, problem, hpp_inv, t),
+            fs.cam_path("wcw_rhs", problem, _cuda.W_CODES[W.dtype])[0],
+            facts)
+
+
+def check_relin_records(tag, problem, key, got, records, default, facts):
+    """A camera walk's output ``got`` (``key``: ``cam_relin_cam90`` or
+    ``cam_relin_wcw_rhs``) against ``records()``, the K2 form it stands in
+    for over K7's output, on its records path (forced by
+    ``plans.SMEM_BUDGET`` 0 where the camera sums fit shared memory): bit
+    for bit, recorded in ``facts`` under the walk's row and ``tag``, with
+    ``default``, the path the default budget gives that form there."""
+    import torch
     from bundleadjustment_jl_tpu_torch.ops import plans
-    default = fs.cam_path("cam90", problem, 0)[0]
     old = plans.SMEM_BUDGET
     plans.SMEM_BUDGET = 0
     try:
-        rec = fs.cam_reduce_cam90(JR_t, problem)
+        rec = records()
     finally:
         plans.SMEM_BUDGET = old
     torch.cuda.synchronize()
     diff = got != rec
-    facts.setdefault(KERNEL_OF["cam_relin_cam90"], {}).setdefault(
-        "records_bit_identical", {})[name] = {
+    facts.setdefault(KERNEL_OF[key], {}).setdefault(
+        "records_bit_identical", {})[tag] = {
             "same": not bool(diff.any()), "entries_differing": int(diff.sum()),
             "max_abs": float((got - rec).abs().max()),
-            "k2_cam90_default_path": default}
-    print(f"  cam_relin_cam90 vs K2 cam90's records path: "
-          f"{int(diff.sum())} of {diff.numel()} entries differ (K2 cam90 "
-          f"takes {default} here by default)")
+            "k2_default_path": default}
+    print(f"  {key} at {tag} vs K2's records path: {int(diff.sum())} of "
+          f"{diff.numel()} entries differ (K2 takes {default} here by "
+          f"default)")
     if diff.any():
-        raise AssertionError(f"{name}: cam_relin_cam90 is not bit-identical "
-                             f"to K2 cam90's records path")
+        raise AssertionError(f"{tag}: {key} is not bit-identical to K2's "
+                             f"records path")
 
 
 def check_past_smem(name, problem, errs, facts):
@@ -1149,26 +1208,29 @@ def plain_route():
 def check_launches(name, res, counts, w_counts, route, facto,
                    solver="pcg", work=None):
     """Each kernel launched as often as the solve's own record implies
-    (``lm_jit.expected_launches`` for its step ``solver``; a host-driver
-    ``LMResult``: ``lm.expected_host_launches``), and none of the other
-    routes'; the W kernels' launches ``w_counts`` (``_cuda.W_LAUNCHES``)
-    with W in the dtypes ``facto`` and the working dtype ``work`` (None:
-    float32) imply (``lm_jit.expected_w_launches``)."""
+    (``lm_jit.expected_launches`` for its step ``solver`` and W's
+    storage; a host-driver ``LMResult``: ``lm.expected_host_launches``),
+    and none of the other routes'; the W kernels' launches ``w_counts``
+    (``_cuda.W_LAUNCHES``) with W in the dtypes ``facto`` and the working
+    dtype ``work`` (None: float32) imply (``lm_jit.expected_w_launches``)."""
     import torch
     from bundleadjustment_jl_tpu_torch.solver.lm import (
         LMResult, expected_host_launches)
     from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
         expected_launches, expected_w_launches)
+    work = work or torch.float32
     expect = dict.fromkeys(counts, 0)
     if isinstance(res, LMResult):
-        expect.update(expected_host_launches(route, res, solver))
+        expect.update(expected_host_launches(route, res, solver, facto,
+                                             work))
     else:
         it = res.iterations
         expect.update(expected_launches(route, it, res.naccepts,
-                                        int(res.hist_cg[:it].sum()), solver))
+                                        int(res.hist_cg[:it].sum()), solver,
+                                        facto, work))
     if counts != expect:
         raise AssertionError(f"{name}: launches {counts} != {expect}")
-    w_expect = expected_w_launches(counts, facto, work or torch.float32)
+    w_expect = expected_w_launches(counts, facto, work)
     if w_counts != w_expect:
         raise AssertionError(f"{name}: W launches by storage dtype "
                              f"{w_counts} != {w_expect}")
@@ -1381,8 +1443,8 @@ def check_final_schur(name, problem, errs):
     ``schur_diag_blocks`` (K2's W C W' | W t product against its W op and
     W C W' products), ``back_substitute_quad`` against ``back_substitute``
     plus ``quad_form``. Checks and returns its own launch counts (K2's W
-    op: the reduced right-hand side and the two |J d|^2 cross terms),
-    which are no solve's."""
+    op: the reduced right-hand side and the two |J d|^2 cross terms; W C
+    W' | W t re-derived in camera order), which are no solve's."""
     import torch
     from bundleadjustment_jl_tpu_torch.ops import _cuda
     from bundleadjustment_jl_tpu_torch.ops import schur as sc
@@ -1410,7 +1472,7 @@ def check_final_schur(name, problem, errs):
     compare("schur", q1.reshape(1), q2.reshape(1), errs)
     expect = dict.fromkeys(counts, 0)
     expect.update(linearize=1, cam_relin_cam90=1, seg_prod_pnt12=1,
-                  cam_reduce=1, cam_reduce_w_op=3, cam_reduce_wcw81=1,
+                  cam_relin_wcw_rhs=1, cam_reduce_w_op=3, cam_reduce_wcw81=1,
                   seg_block_point=2, point_inv=2, point_quad=2)
     if counts != expect:
         raise AssertionError(f"{name}: Schur check launches {counts} != "
@@ -1532,6 +1594,7 @@ def check_capacity_kernels(name, problem, errs, facts):
     import torch
     from bundleadjustment_jl_tpu_torch import bench
     from bundleadjustment_jl_tpu_torch.kernel_profile import trial_states
+    from bundleadjustment_jl_tpu_torch.ops import _cuda
     from bundleadjustment_jl_tpu_torch.ops import fused_assemble as fa
     from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
     from bundleadjustment_jl_tpu_torch.ops import linearize as lz
@@ -1586,7 +1649,9 @@ def check_capacity_kernels(name, problem, errs, facts):
         "cam_relin_cam90", lambda: fs.cam_relin_cam90(problem, cams, points),
         lambda: summed(parts, lambda p, lo, hi: fs._cam_relin_cam90_plain(
             p, cams, points)), "float32")
-    check_relin_records(name, problem, relin, JR_t, facts)
+    check_relin_records(name, problem, "cam_relin_cam90", relin,
+                        lambda: fs.cam_reduce_cam90(JR_t, problem),
+                        fs.cam_path("cam90", problem, 0)[0], facts)
     del relin
     hp12 = check(
         "seg_prod_pnt12", lambda: sr.jtj_pnt_reduce(JR_t, problem),
@@ -1615,6 +1680,19 @@ def check_capacity_kernels(name, problem, errs, facts):
               lambda: summed(parts, lambda p, lo, hi:
                              fs._cam_reduce_wcw_rhs_plain(
                                  W[:, lo:hi], p, hpp_inv, t)), form)
+        walk = check(
+            "cam_relin_wcw_rhs",
+            lambda: fs.cam_relin_wcw_rhs(problem, cams, points, hpp_inv, t,
+                                         W.dtype),
+            lambda: summed(parts, lambda p, lo, hi:
+                           fs._cam_relin_wcw_rhs_plain(
+                               p, cams, points, hpp_inv, t, W.dtype)), form)
+        check_relin_records(
+            f"{name}@{form}", problem, "cam_relin_wcw_rhs", walk,
+            lambda: fs.cam_reduce_wcw_rhs(W, problem, hpp_inv, t),
+            fs.cam_path("wcw_rhs", problem, _cuda.W_CODES[W.dtype])[0],
+            facts)
+        del walk
         for kw, timed in ((dict(hpp_inv_f=hpp_inv, add_f=g_p, sign=-1.0),
                            False), (dict(hpp_inv_f=hpp_inv), True)):
             tp = check(

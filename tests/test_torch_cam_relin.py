@@ -29,6 +29,7 @@ from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
 from bundleadjustment_jl_tpu_torch.ops import _cuda, normal, plans
 from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
 from bundleadjustment_jl_tpu_torch.ops import linearize as lz
+from bundleadjustment_jl_tpu_torch.ops import schur
 from bundleadjustment_jl_tpu_torch.ops.jacobian import jacobian_blocks_ad
 from bundleadjustment_jl_tpu_torch.solver import lm_jit
 from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
@@ -200,3 +201,201 @@ def test_solve_past_shared_memory_launches_the_walk(monkeypatch, prob32,
         ref.status, ref.iterations, ref.naccepts)
     assert res.objective == ref.objective
     assert torch.equal(res.cams, ref.cams)
+
+
+# ---------------------------------------------------------------------------
+# K2 W C W' | W t re-derived in camera order (the stage
+# ``cam_relin_wcw_rhs``): route B1's reduction.
+#
+# - Its plain twin is K2 W C W' | W t's plain twin over the W the solve
+#   stores (the plain K7's, through ``maybe_cast_facto``), bit for bit, in
+#   float32 and float64 working dtypes, W stored as it is, in bfloat16 and
+#   (float32) in float16 with its range scale; through a bfloat16 solve's
+#   stage table it equals K2's stage over that table's K7 W.
+# - ``reduce_and_diag`` (a spy table) takes it on route B1 whatever the
+#   shared-memory budget: not on route A, not from blocks without their
+#   state, not for a float16 W of a 2-byte solve or a float64 W, not on a
+#   partitioned problem; the system and the diagonal blocks are the same
+#   bit for bit.
+# - ``expected_launches`` swaps ``cam_reduce`` for ``cam_relin_wcw_rhs``
+#   on B1's PCG step where W's storage takes the walk, and nothing else; a
+#   solve on B1 at budget 0 makes those launches and the decisions, bit
+#   for bit, of one that reads W.
+
+
+def solve_blocks(p, route="scatter_split", facto=None, stages=None):
+    """``assemble_blocks`` as a solve runs it, W stored by ``facto``."""
+    blocks = normal.assemble_blocks(p, route=route, stages=stages,
+                                    w_dtype=lm_jit.w_assemble_dtype(facto))
+    return lm_jit.maybe_cast_facto(blocks, facto)
+
+
+def point_space(blocks, lam=1e-2):
+    Hpp_inv_f, t = blocks.stages.point_inv_rhs(blocks.Hpp_f, blocks.g_p_f,
+                                               lam, blocks.w_scale)
+    return Hpp_inv_f, t
+
+
+WCW_CASES = [(torch.float32, None), (torch.float32, torch.bfloat16),
+             (torch.float32, torch.float16), (torch.float64, None),
+             (torch.float64, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("dtype,facto", WCW_CASES,
+                         ids=[f"{str(d)[6:]}-{str(f)[6:]}" for d, f in
+                              WCW_CASES])
+def test_wcw_rhs_twin_is_k2_over_the_plain_k7_w(dtype, facto):
+    p = edge_problem(dtype)
+    blocks = solve_blocks(p, facto=facto)
+    assert blocks.W_t.dtype == (facto or dtype)
+    assert (blocks.w_scale is not None) == (facto == torch.float16)
+    hpp, t = point_space(blocks)
+    want = fs._cam_reduce_wcw_rhs_plain(blocks.W_t, p, hpp, t)
+    args = (p, blocks.cams, blocks.points, hpp, t, blocks.W_t.dtype,
+            blocks.w_scale)
+    got = fs._cam_relin_wcw_rhs_plain(*args)
+    assert got.shape == (p.ncams, 90) and torch.equal(got, want)
+    assert torch.equal(normal.KERNELS.cam_relin_wcw_rhs(*args), want)
+    assert bool((got[0] == 0).all())
+
+
+def test_wcw_rhs_bf16_stage_widens_as_k2s():
+    p = edge_problem(torch.float64).astype(torch.bfloat16)
+    st = normal.stages_for(normal.KERNELS, torch.bfloat16)
+    blocks = normal.assemble_blocks(p, route="scatter_split", stages=st)
+    assert blocks.W_t.dtype == torch.bfloat16
+    hpp, t = point_space(blocks)
+    want = st.cam_reduce_wcw_rhs(blocks.W_t, p, hpp, t)
+    got = st.cam_relin_wcw_rhs(p, blocks.cams, blocks.points, hpp, t,
+                               torch.bfloat16, None)
+    assert got.dtype == torch.bfloat16 and torch.equal(got, want)
+
+
+def wcw_spy_table(calls, table=None):
+    """``table`` (``normal.KERNELS``) with both W C W' | W t stages noting
+    their calls."""
+    table = normal.KERNELS if table is None else table
+
+    def spy(name):
+        fn = getattr(table, name)
+
+        def call(*args, **kwargs):
+            calls.append(name)
+            return fn(*args, **kwargs)
+        return call
+    return table._replace(**{k: spy(k) for k in (
+        "cam_reduce_wcw_rhs", "cam_relin_wcw_rhs")})
+
+
+DISPATCH_CASES = [("scatter_split", 0, torch.float32, None),
+                  ("scatter_split", AMPLE, torch.float32, None),
+                  ("scatter_split", 0, torch.float32, torch.bfloat16),
+                  ("scatter_split", 0, torch.float32, torch.float16),
+                  ("scatter_split", 0, torch.bfloat16, None),
+                  ("scatter_split", 0, torch.bfloat16, torch.float16),
+                  ("scatter_split", 0, torch.float64, None),
+                  ("fused", 0, torch.float32, None),
+                  ("fused", AMPLE, torch.float32, None)]
+
+
+@pytest.mark.parametrize(
+    "route,budget,dtype,facto", DISPATCH_CASES,
+    ids=[f"{r}-{'ample' if b else 0}-{str(d)[6:]}-{str(f)[6:]}"
+         for r, b, d, f in DISPATCH_CASES])
+def test_reduce_takes_the_walk_past_shared_memory(monkeypatch, route, budget,
+                                                  dtype, facto):
+    """The walk on B1 at any shared-memory budget, where the stored W is
+    what it rounds: a float16 W in a float32 solve (K7's float32 W scaled
+    by a power of two, rounded once), not in a 2-byte one (rounded twice),
+    and no float64 W (the plain route, no kernel storage)."""
+    p = edge_problem(torch.float64).astype(dtype)
+    st = normal.stages_for(normal.KERNELS, dtype)
+    ref_blocks = solve_blocks(p, route, facto, st)
+    ref = schur.reduce_and_diag(p, ref_blocks, 1e-2)
+    monkeypatch.setattr(plans, "SMEM_BUDGET", budget)
+    calls = []
+    st = normal.stages_for(wcw_spy_table(calls), dtype)
+    blocks = solve_blocks(p, route, facto, st)
+    got = schur.reduce_and_diag(p, blocks, 1e-2)
+    walk = (route == "scatter_split" and dtype != torch.float64
+            and not (facto == torch.float16 and dtype != torch.float32))
+    assert calls == ["cam_relin_wcw_rhs" if walk else "cam_reduce_wcw_rhs"]
+    assert schur._relin_wcw_rhs(p, blocks) == walk
+    for a, b in zip((*got[0], got[1]), (*ref[0], ref[1])):
+        if isinstance(a, torch.Tensor):
+            assert torch.equal(a, b)
+    # Blocks without their state (made otherwise) read W.
+    calls.clear()
+    schur.reduce_and_diag(p, blocks._replace(cams=None, points=None), 1e-2)
+    assert calls == ["cam_reduce_wcw_rhs"]
+
+
+def test_partitioned_problem_keeps_w(monkeypatch):
+    """A problem in camera groups (``pnt_perm``) has no camera-order rows
+    (``plans.cam_obs`` refuses it): the W C W' | W t sum reads W."""
+    from bundleadjustment_jl_tpu_torch.parallel import partition_problem
+    monkeypatch.setattr(plans, "SMEM_BUDGET", 0)
+    p = edge_problem(torch.float32)
+    pp = partition_problem(p, 2)[0]
+    assert pp.pnt_perm is not None
+    with pytest.raises(ValueError, match="pnt_perm"):
+        plans.cam_obs(pp)
+    calls = []
+    table = wcw_spy_table(calls, normal.solve_stages(torch.float32, pp))
+    blocks = solve_blocks(pp, stages=table)
+    assert not schur._relin_wcw_rhs(pp, blocks)
+    schur.reduce_and_diag(pp, blocks, 1e-2)
+    assert calls == ["cam_reduce_wcw_rhs"]
+    assert schur._relin_wcw_rhs(p, solve_blocks(p))
+
+
+@pytest.mark.parametrize("solver", ["pcg", "power", "dense", "cgls"])
+@pytest.mark.parametrize("route", normal.ROUTES)
+def test_expected_launches_swap_k2_wcw_rhs(route, solver):
+    """The walk for W in float32 and bfloat16 and a float16 W of a float32
+    solve; K2 over W for a float16 W of a 2-byte solve and a float64 W."""
+    f32, bf16, f16 = torch.float32, torch.bfloat16, torch.float16
+    off = expected_launches(route, 7, 5, 30, solver, None, torch.float64)
+    assert expected_launches(route, 7, 5, 30, solver, f16, bf16) == off
+    assert "cam_relin_wcw_rhs" not in off
+    for facto, work in ((None, f32), (bf16, f32), (f16, f32), (None, bf16)):
+        on = expected_launches(route, 7, 5, 30, solver, facto, work)
+        if route == "scatter_split" and solver == "pcg":
+            assert on.pop("cam_relin_wcw_rhs") == 7
+            assert "cam_reduce" not in on
+            on["cam_reduce"] = 7
+        assert on == off
+
+
+def test_solve_past_shared_memory_launches_the_wcw_walk(monkeypatch,
+                                                        prob32):
+    """A B1 solve at budget 0: ``cam_relin_wcw_rhs`` once an iteration in
+    place of ``cam_reduce`` (the plain twins counted), and the decisions
+    and state, bit for bit, of the solve that reads W
+    (``fused_schur.relin_wcw_rhs`` off)."""
+    for k, v in normal.FORCE_ROUTE["scatter_split"].items():
+        monkeypatch.setattr(normal, k, v)
+    opts = dict(max_iters=8, pcg_max_iters=200, lam0_mode="diag",
+                **{k: 0.0 for k in ("atol", "rtol", "satol", "srtol",
+                                    "oatol", "ortol")})
+    with monkeypatch.context() as m:
+        m.setattr(fs, "relin_wcw_rhs", lambda *args: False)
+        ref = levenberg_marquardt_jit(
+            dataclasses.replace(prob32, plans={}), **opts)
+    counts = dict.fromkeys(_cuda.LAUNCHES, 0)
+    monkeypatch.setattr(normal, "KERNELS", counting_stages(counts))
+    monkeypatch.setattr(plans, "SMEM_BUDGET", 0)
+    res = levenberg_marquardt_jit(dataclasses.replace(prob32, plans={}),
+                                  **opts)
+    it = int(res.iterations)
+    assert it >= 4 and res.naccepts > 0
+    expect = dict.fromkeys(counts, 0)
+    expect.update(lm_jit.expected_launches(
+        "scatter_split", it, res.naccepts, int(res.hist_cg[:it].sum())))
+    assert counts["cam_relin_wcw_rhs"] == it and counts["cam_reduce"] == 0
+    assert counts == expect
+    assert (res.status, res.iterations, res.naccepts) == (
+        ref.status, ref.iterations, ref.naccepts)
+    assert res.objective == ref.objective
+    assert torch.equal(res.cams, ref.cams)
+    assert torch.equal(res.points, ref.points)

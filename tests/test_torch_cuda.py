@@ -461,7 +461,8 @@ def test_facto_solve_on_card_runs_every_kernel(card_problem, monkeypatch,
     it = res.iterations
     expect = dict.fromkeys(_cuda.LAUNCHES, 0)
     expect.update(lm_jit.expected_launches(route, it, res.naccepts,
-                                           int(res.hist_cg[:it].sum())))
+                                           int(res.hist_cg[:it].sum()),
+                                           facto_dtype=dtype))
     assert dict(_cuda.LAUNCHES) == expect
     w_expect = lm_jit.expected_w_launches(expect, dtype)
     assert dict(_cuda.W_LAUNCHES) == w_expect and w_expect[dtype] > 0
@@ -750,6 +751,103 @@ def test_solve_past_shared_memory_launches_the_walk_on_card(
     assert dict(_cuda.LAUNCHES) == expect
     assert (res.status, res.iterations) == (ref.status, ref.iterations)
     assert abs(res.objective - ref.objective) <= 1e-5 * ref.objective
+
+
+def stored_w(p, cams, points, dtype):
+    """``(W_t, w_scale)`` at (cams, points) as a float32 solve stores W in
+    ``dtype`` (`lm_jit.maybe_cast_facto`): K7's float32 W, bfloat16 as K7
+    writes it, float16 as its range scale times K7's float32 W."""
+    if dtype == torch.bfloat16:
+        return lz.linearize_w_kminor(p, cams, points, dtype)[1], None
+    W = lz.linearize_w_kminor(p, cams, points)[1]
+    if dtype == torch.float16:
+        s = lm_jit.f16_scale(W)
+        return (W * s).to(dtype), s
+    return W, None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+@pytest.mark.parametrize("case", ["one_camera", "many_cameras",
+                                  "long_point", "long_camera",
+                                  "empty_cameras_ragged"])
+def test_cam_relin_wcw_rhs_is_the_records_path_on_card(monkeypatch, case,
+                                                       dtype):
+    """K2 W C W' | W t re-derived in camera order (``cam_relin_wcw_rhs``)
+    at :func:`edge_problem`'s shapes and state, W stored in ``dtype`` as
+    a float32 solve stores it: bit for bit K2 W C W' | W t over that W on
+    its records path (``plans.SMEM_BUDGET`` 0), a second launch
+    bit-identical, its plain twin within K2's tolerance, a camera without
+    rows exact zeros."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    p = edge_problem(case)
+    ops = edge_operands(p, torch.float32)
+    cams, points = ops["state"]
+    hpp, t = ops["hpp_inv"], ops["t"]
+    W, s = stored_w(p, cams, points, dtype)
+
+    def walk():
+        return fs.cam_relin_wcw_rhs(p, cams, points, hpp, t, dtype, s)
+    got, again = walk(), walk()
+    monkeypatch.setattr(plans, "SMEM_BUDGET", 0)
+    assert fs.cam_path("wcw_rhs", p, _cuda.W_CODES[dtype])[0] == "records"
+    assert fs.relin_wcw_rhs(dtype, torch.float32)
+    assert torch.equal(got, fs.cam_reduce_wcw_rhs(W, p, hpp, t))
+    assert torch.equal(got, again)
+    close(got, fs._cam_relin_wcw_rhs_plain(p, cams, points, hpp, t, dtype,
+                                           s), afrac=1e-3)
+    empty = (p.cam_starts[1:] == p.cam_starts[:-1]).nonzero().ravel()
+    assert bool((got[empty] == 0).all())
+
+
+B1_WALK_CASES = [(torch.float32, None), (torch.float32, torch.bfloat16),
+                 (torch.float32, torch.float16), (torch.bfloat16, None)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("work,facto", B1_WALK_CASES,
+                         ids=[f"{str(w)[6:]}-{str(f)[6:]}"
+                              for w, f in B1_WALK_CASES])
+def test_b1_solve_past_shared_memory_launches_the_wcw_walk_on_card(
+        card_problem, monkeypatch, work, facto):
+    """Route B1 past shared memory (``plans.SMEM_BUDGET`` 0) launches
+    ``cam_relin_wcw_rhs`` once an iteration, as ``expected_launches``
+    says, and solves bit for bit as the solve that reads W on K2's records
+    path (``fused_schur.relin_wcw_rhs`` off): a float32 solve with W in
+    float32, bfloat16 and float16, and a bfloat16 solve (the cascade's low
+    stage, its tolerances), whose stage table widens the walk's operands
+    as it widens K2's."""
+    from bundleadjustment_jl_tpu_torch.benchmark.precision import (
+        LOW_STAGE_TOLS)
+    for k, v in normal.FORCE_ROUTE["scatter_split"].items():
+        monkeypatch.setattr(normal, k, v)
+    monkeypatch.setattr(plans, "SMEM_BUDGET", 0)
+    p = card_problem.astype(work)
+    opts = dict(max_iters=30, lam0_mode="diag", facto_dtype=facto)
+    if work == torch.bfloat16:
+        opts.update(LOW_STAGE_TOLS)
+    with monkeypatch.context() as m:
+        m.setattr(fs, "relin_wcw_rhs", lambda *args: False)
+        ref = levenberg_marquardt_jit(p, **opts)
+    _cuda.reset_launches()
+    res = levenberg_marquardt_jit(p, **opts)
+    it = res.iterations
+    expect = dict.fromkeys(_cuda.LAUNCHES, 0)
+    expect.update(lm_jit.expected_launches(
+        "scatter_split", it, res.naccepts, int(res.hist_cg[:it].sum()),
+        facto_dtype=facto, work_dtype=work))
+    assert expect["cam_relin_wcw_rhs"] == it > 0
+    assert dict(_cuda.LAUNCHES) == expect
+    assert dict(_cuda.W_LAUNCHES) == lm_jit.expected_w_launches(
+        expect, facto, work)
+    assert res.cams.dtype == work
+    assert (res.status, res.iterations, res.naccepts) == (
+        ref.status, ref.iterations, ref.naccepts)
+    assert res.objective == ref.objective
+    assert torch.equal(res.cams, ref.cams)
+    assert torch.equal(res.points, ref.points)
 
 
 @pytest.mark.cuda

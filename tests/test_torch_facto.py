@@ -395,14 +395,16 @@ def test_kernel_bytes_counted_by_hand(name, w_itemsize, kw, want):
 
 def test_every_kernel_form_has_a_bound():
     """Each launch counter of `ops/_cuda.py` has its least bytes and
-    operations, and no form is bound by its arithmetic on this card but K2
-    cam90's camera walk, which reads 16 B for the chain's 265 (Jc and r)
-    and the product's 216 operations a row."""
+    operations, and no form is bound by its arithmetic on this card but
+    K2's camera walks: cam90's reads 16 B for the chain's 265 (Jc and r)
+    and the product's 216 operations a row, W C W' | W t's 16 B for the
+    chain's 300, W's 81 and the product's 459."""
     from bundleadjustment_jl_tpu_torch.ops import _cuda
     for name in _cuda.LAUNCHES:
         assert bench.kernel_bytes(name, DUB) > 0
         assert bench.bound_ms(name, DUB)[1] == (
-            "operations" if name == "cam_relin_cam90" else "bytes")
+            "operations" if name in ("cam_relin_cam90", "cam_relin_wcw_rhs")
+            else "bytes")
 
 
 # A Chrome trace as torch.profiler exports it: the kernel events of two

@@ -422,7 +422,8 @@ def test_default_gates_pick_the_jax_route(monkeypatch, ncams, nobs_pad,
 # that reach it.
 # `cam_reduce_wcw` (K2 W C W') serves `schur_diag_blocks` without a
 # camera-sorted W, which no solve calls: route B1's diagonal comes from
-# `cam_reduce_wcw_rhs`, as in the JAX driver.
+# K2 W C W' | W t, as in the JAX driver, with each row's W re-derived in
+# camera order (`cam_relin_wcw_rhs`).
 ALL = set(normal.ROUTES)
 SPLIT = {"sorted", "scatter_split", "sorted_relin"}
 SITES = {
@@ -432,7 +433,8 @@ SITES = {
     "jtj_cam_reduce": {"sorted"},
     "cam_relin_cam90": {"scatter_split", "sorted_relin"},
     "linearize_w_only": {"sorted_relin"},
-    "cam_reduce_wcw_rhs": {"fused", "scatter_split"},
+    "cam_reduce_wcw_rhs": {"fused"},
+    "cam_relin_wcw_rhs": {"scatter_split"},
     "matvec_cam_scatter": {"fused"},
     "cam_reduce_w_op": {"scatter_split"},
     "cam_reduce_wcw": set(),

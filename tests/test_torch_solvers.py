@@ -72,7 +72,8 @@ COUNTER = dict(
     assemble_scatter="assemble", linearize_w_kminor="linearize",
     jtj_pnt_reduce="seg_prod_pnt12", jtj_cam_reduce="seg_prod_cam90",
     cam_relin_cam90="cam_relin_cam90", linearize_w_only="linearize_w_only",
-    cam_reduce_wcw_rhs="cam_reduce", matvec_cam_scatter="matvec",
+    cam_reduce_wcw_rhs="cam_reduce", cam_relin_wcw_rhs="cam_relin_wcw_rhs",
+    matvec_cam_scatter="matvec",
     cam_reduce_w_op="cam_reduce_w_op", cam_reduce_wcw="cam_reduce_wcw81",
     wcw_cam_reduce="seg_prod_wcw81", wtv_point_reduce="seg_block_point",
     wt_cam_reduce="seg_block_camera", objective_scatter="objective",

@@ -56,7 +56,8 @@ from bundleadjustment_jl_tpu.solver.lm_spmd import (
     levenberg_marquardt_spmd as jax_spmd)
 from bundleadjustment_jl_tpu_torch.io import synthetic_bal
 from bundleadjustment_jl_tpu_torch.models.problem import BAProblem
-from bundleadjustment_jl_tpu_torch.ops import normal, spmdctx
+from bundleadjustment_jl_tpu_torch.ops import fused_schur as fs
+from bundleadjustment_jl_tpu_torch.ops import normal, plans, spmdctx
 from bundleadjustment_jl_tpu_torch.parallel import (
     greedy_camera_partition, partition_stats, shard_problem_kminor)
 from bundleadjustment_jl_tpu_torch.solver import (
@@ -162,30 +163,37 @@ def ckpt_dir(tmp_path_factory):
 
 
 @pytest.fixture(scope="module")
-def two_ranks(ckpt_dir):
+def two_ranks(ckpt_dir, tmp_path_factory):
     """Both ranks' results of the two-rank runs (WORKER), each rank a
-    process on the CPU over gloo."""
+    process on the CPU over gloo. Each rank's output goes to a file, so
+    that no rank waits on a pipe that this process reads only after the
+    other rank's."""
     tmp = str(ckpt_dir)
+    out_dir = tmp_path_factory.mktemp("spmd_out")
     addr = f"tcp://127.0.0.1:{_free_port()}"
     spec = json.dumps(dict(problem=PROBLEM, opts=OPTS, routes=ROUTE_CASES))
     env = dict(os.environ, OMP_NUM_THREADS="2",
                PYTHONPATH=str(ROOT) + os.pathsep
                + os.environ.get("PYTHONPATH", ""))
+    files = [open(out_dir / f"rank{rank}.json", "w+") for rank in range(2)]
     procs = [subprocess.Popen(
         [sys.executable, "-c", WORKER, addr, str(rank), tmp, spec], cwd=ROOT,
-        env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        env=env, stdout=files[rank], stderr=subprocess.PIPE, text=True)
         for rank in range(2)]
     outs = []
     try:
-        for proc in procs:
-            out, err = proc.communicate(timeout=TIMEOUT_S)
+        for proc, out in zip(procs, files):
+            _, err = proc.communicate(timeout=TIMEOUT_S)
             assert proc.returncode == 0, err[-4000:]
-            outs.append(json.loads(out.strip().splitlines()[-1]))
+            out.seek(0)
+            outs.append(json.loads(out.read().strip().splitlines()[-1]))
     finally:
         for proc in procs:
             if proc.poll() is None:
                 proc.kill()
                 proc.communicate()
+        for out in files:
+            out.close()
     return outs
 
 
@@ -305,6 +313,37 @@ def test_one_rank_bit_identical_to_one_shot(one_rank, force, route, dtype):
     assert got.naccepts == ref.naccepts
     assert_same(as_row(got), as_row(ref))
     assert got.iterations > 5
+
+
+def test_one_rank_b1_past_shared_memory_takes_the_wcw_walk(one_rank, force,
+                                                          monkeypatch):
+    """Route B1 with the camera sums past shared memory
+    (``plans.SMEM_BUDGET`` 0): the rank re-derives W for W C W' | W t
+    (``cam_relin_wcw_rhs``) in place of reading it, and the spmd solve is
+    bit-identical to the one-shot one, which is bit-identical to the solve
+    that reads W (``fused_schur.relin_wcw_rhs`` off)."""
+    force("scatter_split")
+    tp = port_problem("float32", pad_obs_to=512)
+    monkeypatch.setattr(plans, "SMEM_BUDGET", 0)
+    with monkeypatch.context() as m:
+        m.setattr(fs, "relin_wcw_rhs", lambda *args: False)
+        ref = levenberg_marquardt_jit(tp, **OPTS)
+    calls = []
+    walk = normal.KERNELS.cam_relin_wcw_rhs
+
+    def spy(*args, **kwargs):
+        calls.append(1)
+        return walk(*args, **kwargs)
+    monkeypatch.setattr(normal, "KERNELS",
+                        normal.KERNELS._replace(cam_relin_wcw_rhs=spy))
+    one = levenberg_marquardt_jit(tp, **OPTS)
+    n = len(calls)
+    assert n == one.iterations > 5
+    got = levenberg_marquardt_spmd(shard_problem_kminor(tp, 1), one_rank,
+                                   **OPTS)
+    assert len(calls) == 2 * n
+    assert_same(as_row(one), as_row(ref))
+    assert_same(as_row(got), as_row(one))
 
 
 def test_float64_runs_the_plain_stages(one_rank, monkeypatch):
