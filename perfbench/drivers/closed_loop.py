@@ -16,7 +16,18 @@ problem does.
 The window runs whole solves until ``seconds`` have passed; its length is
 from its start to the end of the last solve, so no work and no time is
 left out. With ``trace`` the window is traced by ``torch.profiler`` and
-ends after the traffic's ``trace_solves`` solves, or ``seconds``.
+ends after the traffic's ``trace_solves`` solves, or ``seconds``, and its
+Chrome trace is reduced twice before it is deleted: by device operation
+(`perfbench/trace.py`, the run's ``trace``) and by the port's spans
+(`perfbench/spans.py`, the run's ``spans``).
+
+The window also keeps two counts, read on the host alone (no device work,
+no synchronize): each solve's host reads, the change of the program's
+``utils.profiling.COUNTERS["host_reads"]`` over the solve (none where the
+program has no such counter), and the caching allocator's calls into the
+device over the whole window (``torch.cuda.memory_stats()``'s
+``num_device_alloc + num_device_free``, and ``num_alloc_retries``, read at
+its start and its end; None off the card).
 
 Once the window has closed and the peak memory is read, the system's state
 is freed and the reference (`perfbench/reference.py`) solves the same
@@ -35,7 +46,7 @@ from pathlib import Path
 
 import torch
 
-from perfbench import gen, judge
+from perfbench import gen, judge, spans
 from perfbench.reference import Reference
 from perfbench.trace import WINDOW, reduce_file
 
@@ -44,6 +55,8 @@ from perfbench.trace import WINDOW, reduce_file
 # bfloat16 working type (the precision cascade's path), the precision
 # below the configuration's float32.
 VARIANTS = ("sut", "control")
+# The caching allocator's counts (`torch.cuda.memory_stats`) the window reads.
+ALLOC_STATS = ("num_device_alloc", "num_device_free", "num_alloc_retries")
 
 
 def _port():
@@ -52,6 +65,36 @@ def _port():
     from bundleadjustment_jl_tpu_torch.models import problem
     from bundleadjustment_jl_tpu_torch.solver import lm_jit
     return problem.BAProblem, lm_jit
+
+
+def _counters():
+    """The program's counters (`utils/profiling.py:COUNTERS`), or None for a
+    program that keeps no host-read count."""
+    try:
+        from bundleadjustment_jl_tpu_torch.utils.profiling import COUNTERS
+    except ImportError:
+        return None
+    return COUNTERS if "host_reads" in COUNTERS else None
+
+
+def allocator_stats(device: str) -> dict | None:
+    """The caching allocator's :data:`ALLOC_STATS` so far, or None off the
+    card or where this PyTorch keeps no such count."""
+    if device != "cuda":
+        return None
+    stats = torch.cuda.memory_stats()
+    return {k: stats[k] for k in ALLOC_STATS} if all(
+        k in stats for k in ALLOC_STATS) else None
+
+
+def allocator_calls(before: dict | None, after: dict | None) -> dict | None:
+    """The allocator's device calls (``num_device_alloc +
+    num_device_free``) and retries between two :func:`allocator_stats`."""
+    if before is None or after is None:
+        return None
+    d = {k: after[k] - before[k] for k in ALLOC_STATS}
+    return {"device_calls": d["num_device_alloc"] + d["num_device_free"],
+            "retries": d["num_alloc_retries"]}
 
 
 def _sync(device: str) -> None:
@@ -177,6 +220,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str,
     phases = {b: marks[b] - marks[a] for a, b in zip(names, names[1:])}
 
     solves, kept, last = [], {}, None
+    counters = _counters()
     if device == "cuda":
         torch.cuda.reset_peak_memory_stats()
     with contextlib.ExitStack() as traced:
@@ -187,16 +231,20 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str,
                 ProfilerActivity.CPU, *([ProfilerActivity.CUDA]
                                         if device == "cuda" else [])]))
             traced.enter_context(record_function(WINDOW))
+        a0 = allocator_stats(device)
         w0 = time.perf_counter()
         i = 0
         while True:
             s = order[i % nstarts]
+            reads = None if counters is None else counters["host_reads"]
             ts = time.perf_counter()
             res = solve(problem, starts[s], opts)
             _sync(device)
             te = time.perf_counter()
             summ = judge.summary(res)
             solves.append(dict(summ, seconds=te - ts, start=s))
+            if counters is not None:
+                solves[-1]["host_reads"] = counters["host_reads"] - reads
             # The last answer is kept too, to stand for a sampled index that
             # the window did not reach.
             last = (i, (s, {"summary": summ, "cams": res.cams,
@@ -208,14 +256,15 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str,
             if te - w0 >= seconds or (limit is not None and i >= limit):
                 break
         window_s = te - w0
+        alloc = allocator_calls(a0, allocator_stats(device))
         peak = torch.cuda.max_memory_allocated() if device == "cuda" else 0
-    red = None
+    red = stages = None
     if trace:
         out_dir.mkdir(parents=True, exist_ok=True)
         path = out_dir / f"trace-{cell.name}.json"
         prof.export_chrome_trace(str(path))
         del prof
-        red = reduce_file(path)
+        red, stages = reduce_file(path), spans.reduce_file(path)
         path.unlink()
     if any(idx >= len(solves) for idx in sample):
         kept[last[0]] = last[1]
@@ -227,6 +276,7 @@ def run(cell, seed: int, seconds: float, trace: bool, device: str,
     readings, pairs = reference_numbers(cfg, inputs, kept, device)
     return dict(setup_s=setup_s, setup_phases=phases, window_s=window_s,
                 solves=solves,
-                peak_bytes=peak, trace=red, sample=sorted(kept),
+                peak_bytes=peak, trace=red, spans=stages, alloc=alloc,
+                sample=sorted(kept),
                 readings=readings, numbers=judge.worst(readings), pairs=pairs,
                 reference_s=time.perf_counter() - r0)

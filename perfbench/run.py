@@ -15,12 +15,15 @@ busy and window seconds, and a breakdown of the trace.
 
 The last line of standard output is one JSON object: ``correct``,
 ``attempted``, ``failed``, ``metrics``, ``device``, with ``--trace 1``
-``breakdown``, then ``card`` (the card's name and power limit), the
-``readings`` of every number the check computes, and last ``checks``: each
-compared number with its limit, which are also the last lines of standard
-error. Without a card, with fewer cards than the cell asks for, or when
-the system or a module of JAX cannot be kept out of the process, the run
-exits with a code other than 0 and prints no result.
+``breakdown``, then ``card`` (the card's name and power limit), ``window``
+(one solve's median, 95th-percentile and largest seconds, and the
+allocator's device calls over the window), with ``--trace 1`` ``stages``
+(device and idle ms a solve by span, and each traced solve's host reads and
+decisions), the ``readings`` of every number the check computes, and last
+``checks``: each compared number with its limit, which are also the last
+lines of standard error. Without a card, with fewer cards than the cell
+asks for, or when the system or a module of JAX cannot be kept out of the
+process, the run exits with a code other than 0 and prints no result.
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ import argparse  # noqa: E402
 import json  # noqa: E402
 import math  # noqa: E402
 import os  # noqa: E402
+import statistics  # noqa: E402
 import subprocess  # noqa: E402
 import sys  # noqa: E402
 import types  # noqa: E402
@@ -66,6 +70,31 @@ def card_line() -> str:
             timeout=60, check=True).stdout.strip().splitlines()[0]
     except (OSError, subprocess.SubprocessError, IndexError):
         return "nvidia-smi unavailable"
+
+
+def window_summary(run: dict) -> dict:
+    """The window's solves at a glance: one solve's median, 95th-percentile
+    and largest seconds, and the allocator's device calls and retries over
+    the window (None off the card)."""
+    secs = sorted(s["seconds"] for s in run["solves"])
+    alloc = run.get("alloc") or {}
+    return {"solve_median_s": statistics.median(secs),
+            "solve_p95_s": secs[math.ceil(0.95 * len(secs)) - 1],
+            "solve_max_s": secs[-1],
+            "alloc_calls": alloc.get("device_calls"),
+            "alloc_retries": alloc.get("retries")}
+
+
+def stage_table(run: dict) -> dict:
+    """The traced window by span (`perfbench/spans.py`), ms a solve: device
+    time and idle time, with each traced solve's host reads and decisions
+    ``[iterations, naccepts, cg]``."""
+    red, n = run["spans"], len(run["solves"])
+    return {"device_ms": {k: 1e3 * v / n for k, v in red["device"].items()},
+            "idle_ms": {k: 1e3 * v / n for k, v in red["idle"].items()},
+            "host_reads": [s.get("host_reads") for s in run["solves"]],
+            "decisions": [[s["iterations"], s["naccepts"], s["cg"]]
+                          for s in run["solves"]]}
 
 
 def measure(cell, seed: int, seconds: float, trace: bool, device: str,
@@ -105,6 +134,9 @@ def measure(cell, seed: int, seconds: float, trace: bool, device: str,
                       "reference_s": run["reference_s"],
                       "setup_phases": run["setup_phases"],
                       "decisions": run["pairs"]}
+    line["window"] = window_summary(run)
+    if trace and run.get("spans"):
+        line["stages"] = stage_table(run)
     line["readings"] = {k: _num(v) for k, v in run["numbers"].items()}
     line["checks"] = {k: {"value": _num(c["value"]), "limit": c["limit"]}
                       for k, c in checks.items()}

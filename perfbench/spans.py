@@ -1,8 +1,8 @@
-#!/usr/bin/env python3
 """Reduction of a ``torch.profiler`` Chrome trace by the port's spans, the
 ``ba.*`` annotations of `bundleadjustment_jl_tpu_torch/utils/profiling.py`
 (``ba.solve``, ``ba.linearize``, ``ba.reduce``, ``ba.pcg``,
-``ba.backsub``, ``ba.trial``, ``ba.plan.<key>``), inside the same window
+``ba.dense.assemble``, ``ba.dense.factor``, ``ba.backsub``, ``ba.trial``,
+``ba.plan.<key>``), inside the same window
 as `perfbench/trace.py`'s:
 
 - device time by span: each device operation (kernel, copy, fill) is joined
@@ -20,36 +20,18 @@ as `perfbench/trace.py`'s:
 "Innermost" is the latest-starting span still open, as ``trace.py`` labels
 a gap by its host operation.
 
-Run from the root of a checkout on a card, it measures a cell's stages:
-
-    python3 perfbench/spans.py --workload final13682.pcg --seed <n> \
-        [--windows 1]
-
-Set-up and warm-up as the cell's driver makes them
-(`perfbench/drivers/closed_loop.py`), then each window traces the cell's
-``trace_solves`` solves, each on a fresh problem, and prints one JSON
-line: the stage metrics a solve (:func:`per_solve`), the host reads of
-each solve beside their count from its decisions
-(`solver/lm_jit.py:expected_host_reads`, plans left out), and the trace
-metrics the cell reports (``ba_kernel_ms``, ``torch_ops_ms``,
-``device_idle_share``) from the same trace. The command stands in for the
-driver's traced run until that run keeps this module's reduction
-(PERF.md, Open questions).
+The benchmark's drivers keep the reduction of every traced window as the
+run's ``spans`` (`perfbench/drivers/closed_loop.py`), and the stage metrics'
+readers (`perfbench/metrics/`) take their numbers from :func:`per_solve`.
 """
 
 from __future__ import annotations
 
-import argparse
 import json
-import sys
-import types
 from collections import defaultdict
 from pathlib import Path
 
-if __name__ == "__main__":  # run as a script: the checkout's packages
-    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
-
-from perfbench.trace import DEVICE_CATS, WINDOW, short, union  # noqa: E402
+from perfbench.trace import DEVICE_CATS, WINDOW, short, union
 
 PREFIX = "ba."
 PLAN = "ba.plan"
@@ -57,16 +39,16 @@ SOLVE = "ba.solve"
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
 UNATTRIBUTED = "unattributed"
 OUTSIDE = "outside"
-# Operations a span shown by the command.
-TOP = 6
-# Per-solve stage metrics: name -> (what, span).
-STAGE_MS = {"linearize_ms": ("device", "ba.linearize"),
-            "reduce_ms": ("device", "ba.reduce"),
-            "cg_ms": ("device", "ba.pcg"),
-            "backsub_ms": ("device", "ba.backsub"),
-            "trial_ms": ("device", "ba.trial"),
-            "cg_idle_ms": ("idle", "ba.pcg"),
-            "lm_idle_ms": ("idle", SOLVE)}
+# Per-solve stage metrics: name -> (what, the spans it sums). The step
+# solver's stage is ``ba.pcg`` with the spans the dense step opens inside it.
+STEP = ("ba.pcg", "ba.dense.assemble", "ba.dense.factor")
+STAGE_MS = {"linearize_ms": ("device", ("ba.linearize",)),
+            "reduce_ms": ("device", ("ba.reduce",)),
+            "cg_ms": ("device", STEP),
+            "backsub_ms": ("device", ("ba.backsub",)),
+            "trial_ms": ("device", ("ba.trial",)),
+            "cg_idle_ms": ("idle", STEP),
+            "lm_idle_ms": ("idle", (SOLVE,))}
 
 
 def bucket(name: str) -> str:
@@ -157,106 +139,22 @@ def reduce_file(path: Path) -> dict:
 
 def per_solve(red: dict | None, nsolves: int) -> dict:
     """The stage metrics of a reduction, ms a solve over ``nsolves``:
-    :data:`STAGE_MS` and ``plan_ms``; a metric whose span is not in the
-    trace (a program without spans) is left out, and with no reduction
+    :data:`STAGE_MS` and ``plan_ms``; a metric none of whose spans is in
+    the trace (a program without spans) is left out, and with no reduction
     there is none."""
     if not red or nsolves <= 0:
         return {}
     out = {}
-    for metric, (what, name) in STAGE_MS.items():
-        if name in red[what]:
-            out[metric] = 1e3 * red[what][name] / nsolves
+    for metric, (what, names) in STAGE_MS.items():
+        found = [red[what][n] for n in names if n in red[what]]
+        if found:
+            out[metric] = 1e3 * sum(found) / nsolves
     if red["plan_s"] > 0:
         out["plan_ms"] = 1e3 * red["plan_s"] / nsolves
     return out
 
 
-def main(argv=None) -> int:
-    p = argparse.ArgumentParser(prog="perfbench/spans.py")
-    p.add_argument("--workload", required=True)
-    p.add_argument("--seed", type=int, required=True)
-    p.add_argument("--windows", type=int, default=1)
-    args = p.parse_args(argv)
-    here = Path(__file__).resolve().parent
-    import torch
-    from torch.profiler import ProfilerActivity, profile, record_function
-
-    from perfbench import spec, trace
-    from perfbench.drivers import closed_loop
-    if not torch.cuda.is_available():
-        print("spans: no CUDA card", file=sys.stderr)
-        return 2
-    try:
-        from bundleadjustment_jl_tpu_torch.solver.lm_jit import (
-            expected_host_reads)
-        from bundleadjustment_jl_tpu_torch.utils.profiling import COUNTERS
-    except ImportError:  # a program without the counter
-        COUNTERS = None
-    cell = spec.load_cell(args.workload, here.parent / "BENCHMARK.json")
-    nsolves = int(cell.cell["trace_solves"])
-    cfg, traffic = cell.config, cell.traffic
-    opts = closed_loop.solver_opts(cfg)
-    nstarts = int(traffic["starts"])
-    order = closed_loop.start_order(args.seed, nstarts)
-    problem, starts, _ = closed_loop.prepare(cfg, traffic, args.seed, "cuda")
-    for s in order[:int(traffic["warmup"])]:
-        closed_loop.solve(problem, starts[s], opts)
-    torch.cuda.synchronize()
-    readers = {m: spec.load_reader(m) for m in
-               ("ba_kernel_ms", "torch_ops_ms", "device_idle_share")}
-    out = here / "out"
-    out.mkdir(parents=True, exist_ok=True)
-    i = 0
-    for w in range(args.windows):
-        solves = []
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            with record_function(WINDOW):
-                for _ in range(nsolves):
-                    s = order[i % nstarts]
-                    before = None if COUNTERS is None \
-                        else COUNTERS["host_reads"]
-                    res = closed_loop.solve(problem, starts[s], opts)
-                    torch.cuda.synchronize()
-                    it, acc = int(res.iterations), int(res.naccepts)
-                    solves.append({
-                        "start": s, "iterations": it, "naccepts": acc,
-                        "cg": int(sum(int(c) for c in res.hist_cg[:it]))})
-                    if COUNTERS is not None:
-                        solves[-1].update(
-                            host_reads=COUNTERS["host_reads"] - before,
-                            expected_reads=expected_host_reads(
-                                it, acc, res.hist_cg,
-                                opts["pcg_max_iters"]))
-                    del res
-                    i += 1
-        path = out / f"spans-{cell.name}-{w}.json"
-        prof.export_chrome_trace(str(path))
-        del prof
-        red, tred = reduce_file(path), trace.reduce_file(path)
-        path.unlink()
-        ctx = types.SimpleNamespace(cfg=cfg, run={"trace": tred,
-                                                  "solves": solves})
-        n = len(solves)
-        line = {"window": w, "seed": args.seed, "solves": solves,
-                "metrics": per_solve(red, n),
-                "trace": {k: r(ctx) for k, r in readers.items()},
-                "window_ms": 1e3 * red["window_s"] / n,
-                "busy_ms": 1e3 * red["busy_s"] / n,
-                "device_ms": {k: 1e3 * v / n
-                              for k, v in red["device"].items()},
-                "idle_ms": {k: 1e3 * v / n for k, v in red["idle"].items()},
-                "top_ops_ms": {k: [[op[:60], 1e3 * t / n] for op, t in sorted(
-                    v.items(), key=lambda kv: -kv[1])[:TOP]]
-                    for k, v in red["ops"].items()},
-                "span_solves": red["solves"],
-                "card": torch.cuda.get_device_name(0)}
-        if COUNTERS is not None:
-            line["metrics"]["host_reads"] = sum(
-                s["host_reads"] for s in solves) / n
-        print(json.dumps(line), flush=True)
-    return 0
-
-
-if __name__ == "__main__":
-    sys.exit(main())
+def read_stage(ctx, metric: str):
+    """Stage metric ``metric`` of a run (`perfbench/run.py`'s ``ctx``): ms a
+    traced solve from the run's ``spans``, or None where it has none."""
+    return per_solve(ctx.run.get("spans"), len(ctx.run["solves"])).get(metric)

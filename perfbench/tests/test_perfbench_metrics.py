@@ -91,3 +91,55 @@ def test_kernel_base():
     assert trace.kernel_base(
         "std::enable_if<true, void>::type internal::gemvx::kernel<int, int, "
         "float, true, 5, false, cublasGemvParamsEx<int, cublas") == "kernel"
+
+
+# A reduction by span of two traced solves, in seconds (`perfbench/spans.py`).
+SPANS = {"device": {"ba.linearize": 0.010, "ba.reduce": 0.004,
+                    "ba.pcg": 0.020, "ba.dense.assemble": 0.003,
+                    "ba.dense.factor": 0.050, "ba.backsub": 0.006,
+                    "ba.trial": 0.002, "ba.plan": 0.001, "ba.solve": 0.0005},
+         "idle": {"ba.pcg": 0.008, "ba.dense.factor": 0.001,
+                  "ba.solve": 0.003, "ba.plan": 0.0002, "outside": 0.001},
+         "plan_s": 0.012}
+# Each reader's ms (or reads, or calls) a solve on SPANS, 2 solves.
+BY_HAND = {"linearize_ms": 5.0, "reduce_ms": 2.0, "cg_ms": 36.5,
+           "backsub_ms": 3.0, "trial_ms": 1.0, "plan_ms": 6.0,
+           "cg_idle_ms": 4.5, "lm_idle_ms": 1.5, "host_reads": 62.0,
+           "alloc_calls": 5.0}
+
+
+def _traced(spans=SPANS, reads=(60, 64), alloc={"device_calls": 10,
+                                                 "retries": 0}):
+    ctx = _ctx([0.1, 0.1], 0.2)
+    for s, n in zip(ctx.run["solves"], reads):
+        s["host_reads"] = n
+    ctx.run.update(spans=spans, alloc=alloc)
+    return ctx
+
+
+@pytest.mark.parametrize("name", sorted(BY_HAND))
+def test_stage_and_count_readers(name):
+    read = spec.load_reader(name)
+    assert read(_traced()) == pytest.approx(BY_HAND[name])
+    # nothing to read: no trace, no counter, no allocator count
+    assert read(_traced(spans=None, reads=(), alloc=None)) is None
+    assert read(_ctx([0.1], 0.1)) is None
+
+
+def test_span_readers_need_their_span():
+    bare = dict(SPANS, device={}, idle={}, plan_s=0.0)
+    for name in ("linearize_ms", "cg_ms", "plan_ms", "cg_idle_ms",
+                 "lm_idle_ms"):
+        assert spec.load_reader(name)(_traced(spans=bare)) is None
+
+
+def test_dense_factor_roofline():
+    """One factorization and two triangular solves an iteration (9 in each
+    of the 2 solves) over the device time in ``ba.dense.factor``."""
+    from perfbench import factor_yardstick
+    ctx = _traced()
+    read = spec.load_reader("dense_factor_roofline")
+    least = 18 * factor_yardstick.step_least_s(ctx.cfg)
+    assert read(ctx) == pytest.approx(100.0 * least / 0.050)
+    assert read(_traced(spans=None)) is None
+    assert read(_traced(spans=dict(SPANS, device={}))) is None

@@ -31,9 +31,19 @@ def test_sound_run_is_correct(tiny):
     assert set(line["metrics"]) == {"solve_s", "setup_s"}
     for c in line["checks"].values():
         assert c["value"] <= c["limit"]
+    assert line["window"]["alloc_calls"] is None and "stages" not in line
+    assert line["window"]["solve_median_s"] <= line["window"][
+        "solve_p95_s"] <= line["window"]["solve_max_s"]
     traced = _measure(cell, seed=8, trace=True)
     assert traced["correct"]
-    assert {"lm_iters", "cg_steps"} <= set(traced["metrics"])
+    assert list(traced)[-1] == "checks"
+    # on the CPU: no device time by span and no allocator count
+    assert {"lm_iters", "cg_steps", "host_reads"} <= set(traced["metrics"])
+    assert not {"linearize_ms", "cg_ms", "alloc_calls"} & set(
+        traced["metrics"])
+    stages = traced["stages"]
+    assert stages["device_ms"] == {} and len(stages["host_reads"]) == len(
+        stages["decisions"]) == traced["attempted"]
 
 
 def test_control_is_not_correct(tiny):

@@ -3,17 +3,11 @@ made-up events and on a traced solve of the tiny cell on the CPU."""
 
 from __future__ import annotations
 
-import json
-import subprocess
-import sys
-
 import pytest
 import torch
 
 from perfbench import spans, trace
 from perfbench.drivers import closed_loop
-
-from conftest import ROOT
 
 
 def _ev(name, ts, dur, cat, corr=None):
@@ -93,6 +87,19 @@ def test_plan_time_and_solves():
     assert "linearize_ms" not in got and "cg_idle_ms" not in got
 
 
+def test_the_step_solver_stage_holds_the_dense_spans():
+    """``cg_ms`` and ``cg_idle_ms`` sum ``ba.pcg`` and the dense step's
+    spans inside it; the dense spans alone give the stage too."""
+    red = {"device": {"ba.pcg": 0.002, "ba.dense.assemble": 0.03,
+                      "ba.dense.factor": 0.4},
+           "idle": {"ba.dense.factor": 0.001}, "plan_s": 0.0}
+    got = spans.per_solve(red, 2)
+    assert got == {"cg_ms": pytest.approx(216.0),
+                   "cg_idle_ms": pytest.approx(0.5)}
+    del red["device"]["ba.pcg"]
+    assert spans.per_solve(red, 1)["cg_ms"] == pytest.approx(430.0)
+
+
 def test_innermost_is_the_latest_started_open_span():
     sp = [(0, 10, "a"), (2, 5, "b"), (3, 8, "c")]
     assert spans.innermost(sp, [9, 1, 6, 4, 12, 3]) == [
@@ -138,14 +145,51 @@ def test_a_traced_solve_of_the_tiny_cell(tiny, tmp_path):
         res.iterations, res.naccepts, res.hist_cg, opts["pcg_max_iters"])
 
 
-def test_refuses_without_a_card():
-    if torch.cuda.is_available():
-        pytest.skip("this machine has a card")
-    proc = subprocess.run(
-        [sys.executable, "perfbench/spans.py", "--workload",
-         "final13682.pcg", "--seed", "3"], cwd=ROOT, capture_output=True,
-        text=True, timeout=300)
-    assert proc.returncode == 2
-    assert proc.stdout.strip() == "" and "no CUDA card" in proc.stderr
-    for line in proc.stdout.splitlines():
-        json.loads(line)
+def test_a_traced_run_keeps_spans_and_host_reads(tiny, tmp_path,
+                                                 monkeypatch):
+    """The closed loop's traced window on the CPU: the run keeps the spans
+    of its solves, each solve's host reads equal the read formula from its
+    decisions on the plain route (which builds no plans), and there is no
+    allocator count off the card."""
+    from bundleadjustment_jl_tpu_torch.solver import lm_jit
+    results = []
+    solve = lm_jit.levenberg_marquardt_jit
+
+    def kept(*a, **kw):
+        results.append(solve(*a, **kw))
+        return results[-1]
+
+    monkeypatch.setattr(lm_jit, "levenberg_marquardt_jit", kept)
+    cell, _ = tiny
+    opts = closed_loop.solver_opts(cell.config)
+    run = closed_loop.run(cell, 11, 600.0, True, "cpu", 0.0, tmp_path,
+                          warmup=False)
+    n = int(cell.cell["trace_solves"])
+    assert len(run["solves"]) == n == run["spans"]["solves"]
+    assert run["trace"] is not None and run["alloc"] is None
+    assert run["spans"]["window_s"] == pytest.approx(
+        run["trace"]["window_s"])
+    # no device work on the CPU: the window is one gap, charged to a span
+    assert run["spans"]["busy_s"] == 0 and len(run["spans"]["idle"]) == 1
+    assert set(run["spans"]["idle"]) < set(spans.STEP) | {
+        "ba.solve", "ba.linearize", "ba.reduce", "ba.backsub", "ba.trial",
+        spans.OUTSIDE}
+    assert not list(tmp_path.glob("trace-*"))
+    # the window's solves are the first n of the run's
+    for s, res in zip(run["solves"], results):
+        assert s["host_reads"] == lm_jit.expected_host_reads(
+            res.iterations, res.naccepts, res.hist_cg,
+            opts["pcg_max_iters"]) > 0
+    untraced = closed_loop.run(cell, 12, 0.0, False, "cpu", 0.0, tmp_path,
+                               warmup=False)
+    assert untraced["spans"] is None and untraced["alloc"] is None
+    assert "host_reads" in untraced["solves"][0]
+
+
+def test_no_host_reads_without_the_counter(tiny, tmp_path, monkeypatch):
+    """A program that keeps no host-read count: the solves carry none."""
+    monkeypatch.setattr(closed_loop, "_counters", lambda: None)
+    cell, _ = tiny
+    run = closed_loop.run(cell, 13, 0.0, False, "cpu", 0.0, tmp_path,
+                          warmup=False)
+    assert all("host_reads" not in s for s in run["solves"])

@@ -115,3 +115,24 @@ def test_new_config_cell_and_metric_need_no_edit(tmp_path):
     line = runner.measure(cell, 3, 0.0, True, "cpu", time.perf_counter())
     assert line["metrics"]["solves_in_window"]["value"] >= 1
     assert line["correct"]
+
+
+# The per-layer metrics every cell reports.
+EVERY_CELL = ("linearize_ms", "reduce_ms", "cg_ms", "backsub_ms", "trial_ms",
+              "plan_ms", "cg_idle_ms", "lm_idle_ms", "host_reads",
+              "alloc_calls")
+
+
+def test_per_layer_metrics_by_cell():
+    """``kernel_roofline`` counts no dense work, so the dense cell reads
+    ``dense_factor_roofline`` in its place; the stage metrics are in every
+    cell."""
+    got = {w["name"]: {m["name"] for m, _ in spec.load_cell(
+        w["name"], ROOT / "BENCHMARK.json").per_layer}
+        for w in BENCH["workloads"]}
+    assert "kernel_roofline" in got["final13682.pcg"]
+    assert "kernel_roofline" not in got["venice1778.dense"]
+    assert "dense_factor_roofline" in got["venice1778.dense"]
+    assert "dense_factor_roofline" not in got["final13682.pcg"]
+    for names in got.values():
+        assert set(EVERY_CELL) <= names

@@ -52,3 +52,30 @@ def test_solve_least_counts_decisions():
     total = yardstick.solve_least_s(SHP, 2, 9, 8, 40)
     assert total == pytest.approx(sum(
         k * yardstick.least_s(name, SHP, 2) for name, k in passes.items()))
+
+
+def test_dense_factor_by_hand():
+    """S of 2 cameras is 18 square: its lower triangle 171 entries."""
+    from perfbench import factor_yardstick as fy
+    cfg = dict(ncams=2)
+    assert fy.order(cfg) == 18 and fy.triangle(cfg) == 171
+    assert fy.factor_flops(cfg) == pytest.approx(1944.0)   # 18^3 / 3
+    assert fy.factor_bytes(cfg) == 1368                    # 171 read, written
+    assert fy.solve_flops(cfg) == 324
+    assert fy.solve_bytes(cfg) == 4 * (171 + 36)           # L, b and x
+    # bytes bind at this size
+    assert fy.step_least_s(cfg) == pytest.approx(
+        (1368 + 2 * 828) / yardstick.PEAK_HBM_BYTES_S)
+
+
+def test_dense_factor_at_venice1778():
+    """Venice-1778's S (16,002 square): 1.37 TFLOP a factorization, the
+    operations bind it at 20.39 ms; each triangular solve reads 0.51 GB."""
+    from perfbench import factor_yardstick as fy
+    cfg = dict(ncams=1778)
+    assert fy.factor_flops(cfg) == pytest.approx(1.3659e12, rel=1e-4)
+    assert fy.solve_bytes(cfg) == pytest.approx(5.1229e8, rel=1e-4)
+    assert fy.step_least_s(cfg) == pytest.approx(
+        fy.factor_flops(cfg) / yardstick.PEAK_F32_FLOPS_S
+        + 2 * fy.solve_bytes(cfg) / yardstick.PEAK_HBM_BYTES_S)
+    assert fy.step_least_s(cfg) == pytest.approx(20.69e-3, rel=1e-3)
